@@ -60,8 +60,35 @@ def log(*a):
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls, after
-    one warm-up call (CUDA events)."""
+    """Device ms per call of ``fn``: the calls are captured once in a CUDA
+    graph and the graph is replayed ``reps`` times between CUDA events, so
+    the host's per-call Python and launch cost is left out (a launch-bound
+    loop would otherwise time the host). ``eager_ms`` times the host path."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def eager_ms(fn, reps: int) -> float:
+    """Wall ms per call of ``fn`` issued from Python (host cost included)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -73,6 +100,32 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def decode_busy_share(taco, B=4, T=64, steps=64):
+    """Device-busy share of the decode loop: kernel time summed by
+    torch.profiler over one fixed-length decode, over the wall time of the
+    same decode run without the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(7)
+    text = torch.randint(1, taco.cfg.n_symbols, (B, T), device="cuda", generator=g)
+    args = (text, torch.full((B,), T, device="cuda"),
+            torch.zeros(B, dtype=torch.long, device="cuda"))
+    run = lambda: taco.inference(*args, max_decoder_steps=steps)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    return wall_ms / steps, device_ms / steps
 
 
 class Check:
@@ -228,6 +281,11 @@ def phase4(t2s, hk):
     log(f"  launches on the main path: {launches}")
     if min(launches.values()) <= 0:
         raise SystemExit("chip_smoke: a kernel of the main path never launched")
+    step_ms, device_ms = decode_busy_share(t2s.model)
+    busy = (f"{device_ms / step_ms:.3f}" if device_ms > 0
+            else "not measured (the profiler saw no device time)")
+    log(f"  decode loop, B=4, T_enc=64: {step_ms:.3f} ms per step wall, "
+        f"{device_ms:.3f} ms per step on the device, device busy share {busy}")
     return largest, launches
 
 
@@ -251,6 +309,7 @@ def phase4_timing(hk, check, taco, gen, res, batch_size):
     out["attention_step"] = dict(
         unit=f"one decode step, B={B}, T_enc={T_enc}",
         ms=time_ms(lambda: hk.attention_step(*args), 200),
+        eager_ms=eager_ms(lambda: hk.attention_step(*args), 200),
         plain_ms=time_ms(lambda: hk.attention_step_plain(*args), 200),
         library_ms=None, bound=bound_of([attention_bound(B, T_enc)]))
 
@@ -284,6 +343,8 @@ def phase4_timing(hk, check, taco, gen, res, batch_size):
         out["lstm_gates"] = dict(
             unit=f"one decode step (3 cells), B={B}",
             ms=time_ms(run(lambda xh, W, b, c, *_: hk.lstm_gates(xh, W, b, c)), 200),
+            eager_ms=eager_ms(run(lambda xh, W, b, c, *_:
+                                  hk.lstm_gates(xh, W, b, c)), 200),
             plain_ms=time_ms(run(lambda xh, W, b, c, *_:
                                  hk.lstm_gates_plain(xh, W, b, c)), 200),
             library_ms=time_ms(run(lambda *cs: cs[4](cs[5], (cs[6], cs[3]))), 200),
@@ -310,10 +371,12 @@ def phase4_timing(hk, check, taco, gen, res, batch_size):
     out["hifigan_resblock"] = dict(
         unit=f"one generator call (12 resblocks), B={B_voc}, T_mel={T_pad}",
         ms=time_ms(lambda: [hk.hifigan_resblock(*a) for a in blocks], 3),
+        eager_ms=eager_ms(lambda: [hk.hifigan_resblock(*a) for a in blocks], 3),
         plain_ms=time_ms(lambda: [hk.hifigan_resblock_plain(*a) for a in blocks], 3),
         library_ms=None, bound=bound_of(parts))
     for name, o in out.items():
-        log(f"  {name:17s} {o['unit']}: kernel {o['ms']:.4f} ms, plain "
+        log(f"  {name:17s} {o['unit']}: kernel {o['ms']:.4f} ms (eager "
+            f"{o['eager_ms']:.4f} ms), plain "
             f"{o['plain_ms']:.4f} ms, library {o['library_ms']}, bound "
             f"{o['bound'][0]:.4f} ms ({o['bound'][1]})")
     return out
@@ -417,7 +480,7 @@ def main() -> int:
             "max_abs_err": check.max_abs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            "unit": t["unit"]})
+            "eager_ms": t["eager_ms"], "unit": t["unit"]})
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,11 +12,15 @@
 // Bound on the H100: bytes. The step reads lp, mp and memory once
 // ([B,T,A] twice and [B,T,D]) and does O(T*(A+D)) flops on them, far below
 // the card's flop-per-byte balance. Design: one block per batch row; warps
-// stride over t and reduce over A with shuffles (lanes read neighbouring a,
-// so each warp's loads of a row are coalesced); the energies and then the
-// weights stay in shared memory; the context loop has threads on
-// neighbouring d, so each t reads one coalesced row of memory. Nothing but
-// w and ctx goes back to device memory.
+// take two t at a time and reduce over A with shuffles (lanes read
+// neighbouring a, so each warp's loads of a row are coalesced); the
+// energies and then the weights stay in shared memory. For the context,
+// each thread owns 4 neighbouring d (one float4 load per t) and one of
+// 256 / (D/4) interleaved subsets of t, so a row's loads are coalesced and
+// several rows are in flight at once; the subsets' sums meet in shared
+// memory. With a decode-size batch there are only B blocks, so the design
+// aims at short dependent chains rather than at occupancy. Nothing but w
+// and ctx goes back to device memory. D must be a multiple of 4.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -67,6 +71,7 @@ attention_step_kernel(const float* __restrict__ qp, const float* __restrict__ lp
   float* q_s = smem;       // [A]
   float* v_s = q_s + A;    // [A]
   float* e_s = v_s + A;    // [T] energies, then weights
+  float* c_s = e_s + T;    // [parts][D] context partial sums
   __shared__ float red[32];
 
   const int b = blockIdx.x;
@@ -80,14 +85,21 @@ attention_step_kernel(const float* __restrict__ qp, const float* __restrict__ lp
 
   const float* lp_b = lp + (size_t)b * T * A;
   const float* mp_b = mp + (size_t)b * T * A;
-  for (int t = warp; t < T; t += kThreads / 32) {
-    const float* lrow = lp_b + (size_t)t * A;
-    const float* mrow = mp_b + (size_t)t * A;
-    float s = 0.f;
-    for (int a = lane; a < A; a += 32)
-      s += v_s[a] * tanhf(q_s[a] + lrow[a] + mrow[a]);
-    s = warp_sum(s);
-    if (lane == 0) e_s[t] = mask[(size_t)b * T + t] ? s * sc : kNeg;
+  for (int t = 2 * warp; t < T; t += kThreads / 16) {
+    const bool two = t + 1 < T;           // the pair's second row exists
+    const float* l0 = lp_b + (size_t)t * A;
+    const float* m0 = mp_b + (size_t)t * A;
+    float s0 = 0.f, s1 = 0.f;
+    for (int a = lane; a < A; a += 32) {
+      s0 += v_s[a] * tanhf(q_s[a] + l0[a] + m0[a]);
+      if (two) s1 += v_s[a] * tanhf(q_s[a] + l0[A + a] + m0[A + a]);
+    }
+    s0 = warp_sum(s0);
+    s1 = warp_sum(s1);
+    if (lane == 0) {
+      e_s[t] = mask[(size_t)b * T + t] ? s0 * sc : kNeg;
+      if (two) e_s[t + 1] = mask[(size_t)b * T + t + 1] ? s1 * sc : kNeg;
+    }
   }
   __syncthreads();
 
@@ -108,10 +120,31 @@ attention_step_kernel(const float* __restrict__ qp, const float* __restrict__ lp
   }
   __syncthreads();
 
-  const float* mem_b = memory + (size_t)b * T * D;
+  const int D4 = D / 4;
+  const int parts = max(1, kThreads / D4);
+  const float4* mem_b = reinterpret_cast<const float4*>(memory + (size_t)b * T * D);
+  for (int i = threadIdx.x; i < parts * D4; i += kThreads) {
+    const int part = i / D4, d4 = i - part * D4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int t = part; t < T; t += parts) {
+      const float wt = e_s[t];
+      const float4 mv = __ldg(mem_b + (size_t)t * D4 + d4);
+      acc.x += wt * mv.x;
+      acc.y += wt * mv.y;
+      acc.z += wt * mv.z;
+      acc.w += wt * mv.w;
+    }
+    float* c = c_s + part * D + 4 * d4;
+    c[0] = acc.x;
+    c[1] = acc.y;
+    c[2] = acc.z;
+    c[3] = acc.w;
+  }
+  __syncthreads();
   for (int d = threadIdx.x; d < D; d += kThreads) {
     float acc = 0.f;
-    for (int t = 0; t < T; ++t) acc += e_s[t] * mem_b[(size_t)t * D + d];
+    for (int part = 0; part < parts; ++part) acc += c_s[part * D + d];
     ctx[(size_t)b * D + d] = acc;
   }
 }
@@ -123,7 +156,8 @@ extern "C" int attention_step(const float* qp, const float* lp, const float* mp,
                               const unsigned char* mask, const float* scale,
                               int B, int T, int A, int D, float* ctx, float* w,
                               void* stream) {
-  const size_t smem = (size_t)(2 * A + T) * sizeof(float);
+  const int parts = kThreads / (D / 4) > 1 ? kThreads / (D / 4) : 1;
+  const size_t smem = (size_t)(2 * A + T + parts * D) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         attention_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -22,9 +22,11 @@
 // reads it from there. Each thread owns an 8-channel x 8-sample register
 // tile; weights are stored [k][C_in][C_out] so a thread's 8 output channels
 // are two float4 loads, and the activations come from shared memory. The
-// tile width is 16384 / C samples (64 at C=256, 512 at C=32), which makes
-// 256 threads cover the whole C x tile output. The residual x is re-read
-// from device memory at the tile's own samples when y is written.
+// conv1 span (tile plus conv2's halo) is 16384 / C samples (64 at C=256,
+// 512 at C=32), so 256 threads cover it in exactly one pass; the tile
+// itself is that span less conv2's halo, and conv2 covers it in one pass
+// too. The residual x is re-read from device memory at the tile's own
+// samples when y is written.
 #include <cuda_runtime.h>
 
 namespace {
@@ -32,7 +34,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kCo = 8;   // output channels per thread
 constexpr int kT = 8;    // samples per thread
-constexpr int kPad = 8;  // slack at the end of each shared row (over-reads)
 
 __device__ __forceinline__ float lrelu(float v, float slope) {
   return v >= 0.f ? v : v * slope;
@@ -47,6 +48,7 @@ __device__ __forceinline__ void conv_tile(const float* __restrict__ src,
   for (int tap = 0; tap < K; ++tap) {
     const float* wt = w + (size_t)tap * C * C + co0;
     const float* st = src + s0 + tap * dil;
+#pragma unroll 4
     for (int ci = 0; ci < C; ++ci) {
       const float4 wa = __ldg(reinterpret_cast<const float4*>(wt + (size_t)ci * C));
       const float4 wb = __ldg(reinterpret_cast<const float4*>(wt + (size_t)ci * C + 4));
@@ -74,10 +76,12 @@ resblock_pair_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   const int halo2 = half;                   // conv2's reach
   const int co_groups = C / kCo;
   const int t_groups = kThreads / co_groups;
-  const int Wt = t_groups * kT;             // output samples per tile
-  const int hw = Wt + 2 * halo2;            // conv1 outputs needed by conv2
+  const int hw = t_groups * kT;             // conv1 outputs (one pass)
+  const int Wt = hw - 2 * halo2;            // output samples per tile
   const int xw = hw + 2 * halo1;            // x samples needed by conv1
-  const int xs_stride = xw + kPad, hs_stride = hw + kPad;
+  // conv2's last chunk reads up to 2 * halo2 columns past hw (outputs
+  // that are discarded), so the h rows carry that much slack
+  const int xs_stride = xw, hs_stride = hw + 2 * halo2;
   float* xs = smem;                         // [C][xs_stride] lrelu(x)
   float* hs = smem + (size_t)C * xs_stride; // [C][hs_stride] lrelu(conv1)
 
@@ -87,18 +91,19 @@ resblock_pair_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   const int xbase = hbase - halo1;          // global sample of xs column 0
   const float* xb = x + (size_t)b * C * T;
 
-  for (int i = threadIdx.x; i < C * xs_stride; i += kThreads) {
-    const int ci = i / xs_stride, s = i - ci * xs_stride;
+  for (int i = threadIdx.x; i < C * xw; i += kThreads) {
+    const int ci = i / xw, s = i - ci * xw;
     const int p = xbase + s;
-    xs[i] = (s < xw && p >= 0 && p < T) ? lrelu(xb[(size_t)ci * T + p], slope) : 0.f;
+    xs[i] = (p >= 0 && p < T) ? lrelu(xb[(size_t)ci * T + p], slope) : 0.f;
   }
   __syncthreads();
 
   const int cg = threadIdx.x / t_groups, tg = threadIdx.x - cg * t_groups;
   const int co0 = cg * kCo;
 
-  // conv1 over hs columns [0, hw), in chunks of kT samples
-  for (int s0 = tg * kT; s0 < hw; s0 += t_groups * kT) {
+  // conv1 over hs columns [0, hw): one chunk of kT samples per thread
+  {
+    const int s0 = tg * kT;
     float acc[kCo][kT];
 #pragma unroll
     for (int i = 0; i < kCo; ++i) {
@@ -111,16 +116,15 @@ resblock_pair_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     for (int i = 0; i < kCo; ++i)
 #pragma unroll
       for (int j = 0; j < kT; ++j) {
-        const int s = s0 + j, p = hbase + s;
-        if (s < hw)
-          hs[(size_t)(co0 + i) * hs_stride + s] =
-              (p >= 0 && p < T) ? lrelu(acc[i][j], slope) : 0.f;
+        const int p = hbase + s0 + j;
+        hs[(size_t)(co0 + i) * hs_stride + s0 + j] =
+            (p >= 0 && p < T) ? lrelu(acc[i][j], slope) : 0.f;
       }
   }
   __syncthreads();
 
   // conv2 over the tile's own samples [t0, t0 + Wt): one chunk per thread
-  {
+  if (tg * kT < Wt) {
     const int s0 = tg * kT;
     float acc[kCo][kT];
 #pragma unroll
@@ -135,7 +139,7 @@ resblock_pair_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
       for (int j = 0; j < kT; ++j) {
         const int p = t0 + s0 + j;
-        if (p < T) {
+        if (s0 + j < Wt && p < T) {
           const size_t o = ((size_t)b * C + co0 + i) * T + p;
           y[o] = x[o] + acc[i][j];
         }
@@ -147,10 +151,9 @@ resblock_pair_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 
 // Shared memory a launch needs, in bytes (the wrapper checks it first).
 extern "C" long long hifigan_resblock_smem(int C, int K, int dil) {
-  const int Wt = kThreads / (C / kCo) * kT;
-  const int hw = Wt + 2 * (K / 2);
+  const int hw = kThreads / (C / kCo) * kT;
   const int xw = hw + 2 * (K / 2) * dil;
-  return (long long)C * (xw + kPad + hw + kPad) * sizeof(float);
+  return (long long)C * (xw + hw + 2 * (K / 2)) * sizeof(float);
 }
 
 extern "C" int hifigan_resblock_pair(const float* x, const float* w1,
@@ -158,7 +161,7 @@ extern "C" int hifigan_resblock_pair(const float* x, const float* w1,
                                      const float* b2, int B, int C, int T, int K,
                                      int dil, float slope, float* y,
                                      void* stream) {
-  const int Wt = kThreads / (C / kCo) * kT;
+  const int Wt = kThreads / (C / kCo) * kT - 2 * (K / 2);
   const size_t smem = (size_t)hifigan_resblock_smem(C, K, dil);
   cudaError_t err = cudaFuncSetAttribute(
       resblock_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -25,7 +25,6 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import hopper_kernels as hk
-from ..ops.lstm import derived
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +66,7 @@ class ResBlock1(nn.Module):
                 [c.weight.permute(2, 1, 0) for c in convs]).contiguous()
             b = lambda convs: torch.stack([c.bias for c in convs]).contiguous()
             return w(self.convs1), b(self.convs1), w(self.convs2), b(self.convs2)
-        return derived(self, "_kernel_weights", list(self.parameters()), build)
+        return hk.derived(self, "_kernel_weights", list(self.parameters()), build)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:      # [B, C, T]
         return hk.hifigan_resblock(x.contiguous(), *self.kernel_weights(),

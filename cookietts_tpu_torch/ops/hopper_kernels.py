@@ -18,10 +18,11 @@ at the head of its ``.cu`` source.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from . import _build
 
@@ -78,6 +79,20 @@ class _NoBackward(torch.autograd.Function):
             "training slice")
 
 
+def derived(module: nn.Module, name: str, sources: Sequence[torch.Tensor],
+            build: Callable[[], object]):
+    """A value computed from ``sources`` and cached on ``module``; rebuilt
+    when any source gets new storage (``.to``, ``load_state_dict`` into a
+    new tensor) or is updated in place (its version counter moves)."""
+    key = tuple((t.data_ptr(), t._version) for t in sources)
+    hit = module.__dict__.get(name)
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            hit = (key, build())
+        module.__dict__[name] = hit
+    return hit[1]
+
+
 # -- attention_step ------------------------------------------------------------
 
 def attention_step_plain(qp, lp, mp, v, memory, mask, scale=None):
@@ -104,6 +119,8 @@ class _AttentionStep(_NoBackward):
         _check("attention_step mask", mask, (B, T), torch.bool)
         if scale is not None:
             _check("attention_step scale", scale, (1,))
+        if D % 4:
+            raise ValueError(f"attention_step: D={D} must be a multiple of 4")
         lib = _build.library("attention_step")
         out_ctx = torch.empty((B, D), device=qp.device, dtype=torch.float32)
         out_w = torch.empty((B, T), device=qp.device, dtype=torch.float32)
@@ -133,6 +150,14 @@ def lstm_gates_plain(xh, weight, bias, c_prev):
     return c, torch.sigmoid(o) * torch.tanh(c)
 
 
+def lstm_gates_slices(B: int, F: int, H: int, target_blocks: int = 264,
+                      min_rows: int = 64) -> int:
+    """Slices of F for the product kernel: enough blocks for two per SM of
+    the card's 132, with at least ``min_rows`` rows of W per slice."""
+    blocks = -(-H // 32) * -(-B // 8)
+    return max(1, min(-(-target_blocks // blocks), F // min_rows))
+
+
 class _LstmGates(_NoBackward):
     @staticmethod
     def forward(ctx, xh, weight, bias, c_prev):
@@ -142,10 +167,14 @@ class _LstmGates(_NoBackward):
                                ("bias", bias, (4 * H,)), ("c_prev", c_prev, (B, H))):
             _check(f"lstm_gates {name}", t, shape)
         lib = _build.library("lstm_gates")
+        slices = lstm_gates_slices(B, F_, H)
+        partial = torch.empty((slices, B, 4 * H), device=xh.device,
+                              dtype=torch.float32)
         c_new = torch.empty((B, H), device=xh.device, dtype=torch.float32)
         h_new = torch.empty_like(c_new)
         err = lib.lstm_gates(_ptr(xh), _ptr(weight), _ptr(bias), _ptr(c_prev),
-                             B, F_, H, _ptr(c_new), _ptr(h_new), _stream())
+                             B, F_, H, slices, _ptr(partial), _ptr(c_new),
+                             _ptr(h_new), _stream())
         _raise_on(err, "lstm_gates")
         LAUNCHES["lstm_gates"] += 1
         return c_new, h_new
@@ -185,9 +214,9 @@ class _HifiganResblock(_NoBackward):
         if len(dilations) != P:
             raise ValueError(f"hifigan_resblock: {P} weight pairs, "
                              f"{len(dilations)} dilations")
-        if C % 8 or 256 % (C // 8):
-            raise ValueError(f"hifigan_resblock: C={C} must be a power of "
-                             "two between 8 and 2048")
+        if C % 8 or 256 % (C // 8) or 16384 // C <= 2 * (k // 2):
+            raise ValueError(f"hifigan_resblock: C={C}, k={k} unsupported "
+                             "(C a power of two, 16384 / C > k - 1)")
         for name, t, shape in (("x", x, (B, C, T)), ("w1", w1, (P, k, C, C)),
                                ("b1", b1, (P, C)), ("w2", w2, (P, k, C, C)),
                                ("b2", b2, (P, C))):

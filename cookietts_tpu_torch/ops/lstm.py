@@ -11,26 +11,12 @@ deterministic branch.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Tuple
 
 import torch
 from torch import nn
 
 from . import hopper_kernels as hk
-
-
-def derived(module: nn.Module, name: str, sources: Sequence[torch.Tensor],
-            build: Callable[[], object]):
-    """A value computed from ``sources`` and cached on ``module``; rebuilt
-    when any source gets new storage (``.to``, ``load_state_dict`` into a
-    new tensor) or is updated in place (its version counter moves)."""
-    key = tuple((t.data_ptr(), t._version) for t in sources)
-    hit = module.__dict__.get(name)
-    if hit is None or hit[0] != key:
-        with torch.no_grad():
-            hit = (key, build())
-        module.__dict__[name] = hit
-    return hit[1]
 
 
 class ZoneoutLSTMCell(nn.Module):
@@ -55,7 +41,7 @@ class ZoneoutLSTMCell(nn.Module):
             b = (self.bias_ih + self.bias_hh).clone()
             b[H:2 * H] -= 1.0
             return w.float().contiguous(), b.float().contiguous()
-        return derived(self, "_fused", list(self.parameters()), build)
+        return hk.derived(self, "_fused", list(self.parameters()), build)
 
     def forward(self, x: torch.Tensor,
                 state: Tuple[torch.Tensor, torch.Tensor]
