@@ -189,6 +189,21 @@ def lstm_inputs(B, F, H, gen):
     return (r(B, F), r(F, 4 * H, scale=F ** -0.5), r(4 * H, scale=0.1), r(B, H))
 
 
+def library_lstm_cell(W, b, H):
+    """torch.nn.LSTMCell computing lstm_gates(xh, W, b, c) for xh = [x; h]:
+    the same weights, with the forget +1 folded into its bias."""
+    import torch
+    n_in = W.shape[0] - H
+    cell = torch.nn.LSTMCell(n_in, H).cuda()
+    with torch.no_grad():
+        cell.weight_ih.copy_(W[:n_in].t())
+        cell.weight_hh.copy_(W[n_in:].t())
+        cell.bias_ih.copy_(b)
+        cell.bias_ih[H:2 * H] += 1.0
+        cell.bias_hh.zero_()
+    return cell
+
+
 def lstm_bound(B, F, H):
     nbytes = 4 * (B * F + F * 4 * H + 4 * H + 3 * B * H)
     return nbytes / HBM_BYTES_PER_S, 2 * B * F * 4 * H / F32_FLOPS
@@ -213,8 +228,16 @@ def bound_of(parts):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def log_times(what, kernel, plain, library=None):
+    lib = "none" if library is None else f"{library(): .4f} ms"
+    log(f"    {what:34s} kernel {kernel():.4f} ms, plain {plain():.4f} ms, "
+        f"yardstick {lib}")
+
+
 def phase3(hk, check):
-    """Each kernel against its plain version at full width, B = 1 and 32."""
+    """Each kernel against its plain version at full width, B = 1 and 32,
+    with device times (kernel, plain, and the one-call yardstick where
+    PyTorch has one)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(3)
     for B in (1, 32):
@@ -225,20 +248,36 @@ def phase3(hk, check):
             tag = f"B={B} T=128" + (" scaled" if scale is not None else "")
             check("attention_step", w, w_p, *TOL["attention_step"], tag + " w")
             check("attention_step", ctx, ctx_p, 1e-4, 1e-4, tag + " ctx")
+        log_times(f"attention_step B={B} T=128",
+                  lambda: time_ms(lambda: hk.attention_step(*args), 100),
+                  lambda: time_ms(lambda: hk.attention_step_plain(*args), 100))
         for name, F, H in LSTM_SHAPES:
             args = lstm_inputs(B, F, H, gen)
             for i, (got, want) in enumerate(zip(hk.lstm_gates(*args),
                                                 hk.lstm_gates_plain(*args))):
                 check("lstm_gates", got, want, *TOL["lstm_gates"],
                       f"B={B} {name} {'ch'[i]}")
+            xh, W, b, c = args
+            cell = library_lstm_cell(W, b, H)
+            x, h = xh[:, :F - H].contiguous(), xh[:, F - H:].contiguous()
+            with torch.no_grad():
+                log_times(f"lstm_gates B={B} {name}",
+                          lambda: time_ms(lambda: hk.lstm_gates(*args), 100),
+                          lambda: time_ms(lambda: hk.lstm_gates_plain(*args), 100),
+                          lambda: time_ms(lambda: cell(x, (h, c)), 100))
         T_mel = 32
         for C, up in ((256, 8), (128, 64), (64, 256), (32, 512)):
             for k in (3, 7, 11):
                 args = resblock_inputs(B, C, T_mel * up, k, gen)
                 got = hk.hifigan_resblock(*args, (1, 3, 5), 0.1)
                 want = hk.hifigan_resblock_plain(*args, (1, 3, 5), 0.1)
-                check("hifigan_resblock", got, want, *TOL["hifigan_resblock"],
-                      f"B={B} C={C} T={T_mel * up} k={k}")
+                tag = f"B={B} C={C} T={T_mel * up} k={k}"
+                check("hifigan_resblock", got, want, *TOL["hifigan_resblock"], tag)
+                log_times(f"hifigan_resblock {tag}",
+                          lambda: time_ms(lambda: hk.hifigan_resblock(
+                              *args, (1, 3, 5), 0.1), 3),
+                          lambda: time_ms(lambda: hk.hifigan_resblock_plain(
+                              *args, (1, 3, 5), 0.1), 3))
                 del args, got, want
         torch.cuda.synchronize()
 
@@ -321,12 +360,7 @@ def phase4_timing(hk, check, taco, gen, res, batch_size):
         W, b = cell.fused()
         xh = torch.randn(B, W.shape[0], device="cuda", generator=g)
         c = torch.randn(B, H, device="cuda", generator=g)
-        lib_cell = torch.nn.LSTMCell(W.shape[0] - H, H).cuda()
-        with torch.no_grad():   # the same weights, forget +1 folded in
-            lib_cell.weight_ih.copy_(cell.weight_ih)
-            lib_cell.weight_hh.copy_(cell.weight_hh)
-            lib_cell.bias_ih.copy_(cell.bias_ih)
-            lib_cell.bias_hh.copy_(cell.bias_hh)
+        lib_cell = library_lstm_cell(W, b, H)
         x, h = xh[:, :W.shape[0] - H].contiguous(), xh[:, W.shape[0] - H:].contiguous()
         cases.append((xh, W, b, c, lib_cell, x, h))
         c_k, h_k = hk.lstm_gates(xh, W, b, c)

@@ -189,18 +189,14 @@ def lstm_gates(xh, weight, bias, c_prev) -> Tuple[torch.Tensor, torch.Tensor]:
 
 # -- hifigan_resblock ----------------------------------------------------------
 
-def _lrelu(x, slope):
-    return F.leaky_relu(x, slope)
-
-
 def hifigan_resblock_plain(x, w1, b1, w2, b2, dilations, slope):
     """One MRF ResBlock1. x [B, C, T]; w1/w2 [P, k, C_in, C_out] (weight
     norm folded); b1/b2 [P, C]; dilations: P ints. Returns [B, C, T]."""
     k = w1.shape[1]
     for p, d in enumerate(dilations):
-        h = F.conv1d(_lrelu(x, slope), w1[p].permute(2, 1, 0), b1[p],
+        h = F.conv1d(F.leaky_relu(x, slope), w1[p].permute(2, 1, 0), b1[p],
                      padding=d * (k - 1) // 2, dilation=d)
-        h = F.conv1d(_lrelu(h, slope), w2[p].permute(2, 1, 0), b2[p],
+        h = F.conv1d(F.leaky_relu(h, slope), w2[p].permute(2, 1, 0), b2[p],
                      padding=(k - 1) // 2)
         x = x + h
     return x
