@@ -12,7 +12,8 @@ non-zero:
    the same function.
 2. build the CUDA kernels from cookietts_tpu_torch/csrc (nvcc, sm_90a).
 3. each kernel against its plain PyTorch version at the full-width serving
-   shapes, batch 1 and 32.
+   shapes: the decode and HiFi-GAN kernels at batch 1 and 32, the two WN
+   kernels of the flow vocoders at batch 1 and 4.
 4. the main path: T2S -> Tacotron2 (Tacotron2Config() defaults) -> HiFi-GAN
    (the bench-serving generator) at full width with random weights from a
    seed, answering 3 requests (one of them multi-segment). Launch counters
@@ -20,8 +21,18 @@ non-zero:
    Then each kernel is timed at the shapes this run gave it, beside its
    plain version, a library call where one computes the same function, and
    its bound on the card.
+4b. the flow vocoders' path: a Tacotron2 of the same configuration at the
+   flow vocoders' 160 mel channels behind T2S, once with the full-width
+   WaveGlow (48 flows, 256 channels) and once with the full-width WaveFlow
+   (6 flows x 8 rows, 64 channels) as a stochastic vocoder_fn, each with a
+   Denoiser built from it: one request with denoise_strength > 0, then
+   WaveGlow.infer alone on a 400-frame mel (5 s at 48 kHz, batch 1). The
+   launch counters are zeroed before and must afterwards show exactly the
+   launches the shapes predict. The same infer is then timed with the
+   kernels and with their plain versions, and split into its parts.
 5. the whole slice with kernels against the same slice with the plain
-   versions swapped in, on the card: a 32-step decode and one vocoder batch.
+   versions swapped in, on the card: a 32-step decode and one vocoder batch;
+   and the whole inverse of each flow vocoder at full width, same z.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -29,6 +40,7 @@ The second-to-last line is {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -47,12 +59,30 @@ KERNEL_SOURCES = {
                    "cookietts_tpu/ops/pallas_kernels.py:236"),
     "hifigan_resblock": ("cookietts_tpu_torch/csrc/hifigan_resblock.cu",
                          "cookietts_tpu/ops/pallas_kernels.py:724"),
+    "waveglow_wn_forward": ("cookietts_tpu_torch/csrc/waveglow_wn.cu",
+                            "cookietts_tpu/ops/pallas_kernels.py:609"),
+    "waveflow_row_step": ("cookietts_tpu_torch/csrc/waveflow_row.cu",
+                          "cookietts_tpu/ops/pallas_kernels.py:467"),
 }
+# the flow vocoders at full width (48 kHz, hop 600, 160 mel channels)
+FLOW_SR, FLOW_HOP, FLOW_MELS = 48000, 600, 160
+WAVEGLOW = dict(n_mel_channels=FLOW_MELS, n_flows=48, n_group=24,
+                n_early_every=4, n_early_size=2, n_layers=8, n_channels=256,
+                kernel_size=3, hop_length=FLOW_HOP, upsample_strides=(5, 5),
+                upsample_channels=256, sampling_rate=FLOW_SR)
+WAVEFLOW = dict(n_mel_channels=FLOW_MELS, n_flows=6, n_group=8, n_early_every=0,
+                channel_mixing="permuteheight", n_layers=8, n_channels=64,
+                kernel_size=3, kernel_size_h=3, hop_length=FLOW_HOP,
+                upsample_strides=(75,), upsample_channels=128,
+                sampling_rate=FLOW_SR)
 # the three decoder cells at full width: (name, F = in + H, H)
 LSTM_SHAPES = (("attention_rnn", 2816, 1280), ("decoder_rnn", 2560, 768),
                ("second_decoder_rnn", 1536, 768))
+# (atol, rtol). The WN kernels sum 768 to 1536 f32 products per output in
+# another order than cuDNN, through 8 layers: a few 1e-6 at values near 2.
 TOL = {"attention_step": (2e-5, 1e-4), "lstm_gates": (2e-5, 1e-4),
-       "hifigan_resblock": (1e-4, 1e-4)}
+       "hifigan_resblock": (1e-4, 1e-4), "waveglow_wn_forward": (2e-5, 1e-4),
+       "waveflow_row_step": (2e-5, 1e-4)}
 
 
 def log(*a):
@@ -152,10 +182,14 @@ class Check:
 @contextlib.contextmanager
 def plain_kernels(hk):
     """Swap the plain versions in for the kernels' entries (phase 5)."""
-    names = ("attention_step", "lstm_gates", "hifigan_resblock")
-    saved = {n: getattr(hk, n) for n in names}
-    for n in names:
-        setattr(hk, n, getattr(hk, n + "_plain"))
+    plain = {"attention_step": hk.attention_step_plain,
+             "lstm_gates": hk.lstm_gates_plain,
+             "hifigan_resblock": hk.hifigan_resblock_plain,
+             "waveglow_wn_forward": hk.waveglow_wn_forward_plain,
+             "waveflow_row_step": hk.waveflow_row_step_ring_plain}
+    saved = {n: getattr(hk, n) for n in plain}
+    for n, fn in plain.items():
+        setattr(hk, n, fn)
     try:
         yield
     finally:
@@ -316,7 +350,8 @@ def phase4(t2s, hk):
         n_segments.append(len(res["segments"]))
     if max(n_segments) < 2:
         raise SystemExit("chip_smoke: no request was multi-segment")
-    launches = dict(hk.LAUNCHES)
+    launches = {name: hk.LAUNCHES[name] for name in
+                ("attention_step", "lstm_gates", "hifigan_resblock")}
     log(f"  launches on the main path: {launches}")
     if min(launches.values()) <= 0:
         raise SystemExit("chip_smoke: a kernel of the main path never launched")
@@ -416,10 +451,269 @@ def phase4_timing(hk, check, taco, gen, res, batch_size):
     return out
 
 
+# -- the flow vocoders: inputs, bounds, phases ---------------------------------
+
+def wn_weights(gen, Cin, C, Cout, L, rows, kw):
+    """Random WN weights in the kernels' layouts (ops/hopper_kernels.py)."""
+    import torch
+    r = lambda *s, scale=1.0: torch.randn(*s, device="cuda", generator=gen) * scale
+    k = rows * kw * C
+    rs_w, rs_b = r(L, C, 2 * C, scale=C ** -0.5), r(L, 2 * C, scale=0.1)
+    rs_w[-1, :, :C] = 0                      # the last layer has no res half
+    rs_b[-1, :C] = 0
+    return (r(Cin, C, scale=Cin ** -0.5), r(C, scale=0.1),
+            r(L, k, 2 * C, scale=k ** -0.5), rs_w, rs_b,
+            r(C, Cout, scale=(C * L) ** -0.5), r(Cout, scale=0.1))
+
+
+def wn_bound(B, T, Cin, C, Cout, L, rows, kw):
+    """(seconds by bytes, seconds by operations) of one WN evaluation: x,
+    cond_bc, the weights and (for a row step) the rows of the queues read
+    once, the output and the new row of each queue written once; the last
+    layer's res half is not needed and not counted."""
+    weights = Cin * C + C + L * (rows * kw * C * 2 * C + C * 2 * C + 2 * C) \
+        + C * Cout + Cout
+    state = L * rows * C * T * B if rows > 1 else 0     # queues in, rows out
+    nbytes = 4 * (B * T * (Cin + L * 2 * C + Cout) + weights + state)
+    flops = B * T * (2 * Cin * C + L * 2 * 2 * C * (rows * kw + 1) * C
+                     - 2 * C * C + 2 * C * Cout)
+    return nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+
+
+def phase3_flow(hk, check):
+    """The two WN kernels against their plain versions at full width, B = 1
+    and 4: WaveGlow's first flow (12 input channels) and last (1), over a
+    width beyond twice the dilations' reach of 255, ends included; three
+    consecutive WaveFlow rows, so that the ring has gone round once."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    for B in (1, 4):
+        L, kw, T = 8, 3, 1500
+        for Cin in (12, 1):
+            w = wn_weights(gen, Cin, 256, 2 * Cin, L, 1, kw)
+            x, cond = r(B, Cin, T), r(B, L, 512, T)
+            got = hk.waveglow_wn_forward(x, cond, *w)
+            want = hk.waveglow_wn_forward_plain(x, cond, *w)
+            tag = f"B={B} Cin={Cin} T'={T}"
+            check("waveglow_wn_forward", got, want, *TOL["waveglow_wn_forward"], tag)
+            for part, sl in (("first 300", slice(0, 300)), ("last 300", slice(-300, None))):
+                check("waveglow_wn_forward", got[..., sl], want[..., sl],
+                      *TOL["waveglow_wn_forward"], f"{tag} {part}")
+            log_times(f"waveglow_wn_forward {tag}",
+                      lambda: time_ms(lambda: hk.waveglow_wn_forward(x, cond, *w), 3),
+                      lambda: time_ms(lambda: hk.waveglow_wn_forward_plain(x, cond, *w), 3))
+        kh, W = 3, 1500
+        w = wn_weights(gen, 1, 64, 2, L, kh, kw)
+        cond = r(B, L, 128, W)
+        ring = torch.zeros(L, kh, B, 64, W, device="cuda")
+        queues = torch.zeros(L, kh - 1, B, 64, W, device="cuda")
+        x_prev = torch.zeros(B, W, device="cuda")
+        for step in range(4):
+            log_s, t = hk.waveflow_row_step(x_prev, ring, step, cond, *w)
+            ls_p, t_p, queues = hk.waveflow_row_step_plain(x_prev, queues, cond, *w)
+            tag = f"B={B} W={W} kh={kh} row {step}"
+            check("waveflow_row_step", log_s, ls_p, *TOL["waveflow_row_step"], tag + " log_s")
+            check("waveflow_row_step", t, t_p, *TOL["waveflow_row_step"], tag + " t")
+            check("waveflow_row_step", hk.ring_queues(ring, step + 1), queues,
+                  *TOL["waveflow_row_step"], tag + " queues")
+            x_prev = r(B, W)
+        log_times(f"waveflow_row_step B={B} W={W}",
+                  lambda: time_ms(lambda: hk.waveflow_row_step(
+                      x_prev, ring, 4, cond, *w), 3),
+                  lambda: time_ms(lambda: hk.waveflow_row_step_plain(
+                      x_prev, queues, cond, *w), 3))
+    torch.cuda.synchronize()
+
+
+def make_flow_vocoder(kw, seed):
+    """A full-width flow vocoder with random weights from ``seed``: torch's
+    default inits, and end layers small but not zero, so that every flow
+    transforms its input and 48 of them stay well-conditioned."""
+    import torch
+    from cookietts_tpu_torch.models.waveglow import WaveGlow, WaveGlowConfig
+    torch.manual_seed(seed)
+    model = WaveGlow(WaveGlowConfig(**kw), device="cuda")
+    with torch.no_grad():
+        for wn in model.WN:
+            wn.end.weight.normal_(std=0.05 * kw["n_channels"] ** -0.5)
+            wn.end.bias.normal_(std=0.02)
+    return model
+
+
+def wall_ms(fn, reps=2):
+    """Wall ms per call of ``fn``, ending in a synchronise, after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def flow_parts(model, mel, kernel_calls):
+    """Where one infer's time goes: wall ms of the whole infer and of its
+    parts run on their own at the same shapes (upsampler, the flows' cond
+    projections, ``kernel_calls``: the WN kernel calls, the 1x1 inverses)."""
+    import torch
+    n = mel.shape[1] * model.cfg.hop_length // model.cfg.n_group
+    with torch.no_grad():
+        cond = model._cond(mel)
+        parts = {"upsampler": lambda: model._cond(mel),
+                 "cond projection": lambda: [wn.cond_bc(cond) for wn in model.WN],
+                 "kernel": kernel_calls}
+        if not model.waveflow:
+            ys = [torch.randn(1, c.conv.in_channels, n, device="cuda")
+                  for c in model.convinv]
+            parts["1x1 inverse"] = lambda: [c.inverse(y)
+                                            for c, y in zip(model.convinv, ys)]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        total = wall_ms(lambda: model.infer(mel, gen))
+        times = {name: wall_ms(fn) for name, fn in parts.items()}
+    times["other (coupling, concat, z, host)"] = total - sum(times.values())
+    return total, times
+
+
+def phase4b(hk, check, taco160, name, kw):
+    """One flow vocoder behind T2S with its denoiser, then infer alone on a
+    400-frame mel; returns (model, launches counted, the 400-frame mel)."""
+    import numpy as np
+    import torch
+    from cookietts_tpu_torch.models.denoiser import Denoiser
+    from cookietts_tpu_torch.pipeline.text2speech import (T2S, T2SConfig,
+                                                          make_flow_vocoder_fn)
+    key = "waveflow_row_step" if kw.get("channel_mixing") else "waveglow_wn_forward"
+    model = make_flow_vocoder(kw, seed=11)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {name}: {n_params / 1e6:.1f} M parameters")
+    calls = kw["n_flows"] * (kw["n_group"] if model.waveflow else 1)
+    per_infer = calls * hk.wn_launches(kw["n_layers"])
+    vocoder_fn, infer_with_generator = make_flow_vocoder_fn(model, sigma=0.6, seed=5)
+    t2s_cfg = T2SConfig(batch_size=4, max_attempts=1, step_buckets=(256,),
+                        max_decoder_steps=256)
+    mel400 = torch.randn(1, 400, FLOW_MELS, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(8))
+
+    hk.reset_launch_counts()
+    denoiser = Denoiser(infer_with_generator, sampling_rate=FLOW_SR,
+                        n_mel_channels=FLOW_MELS, device="cuda")
+    t2s = T2S(t2s_cfg, taco160, {"alice": 0, "bob": 1}, vocoder_fn=vocoder_fn,
+              denoiser_fn=denoiser, sample_rate=FLOW_SR, hop_length=FLOW_HOP,
+              device="cuda")
+    t0 = time.perf_counter()
+    res = t2s.infer("The quick brown fox jumps over the lazy dog.",
+                    speaker=["alice"], seed=0, denoise_strength=0.1)
+    seconds = time.perf_counter() - t0
+    audio400 = model.infer(mel400, torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    launches = dict(hk.LAUNCHES)
+
+    n_samples = int(res["mel_lengths"].sum()) * FLOW_HOP
+    log(f"  {name} request: mel_lengths {res['mel_lengths'].tolist()}, "
+        f"{seconds:.3f} s (decode {res['gen_time']:.3f} s, vocode + denoise "
+        f"{res['total_time'] - res['gen_time']:.3f} s), "
+        f"{res['audio_seconds'] / seconds:.2f} x realtime")
+    if not np.isfinite(res["audio"]).all() or not bool(torch.isfinite(audio400).all()):
+        raise SystemExit(f"chip_smoke: {name} audio is not finite")
+    if len(res["audio"]) != n_samples or audio400.shape != (1, 400 * FLOW_HOP):
+        raise SystemExit(f"chip_smoke: {name} audio has {len(res['audio'])} and "
+                         f"{tuple(audio400.shape)} samples, expected {n_samples} "
+                         f"and {(1, 400 * FLOW_HOP)}")
+    # the denoiser's bias pass, the request's one vocoder batch, infer alone
+    expected = 3 * per_infer
+    log(f"  {name} launches: {launches[key]} of {key} (expected {expected} = "
+        f"3 infers x {calls} calls x {hk.wn_launches(kw['n_layers'])} launches)")
+    if launches[key] != expected:
+        raise SystemExit(f"chip_smoke: {key} launched {launches[key]} times, "
+                         f"expected {expected}")
+    return model, launches[key], mel400
+
+
+def phase4b_timing(hk, check, model, name, mel):
+    """infer alone (400 frames, 5 s of audio, batch 1): kernels beside plain
+    versions, the parts of the kernel path, and the kernel's calls of one
+    infer timed on the device beside their bound."""
+    import torch
+    cfg = model.cfg
+    seconds = mel.shape[1] * FLOW_HOP / FLOW_SR
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    kernel_ms = wall_ms(lambda: model.infer(mel, gen))
+    with plain_kernels(hk):
+        plain_ms = wall_ms(lambda: model.infer(mel, gen))
+    log(f"  {name}.infer, {mel.shape[1]} frames ({seconds:.1f} s of audio), B=1: "
+        f"kernels {kernel_ms:.1f} ms = {seconds * 1e3 / kernel_ms:.1f} x realtime, "
+        f"plain versions {plain_ms:.1f} ms = {seconds * 1e3 / plain_ms:.1f} x realtime")
+
+    n = mel.shape[1] * cfg.hop_length // cfg.n_group
+    L, C, kw = cfg.n_layers, cfg.n_channels, cfg.kernel_size
+    g = torch.Generator(device="cuda").manual_seed(9)
+    with torch.no_grad():
+        cond_bc = model.WN[0].cond_bc(model._cond(mel)[..., :n].contiguous())
+        if model.waveflow:
+            kh = cfg.kernel_size_h
+            ring = model.WN[0].init_ring(1, n).normal_(generator=g)
+            queues = hk.ring_queues(ring, 0).contiguous()
+            x_prev = torch.randn(1, n, device="cuda", generator=g)
+            calls = [(wn.kernel_weights(), h) for wn in model.WN
+                     for h in range(cfg.n_group)]
+            run = lambda: [hk.waveflow_row_step(x_prev, ring, h, cond_bc, *w)
+                           for w, h in calls]
+            run_plain = lambda: [hk.waveflow_row_step_plain(x_prev, queues, cond_bc, *w)
+                                 for w, _ in calls]
+            bound = bound_of([wn_bound(1, n, 1, C, 2, L, kh, kw)] * len(calls))
+            key = "waveflow_row_step"
+            w0 = calls[0][0]
+            got = hk.waveflow_row_step(x_prev, ring.clone(), 0, cond_bc, *w0)[1]
+            want = hk.waveflow_row_step_plain(x_prev, queues, cond_bc, *w0)[1]
+        else:
+            calls = [(torch.randn(1, wn.start.in_channels, n, device="cuda",
+                                  generator=g), wn.kernel_weights())
+                     for wn in model.WN]
+            run = lambda: [hk.waveglow_wn_forward(x, cond_bc, *w) for x, w in calls]
+            run_plain = lambda: [hk.waveglow_wn_forward_plain(x, cond_bc, *w)
+                                 for x, w in calls]
+            bound = bound_of([wn_bound(1, n, x.shape[1], C, 2 * x.shape[1], L, 1, kw)
+                              for x, _ in calls])
+            key = "waveglow_wn_forward"
+            x0, w0 = calls[0]
+            got = hk.waveglow_wn_forward(x0, cond_bc, *w0)
+            want = hk.waveglow_wn_forward_plain(x0, cond_bc, *w0)
+        check(key, got, want, *TOL[key], f"main path B=1 T'={n}")
+        total, parts = flow_parts(model, mel, run)
+        log(f"  {name}.infer parts (wall ms, each run alone): total {total:.1f}; "
+            + "; ".join(f"{k} {v:.1f} ({v / total:.0%})" for k, v in parts.items()))
+        out = dict(unit=f"the {len(calls)} WN calls of one infer, B=1, T'={n} "
+                        f"({hk.wn_launches(L)} launches each)",
+                   ms=time_ms(run, 2), eager_ms=eager_ms(run, 2),
+                   plain_ms=time_ms(run_plain, 2), library_ms=None, bound=bound)
+    log(f"  {key:17s} {out['unit']}: kernel {out['ms']:.3f} ms (eager "
+        f"{out['eager_ms']:.3f} ms, {out['ms'] / len(calls):.3f} ms a call), plain "
+        f"{out['plain_ms']:.3f} ms, library none, bound {bound[0]:.3f} ms ({bound[1]})")
+    return key, out
+
+
+def phase5_flow(hk, check, model, name):
+    """The whole inverse at full width on a short mel, same z: kernels
+    against plain versions. The difference of one WN (1e-6) goes through
+    every later flow's coupling and 1x1 inverse, hence the wider tolerance."""
+    import torch
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(12)
+    B, T_mel = 2, 32
+    n = T_mel * cfg.hop_length // cfg.n_group
+    mel = torch.randn(B, T_mel, FLOW_MELS, device="cuda", generator=g)
+    shape = (B, cfg.n_group, n) if model.waveflow else (B, n, cfg.n_group)
+    z = 0.6 * torch.randn(shape, device="cuda", generator=g)
+    got = model.inverse(z, mel)
+    with plain_kernels(hk):
+        want = model.inverse(z, mel)
+    check("slice", got, want, 1e-3, 1e-3, f"{name} inverse B={B} T'={n}")
+
+
 def phase5(hk, check, cfgs):
     """Kernel path against plain path for the whole slice, on the card."""
-    import dataclasses
-
     import torch
     from cookietts_tpu_torch.models.hifigan import Generator
     from cookietts_tpu_torch.models.tacotron2 import Tacotron2
@@ -487,6 +781,7 @@ def main() -> int:
     check = Check()
     log("phase 3: kernels against their plain versions (full width)")
     phase3(hk, check)
+    phase3_flow(hk, check)
 
     log("phase 4: main path, full width, 3 requests")
     tcfg = Tacotron2Config(n_symbols=N_SYMBOLS)
@@ -502,8 +797,23 @@ def main() -> int:
     res, launches = phase4(t2s, hk)
     timing = phase4_timing(hk, check, taco, gen, res, t2s_cfg.batch_size)
 
+    del t2s, gen
+    log("phase 4b: the flow vocoders behind T2S, full width")
+    torch.manual_seed(1)
+    taco160 = Tacotron2(dataclasses.replace(tcfg, n_mel_channels=FLOW_MELS),
+                        device="cuda")
+    flows = []
+    for name, kw in (("WaveGlow", WAVEGLOW), ("WaveFlow", WAVEFLOW)):
+        model, n_launches, mel400 = phase4b(hk, check, taco160, name, kw)
+        key, timing[key] = phase4b_timing(hk, check, model, name, mel400)
+        launches[key] = n_launches
+        flows.append((name, model))
+    del taco160
+
     log("phase 5: whole slice, kernels against plain versions")
     phase5(hk, check, (tcfg, hcfg))
+    for name, model in flows:
+        phase5_flow(hk, check, model, name)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

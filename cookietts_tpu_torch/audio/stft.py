@@ -1,0 +1,114 @@
+"""Matmul-based STFT and inverse STFT (cookietts_tpu/audio/stft.py:STFT).
+
+Reflect padding of ``filter_length // 2`` on each side, a windowed DFT basis
+applied at hop-length stride, magnitude and phase split at the cutoff bin, and
+a pseudo-inverse basis with window-sum-square overlap-add correction.
+Spectrograms are time-major, [B, n_frames, cutoff], as in the JAX package.
+``TacotronSTFT`` and Griffin-Lim come with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from scipy.signal import get_window
+
+from ..device import resolve_device
+
+
+def pad_center(window: np.ndarray, size: int) -> np.ndarray:
+    """Zero-pad a window symmetrically to ``size`` samples."""
+    n = len(window)
+    lpad = (size - n) // 2
+    out = np.zeros(size, dtype=window.dtype)
+    out[lpad:lpad + n] = window
+    return out
+
+
+def window_sumsquare(window_name: str, n_frames: int, hop_length: int,
+                     win_length: int, n_fft: int) -> np.ndarray:
+    """Sum-square envelope of an overlapped window sequence (float64)."""
+    n = n_fft + hop_length * (n_frames - 1)
+    x = np.zeros(n, dtype=np.float64)
+    win_sq = pad_center(get_window(window_name, win_length, fftbins=True) ** 2,
+                        n_fft)
+    for i in range(n_frames):
+        sample = i * hop_length
+        x[sample:min(n, sample + n_fft)] += win_sq[:max(0, min(n_fft, n - sample))]
+    return x
+
+
+def _dft_bases(filter_length: int, win_length: int, window: Optional[str]):
+    """(forward, inverse) windowed DFT bases, each [2 * cutoff, filter_length]
+    float64. The inverse is the plain pseudo-inverse of the forward basis."""
+    fourier = np.fft.fft(np.eye(filter_length))
+    cutoff = filter_length // 2 + 1
+    basis = np.vstack([np.real(fourier[:cutoff]), np.imag(fourier[:cutoff])])
+    inv = np.linalg.pinv(basis).T
+    if window is not None:
+        if filter_length < win_length:
+            raise ValueError("filter_length must be at least win_length")
+        w = pad_center(get_window(window, win_length, fftbins=True),
+                       filter_length)
+        basis, inv = basis * w, inv * w
+    return basis, inv
+
+
+class STFT:
+    """Forward/inverse STFT with precomputed windowed DFT bases."""
+
+    def __init__(self, filter_length: int = 800, hop_length: int = 200,
+                 win_length: int = 800, window: Optional[str] = "hann",
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.filter_length = int(filter_length)
+        self.hop_length = int(hop_length)
+        self.win_length = int(win_length)
+        self.window = window
+        self.cutoff = self.filter_length // 2 + 1
+        fwd, inv = _dft_bases(self.filter_length, self.win_length, window)
+        as_t = lambda a: torch.tensor(a.T, dtype=torch.float32, device=self.device)
+        self.forward_basis = as_t(fwd)      # [filter_length, 2 * cutoff]
+        self.inverse_basis = as_t(inv)      # [filter_length, 2 * cutoff]
+        self._wss_cache: Dict[int, torch.Tensor] = {}
+
+    def transform(self, audio: torch.Tensor, return_phase: bool = True
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """[B, T] audio -> (magnitude [B, n_frames, cutoff], phase or None)."""
+        pad = self.filter_length // 2
+        x = F.pad(audio[:, None, :], (pad, pad), mode="reflect")[:, 0]
+        frames = x.unfold(1, self.filter_length, self.hop_length)
+        spec = torch.matmul(frames, self.forward_basis)
+        real, imag = spec[..., :self.cutoff], spec[..., self.cutoff:]
+        magnitude = torch.sqrt(real ** 2 + imag ** 2)
+        return magnitude, (torch.atan2(imag, real) if return_phase else None)
+
+    def _window_sum(self, n_frames: int) -> torch.Tensor:
+        if n_frames not in self._wss_cache:
+            wss = window_sumsquare(self.window, n_frames, self.hop_length,
+                                   self.win_length, self.filter_length
+                                   ).astype(np.float32)
+            tiny = np.finfo(np.float32).tiny
+            self._wss_cache[n_frames] = torch.from_numpy(
+                np.where(wss > tiny, wss, np.float32(1.0))).to(self.device)
+        return self._wss_cache[n_frames]
+
+    def inverse(self, magnitude: torch.Tensor, phase: torch.Tensor
+                ) -> torch.Tensor:
+        """(mag, phase) [B, n_frames, cutoff] -> audio [B, T] (overlap-add)."""
+        n_frames = magnitude.shape[1]
+        recomb = torch.cat([magnitude * torch.cos(phase),
+                            magnitude * torch.sin(phase)], dim=-1)
+        frames = torch.matmul(recomb, self.inverse_basis.t())
+        t_full = self.filter_length + self.hop_length * (n_frames - 1)
+        out = F.fold(frames.transpose(1, 2), (1, t_full),
+                     (1, self.filter_length), stride=(1, self.hop_length))[:, 0, 0]
+        if self.window is not None:
+            out = out / self._window_sum(n_frames)
+        pad = self.filter_length // 2
+        return out[:, pad:-pad]
+
+    def __call__(self, audio: torch.Tensor) -> torch.Tensor:
+        return self.inverse(*self.transform(audio))

@@ -14,6 +14,10 @@ cookietts_tpu/convert/*_torch.py):
 - flax OptimizedLSTMCell i*/h* gates   -> nn.LSTM *_l0 / *_l0_reverse
 - flax BatchNorm scale/bias + stats    -> BatchNorm1d weight/bias/running_*
 - flax WeightNorm (v, scale)           -> the folded weight v * scale / ||v||
+- WaveGlow/WaveFlow: 1x1 layers (flax Dense or Conv) -> Conv1d/Conv2d weights
+  with unit taps; the WN end layer's output halves swap from (log_s, t) to
+  the reference checkpoints' (t, log_s); the 1x1 mixing weight transposes
+  (y = x @ w -> conv weight w.T)
 """
 from __future__ import annotations
 
@@ -177,4 +181,53 @@ def hifigan_state_dict_from_jax(params: Mapping[str, Any]
                 conv(f"resblocks.{n}.convs2.{m}", rb, f"conv2_{m}",
                      f"Conv_{2 * m + 1}")
                 m += 1
+    return sd
+
+
+def _nd_conv(kernel, ndim: int) -> torch.Tensor:
+    """flax Dense [in, out] or Conv [*taps, in, out] kernel -> torch conv
+    weight [out, in, *taps] with ``ndim`` dims (unit taps appended)."""
+    k = np.moveaxis(np.asarray(kernel, np.float32), (-1, -2), (0, 1))
+    return _t(k.reshape(*k.shape, *[1] * (ndim - k.ndim)))
+
+
+def waveglow_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """State dict for models/waveglow.py:WaveGlow from a cookietts_tpu
+    WaveGlow param tree, for both ``channel_mixing`` modes. ``cfg`` is the
+    WaveGlowConfig of either package. The keys are the reference glow.py
+    names (see the model's docstring); for ``upsample_mode='single'`` with
+    ``couple_transform='second'`` the result is what
+    cookietts_tpu/convert/waveglow_torch.py reads."""
+    sd: Dict[str, torch.Tensor] = {}
+    nd = 4 if cfg.channel_mixing == "permuteheight" else 3
+    for k in range(cfg.n_flows):
+        wn, key = params[f"wn{k}"], f"WN.{k}"
+        for name, tree, dims in (
+                [("start", wn["start"], nd), ("cond_layer", wn["cond_layer"], 3)]
+                + [(f"in_layers.{i}", wn[f"in_layer{i}"], nd)
+                   for i in range(cfg.n_layers)]
+                + [(f"res_skip_layers.{i}", wn[f"res_skip{i}"], nd)
+                   for i in range(cfg.n_layers)]):
+            sd[f"{key}.{name}.weight"] = _nd_conv(tree["kernel"], dims)
+            sd[f"{key}.{name}.bias"] = _t(tree["bias"])
+        end_w, end_b = _nd_conv(wn["end"]["kernel"], nd), _t(wn["end"]["bias"])
+        half = end_b.shape[0] // 2
+        sd[f"{key}.end.weight"] = torch.cat([end_w[half:], end_w[:half]])
+        sd[f"{key}.end.bias"] = torch.cat([end_b[half:], end_b[:half]])
+        if f"convinv{k}" in params:
+            sd[f"convinv.{k}.conv.weight"] = _t(
+                np.asarray(params[f"convinv{k}"]["weight"]).T[:, :, None])
+
+    def up(key, tree):
+        sd[f"{key}.weight"] = _t(np.transpose(
+            np.asarray(tree["kernel"])[::-1], (1, 2, 0)))
+        sd[f"{key}.bias"] = _t(tree["bias"])
+
+    if "upsample_single" in params:
+        up("upsample", params["upsample_single"])
+    else:
+        for i in range(len(params["upsample"])):
+            up(f"upsample.{i}", params["upsample"][f"up{i}"])
+    if "speaker_embed" in params:
+        sd["speaker_embed.weight"] = _t(params["speaker_embed"]["embedding"])
     return sd

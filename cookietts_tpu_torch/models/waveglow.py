@@ -1,0 +1,465 @@
+"""WaveGlow / WaveFlow flow vocoder, inference
+(cookietts_tpu/models/waveglow.py).
+
+- ``channel_mixing='1x1conv'``       -> WaveGlow: invertible 1x1 conv and an
+  affine coupling over grouped channels, parallel over time.
+- ``channel_mixing='permuteheight'`` -> WaveFlow: height permutations and a
+  height-causal 2-D WN coupling, autoregressive over the ``n_group`` rows.
+
+Public layout is the JAX model's: audio [B, T], mel [B, T_mel, n_mel], z
+[B, T/G, G] (WaveGlow) or [B, G, T/G] (WaveFlow). Inside, activations are
+channels-first [B, C, T], which is also the kernels' layout.
+
+With the gated unit GTU each WN runs through the Hopper kernels
+``waveglow_wn_forward`` / ``waveflow_row_step`` (ops/hopper_kernels.py); any
+other unit of ``GATED_UNITS`` takes the plain PyTorch version. That choice is
+made from the configuration before the call, never after a failed launch.
+
+Parameter names follow the reference glow.py checkpoint that
+cookietts_tpu/convert/waveglow_torch.py reads: ``WN.{k}.start``,
+``WN.{k}.in_layers.{i}``, ``WN.{k}.res_skip_layers.{i}``,
+``WN.{k}.cond_layer``, ``WN.{k}.end``, ``convinv.{k}.conv`` and, for
+``upsample_mode='single'``, ``upsample``. With ``upsample_mode='single'`` and
+``couple_transform='second'`` a dump of the state dict goes through
+``convert_waveglow_state_dict`` unchanged. The same scheme names what the
+reference layout lacks: ``upsample.{i}`` (the multi-stage upsampler's
+transposed convs), ``speaker_embed``, and for WaveFlow the same ``WN.{k}.*``
+keys with Conv2d weights (``in_layers`` [2C, C, kh, kw]). As in the reference
+checkpoints the rows of ``end`` are ordered (t, log_s); the modules return
+(log_s, t) like the JAX model.
+
+Traps kept from the JAX model: flax's "SAME" transposed conv with kernel 2s
+and stride s is the full transposed conv cut at ``_same_offset(s)``; torch's
+``padding=s // 2`` matches it only for even s (5 and 75 are odd). W^-1 of
+the 1x1 conv is taken in float32 and the whole inverse runs with TF32 off,
+or forward and inverse stop being inverses at the 1e-2 level.
+
+Not ported yet: the training forward and loss, and ISO-226 de-emphasis
+(``iso226_deemphasis=True`` raises).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from ..ops import hopper_kernels as hk
+
+
+def _tanhshrink(x):
+    return x - torch.tanh(x)
+
+
+# (a, b) are the two pre-activation halves of the WN conv output. The SIREN
+# units scale the sine's argument by 16 (the JAX model hides the factor from
+# autograd; at inference it is a plain factor).
+GATED_UNITS: Dict[str, Callable] = {
+    "GTU": hk.gtu,
+    "GTRU": lambda a, b: torch.tanh(a) * F.relu(b),
+    "GLU": lambda a, b: a * torch.sigmoid(b),
+    "TTU": lambda a, b: torch.tanh(a) * torch.tanh(b),
+    "STU": lambda a, b: torch.tanh(a) * F.selu(b),
+    "GTSU": lambda a, b: _tanhshrink(a) * torch.sigmoid(b),
+    "SPTU": lambda a, b: torch.tanh(a) * F.softplus(b),
+    "GSIU": lambda a, b: torch.sin(a) * torch.sigmoid(b),
+    "GSIRU": lambda a, b: torch.sin(16.0 * a) * torch.sigmoid(b),
+    "GTSRU": lambda a, b: _tanhshrink(a) * F.relu(b),
+    "GSIRRU": lambda a, b: torch.sin(16.0 * a) * F.relu(b),
+    "GSIRLRU": lambda a, b: torch.sin(16.0 * a) * F.leaky_relu(b, 0.01),
+    "GSIRRLRU": lambda a, b: torch.sin(16.0 * a) * F.leaky_relu(b, 0.055),
+    "GTLRU": lambda a, b: torch.tanh(a) * F.leaky_relu(b, 0.01),
+    "linear": lambda a, b: a,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveGlowConfig:
+    """The JAX model's configuration. Its knobs for the TPU kernels and the
+    scan (``pallas_row_step``, ``pallas_row_tile``, ``inverse_height_unroll``)
+    and for training (``memory_efficient``) are accepted, so that a stored
+    configuration loads, and ignored: the card's kernels pick their own tiles
+    and there is one inverse path per gated unit. ``fused_height_inverse`` is
+    ignored too: both of its JAX paths compute the row step ported here.
+    ``cond_residual`` and ``cond_layers`` are carried as the JAX model carries
+    them: neither model reads them."""
+    n_mel_channels: int = 160
+    n_flows: int = 12
+    n_group: int = 8              # WaveGlow: channel groups; WaveFlow: height
+    n_early_every: int = 4        # emit early z channels every k flows (0=off)
+    n_early_size: int = 2
+    channel_mixing: str = "1x1conv"   # '1x1conv' | 'permuteheight'
+    n_layers: int = 8
+    n_channels: int = 256
+    kernel_size: int = 3
+    kernel_size_h: int = 3        # WaveFlow: causal height kernel
+    gated_unit: str = "GTU"
+    hop_length: int = 600
+    upsample_strides: Tuple[int, ...] = (5, 5, 3)   # product * n_group == hop
+    upsample_channels: int = 256
+    cond_residual: bool = False
+    cond_layers: int = 1
+    upsample_mode: str = "multi"      # 'multi' | 'single' (reference glow.py)
+    upsample_win_length: int = 0      # 'single' kernel size
+    couple_transform: str = "first"   # 'first' | 'second' (reference glow.py)
+    n_speakers: int = 0
+    speaker_embed_dim: int = 32
+    iso226_deemphasis: bool = False
+    sampling_rate: int = 48000
+    fused_height_inverse: bool = True
+    inverse_height_unroll: int = 8
+    pallas_row_step: Any = "auto"
+    pallas_row_tile: int = 1536
+    memory_efficient: bool = True
+    sigma: float = 1.0
+    dtype: Any = torch.float32
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Matrix products and convolutions in full float32 (TF32 off) inside."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def permute_height_order(h: int, kind: str, flow_idx: int) -> np.ndarray:
+    """Static height permutation orders: 'reverse' flips the height each
+    flow; 'bipartize' alternates flipping the two halves and swapping them."""
+    idx = np.arange(h)
+    if kind == "reverse":
+        return idx[::-1].copy()
+    half = h // 2
+    if flow_idx % 2 == 0:
+        return np.concatenate([idx[:half][::-1], idx[half:][::-1]])
+    return np.concatenate([idx[half:], idx[:half]])
+
+
+class Invertible1x1Conv(nn.Module):
+    """The 1x1 channel-mixing conv, inverse only: x = W^-1 y on [B, C, T]."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv1d(channels, channels, 1, bias=False)
+        q = torch.linalg.qr(torch.randn(channels, channels))[0]
+        if torch.det(q) < 0:
+            q[:, 0] = -q[:, 0]
+        with torch.no_grad():
+            self.conv.weight.copy_(q[:, :, None])
+
+    def inverse(self, y: torch.Tensor) -> torch.Tensor:
+        w = self.conv.weight
+        w_inv = hk.derived(self, "_w_inv", [w],
+                           lambda: torch.linalg.inv(w[:, :, 0].float()))
+        return torch.matmul(w_inv, y)
+
+
+class _WNBase(nn.Module):
+    """What WN and WN2D share: the layers' names and the packing of their
+    weights into the kernels' layouts (ops/hopper_kernels.py)."""
+
+    def _make(self, conv, n_in, n_out, n_cond, in_kernel):
+        """The layers are parameter holders with the checkpoint's shapes: the
+        arithmetic runs on their packed weights (layer i has dilation 2**i)."""
+        L, C = self.n_layers, self.n_channels
+        one = (1,) * len(in_kernel)
+        self.start = conv(n_in, C, one)
+        self.cond_layer = nn.Conv1d(n_cond, 2 * C * L, 1)
+        self.in_layers = nn.ModuleList(conv(C, 2 * C, in_kernel) for _ in range(L))
+        self.res_skip_layers = nn.ModuleList(
+            conv(C, 2 * C if i < L - 1 else C, one) for i in range(L))
+        # zero-initialised end layer: an identity flow at the start of training
+        self.end = conv(C, 2 * n_out, one)
+        nn.init.zeros_(self.end.weight)
+        nn.init.zeros_(self.end.bias)
+
+    def kernel_weights(self):
+        """(start_w, start_b, k_all, rs_w, rs_b, end_w, end_b) as the kernels
+        take them, end rows reordered to (log_s, t)."""
+        def build():
+            C = self.n_channels
+            mat = lambda conv: conv.weight.flatten(1).t()     # 1x1: [in, out]
+            k_all = torch.stack([
+                layer.weight.permute(*range(2, layer.weight.dim()), 1, 0)
+                .reshape(-1, 2 * C) for layer in self.in_layers])
+            rs_w = torch.stack([F.pad(mat(layer), (2 * C - layer.out_channels, 0))
+                                for layer in self.res_skip_layers])
+            rs_b = torch.stack([F.pad(layer.bias, (2 * C - layer.out_channels, 0))
+                                for layer in self.res_skip_layers])
+            half = self.end.out_channels // 2
+            order = [*range(half, 2 * half), *range(half)]
+            return (mat(self.start).contiguous(), self.start.bias.detach(),
+                    k_all.contiguous(), rs_w.contiguous(), rs_b.contiguous(),
+                    mat(self.end)[:, order].contiguous(),
+                    self.end.bias[order].contiguous())
+        return hk.derived(self, "_kernel_weights", list(self.parameters()), build)
+
+    def cond_bc(self, cond: torch.Tensor) -> torch.Tensor:
+        """cond [B, D, T] -> [B, L, 2C, T]: every layer's cond projection in
+        one product, with the in_layers' biases folded in."""
+        def build():
+            return (self.cond_layer.weight[:, :, 0].contiguous(),
+                    self.cond_layer.bias + torch.cat(
+                        [layer.bias for layer in self.in_layers]))
+        w, b = hk.derived(self, "_cond_weights", list(self.parameters()), build)
+        out = torch.matmul(w, cond).add_(b[:, None])
+        return out.view(cond.shape[0], self.n_layers, 2 * self.n_channels, -1)
+
+
+class WN(_WNBase):
+    """Non-causal dilated-conv WaveNet producing the affine (log_s, t)."""
+
+    def __init__(self, n_in: int, n_out: int, n_cond: int, n_layers: int,
+                 n_channels: int, kernel_size: int, gated_unit: str):
+        super().__init__()
+        self.n_layers, self.n_channels = n_layers, n_channels
+        self.gated_unit = gated_unit
+        self._make(nn.Conv1d, n_in, n_out, n_cond, (kernel_size,))
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [B, C_in, T], cond [B, D, T] -> (log_s, t), each [B, C_out, T]."""
+        args = (x.contiguous(), self.cond_bc(cond), *self.kernel_weights())
+        if self.gated_unit == "GTU":
+            st = hk.waveglow_wn_forward(*args)
+        else:
+            st = hk.waveglow_wn_forward_plain(
+                *args, gate=GATED_UNITS[self.gated_unit])
+        return st.chunk(2, dim=1)
+
+
+class WN2D(_WNBase):
+    """Height-causal 2-D WaveNet of the WaveFlow coupling, one row at a time:
+    row h of (log_s, t) depends on the rows above h only. Each layer keeps
+    its last ``kernel_size_h`` input rows in a ring (see
+    ``hopper_kernels.waveflow_row_step``)."""
+
+    def __init__(self, n_cond: int, n_layers: int, n_channels: int,
+                 kernel_size: int, kernel_size_h: int, gated_unit: str):
+        super().__init__()
+        self.n_layers, self.n_channels = n_layers, n_channels
+        self.kernel_size_h, self.gated_unit = kernel_size_h, gated_unit
+        self._make(nn.Conv2d, 1, 1, n_cond, (kernel_size_h, kernel_size))
+
+    def init_ring(self, batch: int, width: int) -> torch.Tensor:
+        """[L, kh, B, C, W] zeros: the causal zero padding above row 0."""
+        p = self.start.weight
+        return torch.zeros((self.n_layers, self.kernel_size_h, batch,
+                            self.n_channels, width), device=p.device,
+                           dtype=p.dtype)
+
+    def row_step(self, x_prev: torch.Tensor, ring: torch.Tensor, step: int,
+                 cond_bc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One height row: x_prev [B, W] is the row generated before (zeros
+        for row 0); ``ring`` advances in place. -> (log_s, t), each [B, W]."""
+        args = (x_prev.contiguous(), ring, step, cond_bc, *self.kernel_weights())
+        if self.gated_unit == "GTU":
+            return hk.waveflow_row_step(*args)
+        return hk.waveflow_row_step_ring_plain(
+            *args, gate=GATED_UNITS[self.gated_unit])
+
+
+def _same_offset(stride: int) -> int:
+    """Where flax's ConvTranspose(kernel 2s, stride s, padding="SAME") cuts
+    its T * s outputs out of the full transposed conv's (T - 1) * s + 2s: it
+    pads the dilated input by ceil((3s - 2) / 2) on the left where the full
+    conv pads by 2s - 1."""
+    return (2 * stride - 1) - -(-(3 * stride - 2) // 2)
+
+
+class UpsampleNet(nn.ModuleList):
+    """Multi-stage transposed-conv mel upsampler: [B, M, T_mel] ->
+    [B, channels, T_mel * prod(strides)], leaky ReLU (0.4) between stages.
+    A ModuleList, so that the stages are named ``{i}``."""
+
+    def __init__(self, n_mel: int, strides, channels: int):
+        dims = [n_mel] + [channels] * len(strides)
+        super().__init__(nn.ConvTranspose1d(a, b, 2 * s, stride=s)
+                         for a, b, s in zip(dims[:-1], dims[1:], strides))
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        h = mel
+        for i, layer in enumerate(self):
+            s = layer.stride[0]
+            start, n = _same_offset(s), h.shape[-1] * s
+            h = layer(h)[..., start:start + n]
+            if i != len(self) - 1:
+                h = F.leaky_relu(h, 0.4)
+        return h
+
+
+class WaveGlow(nn.Module):
+    """Unified WaveGlow/WaveFlow flow vocoder: ``inverse`` maps a latent to
+    audio, ``infer`` samples the latent first."""
+
+    def __init__(self, cfg: WaveGlowConfig, device: str | torch.device = "cuda"):
+        super().__init__()
+        if cfg.dtype != torch.float32:
+            raise NotImplementedError("the port's kernels run in float32")
+        if cfg.gated_unit not in GATED_UNITS:
+            raise ValueError(f"unknown gated unit {cfg.gated_unit!r}")
+        self.cfg = cfg
+        self.waveflow = cfg.channel_mixing == "permuteheight"
+        if cfg.upsample_mode == "single":
+            if cfg.upsample_win_length <= 0:
+                raise ValueError("upsample_mode='single' needs upsample_win_length")
+            self.upsample = nn.ConvTranspose1d(
+                cfg.n_mel_channels, cfg.n_mel_channels,
+                cfg.upsample_win_length, stride=cfg.hop_length)
+            n_cond = cfg.n_mel_channels * cfg.n_group
+        else:
+            up_prod = int(np.prod(cfg.upsample_strides))
+            if up_prod * cfg.n_group != cfg.hop_length:
+                raise ValueError(
+                    f"prod(upsample_strides)={up_prod} * n_group={cfg.n_group} "
+                    f"must equal hop_length={cfg.hop_length}")
+            self.upsample = UpsampleNet(cfg.n_mel_channels, cfg.upsample_strides,
+                                        cfg.upsample_channels)
+            n_cond = cfg.upsample_channels
+        if cfg.n_speakers > 0:
+            self.speaker_embed = nn.Embedding(cfg.n_speakers, cfg.speaker_embed_dim)
+            n_cond += cfg.speaker_embed_dim
+
+        self.WN = nn.ModuleList()
+        self.convinv = nn.ModuleList()
+        early, halves = [], []
+        remaining = cfg.n_group
+        for k in range(cfg.n_flows):
+            if (not self.waveflow and cfg.n_early_every
+                    and k % cfg.n_early_every == 0 and k > 0):
+                remaining -= cfg.n_early_size
+                early.append(cfg.n_early_size)
+            else:
+                early.append(0)
+            if self.waveflow:
+                self.WN.append(WN2D(n_cond, cfg.n_layers, cfg.n_channels,
+                                    cfg.kernel_size, cfg.kernel_size_h,
+                                    cfg.gated_unit))
+                halves.append(0)
+            else:
+                if remaining % 2 or remaining <= 0:
+                    raise ValueError("every flow needs an even, positive "
+                                     f"channel count, flow {k} has {remaining}")
+                half = remaining // 2
+                halves.append(half)
+                self.WN.append(WN(half, half, n_cond, cfg.n_layers,
+                                  cfg.n_channels, cfg.kernel_size,
+                                  cfg.gated_unit))
+                self.convinv.append(Invertible1x1Conv(remaining))
+        self._early, self._half = tuple(early), tuple(halves)
+        self.eval()
+        self.to(resolve_device(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.WN[0].start.weight.device
+
+    def _cond(self, mel: torch.Tensor,
+              speaker_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mel [B, T_mel, M] -> cond [B, D, T/G] at group rate."""
+        cfg = self.cfg
+        mel = mel.transpose(1, 2)                                # [B, M, T_mel]
+        if cfg.upsample_mode == "single":
+            G, B, t = cfg.n_group, mel.shape[0], mel.shape[2] * cfg.hop_length
+            up = self.upsample(mel)[..., :t]       # trim the conv's overhang
+            # unfold: feature index m * G + g, as the reference's view order
+            cond = up.reshape(B, cfg.n_mel_channels, t // G, G).permute(
+                0, 1, 3, 2).reshape(B, cfg.n_mel_channels * G, t // G)
+        else:
+            cond = self.upsample(mel)
+        if cfg.n_speakers > 0:
+            if speaker_ids is None:
+                speaker_ids = torch.zeros(mel.shape[0], dtype=torch.long,
+                                          device=mel.device)
+            spk = self.speaker_embed(torch.as_tensor(speaker_ids,
+                                                     device=mel.device))
+            cond = torch.cat([cond, spk[:, :, None].expand(
+                -1, -1, cond.shape[-1])], dim=1)
+        return cond
+
+    def _inverse_waveglow(self, z: torch.Tensor, cond: torch.Tensor
+                          ) -> torch.Tensor:
+        """z [B, G, T'] channels-first (early outputs first) -> x [B, G, T']."""
+        second = self.cfg.couple_transform == "second"
+        *early_parts, x = z.split([e for e in self._early if e]
+                                  + [2 * self._half[-1]], dim=1)
+        for k in reversed(range(self.cfg.n_flows)):
+            xa, xb = x[:, :self._half[k]], x[:, self._half[k]:]
+            if second:
+                log_s, t = self.WN[k](xa, cond)
+                xb = (xb - t) * torch.exp(-log_s)
+            else:
+                log_s, t = self.WN[k](xb, cond)
+                xa = (xa - t) * torch.exp(-log_s)
+            x = self.convinv[k].inverse(torch.cat([xa, xb], dim=1))
+            if self._early[k]:
+                x = torch.cat([early_parts.pop(), x], dim=1)
+        return x
+
+    def _inverse_waveflow(self, z: torch.Tensor, cond: torch.Tensor
+                          ) -> torch.Tensor:
+        """Autoregressive in height: x[h] = (z[h] - t(x[<h])) / s(x[<h]), one
+        row step per row and flow. z, x [B, H, W]."""
+        B, H, W = z.shape
+        ring = self.WN[0].init_ring(B, W)
+        for k in reversed(range(self.cfg.n_flows)):
+            wn = self.WN[k]
+            cond_bc = wn.cond_bc(cond)
+            ring.zero_()
+            x_prev, rows = z.new_zeros((B, W)), []
+            for h in range(H):
+                log_s, t = wn.row_step(x_prev, ring, h, cond_bc)
+                x_prev = (z[:, h] - t) * torch.exp(-log_s)
+                rows.append(x_prev)
+            order = permute_height_order(self.cfg.n_group, "bipartize", k)
+            z = torch.stack(rows, dim=1)[:, np.argsort(order)]
+        return z
+
+    @torch.no_grad()
+    def inverse(self, z: torch.Tensor, mel: torch.Tensor,
+                speaker_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Latent -> audio [B, T]."""
+        dev = self.device
+        z = torch.as_tensor(z, dtype=torch.float32, device=dev)
+        mel = torch.as_tensor(mel, dtype=torch.float32, device=dev)
+        with full_float32():
+            cond = self._cond(mel, speaker_ids)
+            if self.waveflow:
+                x = self._inverse_waveflow(z, cond[..., :z.shape[2]].contiguous())
+                x = x.transpose(1, 2)                            # [B, W, G]
+            else:
+                x = self._inverse_waveglow(
+                    z.transpose(1, 2), cond[..., :z.shape[1]].contiguous())
+                x = x.transpose(1, 2)                            # [B, T', G]
+        return x.reshape(x.shape[0], -1)
+
+    @torch.no_grad()
+    def infer(self, mel: torch.Tensor,
+              generator: Optional[torch.Generator] = None,
+              sigma: Optional[float] = None,
+              speaker_ids: Optional[torch.Tensor] = None,
+              z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sample z ~ N(0, sigma) from ``generator`` (a generator on the
+        model's device) and invert; a given ``z`` is used as it is."""
+        cfg = self.cfg
+        if cfg.iso226_deemphasis:
+            raise NotImplementedError("ISO-226 de-emphasis is not ported yet")
+        if z is None:
+            sigma = cfg.sigma if sigma is None else sigma
+            B, T_mel = mel.shape[:2]
+            n = T_mel * cfg.hop_length // cfg.n_group
+            shape = (B, cfg.n_group, n) if self.waveflow else (B, n, cfg.n_group)
+            z = sigma * torch.randn(shape, generator=generator,
+                                    device=self.device, dtype=torch.float32)
+        return self.inverse(z, mel, speaker_ids)

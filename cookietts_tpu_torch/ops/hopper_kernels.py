@@ -28,7 +28,8 @@ from . import _build
 
 NEG = -1e30
 LAUNCHES: Dict[str, int] = {"attention_step": 0, "lstm_gates": 0,
-                            "hifigan_resblock": 0}
+                            "hifigan_resblock": 0, "waveglow_wn_forward": 0,
+                            "waveflow_row_step": 0}
 
 
 def reset_launch_counts() -> None:
@@ -244,3 +245,193 @@ def hifigan_resblock(x, w1, b1, w2, b2, dilations: Sequence[int],
         return hifigan_resblock_plain(x, w1, b1, w2, b2, dilations, slope)
     return _HifiganResblock.apply(x, w1, b1, w2, b2, tuple(dilations),
                                   float(slope))
+
+
+# -- waveglow_wn_forward and waveflow_row_step -----------------------------------
+#
+# Both evaluate a WaveNet coupling net (WN) on channel-major activations
+# with the batch a real axis, so no tap crosses from one utterance into the
+# next. The weights are input-major (flax's own layouts), so a kernel
+# thread's output channels are contiguous:
+#   start_w [Cin, C], start_b [C]
+#   k_all   [L, rows*kw*C, 2C]  (kernel row, tap, channel; rows = 1 or kh)
+#   rs_w    [L, C, 2C], rs_b [L, 2C]  (res half first; the last layer's res
+#           half is zero and is not computed)
+#   end_w   [C, Cout], end_b [Cout]
+#   cond_bc [B, L, 2C, T]: the cond projection with the conv biases folded in
+# Layer i has dilation 2**i; taps sit at (tap - kw // 2) * 2**i; zero padding
+# at both ends of the sequence.
+
+def gtu(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(a) * torch.sigmoid(g)
+
+
+def _wn_layer(i, L, conv, cond_bc, rs_w, rs_b, gate, h, skip):
+    C = rs_w.shape[1]
+    acts = conv + cond_bc[:, i]
+    out = gate(acts[:, :C], acts[:, C:])
+    rs = torch.matmul(rs_w[i].t(), out) + rs_b[i][:, None]
+    if i < L - 1:
+        h = h + rs[:, :C]
+    return h, (rs[:, C:] if skip is None else skip + rs[:, C:])
+
+
+def waveglow_wn_forward_plain(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
+                              end_w, end_b, gate: Callable = gtu):
+    """One flow's whole WN. x [B, Cin, T] -> st [B, Cout, T]: start 1x1, L
+    layers of {kw-tap dilated conv + cond -> gate -> res/skip 1x1}, end 1x1
+    on the summed skips."""
+    L, _, C2 = k_all.shape
+    C = C2 // 2
+    kw = k_all.shape[1] // C
+    h = torch.matmul(start_w.t(), x) + start_b[:, None]
+    skip = None
+    for i in range(L):
+        d = 2 ** i
+        w = k_all[i].view(kw, C, C2).permute(2, 1, 0)        # [2C, C, kw]
+        conv = F.conv1d(h, w, padding=(kw // 2) * d, dilation=d)
+        h, skip = _wn_layer(i, L, conv, cond_bc, rs_w, rs_b, gate, h, skip)
+    return torch.matmul(end_w.t(), skip) + end_b[:, None]
+
+
+def wn_launches(L: int) -> int:
+    """Kernel launches of one WN evaluation on the card: the start product,
+    one per layer, the end product."""
+    return L + 2
+
+
+def _check_wn_width(kernel: str, C: int) -> None:
+    if C not in (32, 64, 128, 256):
+        raise ValueError(f"{kernel}: n_channels={C} unsupported (32, 64, 128 "
+                         "or 256: a layer's tiles must fit shared memory)")
+
+
+class _WaveglowWnForward(_NoBackward):
+    @staticmethod
+    def forward(ctx, x, cond_bc, start_w, start_b, k_all, rs_w, rs_b, end_w,
+                end_b):
+        B, Cin, T = x.shape
+        L, KC, C2 = k_all.shape
+        C, Cout = C2 // 2, end_w.shape[1]
+        kw = KC // C
+        for name, t, shape in (
+                ("x", x, (B, Cin, T)), ("cond_bc", cond_bc, (B, L, C2, T)),
+                ("start_w", start_w, (Cin, C)), ("start_b", start_b, (C,)),
+                ("k_all", k_all, (L, kw * C, C2)), ("rs_w", rs_w, (L, C, C2)),
+                ("rs_b", rs_b, (L, C2)), ("end_w", end_w, (C, Cout)),
+                ("end_b", end_b, (Cout,))):
+            _check(f"waveglow_wn_forward {name}", t, shape)
+        _check_wn_width("waveglow_wn_forward", C)
+        lib = _build.library("waveglow_wn")
+        scratch = torch.empty((3, B, C, T), device=x.device, dtype=torch.float32)
+        st = torch.empty((B, Cout, T), device=x.device, dtype=torch.float32)
+        err = lib.waveglow_wn_forward(
+            _ptr(x), _ptr(cond_bc), _ptr(start_w), _ptr(start_b), _ptr(k_all),
+            _ptr(rs_w), _ptr(rs_b), _ptr(end_w), _ptr(end_b), B, Cin, C, Cout,
+            T, L, kw, _ptr(scratch), _ptr(st), _stream())
+        _raise_on(err, "waveglow_wn_forward")
+        LAUNCHES["waveglow_wn_forward"] += wn_launches(L)
+        return st
+
+
+def waveglow_wn_forward(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
+                        end_w, end_b) -> torch.Tensor:
+    """Fused WN of one WaveGlow flow, GTU only (see
+    waveglow_wn_forward_plain); on the card one launch per layer plus the
+    start and end products."""
+    args = (x, cond_bc, start_w, start_b, k_all, rs_w, rs_b, end_w, end_b)
+    if not _dispatch(x, "waveglow_wn_forward"):
+        return waveglow_wn_forward_plain(*args)
+    return _WaveglowWnForward.apply(*args)
+
+
+def waveflow_row_step_plain(x_prev, queues, cond_bc, start_w, start_b, k_all,
+                            rs_w, rs_b, end_w, end_b, gate: Callable = gtu):
+    """One height row of the WaveFlow inverse. x_prev [B, W] (the previous
+    generated row, zeros for row 0); queues [L, kh-1, B, C, W]: each layer's
+    last kh-1 input rows, oldest first. Each layer convolves (kh rows x kw
+    taps) over its queue plus the current row. Returns (log_s [B, W],
+    t [B, W], new queues: oldest row dropped, current row appended)."""
+    L, khm1, _, C, _ = queues.shape
+    kh, C2 = khm1 + 1, 2 * C
+    kw = k_all.shape[1] // (kh * C)
+    h = start_w[0][None, :, None] * x_prev[:, None, :] + start_b[None, :, None]
+    skip, new_queues = None, []
+    for i in range(L):
+        d = 2 ** i
+        rows = torch.cat([queues[i], h[None]], 0)            # [kh, B, C, W]
+        w = k_all[i].view(kh, kw, C, C2).permute(3, 2, 0, 1)  # [2C, C, kh, kw]
+        conv = F.conv2d(rows.permute(1, 2, 0, 3), w, padding=(0, (kw // 2) * d),
+                        dilation=(1, d))[:, :, 0]
+        new_queues.append(rows[1:])
+        h, skip = _wn_layer(i, L, conv, cond_bc, rs_w, rs_b, gate, h, skip)
+    st = torch.matmul(end_w.t(), skip) + end_b[:, None]
+    return st[:, 0], st[:, 1], torch.stack(new_queues)
+
+
+def ring_queues(ring: torch.Tensor, step: int) -> torch.Tensor:
+    """The queues [L, kh-1, B, C, W] (oldest first) that a ring
+    [L, kh, B, C, W] holds before row ``step``: slot ``s % kh`` of a layer
+    holds its input row of step s, so the rows before ``step`` sit in slots
+    step+1 ... step+kh-1 (mod kh)."""
+    kh = ring.shape[1]
+    return ring[:, [(step + 1 + r) % kh for r in range(kh - 1)]]
+
+
+def waveflow_row_step_ring_plain(x_prev, ring, step: int, cond_bc, *weights,
+                                 gate: Callable = gtu):
+    """waveflow_row_step in plain PyTorch: the plain row step on the ring's
+    queues, then the current row of every layer into slot ``step % kh``."""
+    log_s, t, queues = waveflow_row_step_plain(
+        x_prev, ring_queues(ring, step), cond_bc, *weights, gate=gate)
+    if ring.shape[1] > 1:
+        ring[:, step % ring.shape[1]] = queues[:, -1]
+    return log_s, t
+
+
+class _WaveflowRowStep(_NoBackward):
+    @staticmethod
+    def forward(ctx, x_prev, ring, step, cond_bc, start_w, start_b, k_all,
+                rs_w, rs_b, end_w, end_b):
+        B, W = x_prev.shape
+        L, kh, _, C, _ = ring.shape
+        C2 = 2 * C
+        kw = k_all.shape[1] // (kh * C)
+        for name, t, shape in (
+                ("x_prev", x_prev, (B, W)), ("ring", ring, (L, kh, B, C, W)),
+                ("cond_bc", cond_bc, (B, L, C2, W)),
+                ("start_w", start_w, (1, C)), ("start_b", start_b, (C,)),
+                ("k_all", k_all, (L, kh * kw * C, C2)),
+                ("rs_w", rs_w, (L, C, C2)), ("rs_b", rs_b, (L, C2)),
+                ("end_w", end_w, (C, 2)), ("end_b", end_b, (2,))):
+            _check(f"waveflow_row_step {name}", t, shape)
+        _check_wn_width("waveflow_row_step", C)
+        lib = _build.library("waveflow_row")
+        skip = torch.empty((B, C, W), device=ring.device, dtype=torch.float32)
+        st = torch.empty((B, 2, W), device=ring.device, dtype=torch.float32)
+        err = lib.waveflow_row_step(
+            _ptr(x_prev), _ptr(ring), int(step), _ptr(cond_bc), _ptr(start_w),
+            _ptr(start_b), _ptr(k_all), _ptr(rs_w), _ptr(rs_b), _ptr(end_w),
+            _ptr(end_b), B, C, W, L, kh, kw, _ptr(skip), _ptr(st), _stream())
+        _raise_on(err, "waveflow_row_step")
+        LAUNCHES["waveflow_row_step"] += wn_launches(L)
+        return st[:, 0], st[:, 1]
+
+
+def waveflow_row_step(x_prev, ring, step: int, cond_bc, start_w, start_b,
+                      k_all, rs_w, rs_b, end_w, end_b
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One WaveFlow inverse row step, GTU only, with the queues kept as a
+    ring of kh row slots per layer, ``ring`` [L, kh, B, C, W], updated in
+    place: row ``step`` of every layer's input lands in slot ``step % kh``,
+    the oldest row there, and the conv reads the slots with its kernel rows
+    rotated by ``step % kh``. Nothing is shifted or copied, and since a
+    layer's launch only reads its own ring and writes the next layer's, no
+    block reads what another writes. Start with a zero ring at step 0.
+    Returns (log_s [B, W], t [B, W]); ``ring_queues(ring, step + 1)`` are
+    then the new queues of waveflow_row_step_plain."""
+    args = (x_prev, ring, step, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
+            end_w, end_b)
+    if not _dispatch(x_prev, "waveflow_row_step"):
+        return waveflow_row_step_ring_plain(*args)
+    return _WaveflowRowStep.apply(*args)

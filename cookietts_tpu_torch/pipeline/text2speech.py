@@ -7,7 +7,10 @@
   the alignment ``weighted_score``, keep the best per segment, retry
   below-target segments until ``target_score`` or ``max_attempts``.
 - decode step counts rounded up to a few buckets.
-- batched vocoding and in-process concatenation of the output audio.
+- batched vocoding and in-process concatenation of the output audio,
+  optionally followed by the spectral denoiser (``denoiser_fn``).
+- :func:`make_flow_vocoder_fn` — a WaveGlow/WaveFlow model as a stochastic
+  ``vocoder_fn``.
 
 Decoding and vocoding run on the model's device; the host loop only does
 control flow. Prenet dropout draws from a ``torch.Generator`` seeded from
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import difflib
+import itertools
 import re
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -136,6 +140,27 @@ def interleave_speakers(segments: Sequence[str] | int,
     return [speakers[0] for _ in range(n_segments)]
 
 
+def make_flow_vocoder_fn(model, sigma: Optional[float] = None, seed: int = 0
+                         ) -> Tuple[Callable, Callable]:
+    """(vocoder_fn, infer_with_generator) for a flow vocoder
+    (models/waveglow.py:WaveGlow). ``vocoder_fn(mel)`` draws each call's
+    latent from a fresh generator seeded ``seed``, ``seed + 1``, ...; it is
+    marked ``stochastic``, since a flow draws noise per position and chunked
+    vocoding would seam. ``infer_with_generator(mel, generator)`` is what a
+    ``Denoiser`` takes."""
+    def infer_with_generator(mel, generator):
+        return model.infer(mel, generator, sigma=sigma)
+
+    counter = itertools.count(seed)
+
+    def vocoder_fn(mel):
+        generator = torch.Generator(device=model.device).manual_seed(next(counter))
+        return infer_with_generator(mel, generator)
+
+    vocoder_fn.stochastic = True
+    return vocoder_fn, infer_with_generator
+
+
 @dataclasses.dataclass
 class T2SConfig:
     target_score: float = 0.75
@@ -160,13 +185,17 @@ class T2S:
         T2S(cfg, tts_model, speaker_ids={name: id}, vocoder_fn=generator)
 
     ``vocoder_fn(mel [B, T, M] tensor) -> audio [B, T * hop]`` (the port's
-    HiFi-GAN ``Generator``); ``torchmoji_fn(text) -> [torchmoji_dim]`` and
+    HiFi-GAN ``Generator``, or a flow vocoder through
+    :func:`make_flow_vocoder_fn`); ``denoiser_fn(audio [1, T] tensor,
+    strength) -> audio [1, T]`` (a ``Denoiser``) runs when a request asks for
+    ``denoise_strength > 0``; ``torchmoji_fn(text) -> [torchmoji_dim]`` and
     ``arpa_fn(text) -> text`` are optional host callables.
     """
 
     def __init__(self, cfg: T2SConfig, tts_model: Tacotron2,
                  speaker_ids: Dict[str, int],
                  vocoder_fn: Optional[Callable] = None,
+                 denoiser_fn: Optional[Callable] = None,
                  torchmoji_fn: Optional[Callable[[str], np.ndarray]] = None,
                  arpa_fn: Optional[Callable[[str], str]] = None,
                  sample_rate: int = 44100, hop_length: int = 512,
@@ -180,6 +209,7 @@ class T2S:
         self.torchmoji_dim = tts_model.cfg.torchmoji_dim
         self.speaker_ids = dict(speaker_ids)
         self.vocoder_fn = vocoder_fn
+        self.denoiser_fn = denoiser_fn
         self.torchmoji_fn = torchmoji_fn
         self.arpa_fn = arpa_fn
         self.sample_rate = sample_rate
@@ -221,6 +251,7 @@ class T2S:
               split_at_quotes: Optional[bool] = None,
               target_segment_length: Optional[int] = None,
               cat_silence_s: float = 0.0,
+              denoise_strength: float = 0.0,
               seed: int = 0) -> Dict[str, Any]:
         """Synthesize ``text``. Returns dict with mels per segment, scores,
         attempts, timing stats, and (if a vocoder is attached) the audio.
@@ -374,6 +405,10 @@ class T2S:
                         pieces.append(silence)
                     pieces.append(wav[r, : m.shape[0] * self.hop_length])
             audio = np.concatenate(pieces) if pieces else audio
+            if denoise_strength > 0.0 and self.denoiser_fn is not None:
+                audio = self.denoiser_fn(
+                    torch.from_numpy(audio[None]).to(self.device),
+                    denoise_strength)[0].cpu().numpy()
 
         total = time.time() - t_start
         audio_seconds = float(best_lengths.sum() * self.hop_length

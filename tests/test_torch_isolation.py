@@ -85,3 +85,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         T2S(T2SConfig(), taco, {"a": 0})
     T2S(T2SConfig(), taco, {"a": 0}, device="cpu")
     Generator(hcfg, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["waveglow", "waveflow", "stft", "denoiser"])
+def test_flow_vocoder_entry_points_raise_without_cuda(monkeypatch, entry):
+    from cookietts_tpu_torch.audio.stft import STFT
+    from cookietts_tpu_torch.models.denoiser import Denoiser
+    from cookietts_tpu_torch.models.waveglow import WaveGlow, WaveGlowConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = WaveGlowConfig(
+        n_mel_channels=4, n_flows=2, n_group=4, n_early_every=0, n_layers=1,
+        n_channels=8, hop_length=8, upsample_strides=(2,), upsample_channels=4,
+        channel_mixing="permuteheight" if entry == "waveflow" else "1x1conv")
+    silent = lambda mel, generator: torch.zeros(1, 600)
+    make = {"waveglow": lambda **kw: WaveGlow(cfg, **kw),
+            "waveflow": lambda **kw: WaveGlow(cfg, **kw),
+            "stft": lambda **kw: STFT(64, 16, 64, **kw),
+            "denoiser": lambda **kw: Denoiser(silent, sampling_rate=4000,
+                                              n_mel_channels=4, **kw)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    assert make(device="cpu").device.type == "cpu"

@@ -15,6 +15,8 @@ from cookietts_tpu.models.hifigan import Generator as JGenerator
 from cookietts_tpu.models.hifigan import HiFiGANConfig as JConfig
 from cookietts_tpu.ops.pallas_kernels import attention_step as j_attention_step
 from cookietts_tpu.ops.pallas_kernels import lstm_gates_step as j_lstm_gates_step
+from cookietts_tpu.ops.pallas_kernels import waveflow_row_step as j_waveflow_row_step
+from cookietts_tpu.ops.pallas_kernels import waveglow_wn_forward as j_waveglow_wn_forward
 
 from cookietts_tpu_torch.convert.from_jax import hifigan_state_dict_from_jax
 from cookietts_tpu_torch.models.hifigan import Generator, HiFiGANConfig
@@ -104,6 +106,154 @@ def test_hifigan_resblock_plain_is_torch_resblock():
                 conv1(torch.nn.functional.leaky_relu(ref, 0.1)), 0.1))
         ref = ref + h
     np.testing.assert_allclose(y.numpy(), ref.numpy(), atol=1e-5, rtol=0)
+
+
+def _wn_weights(rng, Cin, C, Cout, L, rows, kw):
+    """Random WN weights in the port's layouts (hopper_kernels.py)."""
+    f = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
+    k = rows * kw * C
+    rs_w, rs_b = f(L, C, 2 * C, scale=C ** -0.5), f(L, 2 * C, scale=0.1)
+    rs_w[-1, :, :C] = 0                      # the last layer has no res half
+    rs_b[-1, :C] = 0
+    return (f(Cin, C), f(C, scale=0.1), f(L, k, 2 * C, scale=k ** -0.5), rs_w,
+            rs_b, f(C, Cout, scale=C ** -0.5), f(Cout, scale=0.1))
+
+
+def _padded(a, halo, Tp):
+    """[B, C, T] -> the Pallas kernels' [C, B * T'] with a zero halo."""
+    B, C, T = a.shape
+    out = np.zeros((C, B, Tp), np.float32)
+    out[:, :, halo:halo + T] = a.transpose(1, 0, 2)
+    return out.reshape(C, B * Tp)
+
+
+def _pad_rows(w, n):
+    return np.pad(w, ((0, n - w.shape[0]), (0, 0)))
+
+
+@pytest.mark.parametrize("B,T", [(2, 200), (1, 300)])
+def test_waveglow_wn_forward_matches_jax_pallas(B, T):
+    """The plain version against the TPU kernel in interpret mode: the same
+    weights in both layouts, looking at the whole width, both ends included
+    (T > 2 * the reach of the dilations, 7)."""
+    rng = np.random.default_rng(T)
+    Cin, C, Cout, L, kw, halo, Wt = 4, 16, 8, 3, 3, 128, 128
+    sw, sb, k_all, rs_w, rs_b, ew, eb = _wn_weights(rng, Cin, C, Cout, L, 1, kw)
+    x = rng.standard_normal((B, Cin, T)).astype(np.float32)
+    cond = rng.standard_normal((B, L, 2 * C, T)).astype(np.float32)
+    Tp = 2 * halo + -(-T // Wt) * Wt
+    cond_j = np.stack([_padded(cond[:, i], halo, Tp) for i in range(L)])
+    st = j_waveglow_wn_forward(
+        *(jnp.asarray(a) for a in (
+            _pad_rows(_padded(x, halo, Tp), 16), cond_j,
+            _pad_rows(sw, 16).T, sb[:, None], k_all.transpose(0, 2, 1),
+            rs_w.transpose(0, 2, 1), rs_b, _pad_rows(ew.T, 16),
+            _pad_rows(eb[:, None], 16))),
+        L=L, kw=kw, C=C, Wt=Wt, halo=halo, T=T, B=B)
+    ref = np.asarray(st)[:Cout].reshape(Cout, B, Tp)[:, :, halo:halo + T]
+    got = hk.waveglow_wn_forward(*(torch.from_numpy(a) for a in (
+        x, cond, sw, sb, k_all, rs_w, rs_b, ew, eb)))
+    np.testing.assert_allclose(got.numpy(), ref.transpose(1, 0, 2), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("kh", [2, 3])
+def test_waveflow_row_step_ring_matches_jax_pallas(kh):
+    """Four consecutive rows through the port's ring against the TPU kernel
+    in interpret mode with its queues, at a width that is not a multiple of
+    128: (log_s, t) of every row and the queues after the last."""
+    rng = np.random.default_rng(kh)
+    B, W, C, L, kw, halo, Wt = 2, 150, 16, 3, 3, 128, 128
+    weights = _wn_weights(rng, 1, C, 2, L, kh, kw)
+    sw, sb, k_all, rs_w, rs_b, ew, eb = weights
+    cond = rng.standard_normal((B, L, 2 * C, W)).astype(np.float32)
+    Wp = 2 * halo + -(-W // Wt) * Wt
+    cond_j = jnp.asarray(np.stack([_padded(cond[:, i], halo, Wp)
+                                   for i in range(L)]))
+    w_j = [jnp.asarray(a) for a in (
+        sw.T, sb[:, None], k_all.transpose(0, 2, 1), rs_w.transpose(0, 2, 1),
+        rs_b, ew.T, eb[:, None])]
+    queues_j = jnp.zeros((L, kh - 1, C, B * Wp), jnp.float32)
+    ring = torch.zeros(L, kh, B, C, W)
+    w_t = [torch.from_numpy(a) for a in weights]
+    x_prev = np.zeros((B, W), np.float32)
+    for step in range(4):
+        x_pad = np.zeros((B, Wp), np.float32)
+        x_pad[:, halo:halo + W] = x_prev
+        ls_r, t_r, queues_j = j_waveflow_row_step(
+            jnp.asarray(x_pad), queues_j, cond_j, *w_j, L=L, kh=kh, kw=kw, C=C,
+            Wt=Wt, halo=halo, W=W)
+        log_s, t = hk.waveflow_row_step(torch.from_numpy(x_prev), ring, step,
+                                        torch.from_numpy(cond), *w_t)
+        for got, ref in ((log_s, ls_r), (t, t_r)):
+            np.testing.assert_allclose(
+                got.numpy(), np.asarray(ref)[:, halo:halo + W], atol=1e-5, rtol=0)
+        x_prev = rng.standard_normal((B, W)).astype(np.float32)
+    q_ref = np.asarray(queues_j).reshape(L, kh - 1, C, B, Wp)[..., halo:halo + W]
+    np.testing.assert_allclose(hk.ring_queues(ring, 4).numpy(),
+                               q_ref.transpose(0, 1, 3, 2, 4), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kh", [1, 2, 3])
+def test_waveflow_ring_matches_plain_queues(kh):
+    """The ring (slot step % kh, kernel rows rotated) against the plain
+    version's queues (shift and append) over more rows than the ring has
+    slots."""
+    rng = np.random.default_rng(10 + kh)
+    B, W, C, L = 2, 37, 8, 2
+    w = [torch.from_numpy(a) for a in _wn_weights(rng, 1, C, 2, L, kh, 3)]
+    cond = torch.from_numpy(rng.standard_normal((B, L, 2 * C, W)).astype(np.float32))
+    ring = torch.zeros(L, kh, B, C, W)
+    queues = torch.zeros(L, kh - 1, B, C, W)
+    for step in range(2 * kh + 1):
+        x_prev = torch.from_numpy(rng.standard_normal((B, W)).astype(np.float32))
+        log_s, t = hk.waveflow_row_step(x_prev, ring, step, cond, *w)
+        ls_p, t_p, queues = hk.waveflow_row_step_plain(x_prev, queues, cond, *w)
+        assert torch.equal(log_s, ls_p) and torch.equal(t, t_p)
+        assert torch.equal(hk.ring_queues(ring, step + 1), queues)
+
+
+def test_waveglow_wn_forward_pads_with_zeros_at_both_ends():
+    """The start bias must not leak into the padding: the plain version on a
+    sequence equals its middle part computed with explicit zero-padded h."""
+    rng = np.random.default_rng(5)
+    Cin, C, L, kw, T = 2, 8, 3, 3, 40
+    w = [torch.from_numpy(a) for a in _wn_weights(rng, Cin, C, 4, L, 1, kw)]
+    x = torch.from_numpy(rng.standard_normal((1, Cin, T)).astype(np.float32))
+    cond = torch.from_numpy(rng.standard_normal((1, L, 2 * C, T)).astype(np.float32))
+    st = hk.waveglow_wn_forward(x, cond, *w)
+    sw, sb, k_all, rs_w, rs_b, ew, eb = w
+    h = sw.t() @ x[0] + sb[:, None]
+    skip = torch.zeros(C, T)
+    for i in range(L):
+        d = 2 ** i
+        hp = torch.nn.functional.pad(h, (d, d))
+        taps = torch.cat([hp[:, j * d:j * d + T] for j in range(kw)])
+        acts = k_all[i].t() @ taps + cond[0, i]
+        rs = rs_w[i].t() @ (torch.tanh(acts[:C]) * torch.sigmoid(acts[C:])) + rs_b[i][:, None]
+        h, skip = h + rs[:C], skip + rs[C:]
+    np.testing.assert_allclose(st[0].numpy(), (ew.t() @ skip + eb[:, None]).numpy(),
+                               atol=1e-5, rtol=0)
+
+
+def test_launch_counters_cover_every_kernel():
+    assert set(hk.LAUNCHES) == {"attention_step", "lstm_gates", "hifigan_resblock",
+                                "waveglow_wn_forward", "waveflow_row_step"}
+    assert hk.wn_launches(8) == 10
+    hk.LAUNCHES["waveglow_wn_forward"] = 3
+    hk.reset_launch_counts()
+    assert not any(hk.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("name", ["waveglow_wn_forward", "waveflow_row_step"])
+def test_wn_wrappers_refuse_other_devices(name):
+    m = lambda *s: torch.empty(*s, device="meta")
+    w = (m(1, 8), m(8), m(2, 24, 16), m(2, 8, 16), m(2, 16), m(8, 2), m(2))
+    with pytest.raises(ValueError, match="unsupported device"):
+        if name == "waveglow_wn_forward":
+            hk.waveglow_wn_forward(m(1, 1, 5), m(1, 2, 16, 5), *w)
+        else:
+            hk.waveflow_row_step(m(1, 5), m(2, 1, 1, 8, 5), 0, m(1, 2, 16, 5), *w)
 
 
 def test_wrappers_refuse_other_devices():
