@@ -12,15 +12,20 @@ non-zero:
    the same function.
 2. build the CUDA kernels from cookietts_tpu_torch/csrc (nvcc, sm_90a).
 3. each kernel against its plain PyTorch version at the full-width serving
-   shapes: the decode and HiFi-GAN kernels at batch 1 and 32, the two WN
-   kernels of the flow vocoders at batch 1 and 4.
+   shapes: the attention and HiFi-GAN kernels at batch 1 and 32 (the
+   resblock at every generator width, 256 down to 8 channels), the LSTM
+   kernel at batch 1, 4 and 32 for the three decoder cells (two calls must
+   give the same bits; timed beside nn.LSTMCell), the two WN kernels of the
+   flow vocoders at batch 1 and 4.
 4. the main path: T2S -> Tacotron2 (Tacotron2Config() defaults) -> HiFi-GAN
    (the bench-serving generator) at full width with random weights from a
    seed, answering 3 requests (one of them multi-segment). Launch counters
    are zeroed just before and read just after; every kernel must have run.
    Then each kernel is timed at the shapes this run gave it, beside its
    plain version, a library call where one computes the same function, and
-   its bound on the card.
+   its bound on the card (the resblock's both on the f32 CUDA cores and on
+   the tensor cores in 3xTF32, the one it is held to; and each of the
+   generator's four stages alone).
 4b. the flow vocoders' path: a Tacotron2 of the same configuration at the
    flow vocoders' 160 mel channels behind T2S, once with the full-width
    WaveGlow (48 flows, 256 channels) and once with the full-width WaveFlow
@@ -51,6 +56,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32, outside the tensor cores
+TF32X3_FLOPS = 495e12 / 3      # H100 SXM TF32 tensor cores, 3 products a flop
 SR, HOP = 44100, 512
 KERNEL_SOURCES = {
     "attention_step": ("cookietts_tpu_torch/csrc/attention_step.cu",
@@ -87,6 +93,31 @@ TOL = {"attention_step": (2e-5, 1e-4), "lstm_gates": (2e-5, 1e-4),
 
 def log(*a):
     print(*a, flush=True)
+
+
+def ptxas_report(text):
+    """(kernel, "N registers, ... spill ...") per entry function of an
+    `nvcc -Xptxas -v` log; a template's arguments follow its name."""
+    import re
+    out, kernel, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = name = m.group(1)
+            at = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)
+            if at:
+                n = int(at.group(1))
+                kernel = name[at.end():at.end() + n]
+                rest = name[at.end() + n:]
+                if rest.startswith("I") and "EEv" in rest:
+                    args = re.findall(r"L[ib](\d+)E", rest[:rest.index("EEv") + 1])
+                    kernel += "<" + ",".join(args) + ">"
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and kernel:
+            out.append((kernel, line.split("Used", 1)[1].strip() + "; " + spill))
+            kernel = None
+    return out
 
 
 def time_ms(fn, reps: int) -> float:
@@ -243,9 +274,12 @@ def lstm_bound(B, F, H):
     return nbytes / HBM_BYTES_PER_S, 2 * B * F * 4 * H / F32_FLOPS
 
 
-def resblock_bound(B, C, T, k, P=3):
+def resblock_bound(B, C, T, k, P=3, rate=TF32X3_FLOPS):
+    """(s by bytes, s by operations) of one resblock: by default on the
+    tensor cores in 3xTF32, the rate the kernel is held to; rate=F32_FLOPS
+    gives the f32 CUDA-core bound."""
     nbytes = 4 * (2 * B * C * T + 2 * P * (C * C * k + C))
-    return nbytes / HBM_BYTES_PER_S, P * 2 * 2 * C * C * k * T * B / F32_FLOPS
+    return nbytes / HBM_BYTES_PER_S, P * 2 * 2 * C * C * k * T * B / rate
 
 
 def resblock_inputs(B, C, T, k, gen, P=3):
@@ -285,22 +319,9 @@ def phase3(hk, check):
         log_times(f"attention_step B={B} T=128",
                   lambda: time_ms(lambda: hk.attention_step(*args), 100),
                   lambda: time_ms(lambda: hk.attention_step_plain(*args), 100))
-        for name, F, H in LSTM_SHAPES:
-            args = lstm_inputs(B, F, H, gen)
-            for i, (got, want) in enumerate(zip(hk.lstm_gates(*args),
-                                                hk.lstm_gates_plain(*args))):
-                check("lstm_gates", got, want, *TOL["lstm_gates"],
-                      f"B={B} {name} {'ch'[i]}")
-            xh, W, b, c = args
-            cell = library_lstm_cell(W, b, H)
-            x, h = xh[:, :F - H].contiguous(), xh[:, F - H:].contiguous()
-            with torch.no_grad():
-                log_times(f"lstm_gates B={B} {name}",
-                          lambda: time_ms(lambda: hk.lstm_gates(*args), 100),
-                          lambda: time_ms(lambda: hk.lstm_gates_plain(*args), 100),
-                          lambda: time_ms(lambda: cell(x, (h, c)), 100))
         T_mel = 32
-        for C, up in ((256, 8), (128, 64), (64, 256), (32, 512)):
+        for C, up in ((256, 8), (128, 64), (64, 256), (32, 512), (16, 512),
+                      (8, 512)):
             for k in (3, 7, 11):
                 args = resblock_inputs(B, C, T_mel * up, k, gen)
                 got = hk.hifigan_resblock(*args, (1, 3, 5), 0.1)
@@ -314,6 +335,36 @@ def phase3(hk, check):
                               *args, (1, 3, 5), 0.1), 3))
                 del args, got, want
         torch.cuda.synchronize()
+    phase3_lstm(hk, check, gen)
+
+
+def phase3_lstm(hk, check, gen):
+    """lstm_gates against its plain version, bit-identical over two calls
+    (the split-K sum runs in a fixed order), and timed beside its plain
+    version and nn.LSTMCell, for the three cells at B = 1, 4 and 32."""
+    import torch
+    for B in (1, 4, 32):
+        for name, F, H in LSTM_SHAPES:
+            args = lstm_inputs(B, F, H, gen)
+            first = hk.lstm_gates(*args)
+            for i, (got, want) in enumerate(zip(first, hk.lstm_gates_plain(*args))):
+                check("lstm_gates", got, want, *TOL["lstm_gates"],
+                      f"B={B} {name} {'ch'[i]}")
+            again = hk.lstm_gates(*args)
+            same = all(torch.equal(a, b) for a, b in zip(first, again))
+            log(f"  lstm_gates        B={B} {name}: two calls bit-identical: {same}")
+            if not same:
+                raise SystemExit(f"chip_smoke: lstm_gates B={B} {name} is not "
+                                 "deterministic")
+            xh, W, b, c = args
+            cell = library_lstm_cell(W, b, H)
+            x, h = xh[:, :F - H].contiguous(), xh[:, F - H:].contiguous()
+            with torch.no_grad():
+                log_times(f"lstm_gates B={B} {name}",
+                          lambda: time_ms(lambda: hk.lstm_gates(*args), 100),
+                          lambda: time_ms(lambda: hk.lstm_gates_plain(*args), 100),
+                          lambda: time_ms(lambda: cell(x, (h, c)), 100))
+    torch.cuda.synchronize()
 
 
 def phase4(t2s, hk):
@@ -423,16 +474,18 @@ def phase4_timing(hk, check, taco, gen, res, batch_size):
     # hifigan_resblock: the 12 resblocks of one generator call
     B_voc = len(res["mels"])
     T_pad = -(-int(max(res["mel_lengths"])) // 32) * 32
-    blocks, parts, T = [], [], T_pad
+    blocks, parts, parts_f32, stages, T = [], [], [], [], T_pad
     n_k = len(gen.cfg.resblock_kernel_sizes)
     for i, u in enumerate(gen.cfg.upsample_rates):
         T *= u
         C = gen.cfg.upsample_initial_channel // 2 ** (i + 1)
         x = torch.randn(B_voc, C, T, device="cuda", generator=g)
+        stages.append((C, T, len(blocks)))
         for rb in gen.resblocks[i * n_k:(i + 1) * n_k]:
             blocks.append((x, *rb.kernel_weights(), rb.dilations, rb.slope))
-            parts.append(resblock_bound(B_voc, C, T, rb.convs1[0].kernel_size[0],
-                                        len(rb.dilations)))
+            shape = (B_voc, C, T, rb.convs1[0].kernel_size[0], len(rb.dilations))
+            parts.append(resblock_bound(*shape))
+            parts_f32.append(resblock_bound(*shape, rate=F32_FLOPS))
     for args in blocks[::4]:
         check("hifigan_resblock", hk.hifigan_resblock(*args),
               hk.hifigan_resblock_plain(*args), *TOL["hifigan_resblock"],
@@ -443,6 +496,17 @@ def phase4_timing(hk, check, taco, gen, res, batch_size):
         eager_ms=eager_ms(lambda: [hk.hifigan_resblock(*a) for a in blocks], 3),
         plain_ms=time_ms(lambda: [hk.hifigan_resblock_plain(*a) for a in blocks], 3),
         library_ms=None, bound=bound_of(parts))
+    f32_bound = bound_of(parts_f32)
+    log(f"  hifigan_resblock bounds of one generator call: 3xTF32 tensor cores "
+        f"{out['hifigan_resblock']['bound'][0]:.4f} ms, f32 CUDA cores "
+        f"{f32_bound[0]:.4f} ms ({f32_bound[1]}); the kernel runs 3xTF32 "
+        "mma.sync and is held to the first")
+    for C, T, first in stages:
+        stage = blocks[first:first + n_k]
+        log(f"    stage C={C} T={T}: {n_k} resblocks kernel "
+            f"{time_ms(lambda: [hk.hifigan_resblock(*a) for a in stage], 3):.4f} ms, "
+            f"plain {time_ms(lambda: [hk.hifigan_resblock_plain(*a) for a in stage], 3):.4f} ms, "
+            f"3xTF32 bound {bound_of(parts[first:first + n_k])[0]:.4f} ms")
     for name, o in out.items():
         log(f"  {name:17s} {o['unit']}: kernel {o['ms']:.4f} ms (eager "
             f"{o['eager_ms']:.4f} ms), plain "
@@ -774,9 +838,8 @@ def main() -> int:
     log(f"  built/loaded {len(_build._LIBS)} kernel libraries in "
         f"{_build.BUILD_SECONDS:.1f} s")
     for logf in sorted(_build._build_dir().glob("*.log")):
-        for line in logf.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {logf.stem}: {line.strip()}")
+        for kernel, report in ptxas_report(logf.read_text()):
+            log(f"  {logf.stem}: {kernel}: {report}")
 
     check = Check()
     log("phase 3: kernels against their plain versions (full width)")

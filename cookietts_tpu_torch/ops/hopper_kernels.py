@@ -18,6 +18,7 @@ at the head of its ``.cu`` source.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -151,12 +152,50 @@ def lstm_gates_plain(xh, weight, bias, c_prev):
     return c, torch.sigmoid(o) * torch.tanh(c)
 
 
-def lstm_gates_slices(B: int, F: int, H: int, target_blocks: int = 264,
-                      min_rows: int = 64) -> int:
-    """Slices of F for the product kernel: enough blocks for two per SM of
+LSTM_COLS = 64          # columns of each gate block per block (lstm_gates.cu)
+LSTM_GROUP_ROWS = 32    # batch rows per block pass (lstm_gates.cu)
+
+
+@dataclasses.dataclass(frozen=True)
+class LstmPlan:
+    """Launch plan of the one-launch lstm_gates kernel. Block (x, y, z) of
+    ``grid`` owns columns [64 x, 64 x + 64) of each gate block, rows
+    [y f_per_slice, (y + 1) f_per_slice) of W, batch rows [32 z, 32 z + 32).
+    ``partial`` (floats) and ``tickets`` (ints) are the scratch sizes."""
+    grid: Tuple[int, int, int]
+    slices: int
+    f_per_slice: int
+    partial: int
+    tickets: int
+
+
+def lstm_gates_plan(B: int, F: int, H: int, target_blocks: int = 264,
+                    min_rows: int = 32) -> LstmPlan:
+    """Split F into slices so that the grid is about two blocks per SM of
     the card's 132, with at least ``min_rows`` rows of W per slice."""
-    blocks = -(-H // 32) * -(-B // 8)
-    return max(1, min(-(-target_blocks // blocks), F // min_rows))
+    col_tiles = -(-H // LSTM_COLS)
+    groups = -(-B // LSTM_GROUP_ROWS)
+    slices = max(1, min(target_blocks // (col_tiles * groups), F // min_rows))
+    f_per_slice = -(-F // slices)
+    slices = -(-F // f_per_slice)
+    return LstmPlan((col_tiles, slices, groups), slices, f_per_slice,
+                    slices * B * 4 * H, groups * col_tiles)
+
+
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
+_KEEP: list = []        # every counter tensor handed out, for captured graphs
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The ticket counters of lstm_gates on ``device``: zeroed once here,
+    left at 0 by every launch (see csrc/lstm_gates.cu). Grown, never freed,
+    so a captured CUDA graph keeps valid counters."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+        _KEEP.append(t)
+    return t
 
 
 class _LstmGates(_NoBackward):
@@ -168,14 +207,15 @@ class _LstmGates(_NoBackward):
                                ("bias", bias, (4 * H,)), ("c_prev", c_prev, (B, H))):
             _check(f"lstm_gates {name}", t, shape)
         lib = _build.library("lstm_gates")
-        slices = lstm_gates_slices(B, F_, H)
-        partial = torch.empty((slices, B, 4 * H), device=xh.device,
-                              dtype=torch.float32)
+        plan = lstm_gates_plan(B, F_, H)
+        partial = torch.empty(plan.partial, device=xh.device, dtype=torch.float32)
+        tickets = _tickets(xh.device, plan.tickets)
         c_new = torch.empty((B, H), device=xh.device, dtype=torch.float32)
         h_new = torch.empty_like(c_new)
         err = lib.lstm_gates(_ptr(xh), _ptr(weight), _ptr(bias), _ptr(c_prev),
-                             B, F_, H, slices, _ptr(partial), _ptr(c_new),
-                             _ptr(h_new), _stream())
+                             B, F_, H, plan.grid[0], plan.slices,
+                             plan.f_per_slice, _ptr(partial), _ptr(tickets),
+                             _ptr(c_new), _ptr(h_new), _stream())
         _raise_on(err, "lstm_gates")
         LAUNCHES["lstm_gates"] += 1
         return c_new, h_new
@@ -203,6 +243,53 @@ def hifigan_resblock_plain(x, w1, b1, w2, b2, dilations, slope):
     return x
 
 
+SMEM_MAX = 232448                    # shared memory a block may use (H100)
+# C -> (conv columns a block computes, input channels of a weight slab)
+RESBLOCK_FUSED = {8: (1024, 8), 16: (1024, 16), 32: (512, 32), 64: (256, 64)}
+RESBLOCK_SPLIT_TILE = 64                # samples per block of the split variant
+
+
+def _pad_stride(w: int) -> int:
+    """hifigan_resblock.cu's pad_stride: the least stride >= w that is 8
+    mod 16 (conflict-free fragment loads)."""
+    return (w - 8 + 15) // 16 * 16 + 8
+
+
+def hifigan_resblock_plan(B: int, C: int, T: int, k: int, d: int
+                          ) -> Tuple[int, Tuple[int, int, int], int, str]:
+    """Launch plan of one dilation pair: (tile, grid, smem_bytes, variant).
+    Block x of the grid writes output samples [x tile, (x + 1) tile) of
+    [0, T). "fused" (C of 8 to 64): one launch, grid (tiles, B, 1); "split"
+    (C a multiple of 128): two launches through a scratch h, grid (tiles,
+    C / 128, B). Raises for what the kernel does not take."""
+    if k % 2 == 0:
+        raise ValueError(f"hifigan_resblock: k={k} must be odd")
+    half = k // 2
+    if C in RESBLOCK_FUSED:
+        n1, kc = RESBLOCK_FUSED[C]
+        tile = n1 - 2 * half
+        smem = 4 * (C * (_pad_stride(n1 + 2 * half * d) + _pad_stride(n1 + 2 * half))
+                    + 3 * kc * _pad_stride(C))
+        grid, variant = (-(-T // max(tile, 1)), B, 1), "fused"
+    elif C > 0 and C % 128 == 0:
+        tile = RESBLOCK_SPLIT_TILE
+        smem = 4 * 3 * 32 * (_pad_stride(tile + (k - 1) * d) + _pad_stride(128))
+        grid, variant = (-(-T // tile), C // 128, B), "split"
+    else:
+        raise ValueError(f"hifigan_resblock: C={C} unsupported (8, 16, 32, 64 "
+                         "or a multiple of 128)")
+    if tile <= 0 or smem > SMEM_MAX:
+        raise ValueError(f"hifigan_resblock: C={C} k={k} d={d} needs {smem} B "
+                         f"of shared memory (max {SMEM_MAX}) and a tile of "
+                         f"{tile} samples")
+    return tile, grid, smem, variant
+
+
+def hifigan_resblock_launches(C: int, n_pairs: int) -> int:
+    """Kernel launches of one resblock on the card."""
+    return n_pairs * (1 if C in RESBLOCK_FUSED else 2)
+
+
 class _HifiganResblock(_NoBackward):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, dilations, slope):
@@ -211,28 +298,23 @@ class _HifiganResblock(_NoBackward):
         if len(dilations) != P:
             raise ValueError(f"hifigan_resblock: {P} weight pairs, "
                              f"{len(dilations)} dilations")
-        if C % 8 or 256 % (C // 8) or 16384 // C <= 2 * (k // 2):
-            raise ValueError(f"hifigan_resblock: C={C}, k={k} unsupported "
-                             "(C a power of two, 16384 / C > k - 1)")
         for name, t, shape in (("x", x, (B, C, T)), ("w1", w1, (P, k, C, C)),
                                ("b1", b1, (P, C)), ("w2", w2, (P, k, C, C)),
                                ("b2", b2, (P, C))):
             _check(f"hifigan_resblock {name}", t, shape)
+        plans = [hifigan_resblock_plan(B, C, T, k, int(d)) for d in dilations]
         lib = _build.library("hifigan_resblock")
-        lib.hifigan_resblock_smem.restype = ctypes.c_longlong
-        for d in dilations:
-            smem = lib.hifigan_resblock_smem(C, k, int(d))
-            if smem > 232448:
-                raise ValueError(f"hifigan_resblock: C={C} k={k} d={d} needs "
-                                 f"{smem} B of shared memory (max 232448)")
+        h = (torch.empty_like(x) if plans[0][3] == "split" else None)
         stream = _stream()
-        for p, d in enumerate(dilations):
+        for p, (d, (tile, _, smem, variant)) in enumerate(zip(dilations, plans)):
             y = torch.empty_like(x)
             err = lib.hifigan_resblock_pair(
                 _ptr(x), _ptr(w1[p]), _ptr(b1[p]), _ptr(w2[p]), _ptr(b2[p]),
-                B, C, T, k, int(d), ctypes.c_float(slope), _ptr(y), stream)
+                B, C, T, k, int(d), ctypes.c_float(slope),
+                0 if variant == "fused" else 1, tile, ctypes.c_longlong(smem),
+                _ptr(h), _ptr(y), stream)
             _raise_on(err, "hifigan_resblock")
-            LAUNCHES["hifigan_resblock"] += 1
+            LAUNCHES["hifigan_resblock"] += hifigan_resblock_launches(C, 1)
             x = y
         return x
 
@@ -240,7 +322,8 @@ class _HifiganResblock(_NoBackward):
 def hifigan_resblock(x, w1, b1, w2, b2, dilations: Sequence[int],
                      slope: float) -> torch.Tensor:
     """Fused MRF resblock (see hifigan_resblock_plain); on the card one
-    launch per dilation pair."""
+    launch per dilation pair at C <= 64, two at C >= 128
+    (hifigan_resblock_plan)."""
     if not _dispatch(x, "hifigan_resblock"):
         return hifigan_resblock_plain(x, w1, b1, w2, b2, dilations, slope)
     return _HifiganResblock.apply(x, w1, b1, w2, b2, tuple(dilations),

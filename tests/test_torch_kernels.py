@@ -108,6 +108,91 @@ def test_hifigan_resblock_plain_is_torch_resblock():
     np.testing.assert_allclose(y.numpy(), ref.numpy(), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("d", [1, 3, 5])
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("C", [8, 16, 32, 64, 128, 256, 512])
+def test_hifigan_resblock_plan_fits_and_covers(C, k, d):
+    """Every HiFi-GAN width from 8 to 512 channels, with the kernel sizes
+    and dilations of the repo's configurations: the launch fits a block's
+    shared memory, fuses the pair at C <= 64, and its tiles cover [0, T)
+    exactly once."""
+    for T in (1, 100, 1024, 4096 + 7):
+        tile, grid, smem, variant = hk.hifigan_resblock_plan(3, C, T, k, d)
+        assert smem <= 232448
+        assert variant == ("fused" if C <= 64 else "split")
+        if variant == "split":
+            assert grid[1:] == (C // 128, 3)
+        else:
+            assert grid[1:] == (3, 1)
+        covered = np.zeros(T, np.int64)
+        for x in range(grid[0]):
+            covered[x * tile:min(T, (x + 1) * tile)] += 1
+        assert (covered == 1).all() and grid[0] * tile - T < tile
+
+
+def test_hifigan_resblock_plan_refuses_what_the_kernel_does_not_take():
+    for C, k in ((24, 3), (96, 3), (32, 4)):
+        with pytest.raises(ValueError):
+            hk.hifigan_resblock_plan(1, C, 100, k, 1)
+    assert hk.hifigan_resblock_launches(64, 3) == 3
+    assert hk.hifigan_resblock_launches(256, 3) == 6
+
+
+@pytest.mark.parametrize("B", [1, 4, 32, 128])
+@pytest.mark.parametrize("F,H", [(2816, 1280), (2560, 768), (1536, 768)])
+def test_lstm_gates_plan_assigns_w_once(B, F, H):
+    """Each element of W belongs to exactly one block of a row group, the
+    grid is about two blocks per SM, and the scratch sizes match."""
+    plan = hk.lstm_gates_plan(B, F, H)
+    tiles, slices, groups = plan.grid
+    assert slices == plan.slices and groups == -(-B // 32)
+    assert 132 <= tiles * slices * groups <= 264
+    owner = np.zeros((F, H), np.int64)
+    for y in range(slices):
+        rows = slice(y * plan.f_per_slice, min(F, (y + 1) * plan.f_per_slice))
+        assert rows.start < F
+        for x in range(tiles):
+            owner[rows, x * hk.LSTM_COLS:min(H, (x + 1) * hk.LSTM_COLS)] += 1
+    assert (owner == 1).all()
+    assert plan.partial == slices * B * 4 * H
+    assert plan.tickets == groups * tiles
+
+
+def _tf32(a):
+    """What the tensor core reads of an f32 operand in a TF32 product: the
+    top 10 mantissa bits, the 13 low bits cleared."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_3xtf32_keeps_f32_accuracy_where_1xtf32_does_not():
+    """Why hifigan_resblock.cu takes three tensor-core products: a k=11,
+    C=64 dilated conv as the kernel computes it, emulated in numpy. With
+    hi = tf32(a) and lo = a - hi (itself read as TF32), lo*hi + hi*lo +
+    hi*hi is within 1e-5 (relative to the output's scale) of the f32 conv;
+    hi*hi alone misses the kernel's 1e-4 tolerance against its plain
+    version."""
+    rng = np.random.default_rng(0)
+    C, k, d, T = 64, 11, 3, 256
+    x = rng.standard_normal((C, T)).astype(np.float32)
+    w = (rng.standard_normal((k, C, C)) * (C * k) ** -0.5).astype(np.float32)
+    xp = np.pad(x, ((0, 0), (d * (k // 2),) * 2))
+    cols = np.concatenate([xp[:, j * d:j * d + T] for j in range(k)])   # [kC, T]
+    wm = w.reshape(k * C, C)                                            # [kC, Co]
+    ref = wm.T.astype(np.float64) @ cols.astype(np.float64)
+    f32 = wm.T @ cols
+    wh, xh = _tf32(wm), _tf32(cols)
+    wl, xl = _tf32(wm - wh), _tf32(cols - xh)
+    three = wl.T @ xh + wh.T @ xl + wh.T @ xh
+    one = wh.T @ xh
+    scale = np.abs(ref).max()
+    assert np.abs(f32 - ref).max() / scale < 1e-6
+    assert np.abs(three - f32).max() / scale < 1e-5
+    assert np.allclose(three, f32, atol=1e-4, rtol=1e-4)
+    assert not np.allclose(one, f32, atol=1e-4, rtol=1e-4)
+    assert np.abs(one - f32).max() > 10 * np.abs(three - f32).max()
+
+
 def _wn_weights(rng, Cin, C, Cout, L, rows, kw):
     """Random WN weights in the port's layouts (hopper_kernels.py)."""
     f = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
