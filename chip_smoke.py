@@ -16,7 +16,8 @@ non-zero:
    resblock at every generator width, 256 down to 8 channels), the LSTM
    kernel at batch 1, 4 and 32 for the three decoder cells (two calls must
    give the same bits; timed beside nn.LSTMCell), the two WN kernels of the
-   flow vocoders at batch 1 and 4.
+   flow vocoders at batch 1 and 4, at a request's length, at 1500 and at
+   the main path's (each with the tiles wn_layer_plan picks).
 4. the main path: T2S -> Tacotron2 (Tacotron2Config() defaults) -> HiFi-GAN
    (the bench-serving generator) at full width with random weights from a
    seed, answering 3 requests (one of them multi-segment). Launch counters
@@ -34,7 +35,9 @@ non-zero:
    WaveGlow.infer alone on a 400-frame mel (5 s at 48 kHz, batch 1). The
    launch counters are zeroed before and must afterwards show exactly the
    launches the shapes predict. The same infer is then timed with the
-   kernels and with their plain versions, and split into its parts.
+   kernels and with their plain versions, and split into its parts; the WN
+   kernel's calls beside their bounds (3xTF32 tensor cores, held to, and
+   f32 CUDA cores).
 5. the whole slice with kernels against the same slice with the plain
    versions swapped in, on the card: a 32-step decode and one vocoder batch;
    and the whole inverse of each flow vocoder at full width, same z.
@@ -84,8 +87,9 @@ WAVEFLOW = dict(n_mel_channels=FLOW_MELS, n_flows=6, n_group=8, n_early_every=0,
 # the three decoder cells at full width: (name, F = in + H, H)
 LSTM_SHAPES = (("attention_rnn", 2816, 1280), ("decoder_rnn", 2560, 768),
                ("second_decoder_rnn", 1536, 768))
-# (atol, rtol). The WN kernels sum 768 to 1536 f32 products per output in
-# another order than cuDNN, through 8 layers: a few 1e-6 at values near 2.
+# (atol, rtol). The WN kernels sum 768 to 1536 products per output in 3xTF32
+# and in another order than cuDNN, through 8 layers: a few 1e-6 at values
+# near 2 (tests/test_torch_kernels.py emulates the split).
 TOL = {"attention_step": (2e-5, 1e-4), "lstm_gates": (2e-5, 1e-4),
        "hifigan_resblock": (1e-4, 1e-4), "waveglow_wn_forward": (2e-5, 1e-4),
        "waveflow_row_step": (2e-5, 1e-4)}
@@ -530,63 +534,83 @@ def wn_weights(gen, Cin, C, Cout, L, rows, kw):
             r(C, Cout, scale=(C * L) ** -0.5), r(Cout, scale=0.1))
 
 
-def wn_bound(B, T, Cin, C, Cout, L, rows, kw):
+def wn_bound(B, T, Cin, C, Cout, L, rows, kw, rate=TF32X3_FLOPS):
     """(seconds by bytes, seconds by operations) of one WN evaluation: x,
     cond_bc, the weights and (for a row step) the rows of the queues read
     once, the output and the new row of each queue written once; the last
-    layer's res half is not needed and not counted."""
+    layer's res half is not needed and not counted. By default on the
+    tensor cores in 3xTF32, the rate the kernels are held to; rate=F32_FLOPS
+    gives the f32 CUDA-core bound."""
     weights = Cin * C + C + L * (rows * kw * C * 2 * C + C * 2 * C + 2 * C) \
         + C * Cout + Cout
     state = L * rows * C * T * B if rows > 1 else 0     # queues in, rows out
     nbytes = 4 * (B * T * (Cin + L * 2 * C + Cout) + weights + state)
     flops = B * T * (2 * Cin * C + L * 2 * 2 * C * (rows * kw + 1) * C
                      - 2 * C * C + 2 * C * Cout)
-    return nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return nbytes / HBM_BYTES_PER_S, flops / rate
+
+
+def plan_text(hk, B, C, T, rows, kw):
+    """wn_layer_plan's two launches of a layer, with their blocks."""
+    plan = hk.wn_layer_plan(B, C, T, rows, kw)
+    return ", ".join(f"{name} tile{p.tile} {p.m}x{p.n} {p.blocks} blocks"
+                     for name, p in (("conv", plan.conv), ("res/skip", plan.rs)))
 
 
 def phase3_flow(hk, check):
     """The two WN kernels against their plain versions at full width, B = 1
-    and 4: WaveGlow's first flow (12 input channels) and last (1), over a
-    width beyond twice the dilations' reach of 255, ends included; three
-    consecutive WaveFlow rows, so that the ring has gone round once."""
+    and 4, at a request's length (T' = 250), phase 3's 1500 and the main
+    path's (WaveGlow 10000, WaveFlow 30000): WaveGlow's first flow (12
+    input channels) and last (1), ends included (T' beyond twice the
+    dilations' reach of 255); four consecutive WaveFlow rows, so that the
+    ring has gone round once. Each timed beside its plain version."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(33)
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    L, kw, kh = 8, 3, 3
     for B in (1, 4):
-        L, kw, T = 8, 3, 1500
-        for Cin in (12, 1):
-            w = wn_weights(gen, Cin, 256, 2 * Cin, L, 1, kw)
-            x, cond = r(B, Cin, T), r(B, L, 512, T)
-            got = hk.waveglow_wn_forward(x, cond, *w)
-            want = hk.waveglow_wn_forward_plain(x, cond, *w)
-            tag = f"B={B} Cin={Cin} T'={T}"
-            check("waveglow_wn_forward", got, want, *TOL["waveglow_wn_forward"], tag)
-            for part, sl in (("first 300", slice(0, 300)), ("last 300", slice(-300, None))):
-                check("waveglow_wn_forward", got[..., sl], want[..., sl],
-                      *TOL["waveglow_wn_forward"], f"{tag} {part}")
-            log_times(f"waveglow_wn_forward {tag}",
-                      lambda: time_ms(lambda: hk.waveglow_wn_forward(x, cond, *w), 3),
-                      lambda: time_ms(lambda: hk.waveglow_wn_forward_plain(x, cond, *w), 3))
-        kh, W = 3, 1500
-        w = wn_weights(gen, 1, 64, 2, L, kh, kw)
-        cond = r(B, L, 128, W)
-        ring = torch.zeros(L, kh, B, 64, W, device="cuda")
-        queues = torch.zeros(L, kh - 1, B, 64, W, device="cuda")
-        x_prev = torch.zeros(B, W, device="cuda")
-        for step in range(4):
-            log_s, t = hk.waveflow_row_step(x_prev, ring, step, cond, *w)
-            ls_p, t_p, queues = hk.waveflow_row_step_plain(x_prev, queues, cond, *w)
-            tag = f"B={B} W={W} kh={kh} row {step}"
-            check("waveflow_row_step", log_s, ls_p, *TOL["waveflow_row_step"], tag + " log_s")
-            check("waveflow_row_step", t, t_p, *TOL["waveflow_row_step"], tag + " t")
-            check("waveflow_row_step", hk.ring_queues(ring, step + 1), queues,
-                  *TOL["waveflow_row_step"], tag + " queues")
-            x_prev = r(B, W)
-        log_times(f"waveflow_row_step B={B} W={W}",
-                  lambda: time_ms(lambda: hk.waveflow_row_step(
-                      x_prev, ring, 4, cond, *w), 3),
-                  lambda: time_ms(lambda: hk.waveflow_row_step_plain(
-                      x_prev, queues, cond, *w), 3))
+        for T in (250, 1500, 10000):
+            log(f"    waveglow_wn_forward B={B} T'={T}: "
+                f"{plan_text(hk, B, 256, T, 1, kw)}")
+            for Cin in (12, 1):
+                w = wn_weights(gen, Cin, 256, 2 * Cin, L, 1, kw)
+                x, cond = r(B, Cin, T), r(B, L, 512, T)
+                got = hk.waveglow_wn_forward(x, cond, *w)
+                want = hk.waveglow_wn_forward_plain(x, cond, *w)
+                tag = f"B={B} Cin={Cin} T'={T}"
+                check("waveglow_wn_forward", got, want, *TOL["waveglow_wn_forward"], tag)
+                for part, sl in (("first 300", slice(0, 300)),
+                                 ("last 300", slice(-300, None))):
+                    check("waveglow_wn_forward", got[..., sl], want[..., sl],
+                          *TOL["waveglow_wn_forward"], f"{tag} {part}")
+                log_times(f"waveglow_wn_forward {tag}",
+                          lambda: time_ms(lambda: hk.waveglow_wn_forward(x, cond, *w), 3),
+                          lambda: time_ms(lambda: hk.waveglow_wn_forward_plain(
+                              x, cond, *w), 3))
+                del x, cond, got, want
+        for W in (250, 1500, 30000):
+            log(f"    waveflow_row_step B={B} W={W}: {plan_text(hk, B, 64, W, kh, kw)}")
+            w = wn_weights(gen, 1, 64, 2, L, kh, kw)
+            cond = r(B, L, 128, W)
+            ring = torch.zeros(L, kh, B, 64, W, device="cuda")
+            queues = torch.zeros(L, kh - 1, B, 64, W, device="cuda")
+            x_prev = torch.zeros(B, W, device="cuda")
+            for step in range(4):
+                log_s, t = hk.waveflow_row_step(x_prev, ring, step, cond, *w)
+                ls_p, t_p, queues = hk.waveflow_row_step_plain(x_prev, queues, cond, *w)
+                tag = f"B={B} W={W} kh={kh} row {step}"
+                check("waveflow_row_step", log_s, ls_p, *TOL["waveflow_row_step"],
+                      tag + " log_s")
+                check("waveflow_row_step", t, t_p, *TOL["waveflow_row_step"], tag + " t")
+                check("waveflow_row_step", hk.ring_queues(ring, step + 1), queues,
+                      *TOL["waveflow_row_step"], tag + " queues")
+                x_prev = r(B, W)
+            log_times(f"waveflow_row_step B={B} W={W}",
+                      lambda: time_ms(lambda: hk.waveflow_row_step(
+                          x_prev, ring, 4, cond, *w), 3),
+                      lambda: time_ms(lambda: hk.waveflow_row_step_plain(
+                          x_prev, queues, cond, *w), 3))
+            del ring, queues, cond
     torch.cuda.synchronize()
 
 
@@ -689,6 +713,10 @@ def phase4b(hk, check, taco160, name, kw):
     expected = 3 * per_infer
     log(f"  {name} launches: {launches[key]} of {key} (expected {expected} = "
         f"3 infers x {calls} calls x {hk.wn_launches(kw['n_layers'])} launches)")
+    n = 400 * FLOW_HOP // kw["n_group"]
+    rows = kw["kernel_size_h"] if model.waveflow else 1
+    log(f"  {name} plan of a layer at B=1, T'={n} (infer alone): "
+        f"{plan_text(hk, 1, kw['n_channels'], n, rows, kw['kernel_size'])}")
     if launches[key] != expected:
         raise SystemExit(f"chip_smoke: {key} launched {launches[key]} times, "
                          f"expected {expected}")
@@ -726,7 +754,7 @@ def phase4b_timing(hk, check, model, name, mel):
                            for w, h in calls]
             run_plain = lambda: [hk.waveflow_row_step_plain(x_prev, queues, cond_bc, *w)
                                  for w, _ in calls]
-            bound = bound_of([wn_bound(1, n, 1, C, 2, L, kh, kw)] * len(calls))
+            parts = [(1, n, 1, C, 2, L, kh, kw)] * len(calls)
             key = "waveflow_row_step"
             w0 = calls[0][0]
             got = hk.waveflow_row_step(x_prev, ring.clone(), 0, cond_bc, *w0)[1]
@@ -738,13 +766,14 @@ def phase4b_timing(hk, check, model, name, mel):
             run = lambda: [hk.waveglow_wn_forward(x, cond_bc, *w) for x, w in calls]
             run_plain = lambda: [hk.waveglow_wn_forward_plain(x, cond_bc, *w)
                                  for x, w in calls]
-            bound = bound_of([wn_bound(1, n, x.shape[1], C, 2 * x.shape[1], L, 1, kw)
-                              for x, _ in calls])
+            parts = [(1, n, x.shape[1], C, 2 * x.shape[1], L, 1, kw) for x, _ in calls]
             key = "waveglow_wn_forward"
             x0, w0 = calls[0]
             got = hk.waveglow_wn_forward(x0, cond_bc, *w0)
             want = hk.waveglow_wn_forward_plain(x0, cond_bc, *w0)
         check(key, got, want, *TOL[key], f"main path B=1 T'={n}")
+        bound = bound_of([wn_bound(*a) for a in parts])
+        f32_bound = bound_of([wn_bound(*a, rate=F32_FLOPS) for a in parts])
         total, parts = flow_parts(model, mel, run)
         log(f"  {name}.infer parts (wall ms, each run alone): total {total:.1f}; "
             + "; ".join(f"{k} {v:.1f} ({v / total:.0%})" for k, v in parts.items()))
@@ -754,7 +783,8 @@ def phase4b_timing(hk, check, model, name, mel):
                    plain_ms=time_ms(run_plain, 2), library_ms=None, bound=bound)
     log(f"  {key:17s} {out['unit']}: kernel {out['ms']:.3f} ms (eager "
         f"{out['eager_ms']:.3f} ms, {out['ms'] / len(calls):.3f} ms a call), plain "
-        f"{out['plain_ms']:.3f} ms, library none, bound {bound[0]:.3f} ms ({bound[1]})")
+        f"{out['plain_ms']:.3f} ms, library none, bound {bound[0]:.3f} ms ({bound[1]}, "
+        f"3xTF32 tensor cores, held to; f32 CUDA cores {f32_bound[0]:.3f} ms)")
     return key, out
 
 

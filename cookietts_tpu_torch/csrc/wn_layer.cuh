@@ -1,92 +1,85 @@
-// The three kernels a WaveNet coupling net (WN) is made of on the card,
-// shared by waveglow_wn.cu and waveflow_row.cu:
+// The kernels a WaveNet coupling net (WN) is made of on the card, shared by
+// waveglow_wn.cu and waveflow_row.cu:
 //
 //   wn_start_kernel   h = start_w^T x + start_b                 (1x1)
-//   wn_layer_kernel   one WN layer, fused: (rows x kw)-tap dilated conv as a
-//                     [2C, rows*kw*C] product + cond -> tanh(a) * sigmoid(g)
-//                     -> res/skip 1x1 product -> h_out = h + res, skip += skip
-//   wn_end_kernel     st = end_w^T skip + end_b                 (1x1)
+//   wn_gemm<conv>     z = tanh(a) * sigmoid(g), (a; g) = the layer's
+//                     (rows x kw)-tap dilated conv + cond, a [2C, rows*kw*C]
+//                     product over the layer's input rows
+//   wn_gemm<rs>       (res; skip) = rs_w^T z + rs_b: h_out = h + res,
+//                     skip_sum += skip (written at layer 0)
+//   wn_end_kernel     st = end_w^T skip_sum + end_b             (1x1)
 //
 // Activations are channel-major [B][C][T] f32 with the batch a real axis.
-// Weights are input-major ([in][out]), so the 8 output channels a thread
-// owns are two float4 loads. Zero padding at the ends of the sequence is an
-// index mask on the loads: nothing outside [0, T) exists in memory, so the
-// start bias cannot leak into the padding.
+// Weights are input-major ([in][out]). Zero padding at the ends of the
+// sequence is an index mask on the loads: nothing outside [0, T) exists in
+// memory, so the start bias cannot leak into the padding.
 //
-// wn_layer_kernel: one block of 256 threads per (batch row, tile of Wt
-// samples). A thread owns 8 channels of the tanh half and the same 8 of the
-// sigmoid half for kT samples (up to 128 accumulators), so the gate needs
-// no exchange. The layer is one K loop: the conv's kh * kw * C / 32 steps
-// (kernel row, tap, 32 input channels), then C / 32 steps of the res/skip
-// product over the gated tile. Each step's 32 rows of weights ([32][2C],
-// contiguous) and, for a conv step, the [32][Wt] window of the input row
-// shifted by the tap's offset are copied to shared memory with cp.async one
-// step ahead of the step being computed (two stages), so the products read
-// both operands from shared memory and no load from device memory or the
-// L2 sits in front of an fma. (A first version read the weights through the
-// read-only cache inside the loop: every weight row is used once per block,
-// so each step waited for the L2, and it ran at 20% of the f32 rate.) The
-// gated tile [C][Wt] stays in shared memory between the two products and
-// never goes to device memory. Wt = 256 / (C / 8) * kT, with kT of 8, 5 or 4
-// picked per launch (wn_pick_kt): 64, 40 or 32 samples at C = 256. The
-// layer's input rows are a ring of kh slots (kh = 1: a plain buffer); the
-// residual is added to the current row, re-read from device memory, and
-// written to h_out, which is never the buffer other blocks read their halos
-// from. C must be a power of two from 32 to 256 (shared memory).
+// Design (v3): each layer is two implicit-GEMM launches on the tensor cores
+// (mma.sync.m16n8k8 TF32 in the 3xTF32 split, tf32x3.cuh), M = output
+// channels, N = samples, K = input channels x kernel rows x taps.
+// - Why two launches. v2 fused the layer into one launch, so a block had to
+//   own all 2C output channels of its time tile (the res/skip product reads
+//   the whole gated tile): 213 KB of shared memory at C = 256, one block of
+//   8 warps an SM, and 1-8 blocks for a 250-sample request. A fused
+//   tensor-core block at C = 256 would still own 512 rows, and T' = 1500
+//   would give it 24 tiles of 64 samples: not one wave of 132 SMs. Here the
+//   conv launch writes z [B][C][T] (10 MB at C = 256, T' = 10000, which stays
+//   in the 50 MB L2) and the res/skip launch reads it back, so both tile
+//   the output channels and every launch can fill the card.
+// - Pairing. A block's M tile is m channel pairs: warp w owns tanh rows
+//   c0 + 16 w .. + 16 and the sigmoid rows C + c0 + 16 w .. + 16, staged side
+//   by side in shared memory, so a thread holds a and g of the same
+//   (channel, sample) and the gate is the conv's epilogue. The res/skip
+//   launch pairs res channel c with skip channel c the same way; the last
+//   layer has no res half (its weights are zero) and computes it anyway,
+//   1.5% of a WN's products, rather than carry a second tile layout.
+// - Tiles. A launch is (WM x WN) warps, each 32 rows x 8 NJ samples: m = 16
+//   WM pairs by 8 WN NJ samples a block. Which of the eight shapes of
+//   WN_TILES (ops/hopper_kernels.py, in the order of launch_layer below)
+//   each launch takes, and the shared memory it gets, is planned in Python
+//   (wn_layer_plan) by the blocks it gives and the SMs they fill; the C side
+//   checks the geometry and trusts the choice.
+// - K steps. One step is (kernel row r, 32 input channels, tap). Its weight
+//   slab [32][2m] goes through a ring of kStages buffers by cp.async, two
+//   steps ahead, one barrier a step. The input window of (r, 32 channels) is
+//   staged once, at the chunk's first tap, and read by all kw taps: as one
+//   span (dil < N, the taps overlap) or as kw disjoint segments of N samples
+//   (dil >= N, where one span would stage mostly columns no tap reads), in
+//   16-byte copies where T % 4 == 0 (the span starts on a multiple of 4),
+//   zeros outside [0, T). Two window buffers suffice for kw >= 2 (a window
+//   is loaded kw - 2 steps after the one two back was last read), three for
+//   the res/skip launch (kw = 1). Row strides are padded to 8 mod 16 words
+//   so that fragment loads do not conflict on banks.
+// - Each step is summed into a fresh accumulator and added in f32 (the
+//   tensor core's accumulation truncates, tf32x3.cuh).
+// - Rows. The conv reads its kh input rows from a ring of slots, slot_stride
+//   floats apart: kernel row r reads slot (rot + 1 + r) % kh (kh = 1: a plain
+//   buffer). The res/skip launch reads and writes only its own (channel,
+//   sample) elements, so h_out may be the buffer its residual comes from.
+//
+// mma.sync, not wgmma: wgmma needs both TF32 operands K-major in shared
+// memory, and the tap shift of the input window does not map onto its
+// descriptors' core matrices. mma.sync peaks near 324 TFLOP/s in TF32 on the
+// H100 (tools/bench_mma_rate.py), so 3xTF32 on it tops out near 108.
+//
+// The start and end products (Cin of 1 to 12 channels in, 2 to 24 out) are
+// under 1% of a WN's operations and stay CUDA-core kernels of their own:
+// measured, they take 0.5-3% of a call (PERF.md), under what folding them
+// into the first and last layers' launches could save.
 #pragma once
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace wn {
 
-constexpr int kThreads = 256;  // threads of a layer block
-constexpr int kCo = 8;         // channels per thread, in each half
-constexpr int kKc = 32;        // rows of the weights staged per K step
-constexpr int kStages = 2;     // stages of the copy pipeline
+using namespace tf32x3;
+
+constexpr int kKc = 32;        // input channels of a K step
+constexpr int kStages = 3;     // weight slabs in flight
 constexpr int kSmall = 256;    // threads of the start and end kernels
-
-// N floats from shared memory: float4 loads where N and the offset allow.
-template <int N>
-__device__ __forceinline__ void load_x(const float* p, float (&x)[N]) {
-  if (N % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < N; j += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + j);
-      x[j] = v.x; x[j + 1] = v.y; x[j + 2] = v.z; x[j + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) x[j] = p[j];
-  }
-}
-
-template <int kT>
-__device__ __forceinline__ void fma_tile(const float (&w)[kCo], const float (&x)[kT],
-                                         float (&acc)[kCo][kT]) {
-#pragma unroll
-  for (int i = 0; i < kCo; ++i)
-#pragma unroll
-    for (int j = 0; j < kT; ++j) acc[i][j] = fmaf(w[i], x[j], acc[i][j]);
-}
-
-// Device to shared memory without passing through registers (cp.async).
-// copy_async4: one float, zero when !valid (src is then not read).
-__device__ __forceinline__ void copy_async4(float* dst, const float* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(n));
-}
-
-// copy_async16: four floats, both addresses 16-byte aligned; past the L1.
-__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-template <int kPending>
-__device__ __forceinline__ void wait_async() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
+constexpr int kCo = 8;         // channels per thread of the start and end kernels
+constexpr int kSmemMax = 232448;
 
 // h[b][c][t] = sum_ci w[ci][c] * x[b][ci][t] + bias[c].
 // grid (ceil(T / kSmall), C / kCo, B).
@@ -111,211 +104,223 @@ wn_start_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // st[b][o][t] = sum_c w[c][o] * skip[b][c][t] + bias[o].
-// grid (ceil(T / kSmall), ceil(Cout / kCo), B).
+// grid (ceil(T / 32), ceil(Cout / kCo), B), kSmall threads: warp q sums
+// channels q, q + 8, ... for the block's 32 samples (one a lane), and the 8
+// partial sums of each output meet in shared memory. (One thread per sample
+// over all C channels made a serial chain of C loads: 0.05-0.06 ms a call
+// whatever T, 11% of a 250-sample WaveGlow WN.)
 __global__ void __launch_bounds__(kSmall)
 wn_end_kernel(const float* __restrict__ skip, const float* __restrict__ w,
               const float* __restrict__ bias, int C, int Cout, int T,
               float* __restrict__ st) {
-  const int t = blockIdx.x * kSmall + threadIdx.x;
-  if (t >= T) return;
+  constexpr int kWarps = kSmall / 32;
+  static_assert(kWarps == kCo, "a warp sums each output's partials");
+  __shared__ float part[kWarps][kCo][32];
+  const int q = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * 32 + lane;
   const int b = blockIdx.z, o0 = blockIdx.y * kCo;
   const int n = min(kCo, Cout - o0);
   float acc[kCo];
 #pragma unroll
-  for (int i = 0; i < kCo; ++i) acc[i] = i < n ? bias[o0 + i] : 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float v = skip[((size_t)b * C + c) * T + t];
+  for (int i = 0; i < kCo; ++i) acc[i] = 0.f;
+  if (t < T)
+    for (int c = q; c < C; c += kWarps) {
+      const float v = skip[((size_t)b * C + c) * T + t];
 #pragma unroll
-    for (int i = 0; i < kCo; ++i)
-      if (i < n) acc[i] = fmaf(__ldg(w + (size_t)c * Cout + o0 + i), v, acc[i]);
+      for (int i = 0; i < kCo; ++i)
+        if (i < n) acc[i] = fmaf(__ldg(w + (size_t)c * Cout + o0 + i), v, acc[i]);
+    }
+#pragma unroll
+  for (int i = 0; i < kCo; ++i) part[q][i][lane] = acc[i];
+  __syncthreads();
+  if (q < n && t < T) {                      // warp q: output o0 + q
+    float sum = bias[o0 + q];
+#pragma unroll
+    for (int r = 0; r < kWarps; ++r) sum += part[r][q][lane];
+    st[((size_t)b * Cout + o0 + q) * T + t] = sum;
   }
-#pragma unroll
-  for (int i = 0; i < kCo; ++i)
-    if (i < n) st[((size_t)b * Cout + o0 + i) * T + t] = acc[i];
 }
 
-// One WN layer. rows: the layer's ring of kh input rows, each [B][C][T],
-// slot_stride floats apart; the row of kernel row r (oldest first) is slot
-// (rot + 1 + r) % kh, the current row is slot rot. cond: this layer's
-// [2C][T] slice of batch row 0, cond_bstride floats between batch rows.
-// k [kh*kw*C][2C], rs_w [C][2C], rs_b [2C]. first: skip is written, not
-// added to. kHasRes false (the last layer): no res half, h_out unused.
-// grid (ceil(T / Wt), B), kThreads threads, wn_layer_smem(C, kT) bytes.
-template <int kT, bool kHasRes>
-__global__ void __launch_bounds__(kThreads)
-wn_layer_kernel(const float* __restrict__ rows, size_t slot_stride, int kh,
-                int rot, const float* __restrict__ cond, size_t cond_bstride,
-                const float* __restrict__ k, const float* __restrict__ rs_w,
-                const float* __restrict__ rs_b, int C, int T, int kw, int dil,
-                int first, float* __restrict__ h_out, float* __restrict__ skip) {
+// One launch of a layer. conv: src is the layer's ring of kh input rows,
+// each [B][C][T], slot_stride floats apart; w = k [kh*kw*C][2C]; cond is
+// this layer's [2C][T] slice of batch row 0, cond_bstride floats between
+// batch rows; out = z. rs: src = z (kh = 1, kw = 1); w = rs_w [C][2C];
+// bias = rs_b [2C]; cur = the layer's input h; out = h_out (unused when
+// !has_res); skip is written when first, else added to. win_stride: the
+// padded row stride of a staged window, >= kw * N.
+struct LayerArgs {
+  const float* src;
+  size_t slot_stride;
+  int kh, rot;
+  const float* w;
+  const float* cond;
+  size_t cond_bstride;
+  const float* bias;
+  const float* cur;
+  float* out;
+  float* skip;
+  int C, T, kw, dil, first, has_res, win_stride;
+};
+
+__host__ __device__ constexpr int tile_rows(int WM) { return 32 * WM; }
+__host__ __device__ constexpr int tile_samples(int WN, int NJ) { return 8 * WN * NJ; }
+
+inline long long gemm_smem(int WM, int kw, int win_stride) {
+  return 4LL * kKc * (kStages * pad_stride(tile_rows(WM)) +
+                      (kw >= 2 ? 2 : 3) * win_stride);
+}
+
+// grid (ceil(T / N), C / m, B) with m = 16 WM, N = 8 WN NJ; WM x WN warps,
+// gemm_smem(WM, kw, win_stride) bytes of shared memory.
+template <int WM, int WN, int NJ, bool kRs>
+__global__ void __launch_bounds__(WM * WN * 32, 16 / (WM * WN))
+wn_gemm(const LayerArgs a) {
+  constexpr int NT = WM * WN * 32;
+  constexpr int MB = tile_rows(WM), NB = tile_samples(WN, NJ);
+  constexpr int WST = pad_stride(MB);
   extern __shared__ __align__(16) float smem[];
-  const int t_groups = kThreads / (C / kCo);
-  const int Wt = t_groups * kT;
-  const int C2 = 2 * C;
-  float* outs = smem;                        // [C][Wt] gated activations
-  float* stages = smem + (size_t)C * Wt;     // kStages x {ws [kKc][2C], xs [kKc][Wt]}
-  const int stage_floats = kKc * (C2 + Wt);
+  const int sst = a.win_stride;
+  const int nwin = a.kw >= 2 ? 2 : 3;
+  float* wbuf = smem;                             // [kStages][kKc][WST]
+  float* xbuf = smem + kStages * kKc * WST;       // [nwin][kKc][sst]
 
-  const int b = blockIdx.y, t0 = blockIdx.x * Wt;
-  const int cg = threadIdx.x / t_groups, tg = threadIdx.x - cg * t_groups;
-  const int co0 = cg * kCo, s0 = tg * kT;
+  const int C = a.C, T = a.T, C2 = 2 * C, kw = a.kw, dil = a.dil;
+  const int t0 = blockIdx.x * NB, c0 = blockIdx.y * (16 * WM), b = blockIdx.z;
   const size_t bct = (size_t)b * C * T;
-  // staging the input window: thread -> column col0 (+ kThreads ...), rows
-  // q, q + nq, ...; threads beyond nq * Wt sit it out
-  const int nq = kThreads / Wt > 0 ? kThreads / Wt : 1;
-  const int q = threadIdx.x / Wt, col0 = threadIdx.x - q * Wt;
-  // K steps: kh * kw * chunks of the conv (kernel row r, tap, input channels
-  // [c0, c0 + kKc)), then chunks of the res/skip product over the gated tile
-  const int chunks = C / kKc, conv_steps = kh * kw * chunks;
-  const int steps = conv_steps + chunks;
+  const int chunks = C / kKc;
+  const int n_steps = a.kh * chunks * kw;         // (kernel row, chunk, tap)
+  const int half = kw / 2;
+  // The staged window of a chunk: kw segments of NB samples (seg), or one
+  // span whose column j is sample g0 + j, g0 a multiple of 4.
+  const bool seg = dil >= NB;
+  const int lead = t0 - half * dil;
+  const int g0 = lead & ~3;
+  const int span = seg ? kw * NB : (lead - g0 + NB + (kw - 1) * dil + 3) & ~3;
+  const bool vec = (T & 3) == 0;
 
-  // Start the copies of K step s into its stage: kKc rows of the weights
-  // (contiguous in k and in rs_w) and, for a conv step, the input window.
-  auto prefetch = [&](int s) {
-    if (s < steps) {
-      float* ws = stages + (size_t)(s % kStages) * stage_floats;
-      const float* src = s < conv_steps ? k + (size_t)s * kKc * C2
-                                        : rs_w + (size_t)(s - conv_steps) * kKc * C2;
-      for (int i = threadIdx.x * 4; i < kKc * C2; i += kThreads * 4)
-        copy_async16(ws + i, src + i);
-      if (s < conv_steps) {
-        float* xs = ws + kKc * C2;
-        const int rt = s / chunks, c0 = (s - rt * chunks) * kKc;
-        const int r = rt / kw, tap = rt - r * kw;
-        const int off = (tap - kw / 2) * dil;
-        const float* row = rows + (size_t)((rot + 1 + r) % kh) * slot_stride + bct +
-                           (size_t)c0 * T;
-        if (q < nq)
-          for (int col = col0; col < Wt; col += kThreads) {
-            const int p = t0 + col + off;
-            const bool valid = p >= 0 && p < T;
-            for (int ci = q; ci < kKc; ci += nq)
-              copy_async4(xs + ci * Wt + col, valid ? row + (size_t)ci * T + p : row,
-                          valid);
-          }
+  auto load_step = [&](int s) {
+    const int win = s / kw, tap = s - win * kw;
+    const int r = win / chunks, ci0 = (win - r * chunks) * kKc;
+    // weights: rows (r, tap, ci0 ..) of w; warp w's 32 columns are the
+    // first half's c0 + 16 w .. + 16, then the second half's
+    const float* wsrc = a.w + ((size_t)(r * kw + tap) * C + ci0) * C2;
+    float* wdst = wbuf + (s % kStages) * kKc * WST;
+    for (int i = threadIdx.x; i < kKc * MB / 4; i += NT) {
+      const int k = i / (MB / 4), j = (i - k * (MB / 4)) * 4;
+      const int col = c0 + 16 * (j >> 5) + (j & 15) + ((j >> 4) & 1) * C;
+      copy_async16(wdst + k * WST + j, wsrc + (size_t)k * C2 + col);
+    }
+    if (tap == 0) {
+      const float* row = a.src + (size_t)((a.rot + 1 + r) % a.kh) * a.slot_stride +
+                         bct + (size_t)ci0 * T;
+      float* xdst = xbuf + (win % nwin) * kKc * sst;
+      auto sample = [&](int j) {
+        if (!seg) return g0 + j;
+        const int q = j / NB;
+        return t0 + (q - half) * dil + (j - q * NB);
+      };
+      if (vec) {
+        const int n4 = span / 4;
+        for (int i = threadIdx.x; i < kKc * n4; i += NT) {
+          const int k = i / n4, j = (i - k * n4) * 4;
+          const int p = sample(j);
+          const bool ok = p >= 0 && p < T;
+          copy_async16z(xdst + k * sst + j, ok ? row + (size_t)k * T + p : row, ok);
+        }
+      } else {
+        for (int i = threadIdx.x; i < kKc * span; i += NT) {
+          const int k = i / span, j = i - k * span;
+          const int p = sample(j);
+          const bool ok = p >= 0 && p < T;
+          copy_async4(xdst + k * sst + j, ok ? row + (size_t)k * T + p : row, ok);
+        }
       }
     }
-    asm volatile("cp.async.commit_group;\n" ::);   // one group per step, even empty
   };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) prefetch(s);
+  load_step(0);
+  commit_async();
+  if (n_steps > 1) load_step(1);
+  commit_async();
 
-  float acc_a[kCo][kT], acc_g[kCo][kT];
-  {
-    const float* cb = cond + (size_t)b * cond_bstride;
-#pragma unroll
-    for (int i = 0; i < kCo; ++i)
-#pragma unroll
-      for (int j = 0; j < kT; ++j) {
-        const int p = t0 + s0 + j;
-        acc_a[i][j] = p < T ? cb[(size_t)(co0 + i) * T + p] : 0.f;
-        acc_g[i][j] = p < T ? cb[(size_t)(C + co0 + i) * T + p] : 0.f;
-      }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % WM, m0 = 32 * wm, n0 = (warp / WM) * 8 * NJ;
+  float acc[2][NJ][4];
+  zero(acc);
+
+  for (int s = 0; s < n_steps; ++s) {
+    wait_async<1>();                         // step s is in
+    __syncthreads();                         // ... for all; step s - 1 is done
+    if (s + 2 < n_steps) load_step(s + 2);   // into buffers no step reads now
+    commit_async();
+    const int win = s / kw, tap = s - win * kw;
+    const float* xs = xbuf + (win % nwin) * kKc * sst +
+                      (seg ? tap * NB : lead - g0 + tap * dil);
+    mma_chunk<2, NJ>(wbuf + (s % kStages) * kKc * WST, WST, m0, MB, xs, sst, n0,
+                     kKc, acc);
   }
 
-  for (int s = 0; s < steps; ++s) {
-    wait_async<kStages - 2>();     // step s has landed
-    __syncthreads();               // ... for every thread; step s - 1 is consumed
-    prefetch(s + kStages - 1);     // into the stage step s - 1 used
-    const float* ws = stages + (size_t)(s % kStages) * stage_floats + co0;
-    if (s < conv_steps) {
-      const float* xs = ws - co0 + kKc * C2 + s0;
-#pragma unroll 4
-      for (int ci = 0; ci < kKc; ++ci) {
-        float wa[kCo], wg[kCo], xv[kT];
-        load_x(ws + ci * C2, wa);
-        load_x(ws + ci * C2 + C, wg);
-        load_x(xs + ci * Wt, xv);
-        fma_tile(wa, xv, acc_a);
-        fma_tile(wg, xv, acc_g);
-      }
-      if (s == conv_steps - 1) {
-        // gate; the tile is read after the next step's barrier. Then the
-        // accumulators start over: acc_a the res half, acc_g the skip half
+  // tile 0 holds the first half's channel c, tile 1 the second half's
+  const float* cb = kRs ? nullptr : a.cond + (size_t)b * a.cond_bstride;
 #pragma unroll
-        for (int i = 0; i < kCo; ++i) {
-          const float br = kHasRes ? rs_b[co0 + i] : 0.f, bs = rs_b[C + co0 + i];
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
-          for (int j = 0; j < kT; ++j) {
-            outs[(size_t)(co0 + i) * Wt + s0 + j] =
-                tanhf(acc_a[i][j]) / (1.f + expf(-acc_g[i][j]));
-            acc_a[i][j] = br;
-            acc_g[i][j] = bs;
-          }
-        }
-      }
-    } else {
-      const float* xs = outs + (size_t)(s - conv_steps) * kKc * Wt + s0;
-#pragma unroll 4
-      for (int ci = 0; ci < kKc; ++ci) {
-        float w[kCo], xv[kT];
-        load_x(xs + ci * Wt, xv);
-        if (kHasRes) {
-          load_x(ws + ci * C2, w);
-          fma_tile(w, xv, acc_a);
-        }
-        load_x(ws + ci * C2 + C, w);
-        fma_tile(w, xv, acc_g);
-      }
-    }
-  }
-
-  const float* cur = rows + (size_t)rot * slot_stride + bct;
-#pragma unroll
-  for (int i = 0; i < kCo; ++i)
-#pragma unroll
-    for (int j = 0; j < kT; ++j) {
-      const int p = t0 + s0 + j;
-      if (p < T) {
-        const size_t o = (size_t)(co0 + i) * T + p;
-        if (kHasRes) h_out[bct + o] = cur[o] + acc_a[i][j];
-        skip[bct + o] = first ? acc_g[i][j] : skip[bct + o] + acc_g[i][j];
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + 16 * wm + g + (e >= 2 ? 8 : 0);
+      const int p = t0 + n0 + 8 * j + 2 * t + (e & 1);
+      if (p >= T) continue;
+      const size_t o = bct + (size_t)c * T + p;
+      if (!kRs) {
+        const float va = acc[0][j][e] + cb[(size_t)c * T + p];
+        const float vg = acc[1][j][e] + cb[(size_t)(C + c) * T + p];
+        a.out[o] = tanhf(va) / (1.f + expf(-vg));
+      } else {
+        if (a.has_res) a.out[o] = a.cur[o] + (acc[0][j][e] + a.bias[c]);
+        const float v = acc[1][j][e] + a.bias[C + c];
+        a.skip[o] = a.first ? v : a.skip[o] + v;
       }
     }
 }
 
-// Shared memory of a layer launch: the gated tile and the stages.
-inline size_t wn_layer_smem(int C, int kT) {
-  const int Wt = kThreads / (C / kCo) * kT;
-  return ((size_t)C * Wt + (size_t)kStages * kKc * (2 * C + Wt)) * sizeof(float);
+template <int WM, int WN, int NJ, bool kRs>
+cudaError_t launch_gemm(const LayerArgs& a, int B, long long smem,
+                        cudaStream_t stream) {
+  constexpr int NB = tile_samples(WN, NJ);
+  if (a.C % (16 * WM) || a.C % kKc || a.win_stride < a.kw * NB ||
+      smem < gemm_smem(WM, a.kw, a.win_stride) || smem > kSmemMax)
+    return cudaErrorInvalidValue;
+  auto kernel = wn_gemm<WM, WN, NJ, kRs>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.T + NB - 1) / NB, a.C / (16 * WM), B);
+  kernel<<<grid, WM * WN * 32, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
-// Samples per thread for a launch over B rows of T samples. The tile is
-// t_groups * kT samples wide and a block fills an SM, so a launch takes
-// ceil(blocks / SMs) waves; a wave's time grows with kT as measured on an
-// H100 (in tenths of the kT = 4 wave: 10, 14, 19; kT = 5 pays for scalar
-// shared-memory loads). The cheapest wins: 10 000 samples at C = 256 are
-// 157 tiles of 64 (two waves on 132 SMs, the second 19% full) but 250 tiles
-// of 40 (two waves, both full); at 4 x 10 000 the widest tile wins.
-// tools/bench_wn_tiles.py measures the table.
-inline int& wn_forced_kt() {   // 0: pick; 4, 5 or 8: what a benchmark forces
-  static int kt = 0;
-  return kt;
+// One launch of a layer with tile shape `tile` of WN_TILES
+// (ops/hopper_kernels.py): (WM, WN, NJ) in this order.
+template <bool kRs>
+cudaError_t launch_layer(int tile, const LayerArgs& a, int B, long long smem,
+                         cudaStream_t stream) {
+  switch (tile) {
+    case 0: return launch_gemm<4, 2, 4, kRs>(a, B, smem, stream);
+    case 1: return launch_gemm<4, 2, 2, kRs>(a, B, smem, stream);
+    case 2: return launch_gemm<4, 2, 1, kRs>(a, B, smem, stream);
+    case 3: return launch_gemm<4, 1, 1, kRs>(a, B, smem, stream);
+    case 4: return launch_gemm<2, 4, 2, kRs>(a, B, smem, stream);
+    case 5: return launch_gemm<2, 4, 1, kRs>(a, B, smem, stream);
+    case 6: return launch_gemm<2, 2, 1, kRs>(a, B, smem, stream);
+    case 7: return launch_gemm<2, 1, 1, kRs>(a, B, smem, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-inline int wn_pick_kt(int B, int C, int T) {
-  if (wn_forced_kt()) return wn_forced_kt();
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const int t_groups = kThreads / (C / kCo);
-  const int kts[3] = {8, 5, 4}, wave_cost[3] = {19, 14, 10};
-  int best = 0;
-  long best_cost = 0;
-  for (int i = 0; i < 3; ++i) {
-    const int Wt = t_groups * kts[i];
-    const long blocks = (long)B * ((T + Wt - 1) / Wt);
-    const long cost = (blocks + n_sm - 1) / n_sm * wave_cost[i];
-    if (i == 0 || cost < best_cost) {
-      best = kts[i];
-      best_cost = cost;
-    }
-  }
-  return best;
-}
+// The plan of one WN call, from wn_layer_plan: per launch of a layer
+// (conv, then res/skip) its tile, window stride and shared memory bytes.
+struct Plan {
+  int conv_tile, conv_win_stride, conv_smem, rs_tile, rs_win_stride, rs_smem;
+};
 
 inline cudaError_t launch_start(const float* x, const float* w, const float* bias,
                                 int B, int Cin, int C, int T, float* h,
@@ -328,38 +333,33 @@ inline cudaError_t launch_start(const float* x, const float* w, const float* bia
 inline cudaError_t launch_end(const float* skip, const float* w, const float* bias,
                               int B, int C, int Cout, int T, float* st,
                               cudaStream_t stream) {
-  const dim3 grid((T + kSmall - 1) / kSmall, (Cout + kCo - 1) / kCo, B);
+  const dim3 grid((T + 31) / 32, (Cout + kCo - 1) / kCo, B);
   wn_end_kernel<<<grid, kSmall, 0, stream>>>(skip, w, bias, C, Cout, T, st);
   return cudaGetLastError();
 }
 
-template <int kT>
-inline cudaError_t launch_layer_kt(bool has_res, const float* rows, size_t slot_stride,
-                                   int kh, int rot, const float* cond,
-                                   size_t cond_bstride, const float* k,
-                                   const float* rs_w, const float* rs_b, int B, int C,
-                                   int T, int kw, int dil, int first, float* h_out,
-                                   float* skip, cudaStream_t stream) {
-  const int Wt = kThreads / (C / kCo) * kT;
-  const size_t smem = wn_layer_smem(C, kT);
-  auto kernel = has_res ? wn_layer_kernel<kT, true> : wn_layer_kernel<kT, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Layer i of a WN: the conv launch over `rows` (a ring of kh slots) into z,
+// then the res/skip launch from z. w_conv, cond, w_rs, bias: this layer's.
+// Counts the launches made in *launches.
+inline cudaError_t launch_wn_layer(const Plan& plan, int i, int L, const float* rows,
+                                   size_t slot_stride, int kh, int rot,
+                                   const float* cond, size_t cond_bstride,
+                                   const float* w_conv, const float* w_rs,
+                                   const float* bias, int B, int C, int T, int kw,
+                                   float* z, float* h_out, float* skip,
+                                   int* launches, cudaStream_t stream) {
+  LayerArgs conv{rows, slot_stride, kh, rot, w_conv, cond, cond_bstride, nullptr,
+                 nullptr, z, nullptr, C, T, kw, 1 << i, 0, 0,
+                 plan.conv_win_stride};
+  cudaError_t err = launch_layer<false>(plan.conv_tile, conv, B, plan.conv_smem, stream);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + Wt - 1) / Wt, B);
-  kernel<<<grid, kThreads, smem, stream>>>(rows, slot_stride, kh, rot, cond,
-                                           cond_bstride, k, rs_w, rs_b, C, T, kw,
-                                           dil, first, h_out, skip);
-  return cudaGetLastError();
-}
-
-template <typename... Args>
-inline cudaError_t launch_layer(int kT, Args... args) {
-  switch (kT) {
-    case 4: return launch_layer_kt<4>(args...);
-    case 5: return launch_layer_kt<5>(args...);
-    default: return launch_layer_kt<8>(args...);
-  }
+  ++*launches;
+  LayerArgs rs{z, 0, 1, 0, w_rs, nullptr, 0, bias,
+               rows + (size_t)rot * slot_stride, h_out, skip, C, T, 1, 1,
+               i == 0, i < L - 1, plan.rs_win_stride};
+  err = launch_layer<true>(plan.rs_tile, rs, B, plan.rs_smem, stream);
+  if (err == cudaSuccess) ++*launches;
+  return err;
 }
 
 }  // namespace wn

@@ -377,22 +377,111 @@ def waveglow_wn_forward_plain(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
     return torch.matmul(end_w.t(), skip) + end_b[:, None]
 
 
+# The layer kernel's tile shapes (csrc/wn_layer.cuh, launch_layer), by id:
+# (WM, WN, NJ) = WM x WN warps, each 32 rows (16 channel pairs) x 8 NJ
+# samples; a block owns m = 16 WM channel pairs by 8 WN NJ samples.
+WN_TILES = ((4, 2, 4), (4, 2, 2), (4, 2, 1), (4, 1, 1),
+            (2, 4, 2), (2, 4, 1), (2, 2, 1), (2, 1, 1))
+WN_KC, WN_STAGES = 32, 3        # input channels a K step; weight slabs in flight
+N_SM = 132                      # SMs of an H100 SXM
+# Samples (B x T') from which a launch must give every SM a block; below,
+# half of them. A layer at a request's length is a few K steps of latency,
+# where larger blocks on fewer SMs measured faster (tools/bench_wn_tiles.py).
+WN_FILL_FROM = 1500
+
+
+@dataclasses.dataclass(frozen=True)
+class WnLaunch:
+    """One launch of a WN layer. Block (x, y, z) of ``grid`` writes batch
+    row z, channels [y m, (y + 1) m) of its output (z for the conv; h_out
+    and the skip sum for res/skip), samples [x n, (x + 1) n) of [0, T).
+    ``win_stride`` is the padded row stride of a staged input window (floats),
+    ``smem`` the shared memory bytes."""
+    tile: int
+    m: int
+    n: int
+    threads: int
+    grid: Tuple[int, int, int]
+    win_stride: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+@dataclasses.dataclass(frozen=True)
+class WnPlan:
+    """The two launches of every layer of one WN call: the conv (into z),
+    then res/skip (from z)."""
+    conv: WnLaunch
+    rs: WnLaunch
+
+    def ints(self):
+        """The plan as the C side takes it (csrc/wn_layer.cuh: wn::Plan)."""
+        return (ctypes.c_int * 6)(self.conv.tile, self.conv.win_stride,
+                                  self.conv.smem, self.rs.tile,
+                                  self.rs.win_stride, self.rs.smem)
+
+
+def wn_launch(tile: int, B: int, C: int, T: int, kw: int) -> WnLaunch:
+    """The launch of tile shape ``tile`` over B rows of T samples, C channel
+    pairs, kw taps (1: the res/skip product). Raises where it does not fit."""
+    wm, wn, nj = WN_TILES[tile]
+    m, n, threads = 16 * wm, 8 * wn * nj, 32 * wm * wn
+    if C % m or C % WN_KC:
+        raise ValueError(f"WN tile {tile}: C={C} is not a multiple of {m}")
+    win_stride = _pad_stride(kw * n)
+    smem = 4 * WN_KC * (WN_STAGES * _pad_stride(2 * m)
+                        + (2 if kw >= 2 else 3) * win_stride)
+    if smem > SMEM_MAX:
+        raise ValueError(f"WN tile {tile}: kw={kw} needs {smem} B of shared "
+                         f"memory (max {SMEM_MAX})")
+    return WnLaunch(tile, m, n, threads, (-(-T // n), C // m, B), win_stride,
+                    smem)
+
+
+def _wn_pick(B: int, C: int, T: int, kw: int) -> WnLaunch:
+    """The largest block (channel pairs x samples; at equal size the fewer
+    pairs) that still gives every SM a block, or half of them below
+    WN_FILL_FROM samples; where none does, the tile with the most blocks."""
+    fits = [wn_launch(i, B, C, T, kw) for i, (wm, _, _) in enumerate(WN_TILES)
+            if C % (16 * wm) == 0]
+    need = N_SM if B * T >= WN_FILL_FROM else N_SM // 2
+    ok = [f for f in fits if f.blocks >= need] or [max(fits, key=lambda f: f.blocks)]
+    return max(ok, key=lambda f: (f.m * f.n, -f.m))
+
+
+def wn_layer_plan(B: int, C: int, T: int, rows: int, kw: int) -> WnPlan:
+    """Launch plan of every layer of a WN over B rows of T samples at C
+    channels with a (rows x kw)-tap conv: the tile of each of its two
+    launches, picked by the blocks it gives and the SMs they fill. Raises
+    for what the kernels do not take."""
+    if C not in (32, 64, 128, 256):
+        raise ValueError(f"WN: n_channels={C} unsupported (32, 64, 128 or "
+                         "256: a layer's tiles must fit shared memory)")
+    if kw % 2 == 0 or rows < 1 or B < 1 or T < 1:
+        raise ValueError(f"WN: B={B}, T={T}, rows={rows}, kw={kw} unsupported "
+                         "(kw odd, the rest positive)")
+    return WnPlan(_wn_pick(B, C, T, kw), _wn_pick(B, C, T, 1))
+
+
 def wn_launches(L: int) -> int:
     """Kernel launches of one WN evaluation on the card: the start product,
-    one per layer, the end product."""
-    return L + 2
+    two per layer (WnPlan's conv and res/skip), the end product."""
+    return 2 * L + 2
 
 
-def _check_wn_width(kernel: str, C: int) -> None:
-    if C not in (32, 64, 128, 256):
-        raise ValueError(f"{kernel}: n_channels={C} unsupported (32, 64, 128 "
-                         "or 256: a layer's tiles must fit shared memory)")
+def _launch_wn(kernel: str, fn, *args) -> None:
+    launches = ctypes.c_int(0)
+    _raise_on(fn(*args, ctypes.byref(launches), _stream()), kernel)
+    LAUNCHES[kernel] += launches.value
 
 
 class _WaveglowWnForward(_NoBackward):
     @staticmethod
     def forward(ctx, x, cond_bc, start_w, start_b, k_all, rs_w, rs_b, end_w,
-                end_b):
+                end_b, plan):
         B, Cin, T = x.shape
         L, KC, C2 = k_all.shape
         C, Cout = C2 // 2, end_w.shape[1]
@@ -404,28 +493,27 @@ class _WaveglowWnForward(_NoBackward):
                 ("rs_b", rs_b, (L, C2)), ("end_w", end_w, (C, Cout)),
                 ("end_b", end_b, (Cout,))):
             _check(f"waveglow_wn_forward {name}", t, shape)
-        _check_wn_width("waveglow_wn_forward", C)
+        plan = plan or wn_layer_plan(B, C, T, 1, kw)
         lib = _build.library("waveglow_wn")
         scratch = torch.empty((3, B, C, T), device=x.device, dtype=torch.float32)
         st = torch.empty((B, Cout, T), device=x.device, dtype=torch.float32)
-        err = lib.waveglow_wn_forward(
-            _ptr(x), _ptr(cond_bc), _ptr(start_w), _ptr(start_b), _ptr(k_all),
-            _ptr(rs_w), _ptr(rs_b), _ptr(end_w), _ptr(end_b), B, Cin, C, Cout,
-            T, L, kw, _ptr(scratch), _ptr(st), _stream())
-        _raise_on(err, "waveglow_wn_forward")
-        LAUNCHES["waveglow_wn_forward"] += wn_launches(L)
+        _launch_wn("waveglow_wn_forward", lib.waveglow_wn_forward,
+                   _ptr(x), _ptr(cond_bc), _ptr(start_w), _ptr(start_b),
+                   _ptr(k_all), _ptr(rs_w), _ptr(rs_b), _ptr(end_w), _ptr(end_b),
+                   B, Cin, C, Cout, T, L, kw, plan.ints(), _ptr(scratch), _ptr(st))
         return st
 
 
 def waveglow_wn_forward(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
-                        end_w, end_b) -> torch.Tensor:
-    """Fused WN of one WaveGlow flow, GTU only (see
-    waveglow_wn_forward_plain); on the card one launch per layer plus the
-    start and end products."""
+                        end_w, end_b, plan: Optional[WnPlan] = None
+                        ) -> torch.Tensor:
+    """WN of one WaveGlow flow, GTU only (see waveglow_wn_forward_plain); on
+    the card two launches per layer (the conv, then res/skip, tiled by
+    ``plan``, by default wn_layer_plan's) plus the start and end products."""
     args = (x, cond_bc, start_w, start_b, k_all, rs_w, rs_b, end_w, end_b)
     if not _dispatch(x, "waveglow_wn_forward"):
         return waveglow_wn_forward_plain(*args)
-    return _WaveglowWnForward.apply(*args)
+    return _WaveglowWnForward.apply(*args, plan)
 
 
 def waveflow_row_step_plain(x_prev, queues, cond_bc, start_w, start_b, k_all,
@@ -475,7 +563,7 @@ def waveflow_row_step_ring_plain(x_prev, ring, step: int, cond_bc, *weights,
 class _WaveflowRowStep(_NoBackward):
     @staticmethod
     def forward(ctx, x_prev, ring, step, cond_bc, start_w, start_b, k_all,
-                rs_w, rs_b, end_w, end_b):
+                rs_w, rs_b, end_w, end_b, plan):
         B, W = x_prev.shape
         L, kh, _, C, _ = ring.shape
         C2 = 2 * C
@@ -488,33 +576,35 @@ class _WaveflowRowStep(_NoBackward):
                 ("rs_w", rs_w, (L, C, C2)), ("rs_b", rs_b, (L, C2)),
                 ("end_w", end_w, (C, 2)), ("end_b", end_b, (2,))):
             _check(f"waveflow_row_step {name}", t, shape)
-        _check_wn_width("waveflow_row_step", C)
+        plan = plan or wn_layer_plan(B, C, W, kh, kw)
         lib = _build.library("waveflow_row")
-        skip = torch.empty((B, C, W), device=ring.device, dtype=torch.float32)
+        scratch = torch.empty((2, B, C, W), device=ring.device, dtype=torch.float32)
         st = torch.empty((B, 2, W), device=ring.device, dtype=torch.float32)
-        err = lib.waveflow_row_step(
-            _ptr(x_prev), _ptr(ring), int(step), _ptr(cond_bc), _ptr(start_w),
-            _ptr(start_b), _ptr(k_all), _ptr(rs_w), _ptr(rs_b), _ptr(end_w),
-            _ptr(end_b), B, C, W, L, kh, kw, _ptr(skip), _ptr(st), _stream())
-        _raise_on(err, "waveflow_row_step")
-        LAUNCHES["waveflow_row_step"] += wn_launches(L)
+        _launch_wn("waveflow_row_step", lib.waveflow_row_step,
+                   _ptr(x_prev), _ptr(ring), int(step), _ptr(cond_bc),
+                   _ptr(start_w), _ptr(start_b), _ptr(k_all), _ptr(rs_w),
+                   _ptr(rs_b), _ptr(end_w), _ptr(end_b), B, C, W, L, kh, kw,
+                   plan.ints(), _ptr(scratch), _ptr(st))
         return st[:, 0], st[:, 1]
 
 
 def waveflow_row_step(x_prev, ring, step: int, cond_bc, start_w, start_b,
-                      k_all, rs_w, rs_b, end_w, end_b
+                      k_all, rs_w, rs_b, end_w, end_b,
+                      plan: Optional[WnPlan] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One WaveFlow inverse row step, GTU only, with the queues kept as a
     ring of kh row slots per layer, ``ring`` [L, kh, B, C, W], updated in
     place: row ``step`` of every layer's input lands in slot ``step % kh``,
     the oldest row there, and the conv reads the slots with its kernel rows
     rotated by ``step % kh``. Nothing is shifted or copied, and since a
-    layer's launch only reads its own ring and writes the next layer's, no
-    block reads what another writes. Start with a zero ring at step 0.
+    layer's conv only reads its own ring and its res/skip launch writes only
+    the next layer's oldest slot, no block reads what another writes. Start with a zero ring at step 0.
     Returns (log_s [B, W], t [B, W]); ``ring_queues(ring, step + 1)`` are
-    then the new queues of waveflow_row_step_plain."""
+    then the new queues of waveflow_row_step_plain. On the card: two
+    launches per layer, tiled by ``plan`` (by default wn_layer_plan's), plus
+    the start and end products."""
     args = (x_prev, ring, step, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
             end_w, end_b)
     if not _dispatch(x_prev, "waveflow_row_step"):
         return waveflow_row_step_ring_plain(*args)
-    return _WaveflowRowStep.apply(*args)
+    return _WaveflowRowStep.apply(*args, plan)

@@ -5,6 +5,8 @@ JAX runs its Pallas kernels in interpret mode here (``use_pallas=True``) as
 well as its plain jnp path. The CUDA kernels themselves need the card:
 ``chip_smoke.py`` holds them against these plain versions there.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -158,6 +160,53 @@ def test_lstm_gates_plan_assigns_w_once(B, F, H):
     assert plan.tickets == groups * tiles
 
 
+@pytest.mark.parametrize("T", [250, 1500, 10000, 30000])
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+def test_wn_layer_plan_fits_and_covers(C, rows, T):
+    """Both launches of a WN layer at every width the kernels take, for
+    WaveGlow's one row and WaveFlow's three: each fits a block's shared
+    memory and stages a window as wide as its taps read, its blocks write
+    every (batch row, output channel, sample) exactly once, and from
+    T' = 1500 on a single batch row gives every SM of the card a block."""
+    for B in (1, 2):
+        plan = hk.wn_layer_plan(B, C, T, rows, 3)
+        for launch, kw in ((plan.conv, 3), (plan.rs, 1)):
+            wm, wn, nj = hk.WN_TILES[launch.tile]
+            m, n = launch.m, launch.n
+            assert (m, n, launch.threads) == (16 * wm, 8 * wn * nj, 32 * wm * wn)
+            assert launch.smem <= 232448
+            assert launch.win_stride >= kw * n
+            gx, gy, gz = launch.grid
+            covered = np.zeros((B, C, T), np.uint8)
+            for z in range(gz):
+                for y in range(gy):
+                    for x in range(gx):
+                        covered[z, y * m:(y + 1) * m, x * n:(x + 1) * n] += 1
+            assert (covered == 1).all() and gx * n - T < n
+            if T >= 1500 and B == 1:
+                assert launch.blocks >= 132
+
+
+def test_wn_layer_plan_refuses_what_the_kernels_do_not_take():
+    for C, kw in ((48, 3), (512, 3), (64, 4)):
+        with pytest.raises(ValueError):
+            hk.wn_layer_plan(1, C, 100, 1, kw)
+    with pytest.raises(ValueError):
+        hk.wn_launch(0, 1, 32, 100, 3)       # 64 channel pairs a block > C
+
+
+def test_wn_launches_follow_the_plan():
+    """Each layer makes the plan's launches (the conv, then res/skip); the
+    start and end products make two more."""
+    per_layer = len(dataclasses.fields(hk.WnPlan))
+    for L in (1, 4, 8):
+        assert hk.wn_launches(L) == 2 + per_layer * L
+    plan = hk.wn_layer_plan(1, 64, 500, 3, 3)
+    assert list(plan.ints()) == [getattr(launch, k) for launch in (plan.conv, plan.rs)
+                                 for k in ("tile", "win_stride", "smem")]
+
+
 def _tf32(a):
     """What the tensor core reads of an f32 operand in a TF32 product: the
     top 10 mantissa bits, the 13 low bits cleared."""
@@ -165,31 +214,99 @@ def _tf32(a):
     return (bits & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def test_3xtf32_keeps_f32_accuracy_where_1xtf32_does_not():
-    """Why hifigan_resblock.cu takes three tensor-core products: a k=11,
-    C=64 dilated conv as the kernel computes it, emulated in numpy. With
-    hi = tf32(a) and lo = a - hi (itself read as TF32), lo*hi + hi*lo +
-    hi*hi is within 1e-5 (relative to the output's scale) of the f32 conv;
-    hi*hi alone misses the kernel's 1e-4 tolerance against its plain
-    version."""
+def _products(mode):
+    """w [K, M], x [K, N] -> w^T x in f64 ("f64"), in f32 ("f32", the plain
+    version), or as the tensor cores compute it in 3xTF32 ("3x": lo*hi +
+    hi*lo + hi*hi with hi = tf32(a), lo = tf32(a - hi)) or 1xTF32 ("1x":
+    hi*hi)."""
+    def prod(w, x):
+        if mode == "f64":
+            return w.T.astype(np.float64) @ x.astype(np.float64)
+        if mode == "f32":
+            return w.T @ x
+        wh, xh = _tf32(w), _tf32(x)
+        if mode == "1x":
+            return wh.T @ xh
+        wl, xl = _tf32(w - wh), _tf32(x - xh)
+        return wl.T @ xh + wh.T @ xl + wh.T @ xh
+    return prod
+
+
+def _shifted(a, off):
+    """a [C, T] shifted by off samples (out[:, t] = a[:, t + off]), zeros
+    outside [0, T)."""
+    out = np.zeros_like(a)
+    T = a.shape[1]
+    lo, hi = max(0, -off), min(T, T - off)
+    out[:, lo:hi] = a[:, lo + off:hi + off]
+    return out
+
+
+def _emulated_wn(prod, x, queues, cond, weights, rows, kw):
+    """One WN evaluation as wn_layer.cuh computes it: the conv and res/skip
+    products through ``prod``, the start and end products in f32 (the
+    kernels' scalar start and end). x [Cin, T]; queues [L, rows-1, C, T]:
+    each layer's earlier input rows, oldest first; cond [L, 2C, T]."""
+    start_w, start_b, k_all, rs_w, rs_b, end_w, end_b = weights
+    L, C = rs_w.shape[:2]
+    h = start_w.T @ x + start_b[:, None]
+    skip = 0
+    for i in range(L):
+        d = 2 ** i
+        ins = list(queues[i]) + [h]
+        cols = np.concatenate([_shifted(ins[r], (tap - kw // 2) * d)
+                               for r in range(rows) for tap in range(kw)])
+        acts = prod(k_all[i], cols) + cond[i]
+        z = np.tanh(acts[:C]) / (1 + np.exp(-acts[C:]))
+        rs = prod(rs_w[i], z) + rs_b[i][:, None]
+        if i < L - 1:
+            h = h + rs[:C]
+        skip = skip + rs[C:]
+    return end_w.T @ skip + end_b[:, None]
+
+
+@pytest.mark.parametrize("case", ["resblock", "waveglow_wn", "waveflow_wn"])
+def test_3xtf32_keeps_f32_accuracy_where_1xtf32_does_not(case):
+    """Why hifigan_resblock.cu and wn_layer.cuh take three tensor-core
+    products, emulated in numpy: a k=11, C=64 dilated conv as the resblock
+    kernel computes it; a whole WN (C=64, 4 layers, T'=256, the weight
+    scales of chip_smoke.py) as the WN kernels do, WaveGlow-like (one row,
+    3 taps) and WaveFlow-like (3 rows x 3 taps). With hi = tf32(a) and
+    lo = a - hi (itself read as TF32), lo*hi + hi*lo + hi*hi stays within
+    the kernels' tolerance against their f32 plain versions; hi*hi alone
+    misses it."""
     rng = np.random.default_rng(0)
-    C, k, d, T = 64, 11, 3, 256
-    x = rng.standard_normal((C, T)).astype(np.float32)
-    w = (rng.standard_normal((k, C, C)) * (C * k) ** -0.5).astype(np.float32)
-    xp = np.pad(x, ((0, 0), (d * (k // 2),) * 2))
-    cols = np.concatenate([xp[:, j * d:j * d + T] for j in range(k)])   # [kC, T]
-    wm = w.reshape(k * C, C)                                            # [kC, Co]
-    ref = wm.T.astype(np.float64) @ cols.astype(np.float64)
-    f32 = wm.T @ cols
-    wh, xh = _tf32(wm), _tf32(cols)
-    wl, xl = _tf32(wm - wh), _tf32(cols - xh)
-    three = wl.T @ xh + wh.T @ xl + wh.T @ xh
-    one = wh.T @ xh
+    f = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
+    if case == "resblock":
+        C, k, d, T = 64, 11, 3, 256
+        x = f(C, T)
+        w = f(k, C, C, scale=(C * k) ** -0.5)
+        xp = np.pad(x, ((0, 0), (d * (k // 2),) * 2))
+        cols = np.concatenate([xp[:, j * d:j * d + T] for j in range(k)])  # [kC, T]
+        wm = w.reshape(k * C, C)                                           # [kC, Co]
+        run = lambda mode: _products(mode)(wm, cols)
+        tol = (1e-4, 1e-4)
+    else:
+        rows, Cin = (1, 4) if case == "waveglow_wn" else (3, 1)
+        C, L, kw, T = 64, 4, 3, 256
+        K = rows * kw * C
+        rs_w = f(L, C, 2 * C, scale=C ** -0.5)
+        rs_b = f(L, 2 * C, scale=0.1)
+        rs_w[-1, :, :C] = 0                  # the last layer has no res half
+        rs_b[-1, :C] = 0
+        weights = (f(Cin, C, scale=Cin ** -0.5), f(C, scale=0.1),
+                   f(L, K, 2 * C, scale=K ** -0.5), rs_w, rs_b,
+                   f(C, 2 * Cin, scale=(C * L) ** -0.5), f(2 * Cin, scale=0.1))
+        x, queues, cond = f(Cin, T), f(L, rows - 1, C, T), f(L, 2 * C, T)
+        run = lambda mode: _emulated_wn(_products(mode), x, queues, cond,
+                                        weights, rows, kw)
+        tol = (2e-5, 1e-4)
+    ref, f32, three, one = run("f64"), run("f32"), run("3x"), run("1x")
     scale = np.abs(ref).max()
     assert np.abs(f32 - ref).max() / scale < 1e-6
     assert np.abs(three - f32).max() / scale < 1e-5
-    assert np.allclose(three, f32, atol=1e-4, rtol=1e-4)
-    assert not np.allclose(one, f32, atol=1e-4, rtol=1e-4)
+    assert np.allclose(three, f32, atol=tol[0], rtol=tol[1])
+    assert not np.allclose(one, f32, atol=tol[0], rtol=tol[1])
     assert np.abs(one - f32).max() > 10 * np.abs(three - f32).max()
 
 
@@ -324,7 +441,7 @@ def test_waveglow_wn_forward_pads_with_zeros_at_both_ends():
 def test_launch_counters_cover_every_kernel():
     assert set(hk.LAUNCHES) == {"attention_step", "lstm_gates", "hifigan_resblock",
                                 "waveglow_wn_forward", "waveflow_row_step"}
-    assert hk.wn_launches(8) == 10
+    assert hk.wn_launches(8) == 18
     hk.LAUNCHES["waveglow_wn_forward"] = 3
     hk.reset_launch_counts()
     assert not any(hk.LAUNCHES.values())

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Where the hifigan_resblock kernel's time goes, by taking work out of it.
+"""Where the time of the 3xTF32 kernels goes (hifigan_resblock and the WN
+layer kernel), by taking work out of them.
 
     python3 tools/bench_resblock_parts.py
 
-Builds csrc/hifigan_resblock.cu as it is and in three altered copies, each
-with nvcc (sm_90a) into build/bench_resblock_parts/, and times the 3
+Builds csrc/hifigan_resblock.cu and csrc/waveglow_wn.cu as they are and
+with two altered copies of the header they take their products from
+(csrc/tf32x3.cuh), each with nvcc (sm_90a) into
+build/bench_resblock_parts/<variant>/, and times with each build the 3
 resblocks of each of the main path's four generator stages (B=3, T_mel=512:
-C=256 ... 32) with each build, in CUDA-graph replay:
+C=256 ... 32) and one WaveGlow WN call at the main path's shape (B=1,
+T'=10000, 256 channels, 8 layers), in CUDA-graph replay:
   kernel     the kernel as shipped (3xTF32: three products per product)
   no-split   operands passed as they are, no hi/lo split (wrong results)
   one-mma    only the hi*hi product (1xTF32: about 1e-2 off)
@@ -27,6 +31,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "cookietts_tpu_torch" / "csrc" / "hifigan_resblock.cu"
+HEADER = SRC.with_name("tf32x3.cuh")
 SPLIT_A = '''      split_tf32(lo_ok ? w0[0] : 0.f, ah[i][0], al[i][0]);
       split_tf32(hi_ok ? w0[8] : 0.f, ah[i][1], al[i][1]);
       split_tf32(lo_ok ? w4[0] : 0.f, ah[i][2], al[i][2]);
@@ -50,14 +55,15 @@ SMALL_PRODUCTS = '''#pragma unroll
 '''
 
 
-def variants(src: str):
+def variants(header: str):
+    """The header as it is and altered, by variant name."""
     for pattern in (SPLIT_A, SPLIT_B, SMALL_PRODUCTS):
-        if pattern not in src:
-            raise SystemExit(f"bench_resblock_parts: {SRC.name} no longer has "
+        if pattern not in header:
+            raise SystemExit(f"bench_resblock_parts: {HEADER.name} no longer has "
                              f"the code this tool alters:\n{pattern}")
-    return {"kernel": src,
-            "no-split": src.replace(SPLIT_A, RAW_A).replace(SPLIT_B, RAW_B),
-            "one-mma": src.replace(SMALL_PRODUCTS, "")}
+    return {"kernel": header,
+            "no-split": header.replace(SPLIT_A, RAW_A).replace(SPLIT_B, RAW_B),
+            "one-mma": header.replace(SMALL_PRODUCTS, "")}
 
 
 def main() -> int:
@@ -73,19 +79,26 @@ def main() -> int:
     out.mkdir(parents=True, exist_ok=True)
 
     def build(item):
-        name, text = item
-        src = out / f"{name}.cu"
-        src.write_text(text)
-        lib = out / f"lib{name}.so"
+        (name, header), source = item
+        src = out / name / source
+        src.parent.mkdir(exist_ok=True)
+        for f in (source, "wn_layer.cuh"):
+            src.with_name(f).write_text(SRC.with_name(f).read_text())
+        src.with_name(HEADER.name).write_text(header)    # found beside src first
+        lib = out / name / f"lib{src.stem}.so"
         subprocess.run(["/usr/local/cuda/bin/nvcc", "-gencode",
                         "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                         "-shared", "-Xcompiler", "-fPIC", "-o", str(lib), str(src)],
                        check=True)
-        return name, ctypes.CDLL(str(lib))
+        return (name, source), ctypes.CDLL(str(lib))
 
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor(3) as ex:
-        libs = dict(ex.map(build, variants(SRC.read_text()).items()))
+    jobs = [(v, source) for v in variants(HEADER.read_text()).items()
+            for source in (SRC.name, "waveglow_wn.cu")]
+    with cf.ThreadPoolExecutor(len(jobs)) as ex:
+        built = dict(ex.map(build, jobs))
+    libs = {name: built[name, SRC.name] for name, _ in built}
+    wn_libs = {name: built[name, "waveglow_wn.cu"] for name, _ in built}
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
@@ -122,6 +135,34 @@ def main() -> int:
             ms = cs.time_ms(lambda: [run(lib, *a) for a in stage], 5)
             line += f" {name} {ms:.3f} ms (max abs err {err:.1e});"
         print(line, flush=True)
+
+    def run_wn(lib, x, cond, start_w, start_b, k_all, rs_w, rs_b, end_w, end_b):
+        B, Cin, T = x.shape
+        L, K, C2 = k_all.shape
+        C, Cout = C2 // 2, end_w.shape[1]
+        plan = hk.wn_layer_plan(B, C, T, 1, K // C)
+        scratch = torch.empty((3, B, C, T), device="cuda")
+        st = torch.empty((B, Cout, T), device="cuda")
+        launches = ctypes.c_int(0)
+        err = lib.waveglow_wn_forward(
+            *(hk._ptr(t) for t in (x, cond, start_w, start_b, k_all, rs_w, rs_b,
+                                   end_w, end_b)),
+            B, Cin, C, Cout, T, L, K // C, plan.ints(), hk._ptr(scratch),
+            hk._ptr(st), ctypes.byref(launches), hk._stream())
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        return st
+
+    args = (torch.randn(1, 12, 10000, device="cuda", generator=g),
+            torch.randn(1, 8, 512, 10000, device="cuda", generator=g),
+            *cs.wn_weights(g, 12, 256, 24, 8, 1, 3))
+    want = hk.waveglow_wn_forward_plain(*args)
+    line = "waveglow_wn_forward B=1 T'=10000, one call:"
+    for name, lib in wn_libs.items():
+        err = float((run_wn(lib, *args) - want).abs().max())
+        ms = cs.time_ms(lambda: run_wn(lib, *args), 20)
+        line += f" {name} {ms:.4f} ms (max abs err {err:.1e});"
+    print(line, flush=True)
     return 0
 
 
