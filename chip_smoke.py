@@ -12,7 +12,11 @@ non-zero:
    the same function.
 2. build the CUDA kernels from cookietts_tpu_torch/csrc (nvcc, sm_90a).
 3. each kernel against its plain PyTorch version at the full-width serving
-   shapes: the attention and HiFi-GAN kernels at batch 1 and 32 (the
+   shapes: the attention kernel at batch 1, 4 and 32 by T_enc 64, 128 and
+   384 with the decoder's window-16 mask, the full length mask, a row that
+   admits nothing, D = 1313 and a plan forced into 8 stages (each call one
+   launch, two calls bit-identical, the plan's shared memory the kernel's);
+   the HiFi-GAN kernel at batch 1 and 32 (the
    resblock at every generator width, 256 down to 8 channels), the LSTM
    kernel at batch 1, 4 and 32 for the three decoder cells (two calls must
    give the same bits; timed beside nn.LSTMCell), the two WN kernels of the
@@ -26,7 +30,9 @@ non-zero:
    plain version, a library call where one computes the same function, and
    its bound on the card (the resblock's both on the f32 CUDA cores and on
    the tensor cores in 3xTF32, the one it is held to; and each of the
-   generator's four stages alone).
+   generator's four stages alone); beside the attention kernel's, the bytes
+   of the rows its mask admits and the empty-kernel floor of its launch,
+   and its time as a call in a CUDA graph of 20 (graph_ms).
 4b. the flow vocoders' path: a Tacotron2 of the same configuration at the
    flow vocoders' 160 mel channels behind T2S, once with the full-width
    WaveGlow (48 flows, 256 channels) and once with the full-width WaveFlow
@@ -39,8 +45,10 @@ non-zero:
    kernel's calls beside their bounds (3xTF32 tensor cores, held to, and
    f32 CUDA cores).
 5. the whole slice with kernels against the same slice with the plain
-   versions swapped in, on the card: a 32-step decode and one vocoder batch;
-   and the whole inverse of each flow vocoder at full width, same z.
+   versions swapped in, on the card: a 32-step decode and one vocoder batch,
+   then a 32-step decode of Tacotron2Config(use_memory_bottleneck=False)
+   (decoder memory 1313 wide); and the whole inverse of each flow vocoder
+   at full width, same z.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -152,6 +160,14 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 50) -> float:
+    """Device ms per call of ``fn`` with ``calls`` calls captured in one
+    graph: the launches follow each other on the device, as a captured
+    decode's would, and the host's cost of launching the graph is shared by
+    them (time_ms's floor is mostly that cost for a call of a few us)."""
+    return time_ms(lambda: [fn() for _ in range(calls)], reps) / calls
+
+
 def eager_ms(fn, reps: int) -> float:
     """Wall ms per call of ``fn`` issued from Python (host cost included)."""
     import torch
@@ -234,14 +250,22 @@ def plain_kernels(hk):
 
 # -- per-kernel inputs, bounds and comparisons --------------------------------
 
-def attention_inputs(B, T, gen, A=192, D=512, window=16):
+def attention_inputs(B, T, gen, A=192, D=512, window=16, empty_row=False):
+    """Random inputs of one attention step: the length mask of each row
+    (lengths from T/2 to T), cut to a window of 2 * window + 1 rows unless
+    window is 0 (the windowed_attention_range=0 configuration); with
+    ``empty_row`` row 0 admits nothing."""
     import torch
     dev = "cuda"
     r = lambda *s, scale=1.0: torch.randn(*s, device=dev, generator=gen) * scale
     lengths = torch.randint(T // 2, T + 1, (B,), device=dev, generator=gen)
     idx = torch.arange(T, device=dev)[None, :]
     start = torch.randint(0, T // 2, (B, 1), device=dev, generator=gen)
-    mask = (idx < lengths[:, None]) & (idx >= start) & (idx <= start + 2 * window)
+    mask = idx < lengths[:, None]
+    if window:
+        mask &= (idx >= start) & (idx <= start + 2 * window)
+    if empty_row:
+        mask[0] = False
     return (r(B, A, scale=0.5), r(B, T, A, scale=0.5), r(B, T, A, scale=0.5),
             r(A, scale=A ** -0.5), r(B, T, D), mask.contiguous())
 
@@ -250,6 +274,24 @@ def attention_bound(B, T, A=192, D=512):
     nbytes = 4 * (B * A + 2 * B * T * A + A + B * T * D + B * D + B * T) + B * T
     flops = B * T * (4 * A + 2 * D)
     return nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+
+
+def attention_admitted_bytes(mask, A=192, D=512):
+    """Bytes v3 moves: the bound's count with lp, mp and memory cut to the
+    rows the mask admits (not the bound, which counts every row)."""
+    B, T = mask.shape
+    n_adm = int(mask.sum())
+    return 4 * (B * A + A + B * D + B * T + n_adm * (2 * A + D)) + B * T
+
+
+def launch_floor_ms(hk, B, S, timer=lambda fn: time_ms(fn, 200)):
+    """Device ms of an empty kernel launched on attention_step's grid (S
+    blocks a cluster, B clusters; S = 0: one plain block), by default in
+    time_ms's CUDA-graph harness: the least a launch of that shape takes."""
+    from cookietts_tpu_torch.ops import _build
+    lib = _build.library("attention_step")
+    return timer(lambda: hk._raise_on(
+        lib.attention_empty_launch(B, S, hk._stream()), "empty kernel"))
 
 
 def lstm_inputs(B, F, H, gen):
@@ -312,17 +354,8 @@ def phase3(hk, check):
     PyTorch has one)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(3)
+    phase3_attention(hk, check, gen)
     for B in (1, 32):
-        args = attention_inputs(B, 128, gen)
-        for scale in (None, torch.full((1,), 1.3, device="cuda")):
-            ctx, w = hk.attention_step(*args, scale)
-            ctx_p, w_p = hk.attention_step_plain(*args, scale)
-            tag = f"B={B} T=128" + (" scaled" if scale is not None else "")
-            check("attention_step", w, w_p, *TOL["attention_step"], tag + " w")
-            check("attention_step", ctx, ctx_p, 1e-4, 1e-4, tag + " ctx")
-        log_times(f"attention_step B={B} T=128",
-                  lambda: time_ms(lambda: hk.attention_step(*args), 100),
-                  lambda: time_ms(lambda: hk.attention_step_plain(*args), 100))
         T_mel = 32
         for C, up in ((256, 8), (128, 64), (64, 256), (32, 512), (16, 512),
                       (8, 512)):
@@ -340,6 +373,57 @@ def phase3(hk, check):
                 del args, got, want
         torch.cuda.synchronize()
     phase3_lstm(hk, check, gen)
+
+
+def phase3_attention(hk, check, gen):
+    """attention_step against its plain version at A=192: B = 1, 4, 32 by
+    T = 64, 128, 384 with a window-16 mask (scaled too at T = 128), the full
+    length mask at B=32, T=128, a row that admits nothing, and D = 1313 (the
+    decoder memory without its bottleneck). Each call must be one launch,
+    two calls must give the same bits, and the plan's shared memory must be
+    the kernel's. Timed beside the plain version. Then a plan forced into 8
+    stages a block, which the default plans do not reach."""
+    import torch
+    cases = [(B, T, 512, 16, False) for B in (1, 4, 32) for T in (64, 128, 384)]
+    cases += [(32, 128, 512, 0, False), (4, 64, 512, 16, True),
+              (4, 64, 1313, 16, False)]
+    from cookietts_tpu_torch.ops import _build
+    lib = _build.library("attention_step")
+    for B, T, D, window, empty_row in cases:
+        plan = hk.attention_step_plan(B, T, 192, D)
+        if lib.attention_step_smem(192, D, *plan.ints()[1:]) != plan.smem:
+            raise SystemExit(f"chip_smoke: attention_step_plan's shared memory "
+                             f"{plan.smem} is not the kernel's layout")
+        args = attention_inputs(B, T, gen, D=D, window=window, empty_row=empty_row)
+        tag = (f"B={B} T={T} D={D} " + (f"window {window}" if window else "full mask")
+               + (" empty row 0" if empty_row else ""))
+        scales = [None] + ([torch.full((1,), 1.3, device="cuda")] if T == 128 else [])
+        for scale in scales:
+            before = hk.LAUNCHES["attention_step"]
+            ctx, w = hk.attention_step(*args, scale)
+            again = hk.attention_step(*args, scale)
+            launches = hk.LAUNCHES["attention_step"] - before
+            ctx_p, w_p = hk.attention_step_plain(*args, scale)
+            what = tag + (" scaled" if scale is not None else "")
+            check("attention_step", w, w_p, *TOL["attention_step"], what + " w")
+            check("attention_step", ctx, ctx_p, 1e-4, 1e-4, what + " ctx")
+            same = torch.equal(ctx, again[0]) and torch.equal(w, again[1])
+            if launches != 2 or not same:
+                raise SystemExit(f"chip_smoke: attention_step {what}: {launches} "
+                                 f"launches for 2 calls, bit-identical {same}")
+        log_times(f"attention_step {tag}",
+                  lambda: time_ms(lambda: hk.attention_step(*args), 100),
+                  lambda: time_ms(lambda: hk.attention_step_plain(*args), 100))
+    # more admitted rows than a stage holds: 8 stages of 8 rows a block
+    staged = hk.attention_step_plan(32, 128, 192, 512, cluster=2, stage_rows=8)
+    args = attention_inputs(32, 128, gen, window=0)
+    ctx, w = hk.attention_step(*args, plan=staged)
+    ctx_p, w_p = hk.attention_step_plain(*args)
+    check("attention_step", w, w_p, *TOL["attention_step"], f"full mask {staged.ints()} w")
+    check("attention_step", ctx, ctx_p, 1e-4, 1e-4, f"full mask {staged.ints()} ctx")
+    log("  attention_step: one launch a call, two calls bit-identical, at "
+        "every shape")
+    torch.cuda.synchronize()
 
 
 def phase3_lstm(hk, check, gen):
@@ -441,6 +525,18 @@ def phase4_timing(hk, check, taco, gen, res, batch_size):
         eager_ms=eager_ms(lambda: hk.attention_step(*args), 200),
         plain_ms=time_ms(lambda: hk.attention_step_plain(*args), 200),
         library_ms=None, bound=bound_of([attention_bound(B, T_enc)]))
+    plan = hk.attention_step_plan(B, T_enc, 192, 512)
+    log(f"  attention_step B={B} T_enc={T_enc}: plan {plan}; admitted rows "
+        f"{int(args[-1].sum())} of {B * T_enc}, their bytes "
+        f"{attention_admitted_bytes(args[-1])} = "
+        f"{attention_admitted_bytes(args[-1]) / HBM_BYTES_PER_S * 1e3:.5f} ms "
+        f"(not the bound, which counts every row: "
+        f"{out['attention_step']['bound'][0]:.5f} ms); empty-kernel floor "
+        f"{launch_floor_ms(hk, B, plan.cluster):.4f} ms on the same grid, "
+        f"{launch_floor_ms(hk, 1, 0):.4f} ms for one block; a call in a graph "
+        f"of 20: kernel {graph_ms(lambda: hk.attention_step(*args)):.4f} ms, "
+        f"plain {graph_ms(lambda: hk.attention_step_plain(*args)):.4f} ms, "
+        f"floor {launch_floor_ms(hk, B, plan.cluster, graph_ms):.4f} ms")
 
     # lstm_gates: the three decoder cells of one step
     cells = [(taco.decoder.attention_rnn, 1280), (taco.decoder.decoder_rnn, 768),
@@ -832,6 +928,26 @@ def phase5(hk, check, cfgs):
     check("slice", k_audio, p_audio, 1e-3, 1e-3, "HiFi-GAN audio")
     if not torch.equal(k_out["mel_lengths"], p_out["mel_lengths"]):
         raise SystemExit("chip_smoke: slice mel_lengths differ")
+
+    # the decoder memory without its bottleneck: D = 1024 + 256 + 1 + 32
+    del taco
+    taco = Tacotron2(dataclasses.replace(tcfg, p_prenet_dropout=0.0,
+                                         use_memory_bottleneck=False),
+                     device="cuda")
+    D = taco.decoder.memory_dim
+    before = hk.LAUNCHES["attention_step"]
+    k_out = taco.inference(text, lengths, spk, max_decoder_steps=32)
+    launches = hk.LAUNCHES["attention_step"] - before
+    with plain_kernels(hk):
+        p_out = taco.inference(text, lengths, spk, max_decoder_steps=32)
+    log(f"  use_memory_bottleneck=False: memory D={D}, {launches} "
+        "attention_step launches in a 32-step decode")
+    if launches <= 0:
+        raise SystemExit("chip_smoke: the D=1313 decode never launched "
+                         "attention_step")
+    for key, atol in (("mel_outputs_postnet", 1e-3), ("gate_outputs", 1e-3),
+                      ("alignments", 1e-4)):
+        check("slice", k_out[key], p_out[key], atol, 1e-3, f"D={D} {key}")
 
 
 def main() -> int:

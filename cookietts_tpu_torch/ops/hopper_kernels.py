@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -109,9 +110,103 @@ def attention_step_plain(qp, lp, mp, v, memory, mask, scale=None):
     return torch.einsum("bt,btd->bd", w, memory), w
 
 
+SMEM_MAX = 232448                    # shared memory a block may use (H100)
+N_SM = 132                           # SMs of an H100 SXM
+SM_SMEM, BLOCK_RESERVED = 233472, 1024   # an SM's shared memory; the system's share a block
+# A cluster's blocks share one GPC. Its SMs vary from chip to chip (132 over
+# 8 GPCs); counting 14 per GPC kept the plans whose clusters did not all fit
+# at once out (tools/bench_attention.py: those ran in two waves).
+N_GPC, GPC_SMS = 8, 14
+ATTN_THREADS = 256                   # threads of an attention_step block
+ATTN_CLUSTER_MAX = 16                # blocks a cluster may hold (non-portable above 8)
+ATTN_MISC = 64                       # floats of a block's counts and statistics
+# Rows a stage holds at most by default: the decoder's window of 2 x 16 + 1
+# rows fits one stage, so it is read in one round trip.
+ATTN_STAGE_ROWS = 48
+
+
+def _attn_seg(n: int) -> int:
+    """attention_step.cu's seg: floats of a staged row segment of n values
+    (room for a 0-3 float shift, whole 16-byte words)."""
+    return (n + 6) // 4 * 4
+
+
+def attention_step_smem(A: int, D: int, rows: int, stage_rows: int) -> int:
+    """Dynamic shared memory of a block (attention_step.cu's layout): q, v,
+    the energies and admitted-row list of its rows, a stage's weights, the
+    statistics, the partial context, and the staged rows."""
+    fixed = (2 * A + 2 * rows + stage_rows + ATTN_MISC + D + 3) // 4 * 4
+    return 4 * (fixed + stage_rows * (2 * _attn_seg(A) + _attn_seg(D)))
+
+
+def clusters_fit(B: int, S: int, smem: int) -> bool:
+    """Whether B clusters of S blocks, each using ``smem`` bytes of shared
+    memory, are all resident at once (by the conservative GPC count)."""
+    per_sm = min(2048 // ATTN_THREADS, SM_SMEM // (smem + BLOCK_RESERVED))
+    return B <= N_GPC * (GPC_SMS * per_sm // S)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """Launch plan of attention_step v3: a cluster of ``cluster`` blocks per
+    batch row, block r owning rows [r rows, (r + 1) rows) of T; a stage
+    holds ``stage_rows`` admitted rows, so a block whose rows are all
+    admitted takes ``stages`` stages; ``smem`` bytes of shared memory a
+    block."""
+    cluster: int
+    rows: int
+    stage_rows: int
+    stages: int
+    smem: int
+
+    def ints(self):
+        """The plan as the C side takes it."""
+        return self.cluster, self.rows, self.stage_rows
+
+
+@functools.lru_cache(maxsize=None)
+def attention_step_plan(B: int, T: int, A: int, D: int,
+                        cluster: Optional[int] = None,
+                        stage_rows: Optional[int] = None) -> AttentionPlan:
+    """Split each batch row's T rows over a cluster of S blocks: by default
+    the fewest (a power of two up to 16, at most T) that give B x S at least
+    one block per SM, then as few as still cover T in R = ceil(T / S) rows
+    a block, so none is empty. A stage holds R rows, at most
+    ATTN_STAGE_ROWS; where B such clusters would not all be resident at
+    once, S is halved until they are. ``cluster`` and ``stage_rows`` force
+    the plan (tools/bench_attention.py). Raises where shared memory cannot
+    hold one row."""
+    if min(B, T, A, D) < 1:
+        raise ValueError(f"attention_step: B={B}, T={T}, A={A}, D={D} must "
+                         "be positive")
+    S = cluster
+    if S is None:
+        S = 1
+        while 2 * S <= min(ATTN_CLUSTER_MAX, T) and B * S < N_SM:
+            S *= 2
+    if not 1 <= S <= ATTN_CLUSTER_MAX:
+        raise ValueError(f"attention_step: a cluster of {S} blocks (1 to "
+                         f"{ATTN_CLUSTER_MAX})")
+    while True:
+        R = -(-T // S)
+        S = -(-T // R)
+        rows = min(R, stage_rows or ATTN_STAGE_ROWS)
+        while rows > 1 and attention_step_smem(A, D, R, rows) > SMEM_MAX:
+            rows -= 1
+        smem = attention_step_smem(A, D, R, rows)
+        if cluster or S == 1 or clusters_fit(B, S, smem):
+            break
+        S //= 2
+    if smem > SMEM_MAX:
+        raise ValueError(f"attention_step: A={A}, D={D}, T={T} need {smem} B "
+                         f"of shared memory a block (max {SMEM_MAX}) for one "
+                         "row a stage")
+    return AttentionPlan(S, R, rows, -(-R // rows), smem)
+
+
 class _AttentionStep(_NoBackward):
     @staticmethod
-    def forward(ctx, qp, lp, mp, v, memory, mask, scale):
+    def forward(ctx, qp, lp, mp, v, memory, mask, scale, plan):
         B, T, A = lp.shape
         D = memory.shape[-1]
         for name, t, shape in (("qp", qp, (B, A)), ("lp", lp, (B, T, A)),
@@ -121,25 +216,28 @@ class _AttentionStep(_NoBackward):
         _check("attention_step mask", mask, (B, T), torch.bool)
         if scale is not None:
             _check("attention_step scale", scale, (1,))
-        if D % 4:
-            raise ValueError(f"attention_step: D={D} must be a multiple of 4")
+        plan = plan or attention_step_plan(B, T, A, D)
         lib = _build.library("attention_step")
         out_ctx = torch.empty((B, D), device=qp.device, dtype=torch.float32)
         out_w = torch.empty((B, T), device=qp.device, dtype=torch.float32)
         err = lib.attention_step(
             _ptr(qp), _ptr(lp), _ptr(mp), _ptr(v), _ptr(memory), _ptr(mask),
-            _ptr(scale), B, T, A, D, _ptr(out_ctx), _ptr(out_w), _stream())
+            _ptr(scale), B, T, A, D, *plan.ints(), _ptr(out_ctx), _ptr(out_w),
+            _stream())
         _raise_on(err, "attention_step")
         LAUNCHES["attention_step"] += 1
         return out_ctx, out_w
 
 
-def attention_step(qp, lp, mp, v, memory, mask, scale=None
+def attention_step(qp, lp, mp, v, memory, mask, scale=None,
+                   plan: Optional[AttentionPlan] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused location-sensitive attention step (see attention_step_plain)."""
+    """Fused location-sensitive attention step (see attention_step_plain);
+    on the card one launch, split over T by ``plan`` (by default
+    attention_step_plan's), reading only the rows the mask admits."""
     if not _dispatch(qp, "attention_step"):
         return attention_step_plain(qp, lp, mp, v, memory, mask, scale)
-    return _AttentionStep.apply(qp, lp, mp, v, memory, mask, scale)
+    return _AttentionStep.apply(qp, lp, mp, v, memory, mask, scale, plan)
 
 
 # -- lstm_gates ----------------------------------------------------------------
@@ -243,7 +341,6 @@ def hifigan_resblock_plain(x, w1, b1, w2, b2, dilations, slope):
     return x
 
 
-SMEM_MAX = 232448                    # shared memory a block may use (H100)
 # C -> (conv columns a block computes, input channels of a weight slab)
 RESBLOCK_FUSED = {8: (1024, 8), 16: (1024, 16), 32: (512, 32), 64: (256, 64)}
 RESBLOCK_SPLIT_TILE = 64                # samples per block of the split variant
@@ -383,7 +480,6 @@ def waveglow_wn_forward_plain(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
 WN_TILES = ((4, 2, 4), (4, 2, 2), (4, 2, 1), (4, 1, 1),
             (2, 4, 2), (2, 4, 1), (2, 2, 1), (2, 1, 1))
 WN_KC, WN_STAGES = 32, 3        # input channels a K step; weight slabs in flight
-N_SM = 132                      # SMs of an H100 SXM
 # Samples (B x T') from which a launch must give every SM a block; below,
 # half of them. A layer at a request's length is a few K steps of latency,
 # where larger blocks on fewer SMs measured faster (tools/bench_wn_tiles.py).

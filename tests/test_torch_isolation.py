@@ -59,7 +59,7 @@ def _imported_roots(path: Path):
                          + [ROOT / "chip_smoke.py"]
                          + [ROOT / "tools" / name for name in (
                              "bench_wn_tiles.py", "bench_mma_rate.py",
-                             "bench_resblock_parts.py")],
+                             "bench_resblock_parts.py", "bench_attention.py")],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_statements(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))

@@ -38,18 +38,20 @@ def _attention_inputs(B=3, T=37, A=48, D=56, seed=0):
 @pytest.mark.parametrize("use_pallas", [False, True])
 @pytest.mark.parametrize("scale", [None, 1.7])
 def test_attention_step_matches_jax(use_pallas, scale):
-    qp, lp, mp, v, mem, mask = _attention_inputs()
-    # an energy scale s equals the JAX step with v scaled by s
-    v_j = v if scale is None else v * np.float32(scale)
-    ctx_r, w_r = j_attention_step(*(jnp.asarray(a) for a in
-                                    (qp, lp, mp, v_j, mem, mask)),
-                                  use_pallas=use_pallas)
-    t = [torch.from_numpy(a) for a in (qp, lp, mp, v, mem, mask)]
-    ctx, w = hk.attention_step(
-        *t, None if scale is None else torch.tensor([scale], dtype=torch.float32))
-    np.testing.assert_allclose(w.numpy(), np.asarray(w_r), atol=2e-5, rtol=1e-4)
-    np.testing.assert_allclose(ctx.numpy(), np.asarray(ctx_r),
-                               atol=2e-4, rtol=1e-3)
+    # D = 37 is odd, as the decoder memory without its bottleneck (1313)
+    for D in (56, 37):
+        qp, lp, mp, v, mem, mask = _attention_inputs(D=D)
+        # an energy scale s equals the JAX step with v scaled by s
+        v_j = v if scale is None else v * np.float32(scale)
+        ctx_r, w_r = j_attention_step(*(jnp.asarray(a) for a in
+                                        (qp, lp, mp, v_j, mem, mask)),
+                                      use_pallas=use_pallas)
+        t = [torch.from_numpy(a) for a in (qp, lp, mp, v, mem, mask)]
+        ctx, w = hk.attention_step(
+            *t, None if scale is None else torch.tensor([scale], dtype=torch.float32))
+        np.testing.assert_allclose(w.numpy(), np.asarray(w_r), atol=2e-5, rtol=1e-4)
+        np.testing.assert_allclose(ctx.numpy(), np.asarray(ctx_r),
+                                   atol=2e-4, rtol=1e-3)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
