@@ -24,8 +24,9 @@ non-zero:
    the main path's (each with the tiles wn_layer_plan picks).
 4. the main path: T2S -> Tacotron2 (Tacotron2Config() defaults) -> HiFi-GAN
    (the bench-serving generator) at full width with random weights from a
-   seed, answering 3 requests (one of them multi-segment). Launch counters
-   are zeroed just before and read just after; every kernel must have run.
+   seed, answering 3 requests (one of them multi-segment); T2S decodes
+   through its CUDA-graph chunk program. Launch counters are zeroed just
+   before and read just after; every kernel must have run.
    Then each kernel is timed at the shapes this run gave it, beside its
    plain version, a library call where one computes the same function, and
    its bound on the card (the resblock's both on the f32 CUDA cores and on
@@ -49,6 +50,23 @@ non-zero:
    then a 32-step decode of Tacotron2Config(use_memory_bottleneck=False)
    (decoder memory 1313 wide); and the whole inverse of each flow vocoder
    at full width, same z.
+6. the streaming and serving slice at full width (the phase-4 Tacotron2
+   and HiFi-GAN): the decode chunk captured as a CUDA graph
+   (pipeline/chunk_graph.py) replayed against the same chunk run eagerly
+   (same seed, bit for bit) and against the plain kernels; decode ms per
+   step, wall and device, eager against replayed, at B=4, T_enc=64;
+   streaming_tts at B=1 and B=4 (32-step chunks, a 32-frame vocoder halo, a
+   fixed 256-step decode) against the whole pipeline on the card with the
+   same generator seed, with time to first audio, request time, and replays
+   against captures, launch counters zeroed before and read after; the HTTP
+   handler's body (handle_tts, no tornado) twice on a ModelRegistry, with the
+   reference field names and with the aliases; lstm_gates cells on two
+   streams at once and in two CUDA graphs replayed at once, against the
+   plain version (and once with one counter set forced on both streams, to
+   show what the per-stream counters prevent), two captured decode chunks
+   replayed at once on two streams; the resblock widths the kernel does not
+   take (C = 96, 192: plain under "auto", raising under True); and a chunk
+   that cannot be captured, which must raise.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -95,6 +113,9 @@ WAVEFLOW = dict(n_mel_channels=FLOW_MELS, n_flows=6, n_group=8, n_early_every=0,
 # the three decoder cells at full width: (name, F = in + H, H)
 LSTM_SHAPES = (("attention_rnn", 2816, 1280), ("decoder_rnn", 2560, 768),
                ("second_decoder_rnn", 1536, 768))
+# a spin on the device (about 25 ms) that holds two streams while the host
+# queues their work, so the work then runs at the same time (phase 6)
+HOLD_CYCLES = 50_000_000
 # (atol, rtol). The WN kernels sum 768 to 1536 products per output in 3xTF32
 # and in another order than cuDNN, through 8 layers: a few 1e-6 at values
 # near 2 (tests/test_torch_kernels.py emulates the split).
@@ -950,6 +971,451 @@ def phase5(hk, check, cfgs):
         check("slice", k_out[key], p_out[key], atol, 1e-3, f"D={D} {key}")
 
 
+# -- phase 6: the streaming and serving slice ----------------------------------
+
+def decode_inputs(taco, B, T, seed):
+    """Random token ids [B, T], lengths from T down to about T/2 (row 0 the
+    longest), speakers alternating 0 and 1."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    text = torch.randint(1, taco.cfg.n_symbols, (B, T), device="cuda", generator=g)
+    lengths = torch.tensor([T - T * i // (2 * B) for i in range(B)], device="cuda")
+    return text, lengths, torch.arange(B, device="cuda") % 2
+
+
+def chunk_step_ms(chunk, memory, const, state, steps, chunks, seed=7):
+    """(wall ms, device ms) per decode step of ``chunks`` calls of ``chunk``
+    (decode_chunk's signature) from ``state``, after a warm-up: wall on the
+    host clock ending in a synchronise, device as kernel time summed by
+    torch.profiler over the same calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        s, g = state, torch.Generator(device="cuda").manual_seed(seed)
+        for _ in range(chunks):
+            *_, s = chunk(memory, const, s, steps, g)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    return wall / (steps * chunks), device / (steps * chunks)
+
+
+def phase6_chunk(hk, check, taco, smi):
+    """The decode chunk replayed as a CUDA graph against the same chunk run
+    eagerly (same seed: bit for bit) and against the plain kernels; a replay
+    must advance the launch counts by exactly the captured launches. Then
+    decode ms per step, eager against replayed, at B=4, T_enc=64."""
+    import torch
+    from cookietts_tpu_torch.pipeline.chunk_graph import DecodeChunkGraphs
+    B, T, S = 4, 64, 32
+    memory, const, state = taco.inference_prepare(*decode_inputs(taco, B, T, 11))
+    program = DecodeChunkGraphs(taco.decoder)
+    seeded = lambda: torch.Generator(device="cuda").manual_seed(21)
+    first = program(memory, const, state, S, seeded())        # eager, then capture
+    per_replay = program.graphs[(tuple(memory.shape), S)].launches
+    want = {**{k: 0 for k in hk.LAUNCHES}, "attention_step": S, "lstm_gates": 3 * S}
+    before = dict(hk.LAUNCHES)
+    replayed = program(memory, const, state, S, seeded())
+    moved = {k: hk.LAUNCHES[k] - before[k] for k in before}
+    eager = taco.decode_chunk(memory, const, state, S, seeded())
+    with plain_kernels(hk):
+        plain = taco.decode_chunk(memory, const, state, S, seeded())
+    log(f"  chunk program B={B} T_enc={T} S={S}: {program.captures} capture, "
+        f"{program.replays} replay, {program.eager_calls} eager call; the replay "
+        f"launched {moved}")
+    if per_replay != want or moved != want:
+        raise SystemExit(f"chip_smoke: a replay must launch {want}; the capture "
+                         f"recorded {per_replay}, the counters moved {moved}")
+    for i, name in enumerate(("mel", "gate", "alignments")):
+        same = torch.equal(replayed[i], eager[i]) and torch.equal(first[i], eager[i])
+        log(f"  replayed chunk {name}: bit-identical to the eager chunk: {same}")
+        if not same:
+            raise SystemExit(f"chip_smoke: the replayed chunk's {name} differs "
+                             "from the eager chunk's")
+        check("slice", replayed[i], plain[i], (1e-3, 1e-3, 1e-4)[i], 1e-3,
+              f"replayed chunk {name} vs plain kernels")
+
+    steps, chunks = 64, 4
+    memory, const, state = taco.inference_prepare(*decode_inputs(taco, B, T, 12))
+    rows = {"eager": chunk_step_ms(taco.decode_chunk, memory, const, state,
+                                   steps, chunks),
+            "replayed": chunk_step_ms(DecodeChunkGraphs(taco.decoder), memory,
+                                      const, state, steps, chunks)}
+    for name, (wall, device) in rows.items():
+        dev = f"{device:.4f}" if device > 0 else "not measured (no device time seen)"
+        log(f"  decode B={B} T_enc={T}, {chunks} chunks of {steps} steps, {name}: "
+            f"{wall:.4f} ms per step wall, {dev} ms per step on the device ({smi})")
+    log(f"  lstm_gates counter set zeroed in a graph (the repair's cost, once a "
+        f"replay): {graph_ms(lambda: torch.zeros(4096, dtype=torch.int32, device='cuda')):.5f} ms")
+    return rows
+
+
+def lstm_sets(hk, gen, B):
+    """Two sets of the three full-width cells' inputs and plain outputs."""
+    sets = [[lstm_inputs(B, F, H, gen) for _, F, H in LSTM_SHAPES] for _ in range(2)]
+    return sets, [[hk.lstm_gates_plain(*a) for a in cells] for cells in sets]
+
+
+def lstm_compare(check, got, want, what, count_only=False):
+    """got: per stream (or graph), a list of rounds, each the three cells'
+    (c, h); want: per stream, the cells' plain (c, h). Holds every output
+    against the plain version (one check line per stream and part), or with
+    ``count_only`` counts the cells that disagree."""
+    import torch
+    atol, rtol = TOL["lstm_gates"]
+    wrong = 0
+    for i, rounds in enumerate(got):
+        if count_only:
+            wrong += sum(not all(torch.allclose(g, w, rtol=rtol, atol=atol)
+                                 for g, w in zip(cell, want[i][j]))
+                         for cells in rounds for j, cell in enumerate(cells))
+            continue
+        for part in (0, 1):
+            flat = lambda seq: torch.cat([t.flatten() for t in seq])
+            check("lstm_gates",
+                  flat(cells[j][part] for cells in rounds for j in range(len(cells))),
+                  flat(want[i][j][part] for cells in rounds for j in range(len(cells))),
+                  atol, rtol, f"{what} {i}, {len(rounds)} rounds {'ch'[part]}")
+    return wrong
+
+
+def lstm_two_streams(hk, check, B=4, rounds=40, shared=False):
+    """The three full-width cells on two streams at once, ``rounds`` rounds,
+    every output against the plain version. ``shared`` forces one counter
+    set onto both streams (the fault the per-stream sets repair) and counts
+    the cells that came out wrong instead of failing. Returns (wrong,
+    cells)."""
+    import torch
+    sets, want = lstm_sets(hk, torch.Generator(device="cuda").manual_seed(31), B)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    key = hk._counter_key
+    if shared:
+        hk._counter_key = lambda device: ("shared", device)
+    got = [[], []]
+    try:
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(HOLD_CYCLES)    # both queues fill, then drain together
+        for _ in range(rounds):
+            for i, st in enumerate(streams):
+                with torch.cuda.stream(st):
+                    got[i].append([hk.lstm_gates(*a) for a in sets[i]])
+        for st in streams:
+            torch.cuda.current_stream().wait_stream(st)
+        torch.cuda.synchronize()
+    finally:
+        hk._counter_key = key
+        for k in [k for k in hk._TICKETS if k[0] == "shared"]:
+            del hk._TICKETS[k]
+    return (lstm_compare(check, got, want, "two streams: stream", count_only=shared),
+            2 * rounds * len(LSTM_SHAPES))
+
+
+def lstm_two_graphs(hk, check, B=4, calls=8, replays=20):
+    """Two CUDA graphs, each ``calls`` rounds of the three full-width cells,
+    replayed at once on two streams ``replays`` times (each capture has its
+    own counters); every replay's last round against the plain version."""
+    import torch
+    sets, want = lstm_sets(hk, torch.Generator(device="cuda").manual_seed(32), B)
+    graphs, outs = [], []
+    for cells in sets:
+        [hk.lstm_gates(*a) for a in cells]
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="thread_local"):
+            out = [[hk.lstm_gates(*a) for a in cells] for _ in range(calls)]
+        graphs.append(g)
+        outs.append(out[-1])
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for st in streams:
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(HOLD_CYCLES)
+    for _ in range(replays):
+        for i, (g, st) in enumerate(zip(graphs, streams)):
+            with torch.cuda.stream(st):
+                g.replay()
+                got[i].append([tuple(t.clone() for t in ch) for ch in outs[i]])
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    lstm_compare(check, got, want, "two graphs: graph")
+
+
+def two_chunk_graphs(hk, taco, rounds=4, shared_stream=False):
+    """Two captured decode chunks (two programs, two captures) replayed at
+    once on two streams, each bit for bit as when replayed alone. With
+    ``shared_stream`` both programs capture on one stream (so their graphs
+    share cuBLAS's workspace) and the rounds that differ are counted
+    instead of failing."""
+    import torch
+    from cookietts_tpu_torch.pipeline.chunk_graph import DecodeChunkGraphs
+    S = 32
+    progs = [DecodeChunkGraphs(taco.decoder) for _ in range(2)]
+    if shared_stream:
+        progs[0].stream = progs[1].stream = torch.cuda.Stream()
+    inputs = [taco.inference_prepare(*decode_inputs(taco, 4, 64, seed))
+              for seed in (41, 42)]
+    seeded = lambda i: torch.Generator(device="cuda").manual_seed(50 + i)
+    for p, args in zip(progs, inputs):
+        p(*args, S, seeded(0))                      # eager, then capture
+    alone = [p(*args, S, seeded(i)) for i, (p, args) in enumerate(zip(progs, inputs))]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    differ = 0
+    for r in range(rounds):
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(HOLD_CYCLES)
+        outs = []
+        for i, (p, args, st) in enumerate(zip(progs, inputs, streams)):
+            with torch.cuda.stream(st):
+                outs.append(p(*args, S, seeded(i)))
+        for st in streams:
+            torch.cuda.current_stream().wait_stream(st)
+        torch.cuda.synchronize()
+        for i in range(2):
+            if all(torch.equal(a, b) for a, b in zip(outs[i][:3], alone[i][:3])):
+                continue
+            differ += 1
+            if not shared_stream:
+                raise SystemExit(f"chip_smoke: decode chunk graph {i} replayed beside "
+                                 f"another (round {r}) differs from its replay alone")
+    if shared_stream:
+        log(f"  two decode chunk programs captured on one stream, replayed at once: "
+            f"{differ} of {2 * rounds} chunks differ from their replay alone")
+    else:
+        log(f"  two captured decode chunks (B=4, T_enc=64, {S} steps) replayed at "
+            f"once on two streams, {rounds} rounds: each bit-identical to its "
+            "replay alone")
+
+
+def resblock_widths(hk, hcfg):
+    """The main path's four stages run the kernel; a 384-wide generator
+    (stages 192, 96, 48, 24) runs the plain path under "auto", launching no
+    resblock kernel, and raises under True; C = 96 and 192 at the kernel's
+    entry raise."""
+    import torch
+    from cookietts_tpu_torch.models.hifigan import Generator
+    main = Generator(hcfg, device="cuda").kernel_stages()
+    log(f"  main path HiFi-GAN stages (C, kernel): {main}")
+    if main != ((256, True), (128, True), (64, True), (32, True)):
+        raise SystemExit("chip_smoke: the main path's HiFi-GAN stages must all "
+                         "run the resblock kernel")
+    wide = dataclasses.replace(hcfg, upsample_initial_channel=384)
+    gen = Generator(wide, device="cuda")
+    mel = torch.randn(1, 16, 80, device="cuda")
+    before = hk.LAUNCHES["hifigan_resblock"]
+    audio = gen(mel)
+    torch.cuda.synchronize()
+    n = hk.LAUNCHES["hifigan_resblock"] - before
+    log(f"  upsample_initial_channel=384, \"auto\": stages {gen.kernel_stages()}, "
+        f"{n} resblock launches, audio {tuple(audio.shape)} finite "
+        f"{bool(torch.isfinite(audio).all())}")
+    if n or any(k for _, k in gen.kernel_stages()) or not torch.isfinite(audio).all() \
+            or audio.shape != (1, 16 * HOP):
+        raise SystemExit("chip_smoke: the 384-wide generator must vocode on the "
+                         "plain path")
+    try:
+        Generator(dataclasses.replace(wide, pallas_resblocks=True), device="cuda")
+    except ValueError as e:
+        log(f"  upsample_initial_channel=384, True: raises ({e})")
+    else:
+        raise SystemExit("chip_smoke: pallas_resblocks=True must raise for C=192")
+    for C in (96, 192):
+        args = resblock_inputs(1, C, 64, 3, torch.Generator(device="cuda").manual_seed(C))
+        try:
+            hk.hifigan_resblock(*args, (1, 3, 5), 0.1)
+        except ValueError:
+            pass
+        else:
+            raise SystemExit(f"chip_smoke: hifigan_resblock must refuse C={C}")
+    log("  hifigan_resblock at C = 96 and 192: refused by its plan")
+
+
+def vocoder_launches(hk, gen, calls):
+    """Resblock kernel launches of ``calls`` generator calls."""
+    return calls * sum(hk.hifigan_resblock_launches(rb.convs1[0].in_channels,
+                                                    len(rb.dilations))
+                       for rb in gen.resblocks if rb.use_kernel)
+
+
+def phase6_stream(hk, check, taco, gen, B, smi, steps=256):
+    """streaming_tts at a fixed decode length (gate threshold 2.0: the gate
+    never stops it) against the whole pipeline run on the card with the same
+    generator seed. Counters zeroed before the warm stream, read after; the
+    decode kernels must show one launch per step (attention) and three
+    (lstm), the resblock kernel its launches per vocoder call."""
+    import numpy as np
+    import torch
+    from cookietts_tpu_torch.pipeline.streaming import make_streaming_fns, streaming_tts
+    text, lengths, spk = decode_inputs(taco, B, 64, 60 + B)
+    fns = make_streaming_fns(taco)
+    calls = [0]
+
+    def vocoder(mel):
+        calls[0] += 1
+        return gen(mel)
+
+    kw = dict(text=text, text_lengths=lengths, speaker_id=spk,
+              max_decoder_steps=steps, decode_chunk_steps=32, vocoder_halo=32,
+              hop_length=HOP, gate_threshold=2.0, gate_delay=10, fns=fns)
+
+    def stream():
+        t0 = time.perf_counter()
+        pieces, first = [], None
+        for _, piece in streaming_tts(
+                taco, vocoder, generator=torch.Generator(device="cuda").manual_seed(5),
+                **kw):
+            first = first or time.perf_counter() - t0
+            pieces.append(piece)
+        return np.concatenate(pieces, axis=1), first, time.perf_counter() - t0
+
+    _, cold_first, cold_total = stream()            # captures the chunk
+    hk.reset_launch_counts()
+    calls[0] = 0
+    replays = fns[1].replays
+    audio, first, total = stream()
+    torch.cuda.synchronize()
+    launches = {k: hk.LAUNCHES[k] for k in ("attention_step", "lstm_gates",
+                                            "hifigan_resblock")}
+    want = {"attention_step": steps, "lstm_gates": 3 * steps,
+            "hifigan_resblock": vocoder_launches(hk, gen, calls[0])}
+    seconds = audio.shape[1] / SR
+    log(f"  streaming_tts B={B}, {steps} steps ({seconds:.2f} s of audio a row): "
+        f"time to first audio {first * 1e3:.1f} ms, request {total * 1e3:.1f} ms "
+        f"({seconds / total:.2f} x realtime a row); cold (captures the chunk): "
+        f"{cold_first * 1e3:.1f} and {cold_total * 1e3:.1f} ms; {fns[1].replays - replays} "
+        f"replays, {fns[1].captures} capture, {fns[1].eager_calls} eager chunk; "
+        f"{calls[0]} vocoder calls ({smi})")
+    log(f"  streaming launches {launches} (expected {want})")
+    if launches != want:
+        raise SystemExit("chip_smoke: the streaming path's launch counts are "
+                         f"{launches}, expected {want}")
+
+    whole = taco.inference(text, lengths, spk, max_decoder_steps=steps,
+                           generator=torch.Generator(device="cuda").manual_seed(5))
+    ref = gen(whole["mel_outputs_postnet"]).cpu()
+    tail = 2 * taco.cfg.postnet_n_convolutions * HOP
+    got = torch.from_numpy(audio)
+    if got.shape != ref.shape:
+        raise SystemExit(f"chip_smoke: streamed audio {tuple(got.shape)}, whole "
+                         f"{tuple(ref.shape)}")
+    check("slice", got[:, :-tail], ref[:, :-tail], 1e-4, 0.0,
+          f"streamed audio B={B} vs whole, tail cut")
+    log(f"    with the last {tail // HOP} frames too: max abs "
+        f"{float((got - ref).abs().max()):.3e}")
+    return dict(first_ms=first * 1e3, total_ms=total * 1e3, cold_first_ms=cold_first * 1e3,
+                replays=fns[1].replays, captures=fns[1].captures)
+
+
+def phase6_server(taco, gen, smi):
+    """handle_tts (the /tts handler's body; no tornado on this machine) twice
+    on a ModelRegistry: the reference field names, then the aliases. Each
+    must give a RIFF WAV at 44.1 kHz of the stated length and the stats."""
+    import io
+    import tempfile
+    import wave
+    from cookietts_tpu_torch.pipeline.server import ModelRegistry, handle_tts
+    from cookietts_tpu_torch.pipeline.text2speech import T2S, T2SConfig
+    t2s = T2S(T2SConfig(max_decoder_steps=512, step_buckets=(256, 512)), taco,
+              {"alice": 0, "bob": 1}, vocoder_fn=gen, sample_rate=SR, hop_length=HOP,
+              device="cuda")
+    registry = ModelRegistry({"main": t2s, "again": lambda: t2s}, "again")
+    spellings = {
+        "reference": {"input_text": 'Hello there. "A quote," she said.',
+                      "input_speaker": "alice,bob", "input_multispeaker_mode": "quotes",
+                      "input_batch_size": "4", "input_max_attempts": "1",
+                      "input_target_score": "0.1", "input_ttm_current": "main"},
+        "aliases": {"text": "The quick brown fox jumps over the lazy dog.",
+                    "speaker": "bob", "batch_size": 4, "max_attempts": 1,
+                    "target_score": 0.1, "model": "main", "gate_delay": 10},
+    }
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as out:
+        for name, fields in spellings.items():
+            t0 = time.perf_counter()
+            stats, wav = handle_tts(registry, fields.get, out, "alice")
+            seconds = time.perf_counter() - t0
+            with wave.open(io.BytesIO(wav)) as w:
+                rate, n = w.getframerate(), w.getnframes()
+            missing = [k for k in ("segments", "speakers", "scores", "attempts",
+                                   "failure_rate", "audio_seconds", "total_time",
+                                   "xrt", "model", "voice") if k not in stats]
+            log(f"  handle_tts ({name} field names): {len(wav)} bytes, {rate} Hz, "
+                f"{n} samples, segments {stats['segments']}, model {stats['model']}, "
+                f"{seconds:.3f} s ({smi})")
+            if wav[:4] != b"RIFF" or rate != SR or n != round(stats["audio_seconds"] * SR) \
+                    or n == 0 or missing or stats["model"] != "main":
+                raise SystemExit(f"chip_smoke: handle_tts ({name}) gave a bad WAV or "
+                                 f"stats (missing {missing})")
+
+
+def failed_capture_raises(hk):
+    """A chunk that reads a value back to the host cannot be captured: the
+    program must raise, keep no graph and leave the launch counts as they
+    were, and the card must go on working."""
+    import torch
+    from cookietts_tpu_torch.pipeline.chunk_graph import DecodeChunkGraphs
+
+    class HostSync:
+        def decode_chunk(self, memory, const, state, steps, generator=None):
+            return memory * float(memory.sum()), state
+
+    program = DecodeChunkGraphs(HostSync())
+    x = torch.ones(2, 3, 4, device="cuda")
+    before = dict(hk.LAUNCHES)
+    try:
+        program(x, {}, (x,), 1)
+    except RuntimeError as e:
+        log(f"  a chunk that syncs with the host: the capture raises "
+            f"({str(e).splitlines()[0][:100]})")
+    else:
+        raise SystemExit("chip_smoke: a failed capture must raise")
+    torch.cuda.synchronize()
+    torch.randn(4, device="cuda")              # the default generator still draws
+    if program.graphs or hk.LAUNCHES != before or float((x + 1).sum()) != 48.0:
+        raise SystemExit("chip_smoke: a failed capture left a graph, moved the "
+                         "launch counts or broke the card")
+
+
+def phase6(hk, check, tcfg, hcfg, smi):
+    import torch
+    from cookietts_tpu_torch.models.hifigan import Generator
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2
+    torch.manual_seed(0)
+    taco = Tacotron2(tcfg, device="cuda")
+    gen = Generator(hcfg, device="cuda")
+    out = {"chunk": phase6_chunk(hk, check, taco, smi)}
+    for B in (1, 4):
+        out[f"stream_B{B}"] = phase6_stream(hk, check, taco, gen, B, smi)
+    phase6_server(taco, gen, smi)
+    lstm_two_streams(hk, check)
+    wrong, total = lstm_two_streams(hk, check, shared=True)
+    log(f"  lstm_gates on two streams forced onto one counter set (the repaired "
+        f"fault): {wrong} of {total} cells wrong")
+    lstm_two_graphs(hk, check)
+    two_chunk_graphs(hk, taco)
+    two_chunk_graphs(hk, taco, shared_stream=True)
+    resblock_widths(hk, hcfg)
+    failed_capture_raises(hk)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1023,6 +1489,10 @@ def main() -> int:
     phase5(hk, check, (tcfg, hcfg))
     for name, model in flows:
         phase5_flow(hk, check, model, name)
+    del flows, model
+
+    log("phase 6: the streaming and serving slice, full width")
+    phase6(hk, check, tcfg, hcfg, smi)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -35,7 +35,10 @@
 //   f32 epilogue, writes c' and h', and stores 0 back into the counter, so the
 //   next call, or the next replay of a CUDA graph, finds every counter at 0.
 //   The counters are the caller's: zeroed once when allocated, then left at
-//   0 by every launch. Two launches that run at once must not share them.
+//   0 by every launch. Two launches that run at once must not share them, so
+//   the caller keeps one set per stream and one per CUDA-graph capture
+//   (_tickets in ops/hopper_kernels.py; lstm_capture_id below tells it which
+//   capture a launch is recorded into).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -264,4 +267,15 @@ extern "C" int lstm_gates(const float* xh, const float* W, const float* bias,
                      f_per_slice, partial, tickets, c_out, h_out, st);
   return launch<8>(xh, W, bias, c_prev, B, F, H, col_tiles, slices,
                    f_per_slice, partial, tickets, c_out, h_out, st);
+}
+
+// The id of the CUDA-graph capture under way on `stream` (unique in the
+// process), or 0 when the stream is not capturing.
+extern "C" int lstm_capture_id(void* stream, unsigned long long* id) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long capture = 0;
+  const cudaError_t err =
+      cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, &capture);
+  *id = status == cudaStreamCaptureStatusActive ? capture : 0;
+  return (int)err;
 }

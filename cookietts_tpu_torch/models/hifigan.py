@@ -7,8 +7,15 @@ jik876/hifi-gan) checkpoint: ``conv_pre``, ``ups.{i}``,
 is folded at load: a ``weight_g``/``weight_v`` pair in a loaded state dict
 becomes the plain ``weight`` (torch's weight_norm, dim 0).
 
-Each MRF resblock runs in the ``hifigan_resblock`` kernel; its weights are
-re-laid out for the kernel once and cached until the parameters change.
+``HiFiGANConfig.pallas_resblocks`` (the JAX field's name and values) picks,
+once at construction, which stages run their MRF resblocks in the
+``hifigan_resblock`` kernel: True, every stage (a width the kernel does not
+take raises); False, none (the module's own convs); "auto", every stage whose
+width ``hifigan_resblock_plan`` takes, the plain path for the rest. JAX's
+batch threshold for "auto" (``pallas_auto_batch_max``) is a TPU measurement
+and is not carried over: the port's "auto" ignores the batch.
+``Generator.kernel_stages()`` reports the choice. A kernel resblock's weights
+are re-laid out for the kernel once and cached until the parameters change.
 Traps kept from the JAX model: ConvTranspose ``padding=(k-u)//2`` matches
 flax's "SAME" transposed conv (the checkpoint kernel is the flipped flax
 one), the MRF averages its resblocks, and the final leaky ReLU uses slope
@@ -38,6 +45,7 @@ class HiFiGANConfig:
     upsample_initial_channel: int = 512
     lrelu_slope: float = 0.1
     dtype: Any = torch.float32
+    pallas_resblocks: Any = "auto"      # True, False or "auto" (see above)
 
 
 def _padding(k: int, d: int = 1) -> int:
@@ -48,10 +56,12 @@ class ResBlock1(nn.Module):
     """MRF residual block: per dilation, lrelu -> conv(d) -> lrelu ->
     conv(1) -> residual add."""
 
-    def __init__(self, channels: int, kernel_size: int, dilations, slope: float):
+    def __init__(self, channels: int, kernel_size: int, dilations, slope: float,
+                 use_kernel: bool = True):
         super().__init__()
         self.dilations = tuple(dilations)
         self.slope = slope
+        self.use_kernel = use_kernel
         self.convs1 = nn.ModuleList(
             nn.Conv1d(channels, channels, kernel_size, dilation=d,
                       padding=_padding(kernel_size, d)) for d in self.dilations)
@@ -69,8 +79,12 @@ class ResBlock1(nn.Module):
         return hk.derived(self, "_kernel_weights", list(self.parameters()), build)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:      # [B, C, T]
-        return hk.hifigan_resblock(x.contiguous(), *self.kernel_weights(),
-                                   self.dilations, self.slope)
+        if self.use_kernel:
+            return hk.hifigan_resblock(x.contiguous(), *self.kernel_weights(),
+                                       self.dilations, self.slope)
+        for c1, c2 in zip(self.convs1, self.convs2):
+            x = x + c2(F.leaky_relu(c1(F.leaky_relu(x, self.slope)), self.slope))
+        return x
 
 
 def _fold_weight_norm(state_dict, prefix, *args, **kwargs):
@@ -88,6 +102,9 @@ class Generator(nn.Module):
         super().__init__()
         if cfg.dtype != torch.float32:
             raise NotImplementedError("the port's kernels run in float32")
+        if cfg.pallas_resblocks not in (True, False, "auto"):
+            raise ValueError(f"pallas_resblocks={cfg.pallas_resblocks!r}: "
+                             "True, False or 'auto'")
         self.cfg = cfg
         ch = cfg.upsample_initial_channel
         self.conv_pre = nn.Conv1d(cfg.n_mel_channels, ch, 7, padding=3)
@@ -97,14 +114,35 @@ class Generator(nn.Module):
                                        cfg.upsample_kernel_sizes)):
             self.ups.append(nn.ConvTranspose1d(ch // 2 ** i, ch // 2 ** (i + 1),
                                                k, u, padding=(k - u) // 2))
+            use_kernel = self._stage_uses_kernel(ch // 2 ** (i + 1))
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilations):
-                self.resblocks.append(
-                    ResBlock1(ch // 2 ** (i + 1), rk, rd, cfg.lrelu_slope))
+                self.resblocks.append(ResBlock1(ch // 2 ** (i + 1), rk, rd,
+                                                cfg.lrelu_slope, use_kernel))
         self.conv_post = nn.Conv1d(ch // 2 ** len(cfg.upsample_rates), 1, 7,
                                    padding=3)
         self._register_load_state_dict_pre_hook(_fold_weight_norm)
         self.eval()
         self.to(resolve_device(device))
+
+    def _stage_uses_kernel(self, C: int) -> bool:
+        mode = self.cfg.pallas_resblocks
+        blocks = list(zip(self.cfg.resblock_kernel_sizes,
+                          self.cfg.resblock_dilations))
+        if mode is True:
+            for k, dilations in blocks:     # raises for a width it does not take
+                for d in dilations:
+                    hk.hifigan_resblock_plan(1, C, 1, k, int(d))
+            return True
+        return mode == "auto" and all(hk.hifigan_resblock_takes(C, k, d)
+                                      for k, d in blocks)
+
+    def kernel_stages(self) -> Tuple[Tuple[int, bool], ...]:
+        """(channels, runs the hifigan_resblock kernel) of each upsampling
+        stage, as chosen at construction."""
+        n_k = len(self.cfg.resblock_kernel_sizes)
+        return tuple((self.resblocks[i * n_k].convs1[0].in_channels,
+                      self.resblocks[i * n_k].use_kernel)
+                     for i in range(len(self.ups)))
 
     @torch.no_grad()
     def forward(self, mel: torch.Tensor) -> torch.Tensor:

@@ -6,11 +6,15 @@ autoregressive decoder (prenet with always-on dropout, attention-RNN,
 location-sensitive windowed attention, decoder RNNs, mel projection and
 gate) -> postnet. Mels are [B, T, n_mel], alignments [B, T_dec, T_enc].
 
-The decoder loop runs in Python, one step at a time; the per-step work
-runs in the ``lstm_gates`` (three cells) and ``attention_step`` kernels.
-``early_exit`` decodes in chunks and stops one chunk after every row's gate
-has fired, as the JAX while-loop does; frames after the last chunk run stay
-zero (gates -1e4).
+The decoder runs in chunks of steps (``Decoder.decode_chunk``), one step at
+a time in Python; the per-step work runs in the ``lstm_gates`` (three cells)
+and ``attention_step`` kernels. ``Decoder.inference`` is a loop over chunks,
+through ``chunk_fn`` when the caller passes one (``pipeline/chunk_graph.py``:
+the chunk captured as a CUDA graph). ``early_exit`` stops one chunk after
+every row's gate has fired, as the JAX while-loop does; frames after the last
+chunk run stay zero (gates -1e4). ``Tacotron2.inference_prepare`` /
+``decode_chunk`` / ``postnet_refine`` expose the same pieces for streaming
+(``pipeline/streaming.py``).
 
 Submodule and parameter names follow the reference torch checkpoint, so its
 ``state_dict`` (and ``convert.from_jax``'s) loads as it is. Inference only:
@@ -19,7 +23,7 @@ dropout other than the prenet's, zoneout and BatchNorm statistics are eval.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -334,21 +338,51 @@ class Decoder(nn.Module):
         return (DecoderState(attn, dec, dec2, att_state, context, mel, finished),
                 mel, gate, weights)
 
+    def prepare(self, memory: torch.Tensor, memory_lengths: torch.Tensor
+                ) -> Tuple[Dict[str, Any], DecoderState]:
+        """(attention const, initial state) of a decode over ``memory``:
+        the attention precompute runs here, once per utterance."""
+        B, T_enc, _ = memory.shape
+        return (self.attention_layer.precompute(memory, memory_lengths),
+                self.init_state(B, T_enc, memory.device))
+
+    def decode_chunk(self, memory: torch.Tensor, const: Dict[str, Any],
+                     state: DecoderState, steps: int,
+                     generator: Optional[torch.Generator] = None):
+        """Free-running decode of ``steps`` steps from ``state`` ->
+        (mel_raw [B, S*r, M], gate [B, S*r], weights [B, S, T_enc], state).
+        The prenet draws from ``generator`` step by step, so chunks of any
+        size draw what one whole decode draws."""
+        cfg = self.cfg
+        B = memory.shape[0]
+        r = cfg.n_frames_per_step
+        mels, gates, weights = [], [], []
+        for _ in range(steps):
+            state, mel, gate, w = self.step(state, memory, const, generator)
+            mels.append(mel)
+            gates.append(gate)
+            weights.append(w)
+        return (torch.stack(mels, 1).reshape(B, steps * r, cfg.n_mel_channels),
+                torch.stack(gates, 1).reshape(B, steps * r),
+                torch.stack(weights, 1), state)
+
     def inference(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   max_decoder_steps: Optional[int] = None,
                   early_exit: bool = False, chunk_size: int = 64,
-                  gate_threshold=None, gate_delay=None) -> Dict[str, torch.Tensor]:
+                  gate_threshold=None, gate_delay=None,
+                  chunk_fn: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
         """Free-running decode with gate stopping; mel_lengths are the first
-        gate crossing + gate_delay, capped at the decoded length."""
+        gate crossing + gate_delay, capped at the decoded length. Without
+        ``early_exit`` the decode is one chunk of every step. ``chunk_fn``
+        (decode_chunk's signature) runs the chunks; by default decode_chunk."""
         cfg = self.cfg
         B, T_enc, _ = memory.shape
         r = cfg.n_frames_per_step
         thr = cfg.gate_threshold if gate_threshold is None else gate_threshold
         delay = cfg.gate_delay if gate_delay is None else gate_delay
         S_req = -(-(max_decoder_steps or cfg.max_decoder_steps) // r)
-        const = self.attention_layer.precompute(memory, memory_lengths)
-        s = self.init_state(B, T_enc, memory.device)
+        const, s = self.prepare(memory, memory_lengths)
         if early_exit:
             if chunk_size * r < cfg.gate_delay:
                 raise ValueError("chunk_size must cover gate_delay (one extra "
@@ -356,15 +390,14 @@ class Decoder(nn.Module):
             S_max = -(-S_req // chunk_size) * chunk_size
         else:
             S_max, chunk_size = S_req, S_req
-        dev = memory.device
-        mel_buf = torch.zeros(S_max, B, cfg.n_mel_channels * r, device=dev)
-        gate_buf = torch.full((S_max, B, r), -1e4, device=dev)
-        w_buf = torch.zeros(S_max, B, T_enc, device=dev)
+        chunk_fn = chunk_fn or self.decode_chunk
+        mels, gates, weights = [], [], []
         n_done = 0
-        for t0 in range(0, S_max, chunk_size):
-            for t in range(t0, t0 + chunk_size):
-                s, mel_buf[t], gate_buf[t], w_buf[t] = self.step(
-                    s, memory, const, generator)
+        for _ in range(0, S_max, chunk_size):
+            mel, gate, w, s = chunk_fn(memory, const, s, chunk_size, generator)
+            mels.append(mel)
+            gates.append(gate)
+            weights.append(w)
             if early_exit:
                 # one host sync per chunk; stop one chunk after every row's
                 # gate has fired, so gate_delay frames exist past it
@@ -372,12 +405,17 @@ class Decoder(nn.Module):
                 if n_done == 2:
                     break
         T_max = S_max * r
-        gates = gate_buf.permute(1, 0, 2).reshape(B, T_max)
+        left = S_max - len(mels) * chunk_size        # never decoded
+        dev = memory.device
+        if left:
+            mels.append(torch.zeros(B, left * r, cfg.n_mel_channels, device=dev))
+            gates.append(torch.full((B, left * r), -1e4, device=dev))
+            weights.append(torch.zeros(B, left, T_enc, device=dev))
+        gates = torch.cat(gates, 1)
         stop = get_first_over_thresh(torch.sigmoid(gates), thr)
-        weights = w_buf.transpose(0, 1)
+        weights = torch.cat(weights, 1)
         return {
-            "mel_outputs": mel_buf.transpose(0, 1).reshape(
-                B, T_max, cfg.n_mel_channels),
+            "mel_outputs": torch.cat(mels, 1),
             "gate_outputs": gates,
             "alignments": (weights if r == 1
                            else weights.repeat_interleave(r, dim=1)),
@@ -442,25 +480,60 @@ class Tacotron2(nn.Module):
                  "syl_logvar": syl_logvar}
         return memory.contiguous(), heads
 
+    def _inputs(self, text, text_lengths, speaker_id, torchmoji_hidden, sylps):
+        """The request's inputs as tensors on the model's device."""
+        dev = self.device
+        as_t = lambda x, dt=None: (None if x is None else
+                                   torch.as_tensor(x, device=dev, dtype=dt))
+        return (as_t(text, torch.long), as_t(text_lengths, torch.long),
+                as_t(speaker_id, torch.long), as_t(torchmoji_hidden, torch.float32),
+                as_t(sylps, torch.float32))
+
+    # -- chunked inference for streaming (JAX models/tacotron2.py:815-868) --
+
+    @torch.no_grad()
+    def inference_prepare(self, text, text_lengths, speaker_id,
+                          torchmoji_hidden=None, sylps=None):
+        """Encode once for a chunked decode: (memory, attention const,
+        initial DecoderState). The attention precompute runs here, once per
+        utterance, as in the whole decode."""
+        text, text_lengths, speaker_id, tm, sylps = self._inputs(
+            text, text_lengths, speaker_id, torchmoji_hidden, sylps)
+        memory, _ = self._build_memory(text, text_lengths, speaker_id, sylps, tm)
+        return (memory, *self.decoder.prepare(memory, text_lengths))
+
+    @torch.no_grad()
+    def decode_chunk(self, memory, const, state: DecoderState, steps: int,
+                     generator: Optional[torch.Generator] = None):
+        """``steps`` free-running decode steps from ``state`` ->
+        (mel_raw [B, S*r, M], gate [B, S*r], weights [B, S, T_enc], state);
+        the prenet draws from ``generator`` as the whole decode does, so the
+        chunks of a decode give its mels."""
+        return self.decoder.decode_chunk(memory, const, state, steps, generator)
+
+    @torch.no_grad()
+    def postnet_refine(self, mel: torch.Tensor) -> torch.Tensor:
+        """The postnet over a raw mel window [B, T, M] (halos are the
+        caller's: the stack's receptive-field radius is
+        2 * postnet_n_convolutions frames)."""
+        return self.postnet(mel) if self.cfg.use_postnet else mel
+
     @torch.no_grad()
     def inference(self, text, text_lengths, speaker_id, torchmoji_hidden=None,
                   sylps=None, generator: Optional[torch.Generator] = None,
                   max_decoder_steps: Optional[int] = None,
                   early_exit: bool = False, chunk_size: int = 64,
-                  gate_threshold=None, gate_delay=None) -> Dict[str, torch.Tensor]:
+                  gate_threshold=None, gate_delay=None,
+                  chunk_fn: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
         """Free-running inference. ``generator`` draws the prenet dropout
-        (the global RNG when None); a ``sylps`` [B] tensor sets the pace."""
-        dev = self.device
-        as_t = lambda x, dt=None: (None if x is None else
-                                   torch.as_tensor(x, device=dev, dtype=dt))
-        text, text_lengths = as_t(text, torch.long), as_t(text_lengths, torch.long)
-        memory, heads = self._build_memory(
-            text, text_lengths, as_t(speaker_id, torch.long),
-            as_t(sylps, torch.float32), as_t(torchmoji_hidden, torch.float32))
+        (the global RNG when None); a ``sylps`` [B] tensor sets the pace;
+        ``chunk_fn`` runs the decode's chunks (Decoder.inference)."""
+        text, text_lengths, speaker_id, tm, sylps = self._inputs(
+            text, text_lengths, speaker_id, torchmoji_hidden, sylps)
+        memory, heads = self._build_memory(text, text_lengths, speaker_id,
+                                           sylps, tm)
         out = self.decoder.inference(
             memory, text_lengths, generator, max_decoder_steps, early_exit,
-            chunk_size, gate_threshold, gate_delay)
-        mel = out["mel_outputs"]
-        out["mel_outputs_postnet"] = (self.postnet(mel) if self.cfg.use_postnet
-                                      else mel)
+            chunk_size, gate_threshold, gate_delay, chunk_fn)
+        out["mel_outputs_postnet"] = self.postnet_refine(out["mel_outputs"])
         return {**out, **heads}

@@ -280,18 +280,44 @@ def lstm_gates_plan(B: int, F: int, H: int, target_blocks: int = 264,
                     slices * B * 4 * H, groups * col_tiles)
 
 
-_TICKETS: Dict[torch.device, torch.Tensor] = {}
-_KEEP: list = []        # every counter tensor handed out, for captured graphs
+# lstm_gates' ticket counters, one set per thing that can run at the same
+# time as another: a stream (eager launches) or a CUDA-graph capture.
+_TICKETS: Dict[tuple, torch.Tensor] = {}
+_KEEP: list = []        # every counter tensor handed out: a launch in flight
+                        # or a captured graph may still use a replaced one
+
+
+def _capture_id(stream: int) -> int:
+    """The id of the CUDA-graph capture under way on ``stream`` (0: none)."""
+    cid = ctypes.c_ulonglong(0)
+    _raise_on(_build.library("lstm_gates").lstm_capture_id(
+        ctypes.c_void_p(stream), ctypes.byref(cid)), "lstm_capture_id")
+    return cid.value
+
+
+def _counter_key(device: torch.device) -> tuple:
+    """("capture", device, id) while the current stream is being captured
+    into a CUDA graph, else ("stream", device, stream)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if torch.cuda.is_current_stream_capturing():
+        return ("capture", device, _capture_id(stream))
+    return ("stream", device, stream)
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """The ticket counters of lstm_gates on ``device``: zeroed once here,
-    left at 0 by every launch (see csrc/lstm_gates.cu). Grown, never freed,
-    so a captured CUDA graph keeps valid counters."""
-    t = _TICKETS.get(device)
+    """The ticket counters of lstm_gates for ``_counter_key(device)``:
+    zeroed when allocated, left at 0 by every
+    launch (see csrc/lstm_gates.cu). Launches on one stream, or recorded
+    into one graph, run one after another and share a set; two streams, or
+    two graphs replayed at once, never do. A capture's set is allocated
+    during the capture, so its zeroing memset is a node of the graph (one
+    per replay, not per launch), and it is never freed, so it outlives the
+    graph."""
+    key = _counter_key(device)
+    t = _TICKETS.get(key)
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
+        _TICKETS[key] = t
         _KEEP.append(t)
     return t
 
@@ -380,6 +406,17 @@ def hifigan_resblock_plan(B: int, C: int, T: int, k: int, d: int
                          f"of shared memory (max {SMEM_MAX}) and a tile of "
                          f"{tile} samples")
     return tile, grid, smem, variant
+
+
+def hifigan_resblock_takes(C: int, k: int, dilations: Sequence[int]) -> bool:
+    """Whether the kernel takes a resblock of C channels, kernel size k and
+    these dilations (hifigan_resblock_plan does not raise for any pair)."""
+    try:
+        for d in dilations:
+            hifigan_resblock_plan(1, C, 1, k, int(d))
+    except ValueError:
+        return False
+    return True
 
 
 def hifigan_resblock_launches(C: int, n_pairs: int) -> int:

@@ -8,13 +8,17 @@
   below-target segments until ``target_score`` or ``max_attempts``.
 - decode step counts rounded up to a few buckets.
 - batched vocoding and in-process concatenation of the output audio,
-  optionally followed by the spectral denoiser (``denoiser_fn``).
+  optionally followed by the spectral denoiser (``denoiser_fn``); segments
+  longer than ``streaming_over_frames`` vocode in halo-overlapped windows
+  (``pipeline/streaming.py``) unless the vocoder is stochastic.
 - :func:`make_flow_vocoder_fn` — a WaveGlow/WaveFlow model as a stochastic
   ``vocoder_fn``.
 
 Decoding and vocoding run on the model's device; the host loop only does
-control flow. Prenet dropout draws from a ``torch.Generator`` seeded from
-the request's ``seed``.
+control flow. The early-exit decode runs its chunks through a
+``DecodeChunkGraphs`` (``pipeline/chunk_graph.py``: on the card, each chunk
+shape captured once as a CUDA graph and replayed). Prenet dropout draws from
+a ``torch.Generator`` seeded from the request's ``seed``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ from ..device import resolve_device
 from ..models.tacotron2 import Tacotron2
 from ..ops.metrics import alignment_metric, weighted_score
 from ..text import text_to_sequence
+from .chunk_graph import DecodeChunkGraphs
+from .streaming import vocode_streamed
 
 _SENT_SPLIT = re.compile(r"(?<=[.!?;:])\s+")
 
@@ -170,6 +176,13 @@ class T2SConfig:
     frames_per_char: float = 10.0  # dynamic max decoder steps scale
     max_decoder_steps: int = 3000
     vocoder_batch_size: int = 16
+    # vocode segments longer than this many frames in halo-overlapped
+    # windows (pipeline/streaming.py): the same audio for a deterministic
+    # vocoder at bounded peak vocoder memory; stochastic vocoders
+    # (vocoder_fn.stochastic) vocode whole. 0 disables.
+    streaming_over_frames: int = 0
+    streaming_chunk_frames: int = 256
+    streaming_halo_frames: int = 32
     gate_threshold: float = 0.5
     gate_delay: int = 10
     text_cleaners: Tuple[str, ...] = ("english_cleaners",)
@@ -214,15 +227,18 @@ class T2S:
         self.arpa_fn = arpa_fn
         self.sample_rate = sample_rate
         self.hop_length = hop_length
+        self.decode_chunk = DecodeChunkGraphs(tts_model.decoder)
 
     def _generate(self, text, text_lengths, speaker_id, torchmoji, generator,
                   max_steps, gate_threshold, gate_delay):
-        """Early-exit decode of one candidate batch + its scores."""
+        """Early-exit decode of one candidate batch + its scores; the
+        chunks run through the captured chunk program."""
         out = self.model.inference(
             text, text_lengths, speaker_id, torchmoji, generator=generator,
             max_decoder_steps=max_steps, early_exit=True,
             chunk_size=max(64, self.model.cfg.gate_delay),
-            gate_threshold=gate_threshold, gate_delay=gate_delay)
+            gate_threshold=gate_threshold, gate_delay=gate_delay,
+            chunk_fn=self.decode_chunk)
         lengths = torch.as_tensor(text_lengths, device=self.device)
         atd = alignment_metric(out["alignments"], lengths, out["mel_lengths"])
         scores = weighted_score(atd, lengths, out["mel_lengths"])
@@ -398,8 +414,20 @@ class T2S:
                 mel_in = np.full((len(chunk), t_pad, n_mel), -11.52, np.float32)
                 for r, m in enumerate(chunk):
                     mel_in[r, : m.shape[0]] = m
-                wav = self.vocoder_fn(torch.from_numpy(mel_in).to(self.device))
-                wav = wav.cpu().numpy()
+                mel_in = torch.from_numpy(mel_in).to(self.device)
+                if (cfg.streaming_over_frames
+                        and t_pad > cfg.streaming_over_frames
+                        and not getattr(self.vocoder_fn, "stochastic", False)):
+                    # a long segment: halo-overlapped windows, the same
+                    # audio at bounded peak vocoder memory (a stochastic
+                    # vocoder would seam between windows)
+                    wav = vocode_streamed(
+                        self.vocoder_fn, mel_in,
+                        chunk_frames=cfg.streaming_chunk_frames,
+                        halo_frames=cfg.streaming_halo_frames,
+                        hop_length=self.hop_length)
+                else:
+                    wav = self.vocoder_fn(mel_in).cpu().numpy()
                 for r, m in enumerate(chunk):
                     if pieces and len(silence):
                         pieces.append(silence)

@@ -79,3 +79,69 @@ def test_weights_round_trip(gens):
         np.testing.assert_allclose(np.asarray(w_b), np.asarray(w_a),
                                    atol=1e-6, rtol=1e-5)
         np.testing.assert_array_equal(np.asarray(b_b), np.asarray(b_a))
+
+
+def test_generator_384_wide_matches_jax():
+    """upsample_initial_channel=384: stages of 192, 96, 48 and 24 channels,
+    none of which the resblock kernel takes, so "auto" (the default) runs
+    every stage on the plain path and vocodes like JAX."""
+    cfg = dict(TINY, upsample_initial_channel=384, resblock_kernel_sizes=(3,),
+               resblock_dilations=((1, 3),), upsample_rates=(2, 2, 2, 2),
+               upsample_kernel_sizes=(4, 4, 4, 4))
+    jg = JGenerator(JConfig(**cfg))
+    mel = np.random.default_rng(1).normal(-4, 2, (1, 6, 80)).astype(np.float32)
+    v = jax.tree_util.tree_map(np.asarray,
+                               jg.init(jax.random.PRNGKey(1), jnp.asarray(mel)))
+    port = Generator(HiFiGANConfig(**cfg), device="cpu")
+    port.load_state_dict(hifigan_state_dict_from_jax(v["params"]))
+    assert port.kernel_stages() == ((192, False), (96, False), (48, False),
+                                    (24, False))
+    ref = np.asarray(jg.apply(v, jnp.asarray(mel)))
+    audio = port(torch.from_numpy(mel)).numpy()
+    assert audio.shape == ref.shape == (1, 6 * 16)
+    np.testing.assert_allclose(audio, ref, atol=1e-5, rtol=0)
+
+
+# initial channels -> the stages' widths and whether "auto" gives each the
+# kernel (8, 16, 32, 64 or a multiple of 128: hifigan_resblock_plan)
+STAGES = {512: ((256, True), (128, True), (64, True), (32, True)),
+          384: ((192, False), (96, False), (48, False), (24, False)),
+          768: ((384, True), (192, False), (96, False), (48, False))}
+
+
+@pytest.mark.parametrize("mode", [True, False, "auto"])
+@pytest.mark.parametrize("initial", sorted(STAGES))
+def test_pallas_resblocks_picks_each_stage_at_construction(mode, initial):
+    cfg = HiFiGANConfig(upsample_initial_channel=initial, resblock_kernel_sizes=(3, 7),
+                        resblock_dilations=((1, 3), (1, 3)), pallas_resblocks=mode)
+    want = STAGES[initial]
+    if mode is True and not all(k for _, k in want):
+        with pytest.raises(ValueError, match="unsupported"):
+            Generator(cfg, device="cpu")
+        return
+    gen = Generator(cfg, device="cpu")
+    assert gen.kernel_stages() == tuple(
+        (C, mode is True or (mode == "auto" and k)) for C, k in want)
+    assert all(rb.use_kernel == dict(gen.kernel_stages())[rb.convs1[0].in_channels]
+               for rb in gen.resblocks)
+
+
+def test_pallas_resblocks_refuses_other_values():
+    with pytest.raises(ValueError, match="pallas_resblocks"):
+        Generator(HiFiGANConfig(upsample_initial_channel=32, pallas_resblocks="on"),
+                  device="cpu")
+
+
+def test_plain_resblock_path_matches_the_kernel_path():
+    """pallas_resblocks=False (the modules' own convs) and True (the kernel's
+    entry, which takes its plain version on the CPU) vocode alike."""
+    cfg = dict(TINY, upsample_initial_channel=128)
+    kernel = Generator(HiFiGANConfig(**cfg, pallas_resblocks=True), device="cpu")
+    plain = Generator(HiFiGANConfig(**cfg, pallas_resblocks=False), device="cpu")
+    plain.load_state_dict(kernel.state_dict())
+    mel = torch.from_numpy(np.random.default_rng(2).normal(
+        -4, 2, (2, 5, 80)).astype(np.float32))
+    assert all(k for _, k in kernel.kernel_stages())
+    assert not any(k for _, k in plain.kernel_stages())
+    np.testing.assert_allclose(plain(mel).numpy(), kernel(mel).numpy(),
+                               atol=1e-6, rtol=0)

@@ -109,3 +109,38 @@ def test_flow_vocoder_entry_points_raise_without_cuda(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
     assert make(device="cpu").device.type == "cpu"
+
+
+_IMPORT_SERVING = """
+import sys
+BLOCKED = {blocked!r}
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked " + name)
+
+for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
+    del sys.modules[name]
+sys.meta_path.insert(0, Block())
+from cookietts_tpu_torch.pipeline import chunk_graph, server, streaming
+assert callable(server.handle_tts) and callable(streaming.streaming_tts)
+try:
+    server.make_app(object())
+except ImportError as e:
+    print("make_app:", e)
+"""
+
+
+def test_streaming_and_server_import_without_jax_or_tornado():
+    """The serving modules stand alone, and the server's module imports
+    without tornado (which the card's machine lacks): only make_app and
+    serve import it."""
+    for name in ("chunk_graph.py", "streaming.py", "server.py"):
+        assert PACKAGE / "pipeline" / name in set(PACKAGE.rglob("*.py"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_SERVING.format(
+            blocked=FORBIDDEN + ("tornado",))],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "make_app: blocked tornado" in proc.stdout

@@ -477,3 +477,36 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+def test_lstm_counters_are_private_to_each_stream_and_capture(monkeypatch):
+    """lstm_gates' ticket counters: one set per stream for eager launches and
+    one per CUDA-graph capture, so launches that can run at the same time
+    never share a set; launches on one stream, or in one capture, do."""
+    monkeypatch.setattr(hk, "_TICKETS", {})
+    monkeypatch.setattr(hk, "_KEEP", [])
+    dev = torch.device("cpu")
+    stream, capture = [77], [0]           # the current stream and capture id
+
+    class Stream:
+        @property
+        def cuda_stream(self):
+            return stream[0]
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capture[0] != 0)
+    monkeypatch.setattr(hk, "_capture_id", lambda s: capture[0])
+
+    sets = {}
+    for stream[0], capture[0] in ((11, 0), (12, 0), (11, 1), (11, 2)):
+        key = hk._counter_key(dev)
+        assert key == (("capture", dev, capture[0]) if capture[0]
+                       else ("stream", dev, stream[0]))
+        sets[key] = hk._tickets(dev, 64)
+        assert hk._tickets(dev, 64) is sets[key]
+    assert len({t.data_ptr() for t in sets.values()}) == 4
+    assert all(t.dtype == torch.int32 and not t.any() for t in sets.values())
+    stream[0], capture[0] = 11, 0
+    grown = hk._tickets(dev, 10000)
+    assert grown.numel() >= 10000 and not grown.any()
+    assert any(t is sets[("stream", dev, 11)] for t in hk._KEEP)   # kept alive
