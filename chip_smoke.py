@@ -1116,8 +1116,7 @@ def lstm_two_streams(hk, check, B=4, rounds=40, shared=False):
         torch.cuda.synchronize()
     finally:
         hk._counter_key = key
-        for k in [k for k in hk._TICKETS if k[0] == "shared"]:
-            del hk._TICKETS[k]
+        hk.release_tickets([k for k in hk._TICKETS if k[0] == "shared"])
     return (lstm_compare(check, got, want, "two streams: stream", count_only=shared),
             2 * rounds * len(LSTM_SHAPES))
 
@@ -1197,17 +1196,22 @@ def two_chunk_graphs(hk, taco, rounds=4, shared_stream=False):
     if shared_stream:
         log(f"  two decode chunk programs captured on one stream, replayed at once: "
             f"{differ} of {2 * rounds} chunks differ from their replay alone")
+        if not differ:
+            raise SystemExit("chip_smoke: the shared-stream control broke nothing, "
+                             "so the two graphs did not run at once")
     else:
         log(f"  two captured decode chunks (B=4, T_enc=64, {S} steps) replayed at "
             f"once on two streams, {rounds} rounds: each bit-identical to its "
             "replay alone")
 
 
-def resblock_widths(hk, hcfg):
-    """The main path's four stages run the kernel; a 384-wide generator
-    (stages 192, 96, 48, 24) runs the plain path under "auto", launching no
-    resblock kernel, and raises under True; C = 96 and 192 at the kernel's
-    entry raise."""
+def resblock_widths(hk, check, hcfg, smi):
+    """Every stage runs the resblock kernel under "auto": the main path's
+    four (256, 128, 64, 32) and a 384-wide generator's (192, 96, 48, 24),
+    whose audio is held against the same weights on the plain path
+    (pallas_resblocks=False) with its exact launch count. The kernel at
+    C = 192, 96, 48, 24 and 6 (weights in 4-byte copies) against its plain
+    version; True raises at construction for an even kernel size."""
     import torch
     from cookietts_tpu_torch.models.hifigan import Generator
     main = Generator(hcfg, device="cuda").kernel_stages()
@@ -1216,34 +1220,89 @@ def resblock_widths(hk, hcfg):
         raise SystemExit("chip_smoke: the main path's HiFi-GAN stages must all "
                          "run the resblock kernel")
     wide = dataclasses.replace(hcfg, upsample_initial_channel=384)
+    torch.manual_seed(3)
     gen = Generator(wide, device="cuda")
-    mel = torch.randn(1, 16, 80, device="cuda")
+    plain = Generator(dataclasses.replace(wide, pallas_resblocks=False), device="cuda")
+    plain.load_state_dict(gen.state_dict())
+    mel = torch.randn(2, 32, 80, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(4)) - 4
     before = hk.LAUNCHES["hifigan_resblock"]
     audio = gen(mel)
     torch.cuda.synchronize()
     n = hk.LAUNCHES["hifigan_resblock"] - before
     log(f"  upsample_initial_channel=384, \"auto\": stages {gen.kernel_stages()}, "
-        f"{n} resblock launches, audio {tuple(audio.shape)} finite "
-        f"{bool(torch.isfinite(audio).all())}")
-    if n or any(k for _, k in gen.kernel_stages()) or not torch.isfinite(audio).all() \
-            or audio.shape != (1, 16 * HOP):
-        raise SystemExit("chip_smoke: the 384-wide generator must vocode on the "
-                         "plain path")
+        f"{n} resblock launches (expected {vocoder_launches(hk, gen, 1)})")
+    if n != vocoder_launches(hk, gen, 1) or n == 0 \
+            or not all(k for _, k in gen.kernel_stages()):
+        raise SystemExit("chip_smoke: the 384-wide generator must run the "
+                         "resblock kernel at every stage")
+    check("slice", audio, plain(mel), 1e-3, 1e-3, "384-wide HiFi-GAN audio")
+    T, g = 512, torch.Generator(device="cuda").manual_seed(8)
+    n_k = len(wide.resblock_kernel_sizes)
+    for i, u in enumerate(wide.upsample_rates):
+        T *= u
+        C = wide.upsample_initial_channel // 2 ** (i + 1)
+        x = torch.randn(3, C, T, device="cuda", generator=g)
+        rbs = gen.resblocks[i * n_k:(i + 1) * n_k]
+        stage = [(x, *rb.kernel_weights(), rb.dilations, rb.slope) for rb in rbs]
+        bound = bound_of([resblock_bound(3, C, T, rb.convs1[0].kernel_size[0],
+                                         len(rb.dilations)) for rb in rbs])
+        log(f"    384-wide stage C={C} T={T} B=3 ({n_k} resblocks, split "
+            f"{hk.resblock_split_rows(C)} rows): kernel "
+            f"{time_ms(lambda: [hk.hifigan_resblock(*a) for a in stage], 3):.4f} ms, "
+            f"plain {time_ms(lambda: [hk.hifigan_resblock_plain(*a) for a in stage], 3):.4f}"
+            f" ms, 3xTF32 bound {bound[0]:.4f} ms ({smi})")
+        del x, stage
+    for C in (192, 96, 48, 24, 6):
+        for k in (3, 7, 11):
+            args = resblock_inputs(1, C, 4096 + 7, k,
+                                   torch.Generator(device="cuda").manual_seed(C + k))
+            check("hifigan_resblock", hk.hifigan_resblock(*args, (1, 3, 5), 0.1),
+                  hk.hifigan_resblock_plain(*args, (1, 3, 5), 0.1),
+                  *TOL["hifigan_resblock"], f"C={C} k={k} T=4103 split "
+                  f"{hk.resblock_split_rows(C)} rows")
     try:
-        Generator(dataclasses.replace(wide, pallas_resblocks=True), device="cuda")
+        Generator(dataclasses.replace(wide, pallas_resblocks=True,
+                                      resblock_kernel_sizes=(3, 4, 11)), device="cuda")
     except ValueError as e:
-        log(f"  upsample_initial_channel=384, True: raises ({e})")
+        log(f"  pallas_resblocks=True with kernel size 4: raises ({e})")
     else:
-        raise SystemExit("chip_smoke: pallas_resblocks=True must raise for C=192")
-    for C in (96, 192):
-        args = resblock_inputs(1, C, 64, 3, torch.Generator(device="cuda").manual_seed(C))
-        try:
-            hk.hifigan_resblock(*args, (1, 3, 5), 0.1)
-        except ValueError:
-            pass
-        else:
-            raise SystemExit(f"chip_smoke: hifigan_resblock must refuse C={C}")
-    log("  hifigan_resblock at C = 96 and 192: refused by its plan")
+        raise SystemExit("chip_smoke: pallas_resblocks=True must raise for an "
+                         "even kernel size")
+
+
+def chunk_graph_cache_bound(hk, taco):
+    """A chunk program that keeps 2 graphs, fed batch sizes 1, 2, 3 and 1
+    again (a server meeting new batch sizes): it keeps at most 2, releases
+    the least recently used with its lstm_gates counters, and what it
+    captures again replays as the eager chunk does."""
+    import torch
+    from cookietts_tpu_torch.pipeline.chunk_graph import DecodeChunkGraphs
+    S = 8
+    prog = DecodeChunkGraphs(taco.decoder, max_graphs=2)
+    inputs = {B: taco.inference_prepare(*decode_inputs(taco, B, 64, 70 + B))
+              for B in (1, 2, 3)}
+    seeded = lambda: torch.Generator(device="cuda").manual_seed(9)
+    held = lambda: len([k for k in hk._TICKETS if k[0] == "capture"])
+    n, sets = held(), []
+    for B in (1, 2, 3, 1, 1):
+        prog(*inputs[B], S, seeded())
+        sets.append(held() - n)
+        if len(prog.graphs) > 2:
+            raise SystemExit("chip_smoke: the chunk program kept more graphs "
+                             "than its bound")
+    eager = taco.decode_chunk(*inputs[1], S, seeded())
+    replayed = prog(*inputs[1], S, seeded())
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(replayed[:3], eager[:3]))
+    log(f"  chunk program bounded to 2 graphs, batch sizes 1, 2, 3, 1: "
+        f"{prog.captures} captures, {prog.releases} releases, {prog.replays} "
+        f"replays, capture counter sets held after each call {sets}; replay after re-capture "
+        f"bit-identical to eager: {same}")
+    if (prog.captures, prog.releases, prog.replays) != (4, 2, 2) or not same \
+            or sets != [1, 2, 2, 2, 2]:
+        raise SystemExit("chip_smoke: the bounded chunk program did not release, "
+                         "re-capture and replay as expected")
 
 
 def vocoder_launches(hk, gen, calls):
@@ -1408,10 +1467,14 @@ def phase6(hk, check, tcfg, hcfg, smi):
     wrong, total = lstm_two_streams(hk, check, shared=True)
     log(f"  lstm_gates on two streams forced onto one counter set (the repaired "
         f"fault): {wrong} of {total} cells wrong")
+    if not wrong:
+        raise SystemExit("chip_smoke: the shared-counter control broke nothing, "
+                         "so the two streams did not run at once")
     lstm_two_graphs(hk, check)
     two_chunk_graphs(hk, taco)
     two_chunk_graphs(hk, taco, shared_stream=True)
-    resblock_widths(hk, hcfg)
+    chunk_graph_cache_bound(hk, taco)
+    resblock_widths(hk, check, hcfg, smi)
     failed_capture_raises(hk)
     return out
 

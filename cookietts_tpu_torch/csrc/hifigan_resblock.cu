@@ -57,14 +57,21 @@
 //   so these widths fuse. Their tiles are wide (256 to 1024 conv columns),
 //   so conv1 recomputing conv2's halo costs 1-4%. C=8 pads the MMA's 16 rows
 //   with zeros. A block of 8 warps (two blocks an SM) measured no faster.
-// - split, C a multiple of 128: at C=256, k=11, d=5 a fused tile wide enough
+// - split, every other C: at C=256, k=11, d=5 a fused tile wide enough
 //   for the MMA would need more shared memory than a block may have. Two
 //   launches, conv1 -> h in device memory, then conv2 + residual, each over
-//   128 x 64 output tiles with 32-channel K chunks; a chunk's activation
+//   BM x 64 output tiles with 32-channel K chunks; a chunk's activation
 //   window is staged once and read by all k taps. h costs two more passes
 //   over the activation (25 MB at C=256, B=3, T=4096: 8 us against 0.2 ms of
 //   compute), and the small tiles give two blocks an SM and 384 blocks at
 //   C=256 (128-sample tiles leave the card's second wave half empty there).
+//   BM, the output channels of a block, is 128, 64 or 32: the plan takes
+//   the one that pads C least (128 for every multiple of 128; 64 at C=192,
+//   32 at C=96 and 24, 64 at 48). Channels past C, in a block's rows or in
+//   the last K chunk, are staged as zeros and never written, so any C runs;
+//   weight rows go in 16-byte copies where C is a multiple of 4, else in
+//   4-byte ones. Where BM and 32 divide C (kWhole) those checks compile
+//   out: with them, C=256 and 128 ran 2-5% slower (PERF.md).
 //
 // What holds it back: mma.sync peaks at about 324 TFLOP/s in TF32 on the
 // H100 (tools/bench_mma_rate.py), two thirds of the wgmma rate, so 3xTF32
@@ -82,7 +89,6 @@ using namespace tf32x3;
 
 constexpr int kThreads = 256;   // split: threads per block (8 warps)
 constexpr int kWarps = kThreads / 32;
-constexpr int kSplitM = 128;    // split: output channels per block
 constexpr int kSplitN = 64;     // split: samples per block
 constexpr int kSplitKc = 32;    // split: input channels per K chunk
 
@@ -223,55 +229,69 @@ resblock_pair_fused(const float* __restrict__ x, const float* __restrict__ w1,
 }
 
 // ---- split variant -------------------------------------------------------
-// One conv of the pair over a [kSplitM x kSplitN] output tile; 8 warps as 4
-// (channels, 32 each) x 2 (samples, 32 each). kFirst: conv1,
-// src = x, out = lrelu(conv(lrelu(x)) + b1) = h. Else conv2, src = h,
+// One conv of the pair over a [BM x kSplitN] output tile; 8 warps as WM
+// (channels, 16 MI rows each) x 8 / WM (samples, 8 NJ columns each). kFirst:
+// conv1, src = x, out = lrelu(conv(lrelu(x)) + b1) = h. Else conv2, src = h,
 // out = res + conv(h) + b2 = y. A K step is one (32-channel chunk, tap);
 // its weight slab and, at a chunk's first tap, the chunk's activation
 // window go through rings of kSplitStages buffers, two steps ahead, with
-// one barrier a step.
+// one barrier a step. Channels >= C are staged as zeros; kWhole: BM and
+// kSplitKc divide C, so there are none and no check is made.
 constexpr int kSplitStages = 3;
 
-__host__ __device__ inline long long split_smem(int K, int dil) {
+__host__ __device__ inline long long split_smem(int K, int dil, int BM) {
   return 4LL * kSplitStages * kSplitKc * (pad_stride(kSplitN + (K - 1) * dil) +
-                                          pad_stride(kSplitM));
+                                          pad_stride(BM));
 }
 
-template <bool kFirst>
+template <bool kFirst, int BM, bool kWhole>
 __global__ void __launch_bounds__(kThreads, 2)
 resblock_conv_split(const float* __restrict__ src, const float* __restrict__ w,
                     const float* __restrict__ bias,
                     const float* __restrict__ res, int C, int T, int K,
                     int dil, float slope, float* __restrict__ out) {
-  constexpr int WM = 4;                      // warps along the channels
-  constexpr int MI = kSplitM / WM / 16, NJ = kSplitN / (kWarps / WM) / 8;
+  constexpr int WM = BM >= 64 ? 4 : 2;       // warps along the channels
+  constexpr int MI = BM / WM / 16, NJ = kSplitN / (kWarps / WM) / 8;
   extern __shared__ float smem[];
   const int sw = kSplitN + (K - 1) * dil;    // samples of a staged chunk
-  const int sst = pad_stride(sw), wst = pad_stride(kSplitM);
+  const int sst = pad_stride(sw), wst = pad_stride(BM);
   float* sbuf = smem;                        // [3][kSplitKc][sst]
   float* wbuf = smem + kSplitStages * kSplitKc * sst;  // [3][kSplitKc][wst]
 
-  const int t0 = blockIdx.x * kSplitN, co0 = blockIdx.y * kSplitM;
+  const int t0 = blockIdx.x * kSplitN, co0 = blockIdx.y * BM;
   const int b = blockIdx.z;
   const int sbase = t0 - (K / 2) * dil;      // sample of staged column 0
   const float* srcb = src + (size_t)b * C * T;
-  const int n_steps = C / kSplitKc * K;      // (K chunk, tap)
+  const int n_steps = (C + kSplitKc - 1) / kSplitKc * K;   // (K chunk, tap)
+  const bool vec = C % 4 == 0;               // weight rows 16-byte aligned
 
   auto load_step = [&](int s) {
     const int chunk = s / K, tap = s - chunk * K;
     const int ci0 = chunk * kSplitKc;
     const float* wsrc = w + ((size_t)tap * C + ci0) * C + co0;
     float* wdst = wbuf + (s % kSplitStages) * kSplitKc * wst;
-    for (int i = threadIdx.x; i < kSplitKc * kSplitM / 4; i += kThreads) {
-      const int r = i / (kSplitM / 4), c4 = (i - r * (kSplitM / 4)) * 4;
-      copy_async16(wdst + r * wst + c4, wsrc + (size_t)r * C + c4);
+    for (int i = threadIdx.x; i < kSplitKc * BM / 4; i += kThreads) {
+      const int r = i / (BM / 4), c4 = (i - r * (BM / 4)) * 4;
+      const bool row = kWhole || ci0 + r < C;
+      if (kWhole) {
+        copy_async16(wdst + r * wst + c4, wsrc + (size_t)r * C + c4);
+      } else if (vec) {
+        const bool ok = row && co0 + c4 < C;
+        copy_async16z(wdst + r * wst + c4, ok ? wsrc + (size_t)r * C + c4 : w, ok);
+      } else {
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = row && co0 + c4 + e < C;
+          copy_async4(wdst + r * wst + c4 + e,
+                      ok ? wsrc + (size_t)r * C + c4 + e : w, ok);
+        }
+      }
     }
     if (tap == 0) {
       float* sdst = sbuf + (chunk % kSplitStages) * kSplitKc * sst;
       for (int i = threadIdx.x; i < kSplitKc * sw; i += kThreads) {
         const int r = i / sw, c = i - r * sw;
         const int p = sbase + c;
-        const bool ok = p >= 0 && p < T;
+        const bool ok = p >= 0 && p < T && (kWhole || ci0 + r < C);
         copy_async4(sdst + r * sst + c,
                     ok ? srcb + (size_t)(ci0 + r) * T + p : srcb, ok);
       }
@@ -303,7 +323,7 @@ resblock_conv_split(const float* __restrict__ src, const float* __restrict__ w,
       __syncthreads();
     }
     mma_chunk<MI, NJ>(wbuf + (s % kSplitStages) * kSplitKc * wst, wst, m0,
-                      kSplitM, sc + tap * dil, sst, n0, kSplitKc, acc);
+                      BM, sc + tap * dil, sst, n0, kSplitKc, acc);
   }
 
 #pragma unroll
@@ -314,7 +334,7 @@ resblock_conv_split(const float* __restrict__ src, const float* __restrict__ w,
       for (int e = 0; e < 4; ++e) {
         const int co = co0 + m0 + 16 * i + g + (e >= 2 ? 8 : 0);
         const int p = t0 + n0 + 8 * j + 2 * t + (e & 1);
-        if (p < T) {
+        if ((kWhole || co < C) && p < T) {
           const size_t o = ((size_t)b * C + co) * T + p;
           const float v = acc[i][j][e] + bias[co];
           out[o] = kFirst ? lrelu(v, slope) : res[o] + v;
@@ -345,39 +365,53 @@ int launch_fused(const float* x, const float* w1, const float* b1,
   return (int)cudaGetLastError();
 }
 
+template <int BM, bool kWhole>
 int launch_split(const float* x, const float* w1, const float* b1,
                  const float* w2, const float* b2, int B, int C, int T, int K,
                  int dil, float slope, long long smem, float* h, float* y,
                  cudaStream_t st) {
-  if (smem < split_smem(K, dil)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + kSplitN - 1) / kSplitN, C / kSplitM, B);
-  cudaError_t e = set_smem(resblock_conv_split<true>, smem);
+  if (smem < split_smem(K, dil, BM)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((T + kSplitN - 1) / kSplitN, (C + BM - 1) / BM, B);
+  cudaError_t e = set_smem(resblock_conv_split<true, BM, kWhole>, smem);
   if (e != cudaSuccess) return (int)e;
-  resblock_conv_split<true><<<grid, kThreads, smem, st>>>(
+  resblock_conv_split<true, BM, kWhole><<<grid, kThreads, smem, st>>>(
       x, w1, b1, nullptr, C, T, K, dil, slope, h);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = set_smem(resblock_conv_split<false>, smem);
+  e = set_smem(resblock_conv_split<false, BM, kWhole>, smem);
   if (e != cudaSuccess) return (int)e;
-  resblock_conv_split<false><<<grid, kThreads, smem, st>>>(
+  resblock_conv_split<false, BM, kWhole><<<grid, kThreads, smem, st>>>(
       h, w2, b2, x, C, T, K, 1, slope, y);
   return (int)cudaGetLastError();
 }
 
+template <int BM>
+int launch_split_rows(const float* x, const float* w1, const float* b1,
+                      const float* w2, const float* b2, int B, int C, int T,
+                      int K, int dil, float slope, long long smem, float* h,
+                      float* y, cudaStream_t st) {
+  if (C % BM == 0 && C % kSplitKc == 0)
+    return launch_split<BM, true>(x, w1, b1, w2, b2, B, C, T, K, dil, slope,
+                                  smem, h, y, st);
+  return launch_split<BM, false>(x, w1, b1, w2, b2, B, C, T, K, dil, slope,
+                                 smem, h, y, st);
+}
+
 }  // namespace
 
-// One dilation pair, x -> y. The plan (variant, tile, smem) comes from
-// hifigan_resblock_plan in ops/hopper_kernels.py and is checked here against
-// this file's own geometry. variant 0 (fused): one launch, h unused.
-// variant 1 (split): two launches through h, a [B, C, T] scratch buffer.
+// One dilation pair, x -> y. The plan (variant, tile, rows, smem) comes
+// from hifigan_resblock_plan in ops/hopper_kernels.py and is checked here
+// against this file's own geometry. variant 0 (fused): one launch, h and
+// rows unused. variant 1 (split): two launches through h, a [B, C, T]
+// scratch buffer, over blocks of `rows` (BM) output channels.
 extern "C" int hifigan_resblock_pair(const float* x, const float* w1,
                                      const float* b1, const float* w2,
                                      const float* b2, int B, int C, int T,
                                      int K, int dil, float slope, int variant,
-                                     int tile, long long smem, float* h,
-                                     float* y, void* stream) {
+                                     int tile, int rows, long long smem,
+                                     float* h, float* y, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (K % 2 == 0 || smem > 232448) return (int)cudaErrorInvalidValue;
+  if (K % 2 == 0 || C <= 0 || smem > 232448) return (int)cudaErrorInvalidValue;
   if (variant == 0) {
     switch (C) {
       case 8:
@@ -396,8 +430,12 @@ extern "C" int hifigan_resblock_pair(const float* x, const float* w1,
         return (int)cudaErrorInvalidValue;
     }
   }
-  if (variant != 1 || C % kSplitM || tile != kSplitN)
-    return (int)cudaErrorInvalidValue;
-  return launch_split(x, w1, b1, w2, b2, B, C, T, K, dil, slope, smem, h, y,
-                      st);
+  if (variant != 1 || tile != kSplitN) return (int)cudaErrorInvalidValue;
+  return rows == 128 ? launch_split_rows<128>(x, w1, b1, w2, b2, B, C, T, K, dil,
+                                               slope, smem, h, y, st)
+       : rows == 64 ? launch_split_rows<64>(x, w1, b1, w2, b2, B, C, T, K, dil,
+                                            slope, smem, h, y, st)
+       : rows == 32 ? launch_split_rows<32>(x, w1, b1, w2, b2, B, C, T, K, dil,
+                                            slope, smem, h, y, st)
+       : (int)cudaErrorInvalidValue;
 }

@@ -8,12 +8,16 @@ is folded at load: a ``weight_g``/``weight_v`` pair in a loaded state dict
 becomes the plain ``weight`` (torch's weight_norm, dim 0).
 
 ``HiFiGANConfig.pallas_resblocks`` (the JAX field's name and values) picks,
-once at construction, which stages run their MRF resblocks in the
-``hifigan_resblock`` kernel: True, every stage (a width the kernel does not
-take raises); False, none (the module's own convs); "auto", every stage whose
-width ``hifigan_resblock_plan`` takes, the plain path for the rest. JAX's
-batch threshold for "auto" (``pallas_auto_batch_max``) is a TPU measurement
-and is not carried over: the port's "auto" ignores the batch.
+once at construction, whether the MRF resblocks run through the
+``hifigan_resblock`` kernel's entry: True and "auto" (the default), every
+stage; False, none (the modules' own convs, JAX's stock path). The kernel
+takes every width (``hifigan_resblock_plan``); True also checks each
+resblock's plan at construction and raises for what it does not take (an
+even kernel size, a window past shared memory), where "auto" leaves that to
+the launch on the card. As with every kernel entry, a CPU tensor takes the
+plain version. JAX's "auto" also picks by backend and batch
+(``pallas_auto_batch_max``, a TPU measurement); the port's ignores the
+batch until the kernel is timed at large batches.
 ``Generator.kernel_stages()`` reports the choice. A kernel resblock's weights
 are re-laid out for the kernel once and cached until the parameters change.
 Traps kept from the JAX model: ConvTranspose ``padding=(k-u)//2`` matches
@@ -125,16 +129,12 @@ class Generator(nn.Module):
         self.to(resolve_device(device))
 
     def _stage_uses_kernel(self, C: int) -> bool:
-        mode = self.cfg.pallas_resblocks
-        blocks = list(zip(self.cfg.resblock_kernel_sizes,
-                          self.cfg.resblock_dilations))
-        if mode is True:
-            for k, dilations in blocks:     # raises for a width it does not take
+        if self.cfg.pallas_resblocks is True:   # raises for what it does not take
+            for k, dilations in zip(self.cfg.resblock_kernel_sizes,
+                                    self.cfg.resblock_dilations):
                 for d in dilations:
                     hk.hifigan_resblock_plan(1, C, 1, k, int(d))
-            return True
-        return mode == "auto" and all(hk.hifigan_resblock_takes(C, k, d)
-                                      for k, d in blocks)
+        return self.cfg.pallas_resblocks is not False
 
     def kernel_stages(self) -> Tuple[Tuple[int, bool], ...]:
         """(channels, runs the hifigan_resblock kernel) of each upsampling

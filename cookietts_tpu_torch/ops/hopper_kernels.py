@@ -283,8 +283,9 @@ def lstm_gates_plan(B: int, F: int, H: int, target_blocks: int = 264,
 # lstm_gates' ticket counters, one set per thing that can run at the same
 # time as another: a stream (eager launches) or a CUDA-graph capture.
 _TICKETS: Dict[tuple, torch.Tensor] = {}
-_KEEP: list = []        # every counter tensor handed out: a launch in flight
-                        # or a captured graph may still use a replaced one
+_KEEP: Dict[tuple, list] = {}   # every counter tensor handed out, by key: a
+                                # launch in flight or a captured graph may
+                                # still use a replaced one
 
 
 def _capture_id(stream: int) -> int:
@@ -311,15 +312,23 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     into one graph, run one after another and share a set; two streams, or
     two graphs replayed at once, never do. A capture's set is allocated
     during the capture, so its zeroing memset is a node of the graph (one
-    per replay, not per launch), and it is never freed, so it outlives the
-    graph."""
+    per replay, not per launch), and it is kept until ``release_tickets``
+    drops it with its graph."""
     key = _counter_key(device)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _TICKETS[key] = t
-        _KEEP.append(t)
+        _KEEP.setdefault(key, []).append(t)
     return t
+
+
+def release_tickets(keys) -> None:
+    """Drop the counter sets of ``keys`` (those of a capture whose graph is
+    released); the caller makes sure nothing that uses them is in flight."""
+    for key in keys:
+        _TICKETS.pop(key, None)
+        _KEEP.pop(key, None)
 
 
 class _LstmGates(_NoBackward):
@@ -378,15 +387,25 @@ def _pad_stride(w: int) -> int:
     return (w - 8 + 15) // 16 * 16 + 8
 
 
+def resblock_split_rows(C: int) -> int:
+    """Output channels per block of the split variant: of 128, 64 and 32,
+    the one that pads C least (the larger on a tie)."""
+    return min((128, 64, 32), key=lambda m: -(-C // m) * m)
+
+
 def hifigan_resblock_plan(B: int, C: int, T: int, k: int, d: int
                           ) -> Tuple[int, Tuple[int, int, int], int, str]:
     """Launch plan of one dilation pair: (tile, grid, smem_bytes, variant).
     Block x of the grid writes output samples [x tile, (x + 1) tile) of
-    [0, T). "fused" (C of 8 to 64): one launch, grid (tiles, B, 1); "split"
-    (C a multiple of 128): two launches through a scratch h, grid (tiles,
-    C / 128, B). Raises for what the kernel does not take."""
+    [0, T). "fused" (C of 8, 16, 32 or 64): one launch, grid (tiles, B, 1);
+    "split" (every other C): two launches through a scratch h, grid (tiles,
+    ceil(C / rows), B) with rows = resblock_split_rows(C). Raises for what
+    the kernel does not take: an even k, or a k and d whose window overflows
+    shared memory."""
     if k % 2 == 0:
         raise ValueError(f"hifigan_resblock: k={k} must be odd")
+    if C <= 0:
+        raise ValueError(f"hifigan_resblock: C={C} must be positive")
     half = k // 2
     if C in RESBLOCK_FUSED:
         n1, kc = RESBLOCK_FUSED[C]
@@ -394,29 +413,15 @@ def hifigan_resblock_plan(B: int, C: int, T: int, k: int, d: int
         smem = 4 * (C * (_pad_stride(n1 + 2 * half * d) + _pad_stride(n1 + 2 * half))
                     + 3 * kc * _pad_stride(C))
         grid, variant = (-(-T // max(tile, 1)), B, 1), "fused"
-    elif C > 0 and C % 128 == 0:
-        tile = RESBLOCK_SPLIT_TILE
-        smem = 4 * 3 * 32 * (_pad_stride(tile + (k - 1) * d) + _pad_stride(128))
-        grid, variant = (-(-T // tile), C // 128, B), "split"
     else:
-        raise ValueError(f"hifigan_resblock: C={C} unsupported (8, 16, 32, 64 "
-                         "or a multiple of 128)")
+        tile, rows = RESBLOCK_SPLIT_TILE, resblock_split_rows(C)
+        smem = 4 * 3 * 32 * (_pad_stride(tile + (k - 1) * d) + _pad_stride(rows))
+        grid, variant = (-(-T // tile), -(-C // rows), B), "split"
     if tile <= 0 or smem > SMEM_MAX:
         raise ValueError(f"hifigan_resblock: C={C} k={k} d={d} needs {smem} B "
                          f"of shared memory (max {SMEM_MAX}) and a tile of "
                          f"{tile} samples")
     return tile, grid, smem, variant
-
-
-def hifigan_resblock_takes(C: int, k: int, dilations: Sequence[int]) -> bool:
-    """Whether the kernel takes a resblock of C channels, kernel size k and
-    these dilations (hifigan_resblock_plan does not raise for any pair)."""
-    try:
-        for d in dilations:
-            hifigan_resblock_plan(1, C, 1, k, int(d))
-    except ValueError:
-        return False
-    return True
 
 
 def hifigan_resblock_launches(C: int, n_pairs: int) -> int:
@@ -445,7 +450,8 @@ class _HifiganResblock(_NoBackward):
             err = lib.hifigan_resblock_pair(
                 _ptr(x), _ptr(w1[p]), _ptr(b1[p]), _ptr(w2[p]), _ptr(b2[p]),
                 B, C, T, k, int(d), ctypes.c_float(slope),
-                0 if variant == "fused" else 1, tile, ctypes.c_longlong(smem),
+                0 if variant == "fused" else 1, tile, resblock_split_rows(C),
+                ctypes.c_longlong(smem),
                 _ptr(h), _ptr(y), stream)
             _raise_on(err, "hifigan_resblock")
             LAUNCHES["hifigan_resblock"] += hifigan_resblock_launches(C, 1)
@@ -456,7 +462,7 @@ class _HifiganResblock(_NoBackward):
 def hifigan_resblock(x, w1, b1, w2, b2, dilations: Sequence[int],
                      slope: float) -> torch.Tensor:
     """Fused MRF resblock (see hifigan_resblock_plain); on the card one
-    launch per dilation pair at C <= 64, two at C >= 128
+    launch per dilation pair at C of 8, 16, 32 or 64, two at every other C
     (hifigan_resblock_plan)."""
     if not _dispatch(x, "hifigan_resblock"):
         return hifigan_resblock_plain(x, w1, b1, w2, b2, dilations, slope)

@@ -26,12 +26,17 @@ its inputs into the graph's buffers and replays it.
   (cuBLAS keeps one per stream, and a graph keeps the one it was captured
   with). Graphs of two programs may run at once; two graphs of one program
   (one worker's) must not.
+- The cache is bounded: past ``max_graphs`` shapes (a server meets a new
+  batch size with every client that asks for one), the least recently
+  replayed graph is released, with its memory pool and its ``lstm_gates``
+  counters, after the card has finished what was queued.
 - A failed capture raises; nothing falls back to the eager chunk.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils import _pytree as pytree
@@ -47,18 +52,22 @@ class _Captured:
     outputs: List[torch.Tensor]     # (mel, gate, weights, state) leaves
     out_spec: Any
     launches: Dict[str, int]        # kernel launches of one replay
+    tickets: List[tuple]            # keys of the capture's lstm_gates counters
 
 
 class DecodeChunkGraphs:
     """A decoder's chunk program: eager on the CPU, one CUDA graph per shape
-    on the card (see the module docstring). ``captures``, ``replays`` and
-    ``eager_calls`` count what it did."""
+    on the card, at most ``max_graphs`` kept (see the module docstring).
+    ``captures``, ``replays``, ``eager_calls`` and ``releases`` count what
+    it did."""
 
-    def __init__(self, decoder):
+    def __init__(self, decoder, max_graphs: int = 16):
         self.decoder = decoder
+        self.max_graphs = max_graphs
         self.stream = None            # the capture stream, made at first capture
-        self.graphs: Dict[Tuple, _Captured] = {}   # by (memory shape, steps)
-        self.captures = self.replays = self.eager_calls = 0
+        # by (memory shape, steps), least recently used first
+        self.graphs: Dict[tuple, _Captured] = collections.OrderedDict()
+        self.captures = self.replays = self.eager_calls = self.releases = 0
 
     @torch.no_grad()
     def __call__(self, memory: torch.Tensor, const: Dict[str, Any], state,
@@ -73,8 +82,17 @@ class DecodeChunkGraphs:
             self.eager_calls += 1
             self.graphs[key] = self._capture(memory, const, state, steps)
             self.captures += 1
+            while len(self.graphs) > self.max_graphs:
+                self._release(self.graphs.popitem(last=False)[1])
             return out
+        self.graphs.move_to_end(key)
         return self._replay(captured, (memory, const, state), generator)
+
+    def _release(self, captured: _Captured) -> None:
+        torch.cuda.synchronize(captured.inputs[0].device)   # no replay in flight
+        hk.release_tickets(captured.tickets)
+        captured.graph.reset()
+        self.releases += 1
 
     def _capture(self, memory, const, state, steps) -> _Captured:
         leaves, spec = pytree.tree_flatten((memory, const, state))
@@ -86,6 +104,7 @@ class DecodeChunkGraphs:
         if self.stream is None:
             self.stream = torch.cuda.Stream(memory.device)
         before = dict(hk.LAUNCHES)
+        sets = set(hk._TICKETS)
         try:
             with torch.cuda.graph(graph, stream=self.stream,
                                   capture_error_mode="thread_local"):
@@ -97,12 +116,15 @@ class DecodeChunkGraphs:
             # offset) lets later draws from it work
             default = torch.cuda.default_generators[torch.cuda.current_device()]
             default.graphsafe_set_state(default.clone_state())
+            hk.release_tickets([k for k in hk._TICKETS if k not in sets])
             raise
         finally:
             launches = {k: hk.LAUNCHES[k] - before[k] for k in before}
             hk.LAUNCHES.update(before)
+        tickets = [k for k in hk._TICKETS if k not in sets]
         outputs, out_spec = pytree.tree_flatten(out)
-        return _Captured(graph, generator, inputs, outputs, out_spec, launches)
+        return _Captured(graph, generator, inputs, outputs, out_spec, launches,
+                         tickets)
 
     def _replay(self, captured: _Captured, args, generator):
         leaves, _ = pytree.tree_flatten(args)

@@ -1,5 +1,7 @@
 """The PyTorch port's HiFi-GAN generator against the JAX generator on the CPU,
 and the weights carried across in both directions."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -82,9 +84,9 @@ def test_weights_round_trip(gens):
 
 
 def test_generator_384_wide_matches_jax():
-    """upsample_initial_channel=384: stages of 192, 96, 48 and 24 channels,
-    none of which the resblock kernel takes, so "auto" (the default) runs
-    every stage on the plain path and vocodes like JAX."""
+    """upsample_initial_channel=384: stages of 192, 96, 48 and 24 channels.
+    "auto" (the default) sends every stage through the resblock kernel's
+    entry (its plain version on the CPU) and vocodes like JAX."""
     cfg = dict(TINY, upsample_initial_channel=384, resblock_kernel_sizes=(3,),
                resblock_dilations=((1, 3),), upsample_rates=(2, 2, 2, 2),
                upsample_kernel_sizes=(4, 4, 4, 4))
@@ -94,19 +96,17 @@ def test_generator_384_wide_matches_jax():
                                jg.init(jax.random.PRNGKey(1), jnp.asarray(mel)))
     port = Generator(HiFiGANConfig(**cfg), device="cpu")
     port.load_state_dict(hifigan_state_dict_from_jax(v["params"]))
-    assert port.kernel_stages() == ((192, False), (96, False), (48, False),
-                                    (24, False))
+    assert port.kernel_stages() == ((192, True), (96, True), (48, True),
+                                    (24, True))
     ref = np.asarray(jg.apply(v, jnp.asarray(mel)))
     audio = port(torch.from_numpy(mel)).numpy()
     assert audio.shape == ref.shape == (1, 6 * 16)
     np.testing.assert_allclose(audio, ref, atol=1e-5, rtol=0)
 
 
-# initial channels -> the stages' widths and whether "auto" gives each the
-# kernel (8, 16, 32, 64 or a multiple of 128: hifigan_resblock_plan)
-STAGES = {512: ((256, True), (128, True), (64, True), (32, True)),
-          384: ((192, False), (96, False), (48, False), (24, False)),
-          768: ((384, True), (192, False), (96, False), (48, False))}
+# initial channels -> the stages' widths (the kernel takes every width:
+# hifigan_resblock_plan)
+STAGES = {512: (256, 128, 64, 32), 384: (192, 96, 48, 24), 768: (384, 192, 96, 48)}
 
 
 @pytest.mark.parametrize("mode", [True, False, "auto"])
@@ -114,16 +114,18 @@ STAGES = {512: ((256, True), (128, True), (64, True), (32, True)),
 def test_pallas_resblocks_picks_each_stage_at_construction(mode, initial):
     cfg = HiFiGANConfig(upsample_initial_channel=initial, resblock_kernel_sizes=(3, 7),
                         resblock_dilations=((1, 3), (1, 3)), pallas_resblocks=mode)
-    want = STAGES[initial]
-    if mode is True and not all(k for _, k in want):
-        with pytest.raises(ValueError, match="unsupported"):
-            Generator(cfg, device="cpu")
-        return
     gen = Generator(cfg, device="cpu")
-    assert gen.kernel_stages() == tuple(
-        (C, mode is True or (mode == "auto" and k)) for C, k in want)
+    assert gen.kernel_stages() == tuple((C, mode is not False) for C in STAGES[initial])
     assert all(rb.use_kernel == dict(gen.kernel_stages())[rb.convs1[0].in_channels]
                for rb in gen.resblocks)
+    # a resblock the kernel does not take (an even kernel size): True refuses
+    # it at construction, "auto" and False build
+    even = dataclasses.replace(cfg, resblock_kernel_sizes=(3, 4))
+    if mode is True:
+        with pytest.raises(ValueError, match="must be odd"):
+            Generator(even, device="cpu")
+    else:
+        assert Generator(even, device="cpu").kernel_stages() == gen.kernel_stages()
 
 
 def test_pallas_resblocks_refuses_other_values():

@@ -114,18 +114,22 @@ def test_hifigan_resblock_plain_is_torch_resblock():
 
 @pytest.mark.parametrize("d", [1, 3, 5])
 @pytest.mark.parametrize("k", [3, 7, 11])
-@pytest.mark.parametrize("C", [8, 16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("C", [6, 8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512])
 def test_hifigan_resblock_plan_fits_and_covers(C, k, d):
-    """Every HiFi-GAN width from 8 to 512 channels, with the kernel sizes
-    and dilations of the repo's configurations: the launch fits a block's
-    shared memory, fuses the pair at C <= 64, and its tiles cover [0, T)
-    exactly once."""
+    """Every HiFi-GAN width from 6 to 512 channels (those of 512- and
+    384-wide generators among them), with the kernel sizes and dilations of
+    the repo's configurations: the launch fits a block's shared memory,
+    fuses the pair at C of 8 to 64, and its tiles cover [0, T) and the
+    channels exactly once, padding the channels by the least of the split
+    variant's row counts."""
     for T in (1, 100, 1024, 4096 + 7):
         tile, grid, smem, variant = hk.hifigan_resblock_plan(3, C, T, k, d)
         assert smem <= 232448
-        assert variant == ("fused" if C <= 64 else "split")
+        assert variant == ("fused" if C in (8, 16, 32, 64) else "split")
         if variant == "split":
-            assert grid[1:] == (C // 128, 3)
+            rows = hk.resblock_split_rows(C)
+            assert grid[1:] == (-(-C // rows), 3)
+            assert rows * grid[1] - C < 32 and (C % 128 or rows == 128)
         else:
             assert grid[1:] == (3, 1)
         covered = np.zeros(T, np.int64)
@@ -135,11 +139,12 @@ def test_hifigan_resblock_plan_fits_and_covers(C, k, d):
 
 
 def test_hifigan_resblock_plan_refuses_what_the_kernel_does_not_take():
-    for C, k in ((24, 3), (96, 3), (32, 4)):
+    for C, k, d in ((32, 4, 1), (96, 4, 1), (0, 3, 1), (256, 11, 60)):
         with pytest.raises(ValueError):
-            hk.hifigan_resblock_plan(1, C, 100, k, 1)
+            hk.hifigan_resblock_plan(1, C, 100, k, d)
     assert hk.hifigan_resblock_launches(64, 3) == 3
     assert hk.hifigan_resblock_launches(256, 3) == 6
+    assert hk.hifigan_resblock_launches(96, 3) == 6
 
 
 @pytest.mark.parametrize("B", [1, 4, 32, 128])
@@ -484,7 +489,7 @@ def test_lstm_counters_are_private_to_each_stream_and_capture(monkeypatch):
     one per CUDA-graph capture, so launches that can run at the same time
     never share a set; launches on one stream, or in one capture, do."""
     monkeypatch.setattr(hk, "_TICKETS", {})
-    monkeypatch.setattr(hk, "_KEEP", [])
+    monkeypatch.setattr(hk, "_KEEP", {})
     dev = torch.device("cpu")
     stream, capture = [77], [0]           # the current stream and capture id
 
@@ -509,4 +514,8 @@ def test_lstm_counters_are_private_to_each_stream_and_capture(monkeypatch):
     stream[0], capture[0] = 11, 0
     grown = hk._tickets(dev, 10000)
     assert grown.numel() >= 10000 and not grown.any()
-    assert any(t is sets[("stream", dev, 11)] for t in hk._KEEP)   # kept alive
+    assert any(t is sets[("stream", dev, 11)]                      # kept alive
+               for t in hk._KEEP[("stream", dev, 11)])
+    hk.release_tickets([("capture", dev, 1)])      # a released graph's set
+    assert ("capture", dev, 1) not in hk._TICKETS and ("capture", dev, 1) not in hk._KEEP
+    assert ("capture", dev, 2) in hk._TICKETS

@@ -233,3 +233,33 @@ def test_t2s_streaming_over_frames_matches_batch_vocode(models):
     calls.clear()
     t2s.infer(text, speaker=["alice"], seed=3)
     assert len(calls) == 1
+
+
+def test_chunk_graph_cache_stays_bounded(monkeypatch):
+    """A server meets a new batch size with every client that sends one: the
+    chunk program keeps at most ``max_graphs`` graphs, releases the least
+    recently used, and replays what it keeps. Capture, replay and release
+    are stubbed (there are no graphs on the CPU); the memory stands in for
+    a tensor on the card."""
+    class Memory:
+        def __init__(self, B):
+            self.shape, self.device = (B, 16, 8), torch.device("cuda")
+
+    class Decoder:
+        def decode_chunk(self, memory, const, state, steps, generator=None):
+            return "eager"
+
+    prog = DecodeChunkGraphs(Decoder(), max_graphs=3)
+    released = []
+    monkeypatch.setattr(prog, "_capture", lambda memory, *a: memory.shape[0])
+    monkeypatch.setattr(prog, "_replay", lambda captured, args, gen: captured)
+    monkeypatch.setattr(prog, "_release", released.append)
+    got = []
+    for B in (1, 2, 3, 1, 4, 5, 6, 7, 8, 1, 2, 9, 32, 17, 1):
+        got.append(prog(Memory(B), {}, (), 32))
+        assert len(prog.graphs) <= 3
+    # a shape's first call runs eagerly and captures, a kept shape replays
+    assert got == ["eager"] * 3 + [1] + ["eager"] * 11
+    assert released == [2, 3, 1, 4, 5, 6, 7, 8, 1, 2, 9]
+    assert [k[0][0] for k in prog.graphs] == [32, 17, 1]
+    assert prog.captures == 14
