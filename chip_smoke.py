@@ -67,6 +67,20 @@ non-zero:
    replayed at once on two streams; the resblock widths the kernel does not
    take (C = 96, 192: plain under "auto", raising under True); and a chunk
    that cannot be captured, which must raise.
+7. the training slice at full width (Tacotron2Config()): the port's train
+   command in-process on a 48-utterance evidence corpus (22050 Hz, hop
+   256, 80 mels, one 144-frame bucket and TBPTT segment, batch 16), 6
+   iterations with validation and a checkpoint every 3, then --resume to
+   8: every loss finite, the checkpoints there, the resume at step 6, and
+   the two training kernels launched once per decoder step (lstm_gates: 3
+   cells) in training and in both validations; the two kernels at the
+   training shapes against their plain versions, timed forward, with their
+   backward (autograd of the plain version) timed; one train step (loss,
+   backward, clipping, Adam) at B=16, T_txt=64, T_dec=800 with the kernels
+   and with the plain versions from the same weights and generator seed:
+   loss within rel 1e-5, every gradient within relative L2 1e-4, the
+   updated parameters, each path's s/iter split into forward and backward,
+   its peak memory, and the device-busy share of a kernel-path step.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -1479,6 +1493,325 @@ def phase6(hk, check, tcfg, hcfg, smi):
     return out
 
 
+# -- phase 7: the training slice ----------------------------------------------
+
+# the evidence corpus' audio front end, its one mel bucket and TBPTT segment
+TRAIN_HPARAMS = ("sampling_rate=22050,filter_length=1024,hop_length=256,"
+                 "win_length=1024,mel_fmax=8000.0,trim_enable=False,"
+                 "n_mel_channels=80,mel_buckets=[144],max_segment_frames=144,"
+                 "batch_size=16,validation_interval=3,checkpoint_interval=3,"
+                 "log_every=1")
+TRAIN_B, TRAIN_TXT, TRAIN_DEC = 16, 64, 800      # one TBPTT segment
+
+
+def train_events(run):
+    """([(step, train loss, s of the iteration)], [validation loss]) from the
+    run's events, in the order they were written."""
+    train, val = [], []
+    for line in (run / "events.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if rec["prefix"] == "train":
+            train.append((rec["step"], rec["loss"], rec["iter_s"]))
+        elif rec["prefix"] == "validation":
+            val.append(rec["val_loss"])
+    return train, val
+
+
+def expected_launches(trainer, iters, validations):
+    """attention_step launches of ``iters`` iterations (one per decoder
+    step of the 144-wide bucket) and ``validations`` validations (the
+    teacher-forced pass and the free-running decode, each one a step, over
+    every validation batch)."""
+    vb = trainer.val_batches
+    return iters * 144 + validations * 2 * len(vb) * vb.pad[1]
+
+
+def phase7_cli(hk, tmp):
+    """The port's train command on the evidence corpus at full width: 6
+    iterations with validation and a checkpoint every 3, then a resume to
+    8. Every loss finite, the checkpoints there, the resume at step 6, the
+    kernels launched once per decoder step (lstm_gates: 3 cells)."""
+    import torch
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.data.evidence_corpus import make_corpus
+    train_fl, _ = make_corpus(str(tmp / "corpus"), seed=0, n_train=32,
+                              n_val=16)
+    run = tmp / "run"
+    args = ["train", "--model", "tacotron2", "--filelist", train_fl,
+            "--run_dir", str(run), "--hparams", TRAIN_HPARAMS, "--seed", "0"]
+    for iters, resume, validations in ((6, [], 2), (8, ["--resume"], 0)):
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = cli(args + ["--iters", str(iters)] + resume)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = dict(hk.LAUNCHES)
+        done = iters - (6 if resume else 0)
+        want = expected_launches(trainer, done, validations)
+        log(f"  train {'--resume ' if resume else ''}to {iters}: {dt:.1f} s "
+            f"(data and validation included); launches attention_step "
+            f"{n['attention_step']} (want {want}), lstm_gates "
+            f"{n['lstm_gates']} (want {3 * want})")
+        if (n["attention_step"], n["lstm_gates"]) != (want, 3 * want):
+            raise SystemExit("chip_smoke: the train command's kernel "
+                             "launches are not one per decoder step")
+        if int(trainer.state.step) != iters:
+            raise SystemExit(f"chip_smoke: trained to {trainer.state.step}, "
+                             f"not {iters}")
+    # one record an iteration: steps 0-5, then 6 and 7 after the resume
+    train, val = train_events(run)
+    log(f"  losses by step {[(k, round(v, 4)) for k, v, _ in train]}; "
+        f"validation {[round(v, 4) for v in val]}; s per iteration "
+        f"(data to the card included) {[round(t, 3) for _, _, t in train]}")
+    if [k for k, _, _ in train] != list(range(8)) or len(val) != 2 or not all(
+            math.isfinite(v) for v in [v for _, v, _ in train] + val):
+        raise SystemExit("chip_smoke: a training or validation loss is "
+                         "missing or not finite, or the resume did not "
+                         "start at step 6")
+    files = sorted(p.name for p in run.iterdir())
+    for name in ("checkpoint_3", "checkpoint_6", "checkpoint_8",
+                 "best_val_model", "best_inf_attsc"):
+        if name not in files:
+            raise SystemExit(f"chip_smoke: {name} missing from {files}")
+    log(f"  checkpoints {[f for f in files if not f.endswith('.json')]}")
+
+
+def synthetic_batch(cfg, seed, B=TRAIN_B, T_txt=TRAIN_TXT, T_dec=TRAIN_DEC):
+    """A seeded full-width training batch on the card: lengths up to the
+    padded widths (one row full), smooth log-mel-like targets, gate targets
+    from each row's last frame, the batch's frame mean for drop-frame."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    text_len = torch.randint(T_txt // 2, T_txt + 1, (B,), device=dev, generator=g)
+    mel_len = torch.randint(3 * T_dec // 4, T_dec + 1, (B,), device=dev,
+                            generator=g)
+    text_len[0], mel_len[0] = T_txt, T_dec
+    text = torch.randint(1, cfg.n_symbols, (B, T_txt), device=dev, generator=g)
+    text = text * (torch.arange(T_txt, device=dev) < text_len[:, None])
+    base = torch.randn(B, T_dec // 16 + 1, cfg.n_mel_channels, device=dev,
+                       generator=g)
+    mels = torch.nn.functional.interpolate(
+        base.transpose(1, 2), size=T_dec, mode="linear").transpose(1, 2)
+    valid = torch.arange(T_dec, device=dev)[None, :] < mel_len[:, None]
+    mels = (mels * 2.0 - 6.0) * valid[:, :, None]
+    gate = (torch.arange(T_dec, device=dev)[None, :]
+            >= mel_len[:, None] - 1).float()
+    return {"text": text, "text_lengths": text_len, "mels": mels.contiguous(),
+            "mel_lengths": mel_len, "gate_target": gate,
+            "speaker_id": torch.randint(0, cfg.n_speakers, (B,), device=dev,
+                                        generator=g),
+            "sylps": 3.0 + 3.0 * torch.rand(B, device=dev, generator=g),
+            "pres_prev_state": torch.zeros(B, device=dev),
+            "global_mean": (mels.sum((0, 1)) / valid.sum()).contiguous()}
+
+
+def timed_train_step(model, state, batch, ctrl, seed):
+    """One train step as make_tacotron2_train_step runs it (forward in
+    training mode, loss, backward, clipping, Adam), timed in parts on the
+    host's clock with a synchronize after each. Returns (loss, clipped-
+    before gradients by name, ms forward, ms backward, ms update)."""
+    import torch
+    from cookietts_tpu_torch.losses import DEFAULT_LOSS_SCALARS, tacotron2_loss
+    from cookietts_tpu_torch.runtime.optim import clip_by_global_norm
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model.train()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = model(
+        batch["text"], batch["text_lengths"], batch["mels"],
+        batch["mel_lengths"], batch["speaker_id"], batch["sylps"],
+        generator=gen, p_teacher_forcing=ctrl["p_teacher_forcing"],
+        teacher_force_till=ctrl["teacher_force_till"],
+        drop_frame_rate=ctrl["drop_frame_rate"],
+        global_mean=batch["global_mean"])
+    total, _, _ = tacotron2_loss(
+        out, {k: batch[k] for k in ("mels", "mel_lengths", "text_lengths",
+                                    "sylps", "gate_target",
+                                    "pres_prev_state")},
+        {k: ctrl[k] for k in DEFAULT_LOSS_SCALARS}, 10.0,
+        ctrl["guided_att_sigma"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = state.params
+    grads = dict(zip(params, torch.autograd.grad(
+        total, list(params.values()), allow_unused=True)))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    clipped, _ = clip_by_global_norm(grads, ctrl["grad_clip"])
+    state.apply_gradients(clipped, ctrl["lr"])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return (total.item(), grads, 1e3 * (t1 - t0), 1e3 * (t2 - t1),
+            1e3 * (t3 - t2))
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm()) if float(b.norm()) else float(a.norm())
+
+
+def phase7_step(hk, tcfg, smi):
+    """One full-width train step at B=16, T_txt=64, T_dec=800 with the
+    kernels and with the plain versions from the same weights and
+    generator seed: loss, every gradient and the updated parameters
+    against each other, each timed with its peak memory; then the kernel
+    path once more, warm, under torch.profiler (CUDA activity only): its
+    time and device-busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cookietts_tpu_torch.losses import DEFAULT_LOSS_SCALARS
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2
+    from cookietts_tpu_torch.runtime.live_config import LiveConfig
+    from cookietts_tpu_torch.runtime.optim import adam
+    from cookietts_tpu_torch.runtime.train_state import TrainState
+    torch.manual_seed(3)
+    model = Tacotron2(tcfg, device="cuda")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = synthetic_batch(tcfg, seed=5)
+    live = LiveConfig(None)
+    ctrl = {"lr": 1e-3, "grad_clip": 1.0, "p_teacher_forcing": 1.0,
+            "teacher_force_till": 20,
+            "drop_frame_rate": float(live.get("drop_frame_rate")),
+            "guided_att_sigma": 0.5, **DEFAULT_LOSS_SCALARS}
+    runs, times = {}, {"kernels": [], "plain": []}
+
+    def run(path, keep, prof=None):
+        model.load_state_dict(init)
+        state = TrainState.create(model, adam())
+        hk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        ctx = plain_kernels(hk) if path == "plain" else (
+            prof or contextlib.nullcontext())
+        with ctx:
+            loss, grads, fwd, bwd, upd = timed_train_step(model, state, batch,
+                                                          ctrl, seed=11)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n = dict(hk.LAUNCHES)
+        times[path].append((fwd, bwd, upd, peak))
+        if keep:
+            runs[path] = (loss, {k: v.clone() for k, v in grads.items()
+                                 if v is not None},
+                          {k: v.detach().clone()
+                           for k, v in model.state_dict().items()}, n)
+        del grads, state
+
+    for path in ("kernels", "plain"):
+        run(path, keep=True)
+    lk, gk, pk, nk = runs["kernels"]
+    lp, gp, pp, np_ = runs["plain"]
+    steps = TRAIN_DEC // tcfg.n_frames_per_step
+    log(f"  launches of the kernel-path step: attention_step "
+        f"{nk['attention_step']}, lstm_gates {nk['lstm_gates']} (want "
+        f"{steps}, {3 * steps}); plain path {np_['attention_step']}, "
+        f"{np_['lstm_gates']}")
+    if (nk["attention_step"], nk["lstm_gates"]) != (steps, 3 * steps) or any(
+            np_[k] for k in ("attention_step", "lstm_gates")):
+        raise SystemExit("chip_smoke: train step launch counts")
+    loss_rel = abs(lk - lp) / abs(lp)
+    if set(gk) != set(gp):
+        raise SystemExit("chip_smoke: the two paths give gradients to "
+                         "different parameters")
+    g_all = math.sqrt(sum(float(g.norm()) ** 2 for g in gp.values()))
+    worst, tiny = [], []
+    for k in gp:
+        r = rel_l2(gk[k], gp[k])
+        # a conv bias ahead of a training-mode BatchNorm has a zero
+        # gradient; its computed one is rounding noise on both paths
+        if float(gp[k].norm()) < 1e-6 * g_all:
+            tiny.append(k)
+            r = float((gk[k] - gp[k]).norm()) / g_all
+        worst.append((r, k))
+    worst.sort(reverse=True)
+    # after one Adam step: a numerically-zero gradient's rounding noise
+    # becomes a step of up to lr of either sign (g / (|g| + eps)), so those
+    # parameters are held to 2 lr; every other entry to relative L2 1e-4
+    p_rel = max((rel_l2(pk[k].float(), pp[k].float()), k) for k in pk
+                if pk[k].is_floating_point() and k not in tiny)
+    p_tiny = max(float((pk[k] - pp[k]).abs().max()) for k in tiny)
+    log(f"  loss kernels {lk:.7f} plain {lp:.7f} rel {loss_rel:.2e} "
+        f"(limit 1e-5); {len(gp)} gradients, largest relative L2 "
+        f"{', '.join(f'{k} {r:.2e}' for r, k in worst[:4])} (limit 1e-4; "
+        f"{len(tiny)} numerically zero, held to the whole gradient's norm: "
+        f"{tiny}); parameters and statistics after the update: largest "
+        f"relative L2 {p_rel[1]} {p_rel[0]:.2e} (limit 1e-4), of the "
+        f"numerically zero ones max abs {p_tiny:.2e} (limit {2 * ctrl['lr']:g})")
+    if not (loss_rel <= 1e-5 and worst[0][0] <= 1e-4 and p_rel[0] <= 1e-4
+            and p_tiny <= 2 * ctrl["lr"] and math.isfinite(lk)):
+        raise SystemExit("chip_smoke: the kernel-path train step disagrees "
+                         "with the plain path")
+    del runs
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    run("kernels", keep=False, prof=prof)
+    for path, ts in times.items():
+        for i, (fwd, bwd, upd, peak) in enumerate(ts):
+            what = "first" if i == 0 else "warm, profiled"
+            log(f"  train step {path:7s} ({what}) B={TRAIN_B} T_dec="
+                f"{TRAIN_DEC}: {(fwd + bwd + upd) / 1e3:.3f} s/iter (forward "
+                f"{fwd:.1f} ms, backward {bwd:.1f} ms, clip+Adam {upd:.1f} "
+                f"ms), peak {peak:.2f} GiB")
+    # the raw kineto events: key_averages() over the step's ~10^5 kernel
+    # records takes tens of seconds
+    t0 = time.perf_counter()
+    device_ms = sum(e.duration_ns() for e in
+                    prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA) / 1e6
+    walls = [sum(t[:3]) for t in times["kernels"]]
+    log(f"  device busy {device_ms:.1f} ms of a kernel-path step: "
+        f"{device_ms / walls[1]:.3f} of the profiled step's {walls[1]:.1f} "
+        f"ms, {device_ms / walls[0]:.3f} of the unprofiled first step's "
+        f"{walls[0]:.1f} ms (profile read in {time.perf_counter() - t0:.1f} s)")
+    return times, device_ms / walls[1]
+
+
+def phase7_kernels(hk, check, smi):
+    """The two training kernels at the train step's shapes (B=16, T_enc=64,
+    the three decoder cells): forward against the plain version, each
+    timed, and the backward (autograd of the plain version) timed eagerly."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = {}
+    args = attention_inputs(TRAIN_B, TRAIN_TXT, gen)
+    flat = lambda out: torch.cat([t.flatten() for t in out])  # noqa: E731
+    check("attention_step", flat(hk.attention_step(*args)),
+          flat(hk.attention_step_plain(*args)), *TOL["attention_step"],
+          f"train B={TRAIN_B} T={TRAIN_TXT}")
+    g = [torch.randn_like(t) for t in hk.attention_step_plain(*args)]
+    out["attention_step"] = (
+        time_ms(lambda: hk.attention_step(*args), 200),
+        time_ms(lambda: hk.attention_step_plain(*args), 200),
+        eager_ms(lambda: hk.attention_step_vjp(*args, None, *g), 50),
+        bound_of([attention_bound(TRAIN_B, TRAIN_TXT)]))
+    for name, F_, H in LSTM_SHAPES:
+        a = lstm_inputs(TRAIN_B, F_, H, gen)
+        check("lstm_gates", flat(hk.lstm_gates(*a)),
+              flat(hk.lstm_gates_plain(*a)), *TOL["lstm_gates"],
+              f"train {name} B={TRAIN_B}")
+        g = [torch.randn_like(t) for t in hk.lstm_gates_plain(*a)]
+        out[name] = (time_ms(lambda: hk.lstm_gates(*a), 200),
+                     time_ms(lambda: hk.lstm_gates_plain(*a), 200),
+                     eager_ms(lambda: hk.lstm_gates_vjp(*a, *g), 50),
+                     bound_of([lstm_bound(TRAIN_B, F_, H)]))
+    for name, (k, p, b, (bound, by)) in out.items():
+        log(f"  {name:18s} B={TRAIN_B} forward kernel {k:.4f} ms, plain "
+            f"{p:.4f} ms, bound {bound:.5f} ms ({by}); backward (autograd "
+            f"of plain, eager) {b:.4f} ms")
+    return out
+
+
+def phase7(hk, check, tcfg, smi):
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        phase7_cli(hk, Path(tmp))
+        log(f"  phase 7a in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase7_kernels(hk, check, smi)
+    phase7_step(hk, tcfg, smi)
+    log(f"  phase 7b-c in {time.perf_counter() - t0:.1f} s; {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1556,6 +1889,9 @@ def main() -> int:
 
     log("phase 6: the streaming and serving slice, full width")
     phase6(hk, check, tcfg, hcfg, smi)
+
+    log("phase 7: the training slice, full width")
+    phase7(hk, check, tcfg, smi)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -1,1 +1,2 @@
-"""Audio frontends of the port (cookietts_tpu/audio): the STFT pair."""
+"""Audio frontends of the port (cookietts_tpu/audio): the STFT pair and the
+Tacotron mel frontend."""

@@ -4,7 +4,9 @@ Reflect padding of ``filter_length // 2`` on each side, a windowed DFT basis
 applied at hop-length stride, magnitude and phase split at the cutoff bin, and
 a pseudo-inverse basis with window-sum-square overlap-add correction.
 Spectrograms are time-major, [B, n_frames, cutoff], as in the JAX package.
-``TacotronSTFT`` and Griffin-Lim come with the training slice.
+``TacotronSTFT`` adds the Slaney mel projection and the log compression with
+the 1e-5 clamp (cookietts_tpu/audio/stft.py:TacotronSTFT); Griffin-Lim is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 from scipy.signal import get_window
 
 from ..device import resolve_device
+from .mel import mel_filterbank
 
 
 def pad_center(window: np.ndarray, size: int) -> np.ndarray:
@@ -112,3 +115,48 @@ class STFT:
 
     def __call__(self, audio: torch.Tensor) -> torch.Tensor:
         return self.inverse(*self.transform(audio))
+
+
+class TacotronSTFT:
+    """Mel-spectrogram frontend: STFT magnitude -> Slaney mel -> ln with a
+    ``clamp_val`` floor. Mels are time-major, [B, n_frames, n_mel].
+    ``mel_spectrogram`` runs in torch on ``device``; ``mel_spectrogram_np``
+    is its numpy mirror for host-side feature extraction (the dataset)."""
+
+    def __init__(self, filter_length: int = 1024, hop_length: int = 256,
+                 win_length: int = 1024, n_mel_channels: int = 80,
+                 sampling_rate: int = 22050, mel_fmin: float = 0.0,
+                 mel_fmax: Optional[float] = 8000.0, clamp_val: float = 1e-5,
+                 device: str | torch.device = "cuda"):
+        self.n_mel_channels = n_mel_channels
+        self.sampling_rate = sampling_rate
+        self.clip_val = clamp_val
+        self.hop_length = hop_length
+        self.stft = STFT(filter_length, hop_length, win_length, device=device)
+        self.device = self.stft.device
+        basis = mel_filterbank(sampling_rate, filter_length, n_mel_channels,
+                               mel_fmin, mel_fmax)
+        self.mel_basis_np = np.ascontiguousarray(basis.T, np.float32)
+        self.mel_basis = torch.from_numpy(self.mel_basis_np).to(self.device)
+        self._fwd_np = self.stft.forward_basis.cpu().numpy()
+
+    def mel_spectrogram(self, audio: torch.Tensor) -> torch.Tensor:
+        """[B, T] audio in [-1, 1] -> log-mel [B, n_frames, n_mel]."""
+        magnitudes, _ = self.stft.transform(audio, return_phase=False)
+        mel = torch.matmul(magnitudes, self.mel_basis)
+        return torch.log(mel.clamp_min(self.clip_val))
+
+    def mel_spectrogram_np(self, audio) -> np.ndarray:
+        """Numpy mirror of :meth:`mel_spectrogram`; takes [T] or [B, T]."""
+        squeeze = np.ndim(audio) == 1
+        x = np.atleast_2d(np.asarray(audio, np.float32))
+        n_fft, hop = self.stft.filter_length, self.stft.hop_length
+        x = np.pad(x, ((0, 0), (n_fft // 2, n_fft // 2)), mode="reflect")
+        n_frames = (x.shape[1] - n_fft) // hop + 1
+        idx = (np.arange(n_frames)[:, None] * hop
+               + np.arange(n_fft)[None, :])
+        spec = x[:, idx] @ self._fwd_np                     # [B, T, 2*cutoff]
+        c = self.stft.cutoff
+        mag = np.sqrt(spec[..., :c] ** 2 + spec[..., c:] ** 2)
+        mel = np.log(np.clip(mag @ self.mel_basis_np, self.clip_val, None))
+        return mel[0] if squeeze else mel

@@ -1,13 +1,13 @@
-"""SylpsNet, deterministic path (cookietts_tpu/models/sylpsnet.py).
+"""SylpsNet (cookietts_tpu/models/sylpsnet.py).
 
-A tiny residual MLP maps (sylps, ln sylps) -> (mu, logvar); inference uses
-``zu = mu``. The last layer outputs 1 value that is added, scaled by
+A tiny residual MLP maps (sylps, ln sylps) -> (mu, logvar); eval uses
+``zu = mu``, training samples ``zu = mu + exp(logvar / 2) * eps``. The last layer outputs 1 value that is added, scaled by
 ``res_weight``, to both channels. Parameter names follow the reference
 checkpoint (``seq_layers.{0,2,...}.linear_layer``, ``res_weight``).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -29,10 +29,19 @@ class SylpsNet(nn.Module):
         self.seq_layers = nn.Sequential(*layers)
         self.res_weight = nn.Parameter(torch.tensor(0.01))
 
-    def forward(self, sylps: torch.Tensor
+    def forward(self, sylps: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """[B] sylps -> (syl_zu [B, 1], mu [B], logvar [B])."""
+        """[B] sylps -> (syl_zu [B, 1], mu [B], logvar [B]). In training
+        eps is ``noise`` [B] when given, else drawn from ``generator``."""
         x = torch.stack([sylps, torch.log(sylps.clamp_min(1e-6))], dim=1)
         params = x + self.res_weight * self.seq_layers(x)
         mu, logvar = params[:, 0], params[:, 1]
-        return mu[:, None], mu, logvar
+        zu = mu
+        if self.training:
+            if noise is None:
+                noise = torch.randn(mu.shape, generator=generator,
+                                    device=mu.device)
+            zu = mu + torch.exp(0.5 * logvar) * noise
+        return zu[:, None], mu, logvar

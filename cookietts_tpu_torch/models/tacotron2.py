@@ -1,4 +1,5 @@
-"""Tacotron2 inference (cookietts_tpu/models/tacotron2.py).
+"""Tacotron2 (cookietts_tpu/models/tacotron2.py): inference and the
+teacher-forced training forward.
 
 Text -> encoder (3 x conv+BN, BiLSTM, sylps head) -> memory (encoder
 outputs, speaker embedding, SylpsNet z, crushed torchMoji; bottleneck) ->
@@ -16,24 +17,36 @@ chunk run stay zero (gates -1e4). ``Tacotron2.inference_prepare`` /
 ``decode_chunk`` / ``postnet_refine`` expose the same pieces for streaming
 (``pipeline/streaming.py``).
 
+``Tacotron2.forward`` is the teacher-forced pass of training
+(``Decoder.forward``: frames-per-step grouping, the GO frame, teacher forcing
+drawn per step, the per-lane TBPTT carry), with drop-frame and the postnet.
+``train()`` switches on the encoder conv dropout, BatchNorm batch statistics
+(flax's: the biased variance over every position, momentum 0.99), SylpsNet
+sampling, the LSTM cells' zoneout and dropout and the postnet dropout (0.5,
+fixed as in JAX). Randomness comes from the ``generator`` passed in. The
+model starts in eval mode; the inference methods always run in eval form.
+
 Submodule and parameter names follow the reference torch checkpoint, so its
-``state_dict`` (and ``convert.from_jax``'s) loads as it is. Inference only:
-dropout other than the prenet's, zoneout and BatchNorm statistics are eval.
+``state_dict`` (and ``convert.from_jax``'s) loads as it is. The reference's
+two LSTM biases are one in JAX; each pair's ``bias_hh`` is frozen.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils._pytree as pytree
 from torch import nn
 
 from ..device import resolve_device
 from ..ops.attention import (AttentionState, ConvNorm, LinearNorm,
                              LocationSensitiveAttention)
 from ..ops.lstm import ZoneoutLSTMCell
-from ..ops.masking import get_first_over_thresh, get_mask_from_lengths
+from ..ops.masking import (dropout_frame, get_first_over_thresh,
+                           get_mask_from_lengths)
 from .sylpsnet import SylpsNet
 
 
@@ -122,6 +135,38 @@ class Tacotron2Config:
     dtype: Any = torch.float32
 
 
+def _dropout(x: torch.Tensor, p: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a keep mask drawn from ``generator``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """BatchNorm with flax's training statistics: normalise by the biased
+    batch variance E[x^2] - E[x]^2 over every position but the channel one
+    (padding included), and move the running averages by 1 - 0.99 with that
+    same variance. Eval uses the running averages as nn.BatchNorm1d does."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mean = x.mean(dims)
+        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+            self.num_batches_tracked.add_(1)
+        y = (x - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        return y * self.weight.view(shape) + self.bias.view(shape)
+
+
 class Prenet(nn.Module):
     """Bias-free Linear + ReLU + dropout, dropout ALWAYS on (also at
     inference, like the reference). Keep masks come from ``generator``, or
@@ -139,10 +184,8 @@ class Prenet(nn.Module):
         for i, layer in enumerate(self.layers):
             x = F.relu(layer(x))
             if self.p > 0:
-                keep = (masks[i] if masks is not None else
-                        torch.rand(x.shape, generator=generator,
-                                   device=x.device) < 1.0 - self.p)
-                x = torch.where(keep, x / (1.0 - self.p), 0.0)
+                x = (torch.where(masks[i], x / (1.0 - self.p), 0.0)
+                     if masks is not None else _dropout(x, self.p, generator))
         return x
 
 
@@ -150,7 +193,8 @@ class Postnet(nn.Module):
     """Residual-accumulating conv stack; returns the REFINED mel. Every
     ``postnet_residual_connections``-th conv (and the last) projects to mel
     channels and adds into the running mel; the others are
-    conv+BN+tanh at ``postnet_embedding_dim``."""
+    conv+BN+tanh at ``postnet_embedding_dim``, with dropout 0.5 after the
+    tanh in training (fixed, as in JAX)."""
 
     def __init__(self, cfg: Tacotron2Config):
         super().__init__()
@@ -162,13 +206,14 @@ class Postnet(nn.Module):
             out_ch = cfg.n_mel_channels if out else cfg.postnet_embedding_dim
             layer = [ConvNorm(in_ch, out_ch, cfg.postnet_kernel_size)]
             if not out:
-                layer.append(nn.BatchNorm1d(out_ch))
+                layer.append(BatchNorm1d(out_ch))
             convs.append(nn.Sequential(*layer))
             in_ch = out_ch
         self.convolutions = nn.ModuleList(convs)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:   # [B, T, M]
-        x_orig = h = mel.transpose(1, 2)
+    def forward(self, mel: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x_orig = h = mel.transpose(1, 2)                     # [B, M, T]
         for out, layer in zip(self.is_output, self.convolutions):
             y = layer(h)
             if out:
@@ -176,6 +221,8 @@ class Postnet(nn.Module):
                 h = x_orig
             else:
                 h = torch.tanh(y)
+                if self.training:
+                    h = _dropout(h, 0.5, generator)
         return x_orig.transpose(1, 2)
 
 
@@ -199,15 +246,18 @@ class Encoder(nn.Module):
                 out_ch = cfg.encoder_conv_hidden_dim
             convs.append(nn.Sequential(
                 ConvNorm(in_ch, out_ch, cfg.encoder_kernel_size),
-                nn.BatchNorm1d(out_ch)))
+                BatchNorm1d(out_ch)))
             in_ch = out_ch
         self.convolutions = nn.ModuleList(convs)
         self.lstm = nn.LSTM(cfg.encoder_lstm_dim, cfg.encoder_lstm_dim // 2,
                             batch_first=True, bidirectional=True)
+        self.lstm.bias_hh_l0.requires_grad_(False)          # JAX: one bias
+        self.lstm.bias_hh_l0_reverse.requires_grad_(False)
         self.sylps_layer = LinearNorm(cfg.encoder_lstm_dim, 1)
 
     def forward(self, embedded: torch.Tensor, text_lengths: torch.Tensor,
-                speaker_embed: Optional[torch.Tensor]):
+                speaker_embed: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None):
         """embedded [B, T, E] -> (outputs [B, T, lstm_dim], pred_sylps [B])."""
         cfg = self.cfg
         B, T, _ = embedded.shape
@@ -221,6 +271,8 @@ class Encoder(nn.Module):
         x = x.transpose(1, 2)
         for layer in self.convolutions:
             x = F.leaky_relu(layer(x * mask_c), 0.01)
+            if self.training and cfg.encoder_conv_dropout > 0:
+                x = _dropout(x, cfg.encoder_conv_dropout, generator)
         x = x.transpose(1, 2)
         if spk is not None and cfg.encoder_concat_speaker_embed == "before_lstm":
             x = torch.cat([x, spk], dim=-1)
@@ -261,6 +313,13 @@ class DecoderState(NamedTuple):
     finished: torch.Tensor                     # [B] bool
 
 
+class TrainCarry(NamedTuple):
+    """The decoder state a TBPTT segment hands to the next one, and the
+    segment's last ground-truth frame group (the next one's GO frame)."""
+    state: DecoderState
+    prev_teacher: torch.Tensor                 # [B, n_mel * r]
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: Tacotron2Config, memory_in_dim: int):
         super().__init__()
@@ -276,7 +335,9 @@ class Decoder(nn.Module):
         self.prenet = Prenet(mel_dim, cfg)
         attn_in = cfg.prenet_dim + mem + (
             cfg.decoder_rnn_dim if cfg.attrnn_extra_decoder_input else 0)
-        self.attention_rnn = ZoneoutLSTMCell(attn_in, cfg.attention_rnn_dim)
+        self.attention_rnn = ZoneoutLSTMCell(
+            attn_in, cfg.attention_rnn_dim, cfg.attrnn_zoneout,
+            cfg.p_attrnn_dropout)
         self.attention_layer = LocationSensitiveAttention(
             cfg.attention_rnn_dim, mem, cfg.attention_dim,
             cfg.attention_location_n_filters,
@@ -285,12 +346,14 @@ class Decoder(nn.Module):
             cfg.windowed_att_pos_offset, cfg.attention_learned_temperature)
         if cfg.windowed_attention_range > 0:
             self.exp_smoothing_factor = nn.Parameter(torch.zeros(1))
-        self.decoder_rnn = ZoneoutLSTMCell(cfg.attention_rnn_dim + mem,
-                                           cfg.decoder_rnn_dim)
+        self.decoder_rnn = ZoneoutLSTMCell(
+            cfg.attention_rnn_dim + mem, cfg.decoder_rnn_dim,
+            cfg.decrnn_zoneout, cfg.p_decrnn_dropout)
         final = cfg.decoder_rnn_dim
         if cfg.second_decoder_rnn_dim > 0:
             self.second_decoder_rnn = ZoneoutLSTMCell(
-                cfg.decoder_rnn_dim, cfg.second_decoder_rnn_dim)
+                cfg.decoder_rnn_dim, cfg.second_decoder_rnn_dim,
+                cfg.decrnn_zoneout, cfg.p_decrnn_dropout)
             final = cfg.second_decoder_rnn_dim
         self.linear_projection = LinearNorm(final + mem, mel_dim)
         self.gate_layer = LinearNorm(final + mem, cfg.n_frames_per_step)
@@ -309,34 +372,105 @@ class Decoder(nn.Module):
             finished=torch.zeros(batch, dtype=torch.bool, device=device))
 
     def step(self, s: DecoderState, memory: torch.Tensor,
-             const: Dict[str, Any], generator: Optional[torch.Generator] = None):
+             const: Dict[str, Any], generator: Optional[torch.Generator] = None,
+             dec_input: Optional[torch.Tensor] = None,
+             fused: Optional[Dict[str, Any]] = None):
         """One AR decode step -> (state, mel_frame [B, rM], gate [B, r],
-        weights [B, T_enc])."""
+        weights [B, T_enc]). The prenet takes ``dec_input`` (by default the
+        previous output); ``fused`` holds each cell's ``fused()`` weights,
+        built once per decode in training."""
         cfg = self.cfg
-        attn_in = [self.prenet(s.prev_output, generator), s.context]
+        fused = fused or {}
+        prev = s.prev_output if dec_input is None else dec_input
+        attn_in = [self.prenet(prev, generator), s.context]
         if cfg.attrnn_extra_decoder_input:
             attn_in.append(s.dec[1])
-        attn = self.attention_rnn(torch.cat(attn_in, dim=-1), s.attn)
+        attn = self.attention_rnn(torch.cat(attn_in, dim=-1), s.attn,
+                                  fused.get("attention_rnn"), generator)
         attn_h = attn[1]
         context, weights, att_state = self.attention_layer(
             attn_h, memory, const, s.attention,
             getattr(self, "exp_smoothing_factor", None))
-        dec = self.decoder_rnn(torch.cat([attn_h, context], dim=-1), s.dec)
+        dec = self.decoder_rnn(torch.cat([attn_h, context], dim=-1), s.dec,
+                               fused.get("decoder_rnn"), generator)
         dec_h = dec[1]
         if cfg.decoder_residual_connection:
             dec_h = dec_h + attn_h[..., :dec_h.shape[-1]]
         dec2, final_h = s.dec2, dec_h
         if cfg.second_decoder_rnn_dim > 0:
-            dec2 = self.second_decoder_rnn(dec_h, s.dec2)
+            dec2 = self.second_decoder_rnn(dec_h, s.dec2,
+                                           fused.get("second_decoder_rnn"),
+                                           generator)
             final_h = dec2[1]
             if cfg.second_decoder_residual_connection:
                 final_h = final_h + dec_h
         proj_in = torch.cat([final_h, context], dim=-1)
         mel = self.linear_projection(proj_in)
         gate = self.gate_layer(proj_in)
-        finished = s.finished | (torch.sigmoid(gate).amax(-1) >= cfg.gate_threshold)
+        finished = s.finished
+        if not self.training:       # the stop mask of a free-running decode
+            finished = finished | (torch.sigmoid(gate).amax(-1)
+                                   >= cfg.gate_threshold)
         return (DecoderState(attn, dec, dec2, att_state, context, mel, finished),
                 mel, gate, weights)
+
+    def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
+                mels: torch.Tensor, generator: Optional[torch.Generator] = None,
+                p_teacher_forcing: float = 1.0, teacher_force_till: int = 0,
+                init_carry: Optional[TrainCarry] = None,
+                pres_prev_state: Optional[torch.Tensor] = None):
+        """Teacher-forced decode over the padded target mels [B, T_dec, M]
+        -> (outputs, TrainCarry). Step t takes ground-truth group t-1 with
+        probability ``p_teacher_forcing`` (one draw per step for the whole
+        batch; always before ``teacher_force_till``), else its own previous
+        output; step 0 takes the GO group: zeros on a fresh utterance, the
+        previous segment's last group on a TBPTT continuation. Lanes whose
+        ``pres_prev_state`` is 0 start from fresh state even when
+        ``init_carry`` is given."""
+        cfg = self.cfg
+        B, T_dec, M = mels.shape
+        r = cfg.n_frames_per_step
+        if T_dec % r:
+            raise ValueError(f"T_dec={T_dec} must be a multiple of "
+                             f"n_frames_per_step={r}")
+        steps = T_dec // r
+        const, state = self.prepare(memory, memory_lengths)
+        carry = TrainCarry(state, torch.zeros(B, M * r, device=memory.device,
+                                              dtype=mels.dtype))
+        if init_carry is not None and pres_prev_state is not None:
+            keep = pres_prev_state.bool()
+            carry = pytree.tree_map(
+                lambda c, f: torch.where(
+                    keep.view((B,) + (1,) * (c.dim() - 1)), c.to(f.dtype), f),
+                init_carry, carry)
+        elif init_carry is not None:
+            carry = init_carry
+        groups = mels.reshape(B, steps, r * M)
+        teacher = torch.cat([carry.prev_teacher[:, None].to(mels.dtype),
+                             groups[:, :-1]], 1)
+        tf = torch.rand(steps, generator=generator,
+                        device=memory.device) < p_teacher_forcing
+        tf = tf | (torch.arange(steps, device=memory.device)
+                   < teacher_force_till)
+        fused = {n: getattr(self, n).fused() for n in
+                 ("attention_rnn", "decoder_rnn", "second_decoder_rnn")
+                 if hasattr(self, n)}
+        state, mels_out, gates, weights = carry.state, [], [], []
+        for t in range(steps):
+            dec_input = torch.where(tf[t], teacher[:, t], state.prev_output)
+            state, mel, gate, w = self.step(state, memory, const, generator,
+                                            dec_input, fused)
+            mels_out.append(mel)
+            gates.append(gate)
+            weights.append(w)
+        weights = torch.stack(weights, 1)
+        out = {
+            "mel_outputs": torch.stack(mels_out, 1).reshape(B, T_dec, M),
+            "gate_outputs": torch.stack(gates, 1).reshape(B, T_dec),
+            "alignments": (weights if r == 1
+                           else weights.repeat_interleave(r, dim=1)),
+        }
+        return out, TrainCarry(state, groups[:, -1])
 
     def prepare(self, memory: torch.Tensor, memory_lengths: torch.Tensor
                 ) -> Tuple[Dict[str, Any], DecoderState]:
@@ -423,6 +557,22 @@ class Decoder(nn.Module):
         }
 
 
+def _eval_form(method):
+    """Run ``method`` with the model in eval mode and without autograd (the
+    JAX inference methods are deterministic whatever the training state),
+    then restore the mode."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        was = self.training
+        self.eval()
+        try:
+            with torch.no_grad():
+                return method(self, *args, **kwargs)
+        finally:
+            self.train(was)
+    return run
+
+
 class Tacotron2(nn.Module):
     def __init__(self, cfg: Tacotron2Config, device: str | torch.device = "cuda"):
         super().__init__()
@@ -439,7 +589,7 @@ class Tacotron2(nn.Module):
         self.encoder = Encoder(cfg)
         self.sylps_net = SylpsNet(cfg.sylpsnet_layer_dims)
         if cfg.torchmoji_batchnorm:
-            self.tm_bn = nn.BatchNorm1d(cfg.torchmoji_dim)
+            self.tm_bn = BatchNorm1d(cfg.torchmoji_dim)
         self.tm_linear = nn.Linear(cfg.torchmoji_dim, cfg.torchmoji_crushed_dim)
         self.decoder = Decoder(cfg, cfg.encoder_lstm_dim + cfg.speaker_embedding_dim
                                + 1 + cfg.torchmoji_crushed_dim)
@@ -453,17 +603,18 @@ class Tacotron2(nn.Module):
         return self.embedding.weight.device
 
     def _build_memory(self, text, text_lengths, speaker_id, sylps=None,
-                      torchmoji_hidden=None):
+                      torchmoji_hidden=None, generator=None, sylps_noise=None):
         cfg = self.cfg
         B, T = text.shape
         # out-of-range ids would index out of the table: clamp like JAX
         embedded = self.embedding(text.clamp(0, cfg.n_symbols - 1))
         enc_spk = (self.encoder.encoder_speaker_embedding(speaker_id)
                    if cfg.encoder_speaker_embed_dim > 0 else None)
-        enc_out, pred_sylps = self.encoder(embedded, text_lengths, enc_spk)
+        enc_out, pred_sylps = self.encoder(embedded, text_lengths, enc_spk,
+                                           generator)
         # without a ground-truth rate, the encoder's own prediction
         syl_zu, syl_mu, syl_logvar = self.sylps_net(
-            pred_sylps if sylps is None else sylps)
+            pred_sylps if sylps is None else sylps, generator, sylps_noise)
         spk = self.speaker_embedding(speaker_id)
         tm = (torch.zeros(B, cfg.torchmoji_dim, device=text.device)
               if torchmoji_hidden is None else torchmoji_hidden)
@@ -489,9 +640,40 @@ class Tacotron2(nn.Module):
                 as_t(speaker_id, torch.long), as_t(torchmoji_hidden, torch.float32),
                 as_t(sylps, torch.float32))
 
+    def forward(self, text, text_lengths, mels, mel_lengths, speaker_id, sylps,
+                torchmoji_hidden=None, generator: Optional[torch.Generator] = None,
+                p_teacher_forcing: float = 1.0, teacher_force_till: int = 0,
+                drop_frame_rate: float = 0.0,
+                global_mean: Optional[torch.Tensor] = None,
+                init_carry: Optional[TrainCarry] = None,
+                pres_prev_state: Optional[torch.Tensor] = None,
+                sylps_noise: Optional[torch.Tensor] = None):
+        """Teacher-forced forward over tensors on the model's device ->
+        (outputs, TrainCarry) (JAX ``Tacotron2.__call__``). In training,
+        drop-frame replaces valid input frames with ``global_mean`` at
+        ``drop_frame_rate`` (the loss targets stay as they are); every draw
+        comes from ``generator`` (``sylps_noise`` [B] sets SylpsNet's eps).
+        Mels past ``mel_lengths`` are zeroed in the outputs."""
+        cfg = self.cfg
+        memory, heads = self._build_memory(text, text_lengths, speaker_id,
+                                           sylps, torchmoji_hidden, generator,
+                                           sylps_noise)
+        dec_target = mels
+        if self.training and global_mean is not None:
+            dec_target = dropout_frame(mels, global_mean, mel_lengths,
+                                       drop_frame_rate, generator)
+        out, carry = self.decoder(memory, text_lengths, dec_target, generator,
+                                  p_teacher_forcing, teacher_force_till,
+                                  init_carry, pres_prev_state)
+        mel = out["mel_outputs"]
+        post = self.postnet(mel, generator) if cfg.use_postnet else mel
+        mask = get_mask_from_lengths(mel_lengths, mels.shape[1])[:, :, None]
+        return {**out, "mel_outputs": mel * mask,
+                "mel_outputs_postnet": post * mask, **heads}, carry
+
     # -- chunked inference for streaming (JAX models/tacotron2.py:815-868) --
 
-    @torch.no_grad()
+    @_eval_form
     def inference_prepare(self, text, text_lengths, speaker_id,
                           torchmoji_hidden=None, sylps=None):
         """Encode once for a chunked decode: (memory, attention const,
@@ -502,7 +684,7 @@ class Tacotron2(nn.Module):
         memory, _ = self._build_memory(text, text_lengths, speaker_id, sylps, tm)
         return (memory, *self.decoder.prepare(memory, text_lengths))
 
-    @torch.no_grad()
+    @_eval_form
     def decode_chunk(self, memory, const, state: DecoderState, steps: int,
                      generator: Optional[torch.Generator] = None):
         """``steps`` free-running decode steps from ``state`` ->
@@ -511,14 +693,14 @@ class Tacotron2(nn.Module):
         chunks of a decode give its mels."""
         return self.decoder.decode_chunk(memory, const, state, steps, generator)
 
-    @torch.no_grad()
+    @_eval_form
     def postnet_refine(self, mel: torch.Tensor) -> torch.Tensor:
         """The postnet over a raw mel window [B, T, M] (halos are the
         caller's: the stack's receptive-field radius is
         2 * postnet_n_convolutions frames)."""
         return self.postnet(mel) if self.cfg.use_postnet else mel
 
-    @torch.no_grad()
+    @_eval_form
     def inference(self, text, text_lengths, speaker_id, torchmoji_hidden=None,
                   sylps=None, generator: Optional[torch.Generator] = None,
                   max_decoder_steps: Optional[int] = None,

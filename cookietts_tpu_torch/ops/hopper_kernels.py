@@ -5,8 +5,13 @@ Each kernel has three parts here:
 - ``<name>_plain``: the same function in plain PyTorch. The CPU tests run
   it, and ``chip_smoke.py`` holds the kernel against it on the card.
 - a ``torch.autograd.Function`` that launches the CUDA kernel (sources in
-  ``csrc/``, built by ``_build.py``). Inference only: ``backward`` raises
-  until the training slice brings backward kernels.
+  ``csrc/``, built by ``_build.py``). ``attention_step`` and ``lstm_gates``
+  run in training too: as the JAX package's ``custom_vjp`` does
+  (cookietts_tpu/ops/pallas_kernels.py:146-169, 285-303), the forward
+  launches the kernel and saves its inputs, and the backward is autograd
+  of the plain version recomputed from them (``<name>_vjp``). The other
+  three kernels are inference-only, in the JAX package too, and their
+  ``backward`` raises.
 - ``<name>``: the entry the models call. A CPU tensor takes the plain
   version; a CUDA tensor launches the kernel (and counts the launch in
   ``LAUNCHES``) or raises. There is no fallback from the card to the plain
@@ -78,8 +83,24 @@ class _NoBackward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            "inference-only kernel: its backward kernel comes with the "
-            "training slice")
+            "inference-only kernel: it has no backward, as its Pallas "
+            "counterpart in the JAX package has none")
+
+
+def _plain_vjp(plain, diff, grads, needs):
+    """Gradients of ``plain(*diff)`` with respect to the tensors of
+    ``diff`` whose ``needs`` flag is set (None for the others): the plain
+    version recomputed from detached copies under enable_grad, as JAX's
+    custom_vjp backward takes the VJP of its plain expression."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(bool(n))
+                  for t, n in zip(diff, needs)]
+        outs = plain(*leaves)
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        got = iter(torch.autograd.grad(outs, wanted, grads, allow_unused=True)
+                   if wanted else ())
+    return tuple(next(got) if t is not None and t.requires_grad else None
+                 for t in leaves)
 
 
 def derived(module: nn.Module, name: str, sources: Sequence[torch.Tensor],
@@ -204,7 +225,19 @@ def attention_step_plan(B: int, T: int, A: int, D: int,
     return AttentionPlan(S, R, rows, -(-R // rows), smem)
 
 
-class _AttentionStep(_NoBackward):
+def attention_step_vjp(qp, lp, mp, v, memory, mask, scale, grad_ctx,
+                       grad_w, needs=(True,) * 6):
+    """Backward of the attention step: gradients for (qp, lp, mp, v,
+    memory, scale) from those of (context, weights), by autograd of
+    attention_step_plain; ``needs`` picks which to compute. The plain
+    version reads every row, so masked rows must hold finite values."""
+    return _plain_vjp(
+        lambda qp_, lp_, mp_, v_, mem_, sc_: attention_step_plain(
+            qp_, lp_, mp_, v_, mem_, mask, sc_),
+        (qp, lp, mp, v, memory, scale), (grad_ctx, grad_w), needs)
+
+
+class _AttentionStep(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qp, lp, mp, v, memory, mask, scale, plan):
         B, T, A = lp.shape
@@ -226,7 +259,16 @@ class _AttentionStep(_NoBackward):
             _stream())
         _raise_on(err, "attention_step")
         LAUNCHES["attention_step"] += 1
+        ctx.save_for_backward(qp, lp, mp, v, memory, mask, scale)
         return out_ctx, out_w
+
+    @staticmethod
+    def backward(ctx, grad_ctx, grad_w):
+        qp, lp, mp, v, memory, mask, scale = ctx.saved_tensors
+        n = ctx.needs_input_grad
+        g = attention_step_vjp(qp, lp, mp, v, memory, mask, scale, grad_ctx,
+                               grad_w, n[:5] + n[6:7])
+        return (*g[:5], None, g[5], None)
 
 
 def attention_step(qp, lp, mp, v, memory, mask, scale=None,
@@ -331,7 +373,15 @@ def release_tickets(keys) -> None:
         _KEEP.pop(key, None)
 
 
-class _LstmGates(_NoBackward):
+def lstm_gates_vjp(xh, weight, bias, c_prev, grad_c, grad_h,
+                   needs=(True,) * 4):
+    """Backward of the LSTM gate step: gradients for (xh, weight, bias,
+    c_prev) from those of (c_new, h_new), by autograd of lstm_gates_plain."""
+    return _plain_vjp(lstm_gates_plain, (xh, weight, bias, c_prev),
+                      (grad_c, grad_h), needs)
+
+
+class _LstmGates(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xh, weight, bias, c_prev):
         B, F_ = xh.shape
@@ -351,7 +401,13 @@ class _LstmGates(_NoBackward):
                              _ptr(c_new), _ptr(h_new), _stream())
         _raise_on(err, "lstm_gates")
         LAUNCHES["lstm_gates"] += 1
+        ctx.save_for_backward(xh, weight, bias, c_prev)
         return c_new, h_new
+
+    @staticmethod
+    def backward(ctx, grad_c, grad_h):
+        return lstm_gates_vjp(*ctx.saved_tensors, grad_c, grad_h,
+                              ctx.needs_input_grad)
 
 
 def lstm_gates(xh, weight, bias, c_prev) -> Tuple[torch.Tensor, torch.Tensor]:

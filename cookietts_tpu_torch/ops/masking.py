@@ -1,4 +1,5 @@
-"""Length masks and the gate stop index (cookietts_tpu/ops/masking.py)."""
+"""Length masks, the gate stop index and drop-frame
+(cookietts_tpu/ops/masking.py)."""
 from __future__ import annotations
 
 import torch
@@ -17,3 +18,16 @@ def get_first_over_thresh(x: torch.Tensor, threshold) -> torch.Tensor:
     first = torch.argmax(over.to(torch.int8), dim=1)
     return torch.where(over.any(dim=1), first,
                        torch.full_like(first, x.shape[1]))
+
+
+def dropout_frame(mels: torch.Tensor, global_mean: torch.Tensor,
+                  mel_lengths: torch.Tensor, drop_frame_rate,
+                  generator=None) -> torch.Tensor:
+    """Replace random valid mel frames [B, T, n_mel] with the dataset's
+    global mean [n_mel], each with probability ``drop_frame_rate``."""
+    B, T, _ = mels.shape
+    valid = get_mask_from_lengths(mel_lengths, T)
+    drop = torch.rand((B, T), generator=generator,
+                      device=mels.device) < drop_frame_rate
+    return torch.where((drop & valid)[:, :, None],
+                       global_mean.to(mels.dtype)[None, None, :], mels)
