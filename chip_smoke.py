@@ -81,6 +81,25 @@ non-zero:
    loss within rel 1e-5, every gradient within relative L2 1e-4, the
    updated parameters, each path's s/iter split into forward and backward,
    its peak memory, and the device-busy share of a kernel-path step.
+8. vocoder training at full width, through the port's train command on
+   seeded synthetic WAVs, each run 4 iterations with validation and a
+   checkpoint every 2, then --resume to 6 (every loss finite, the
+   checkpoints there, the resume at step 4, exact launch counts: training
+   launches no kernel). 8a: HiFi-GAN at HiFiGANConfig() (MPD periods 2, 3,
+   5, 7, 11; MSD 3 scales) on HiFi-GAN V1's recipe (22050 Hz, hop 256, 80
+   mels, 8192-sample segments, batch 16); checkpoints hold G and D; the D
+   and G steps timed, peak memory, the device-busy share. 8b: WaveGlow at
+   WaveGlowConfig() (12 flows x 8 layers x 256 channels) and WaveFlow at
+   phase 4b's configuration, 48 kHz, 24000-sample segments, batch 4: each
+   validation batch launches waveglow_wn_forward 216 or waveflow_row_step
+   864 times, validation from the trained weights and one z against the
+   plain versions; the step timed with memory_efficient on and off. 8c:
+   one step of each trainer on the card against the CPU from the same
+   weights and batch (losses within rel 1e-4; every gradient within
+   relative L2 1e-3, or, for a gradient ill-conditioned in its input, 10
+   times what a relative 1e-6 nudge of the audio moves it on the CPU),
+   and 8a's generator checkpoint served through hifigan_resblock
+   (launches counted) against the plain path and the training form.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -128,8 +147,9 @@ WAVEFLOW = dict(n_mel_channels=FLOW_MELS, n_flows=6, n_group=8, n_early_every=0,
 LSTM_SHAPES = (("attention_rnn", 2816, 1280), ("decoder_rnn", 2560, 768),
                ("second_decoder_rnn", 1536, 768))
 # a spin on the device (about 25 ms) that holds two streams while the host
-# queues their work, so the work then runs at the same time (phase 6)
-HOLD_CYCLES = 50_000_000
+# queues their work, so the work then runs at the same time (phase 6); made
+# 4x longer, up to the second value, while the host queues for longer
+HOLD_CYCLES, MAX_HOLD_CYCLES = 50_000_000, 3_200_000_000
 # (atol, rtol). The WN kernels sum 768 to 1536 products per output in 3xTF32
 # and in another order than cuDNN, through 8 layers: a few 1e-6 at values
 # near 2 (tests/test_torch_kernels.py emulates the split).
@@ -252,6 +272,7 @@ class Check:
 
     def __call__(self, name, got, want, atol, rtol, what=""):
         import torch
+        got, want = got.detach(), want.detach()
         err = (got - want).abs()
         max_abs = float(err.max())
         max_rel = float((err / want.abs().clamp_min(atol)).max())
@@ -953,7 +974,7 @@ def phase5(hk, check, cfgs):
 
     def run():
         out = taco.inference(text, lengths, spk, max_decoder_steps=32)
-        return out, gen(out["mel_outputs_postnet"])
+        return out, gen(out["mel_outputs_postnet"], infer=True)
     k_out, k_audio = run()
     with plain_kernels(hk):
         p_out, p_audio = run()
@@ -1103,6 +1124,39 @@ def lstm_compare(check, got, want, what, count_only=False):
     return wrong
 
 
+def behind_hold(streams, enqueue, what):
+    """Runs ``enqueue()``, which queues work on ``streams``, behind a spin on
+    each stream, so that the work drains from all of them at once, and
+    returns its result once the card is done. The spin must outlast the
+    host's queueing: where a spin had ended before ``enqueue`` returned, the
+    work may have run one stream after the other, and the run is made again
+    with a spin 4x as long."""
+    import torch
+    cycles = HOLD_CYCLES
+    while cycles <= MAX_HOLD_CYCLES:
+        ends = []
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(cycles)
+                ends.append(torch.cuda.Event())
+                ends[-1].record(st)
+        t0 = time.perf_counter()
+        out = enqueue()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        late = any(e.query() for e in ends)
+        for st in streams:
+            torch.cuda.current_stream().wait_stream(st)
+        torch.cuda.synchronize()
+        if not late:
+            return out
+        log(f"  {what}: the host queued for {queued_ms:.1f} ms, longer than the "
+            f"spin of {cycles} cycles; again with {4 * cycles}")
+        cycles *= 4
+    raise SystemExit(f"chip_smoke: {what}: the host queued for longer than a spin "
+                     f"of {MAX_HOLD_CYCLES} cycles")
+
+
 def lstm_two_streams(hk, check, B=4, rounds=40, shared=False):
     """The three full-width cells on two streams at once, ``rounds`` rounds,
     every output against the plain version. ``shared`` forces one counter
@@ -1115,19 +1169,17 @@ def lstm_two_streams(hk, check, B=4, rounds=40, shared=False):
     key = hk._counter_key
     if shared:
         hk._counter_key = lambda device: ("shared", device)
-    got = [[], []]
-    try:
-        for st in streams:
-            st.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(st):
-                torch.cuda._sleep(HOLD_CYCLES)    # both queues fill, then drain together
+
+    def enqueue():
+        got = [[], []]
         for _ in range(rounds):
             for i, st in enumerate(streams):
                 with torch.cuda.stream(st):
                     got[i].append([hk.lstm_gates(*a) for a in sets[i]])
-        for st in streams:
-            torch.cuda.current_stream().wait_stream(st)
-        torch.cuda.synchronize()
+        return got
+
+    try:
+        got = behind_hold(streams, enqueue, "lstm_gates on two streams")
     finally:
         hk._counter_key = key
         hk.release_tickets([k for k in hk._TICKETS if k[0] == "shared"])
@@ -1151,20 +1203,17 @@ def lstm_two_graphs(hk, check, B=4, calls=8, replays=20):
         graphs.append(g)
         outs.append(out[-1])
     streams = [torch.cuda.Stream(), torch.cuda.Stream()]
-    for st in streams:
-        st.wait_stream(torch.cuda.current_stream())
-    got = [[], []]
-    for st in streams:
-        with torch.cuda.stream(st):
-            torch.cuda._sleep(HOLD_CYCLES)
-    for _ in range(replays):
-        for i, (g, st) in enumerate(zip(graphs, streams)):
-            with torch.cuda.stream(st):
-                g.replay()
-                got[i].append([tuple(t.clone() for t in ch) for ch in outs[i]])
-    for st in streams:
-        torch.cuda.current_stream().wait_stream(st)
-    torch.cuda.synchronize()
+
+    def enqueue():
+        got = [[], []]
+        for _ in range(replays):
+            for i, (g, st) in enumerate(zip(graphs, streams)):
+                with torch.cuda.stream(st):
+                    g.replay()
+                    got[i].append([tuple(t.clone() for t in ch) for ch in outs[i]])
+        return got
+
+    got = behind_hold(streams, enqueue, "lstm_gates in two graphs")
     lstm_compare(check, got, want, "two graphs: graph")
 
 
@@ -1188,18 +1237,16 @@ def two_chunk_graphs(hk, taco, rounds=4, shared_stream=False):
     alone = [p(*args, S, seeded(i)) for i, (p, args) in enumerate(zip(progs, inputs))]
     streams = [torch.cuda.Stream(), torch.cuda.Stream()]
     differ = 0
-    for r in range(rounds):
-        for st in streams:
-            st.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(st):
-                torch.cuda._sleep(HOLD_CYCLES)
+
+    def enqueue():
         outs = []
         for i, (p, args, st) in enumerate(zip(progs, inputs, streams)):
             with torch.cuda.stream(st):
                 outs.append(p(*args, S, seeded(i)))
-        for st in streams:
-            torch.cuda.current_stream().wait_stream(st)
-        torch.cuda.synchronize()
+        return outs
+
+    for r in range(rounds):
+        outs = behind_hold(streams, enqueue, "two captured decode chunks")
         for i in range(2):
             if all(torch.equal(a, b) for a, b in zip(outs[i][:3], alone[i][:3])):
                 continue
@@ -1241,7 +1288,7 @@ def resblock_widths(hk, check, hcfg, smi):
     mel = torch.randn(2, 32, 80, device="cuda",
                       generator=torch.Generator(device="cuda").manual_seed(4)) - 4
     before = hk.LAUNCHES["hifigan_resblock"]
-    audio = gen(mel)
+    audio = gen(mel, infer=True)
     torch.cuda.synchronize()
     n = hk.LAUNCHES["hifigan_resblock"] - before
     log(f"  upsample_initial_channel=384, \"auto\": stages {gen.kernel_stages()}, "
@@ -1250,7 +1297,8 @@ def resblock_widths(hk, check, hcfg, smi):
             or not all(k for _, k in gen.kernel_stages()):
         raise SystemExit("chip_smoke: the 384-wide generator must run the "
                          "resblock kernel at every stage")
-    check("slice", audio, plain(mel), 1e-3, 1e-3, "384-wide HiFi-GAN audio")
+    check("slice", audio, plain(mel, infer=True), 1e-3, 1e-3,
+          "384-wide HiFi-GAN audio")
     T, g = 512, torch.Generator(device="cuda").manual_seed(8)
     n_k = len(wide.resblock_kernel_sizes)
     for i, u in enumerate(wide.upsample_rates):
@@ -1341,7 +1389,7 @@ def phase6_stream(hk, check, taco, gen, B, smi, steps=256):
 
     def vocoder(mel):
         calls[0] += 1
-        return gen(mel)
+        return gen(mel, infer=True)
 
     kw = dict(text=text, text_lengths=lengths, speaker_id=spk,
               max_decoder_steps=steps, decode_chunk_steps=32, vocoder_halo=32,
@@ -1381,7 +1429,7 @@ def phase6_stream(hk, check, taco, gen, B, smi, steps=256):
 
     whole = taco.inference(text, lengths, spk, max_decoder_steps=steps,
                            generator=torch.Generator(device="cuda").manual_seed(5))
-    ref = gen(whole["mel_outputs_postnet"]).cpu()
+    ref = gen(whole["mel_outputs_postnet"], infer=True).cpu()
     tail = 2 * taco.cfg.postnet_n_convolutions * HOP
     got = torch.from_numpy(audio)
     if got.shape != ref.shape:
@@ -1812,6 +1860,452 @@ def phase7(hk, check, tcfg, smi):
     log(f"  phase 7b-c in {time.perf_counter() - t0:.1f} s; {smi}")
 
 
+# -- phase 8: vocoder training --------------------------------------------------
+
+# HiFi-GAN V1's recipe: 22050 Hz, hop 256, 80 mels, 8192-sample segments,
+# batch 16; the generator and discriminators at HiFiGANConfig()'s widths
+# (HIFIGAN: its overrides, none)
+HIFIGAN = {}
+HIFIGAN_DATA = dict(sampling_rate=22050, filter_length=1024, hop_length=256,
+                    win_length=1024, n_mel_channels=80, mel_fmax=8000.0,
+                    segment_length=8192, batch_size=16)
+# WaveGlow at WaveGlowConfig() (WAVEGLOW_TRAIN: its overrides, none) and
+# WaveFlow at phase 4b's WAVEFLOW, on Mel2SampConfig()'s front end (48 kHz,
+# hop 600, 160 mels, 24000-sample segments) at batch 4
+WAVEGLOW_TRAIN = {}
+FLOW_DATA = dict(batch_size=4)
+FLOW_SEGMENT = 24000
+CADENCE = dict(load_from_disk_dtw=False, validation_interval=2,
+               checkpoint_interval=2, log_every=1)
+DEV = "cuda"    # phase 8's device (a rehearsal of its control flow on the
+                # CPU, at small sizes, sets "cpu")
+
+
+def hparams_of(kw):
+    """A config dict as --hparams text (tuples as [a,b], nested too)."""
+    def text(v):
+        if isinstance(v, (tuple, list)):
+            return "[" + ",".join(map(text, v)) + "]"
+        return str(v)
+    return ",".join(f"{k}={text(v)}" for k, v in kw.items())
+
+
+def vocoder_corpus(root, sr, n, seconds, seed):
+    """``n`` seeded WAVs of harmonic tones with vibrato and noise, and a map
+    file of them (no GTA mels). Returns the map file's path."""
+    import numpy as np
+    from cookietts_tpu_torch.data import audio_io
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(sr * seconds)) / sr
+    lines = []
+    for i in range(n):
+        f0 = rng.uniform(90, 300) * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        audio = sum(0.3 / h * np.sin(h * phase) for h in range(1, 6))
+        audio = audio * (0.5 + 0.5 * np.sin(np.pi * t / seconds))
+        audio = audio + 0.005 * rng.standard_normal(len(t))
+        path = root / f"v{i:02d}.wav"
+        audio_io.save_wav(str(path), audio.astype(np.float32), sr)
+        lines.append(f"{path}||{i % 4}")
+    (root / "map.txt").write_text("\n".join(lines) + "\n")
+    return str(root / "map.txt")
+
+
+def vocoder_train_cli(hk, run, model, map_file, hparams, key, per_batch):
+    """The train command: 4 iterations with validation and a checkpoint every
+    2, then --resume to 6. Training launches no kernel (it runs cuDNN, as
+    JAX trains on stock XLA); each validation batch launches ``key``
+    ``per_batch`` times. Returns (the last trainer, the train records
+    [(step, loss, s)], the validation records)."""
+    import torch
+    from cookietts_tpu_torch.cli import main as cli
+    args = ["train", "--model", model, "--filelist", map_file, "--run_dir",
+            str(run), "--hparams", hparams, "--seed", "0", "--device", DEV]
+    for iters, resume, validations in ((4, [], 2), (6, ["--resume"], 1)):
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = cli(args + ["--iters", str(iters)] + resume)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = dict(hk.LAUNCHES)
+        want = {k: 0 for k in got}
+        if key:
+            want[key] = validations * len(trainer.val_batches) * per_batch
+        log(f"  train {'--resume ' if resume else ''}to {iters}: {dt:.1f} s "
+            f"(data, validation and model set-up included); launches {got} "
+            f"(want {want})")
+        if got != want:
+            raise SystemExit(f"chip_smoke: {run.name} launch counts")
+        if int(trainer.state.step) != iters:
+            raise SystemExit(f"chip_smoke: {run.name} trained to "
+                             f"{trainer.state.step}, not {iters}")
+    train, val = [], []
+    for line in (run / "events.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if rec["prefix"] == "train":
+            train.append((rec["step"], rec["loss"], rec["iter_s"]))
+        elif rec["prefix"] == "validation":
+            val.append(rec)
+    losses = [v for _, v, _ in train] + [v["val_loss"] for v in val]
+    log(f"  losses by step {[(k, round(v, 4)) for k, v, _ in train]}; "
+        f"validation {[(v['step'], round(v['val_loss'], 4)) for v in val]}; "
+        f"s per iteration (data to the card included) "
+        f"{[round(t, 3) for _, _, t in train]}")
+    if ([k for k, _, _ in train] != list(range(6))
+            or [v["step"] for v in val] != [2, 4, 6]
+            or not all(math.isfinite(v) for v in losses)):
+        raise SystemExit(f"chip_smoke: {run.name}: a loss is missing or not "
+                         "finite, or the resume did not start at step 4")
+    files = sorted(p.name for p in run.iterdir())
+    for name in ("checkpoint_2", "checkpoint_4", "checkpoint_6",
+                 "best_val_model"):
+        if name not in files:
+            raise SystemExit(f"chip_smoke: {name} missing from {files}")
+    return trainer, train, val
+
+
+def busy_share(fn):
+    """(wall ms of one ``fn()``, device-busy ms inside it): torch.profiler's
+    CUDA kernel records summed from the raw kineto events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+    return wall, busy
+
+
+def gan_step_times(trainer, batch, smi, reps=3):
+    """The GAN step of the trained state at the run's batch shape: s per
+    iteration split into the D and the G step (host clock, synchronised),
+    peak memory, and the device-busy share of one more iteration."""
+    import torch
+    from cookietts_tpu_torch.runtime.trainer import batch_to_device
+    step, state = trainer.train_step, trainer.state
+    ctrl = trainer.ctrl(int(state.step))
+    dev = batch_to_device(batch, DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step.d_step(state.d, state.g, dev, ctrl)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step.g_step(state.g, state.d, dev, ctrl)
+        torch.cuda.synchronize()
+        times.append((t1 - t0, time.perf_counter() - t1))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall, busy = busy_share(lambda: step(state, dev, None, ctrl))
+    d, g = (min(t[i] for t in times) for i in (0, 1))
+    log(f"  HiFi-GAN step B={batch['audio'].shape[0]} x "
+        f"{batch['audio'].shape[1]} samples: {d + g:.3f} s/iter (D step "
+        f"{d:.3f} s, G step {g:.3f} s; best of {reps}), peak "
+        f"{peak:.2f} GiB; device busy {busy:.1f} ms of a profiled "
+        f"iteration's {wall:.1f} ms = {busy / wall:.3f} ({smi})")
+    return {"d_s": d, "g_s": g, "peak_gib": peak, "busy": busy / wall}
+
+
+def flow_step_times(trainer, batch, name, smi):
+    """The flow step of the trained weights at the run's batch shape, with
+    memory_efficient on and off: s per iteration, peak memory, and the
+    device-busy share of one iteration (on)."""
+    import torch
+    from cookietts_tpu_torch.models.waveglow import WaveGlow
+    from cookietts_tpu_torch.runtime.optim import adam
+    from cookietts_tpu_torch.runtime.train_state import TrainState
+    from cookietts_tpu_torch.runtime.trainer import (batch_to_device,
+                                                     make_waveglow_train_step)
+    src = trainer.state.model
+    dev = batch_to_device(batch, DEV)
+    ctrl = trainer.ctrl(int(trainer.state.step))
+    out = {}
+    for me in (True, False):
+        model = WaveGlow(dataclasses.replace(src.cfg, memory_efficient=me),
+                         device=DEV)
+        model.load_state_dict(src.state_dict())
+        state = TrainState.create(model, adam())
+        step = make_waveglow_train_step(model)
+        step(state, dev, None, ctrl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(state, dev, None, ctrl)
+        torch.cuda.synchronize()
+        s = (time.perf_counter() - t0) / 2
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy = busy_share(lambda: step(state, dev, None, ctrl)) if me else None
+        out[me] = (s, peak, busy)
+        del model, state, step
+    (s1, p1, (wall, busy)), (s0, p0, _) = out[True], out[False]
+    log(f"  {name} step B={batch['audio'].shape[0]} x "
+        f"{batch['audio'].shape[1]} samples: memory_efficient on {s1:.3f} "
+        f"s/iter, peak {p1:.2f} GiB; off {s0:.3f} s/iter, peak {p0:.2f} GiB; "
+        f"device busy (on) {busy:.1f} ms of {wall:.1f} ms = "
+        f"{busy / wall:.3f} ({smi})")
+    return {"s_on": s1, "peak_on": p1, "s_off": s0, "peak_off": p0,
+            "busy": busy / wall}
+
+
+def flow_validation_parity(hk, check, trainer, name, key):
+    """Validation through the inverse from the trained weights and one z:
+    the kernels against their plain versions (the launches counted)."""
+    import torch
+    from cookietts_tpu_torch.runtime.trainer import (batch_to_device,
+                                                     make_waveglow_val_step)
+    model = trainer.state.model
+    cfg = model.cfg
+    batch = batch_to_device(trainer.val_batches[0], DEV)
+    B, T_mel = batch["mels"].shape[:2]
+    n = T_mel * cfg.hop_length // cfg.n_group
+    shape = (B, cfg.n_group, n) if model.waveflow else (B, n, cfg.n_group)
+    z = torch.randn(shape, device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(13))
+    val = make_waveglow_val_step(model)
+    hk.reset_launch_counts()
+    got = val(None, batch, None, z=z)
+    launches = hk.LAUNCHES[key]
+    with plain_kernels(hk):
+        want = val(None, batch, None, z=z)
+    calls = cfg.n_flows * (cfg.n_group if model.waveflow else 1)
+    log(f"  {name} validation B={B}: val_MSE {float(got['val_MSE']):.6g} "
+        f"(plain {float(want['val_MSE']):.6g}), val_MAE "
+        f"{float(got['val_MAE']):.6g} (plain {float(want['val_MAE']):.6g}); "
+        f"{launches} {key} launches (want {calls * hk.wn_launches(cfg.n_layers)})")
+    if launches != calls * hk.wn_launches(cfg.n_layers):
+        raise SystemExit(f"chip_smoke: {name} validation launch count")
+    for k in ("val_MSE", "val_MAE"):
+        check("slice", got[k], want[k], 0.0, 1e-3, f"{name} validation {k}")
+
+
+def moments_grads(side):
+    """The gradients of one Adam step from zero moments, unclipped:
+    mu / (1 - b1)."""
+    return {k: v / 0.1 for k, v in side.opt_state.mu.items()}
+
+
+def step_parity(name, build, step_of, batch, ctrl):
+    """One train step on the card against the same step on the CPU, from
+    the same weights (``build()`` on the CPU, copied) and batch: every
+    reported loss within 1e-4 of itself or of the loss (a log-determinant
+    of a near-rotation is rounding noise about 0), every gradient within
+    relative L2 1e-3 (a zero gradient zero on both). A gradient can be
+    ill-conditioned in its input: leaky ReLU kinks that rounding flips,
+    sums that cancel (the MSD's first scale: moving the audio by a relative
+    1e-6 moves its first conv's weight gradient by 8e-4 on the CPU, H100
+    run). So where a gradient's card difference exceeds 1e-3, the CPU runs
+    the step once more with the batch's audio moved by a relative 1e-6
+    (about 16 ulp a sample), and that gradient is held to 10 times what the
+    nudge moves it (rounding acts at each of some 30 layers, not once at the
+    input)."""
+    import numpy as np
+    import torch
+    from cookietts_tpu_torch.runtime.trainer import batch_to_device
+
+    def run(device, b):
+        """(metrics, gradients on the CPU, seconds) of one step."""
+        torch.manual_seed(0)
+        modules = [m.to(device) for m in build()]
+        step, state = step_of(modules, device)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_to_device(b, device), None, ctrl)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        sides = [state.g, state.d] if hasattr(state, "d") else [state]
+        return ({k: float(v) for k, v in metrics.items()},
+                {f"{i}.{k}": g.cpu() for i, side in enumerate(sides)
+                 for k, g in moments_grads(side).items()},
+                time.perf_counter() - t0)
+
+    (mc, gc, tc), (mg, gg, tg) = run("cpu", batch), run(DEV, batch)
+    loss_rel = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), abs(mc["loss"]))
+                   for k in mc)
+    rel = lambda g, k: float((g[k] - gc[k]).norm()) / float(gc[k].norm())  # noqa: E731
+    nonzero = [k for k in gc if float(gc[k].norm()) > 0.0]
+    bad = [k for k in gc if k not in nonzero and float(gg[k].norm()) != 0.0]
+    rows = sorted(((rel(gg, k), k) for k in nonzero), reverse=True)
+    over = [(r, k) for r, k in rows if r > 1e-3]
+    text = "none"
+    if over:                    # the CPU's own difference at a nudged input
+        noise = np.random.default_rng(0).standard_normal(batch["audio"].shape)
+        gn = run("cpu", dict(batch, audio=(batch["audio"] * (
+            1 + 1e-6 * noise)).astype(np.float32)))[1]
+        bad += [k for r, k in over if r > 10 * rel(gn, k)]
+        text = ", ".join(f"{k} {r:.2e} (nudged {rel(gn, k):.2e})"
+                         for r, k in over)
+    log(f"  {name} step on the card ({tg:.2f} s) against the CPU ({tc:.2f} s): "
+        f"losses {', '.join(f'{k} {mg[k]:.6g}' for k in sorted(mg))}; largest "
+        f"difference over the value or the loss {loss_rel:.2e} (limit 1e-4); "
+        f"{len(gc)} gradients, largest relative L2 "
+        f"{', '.join(f'{k} {r:.2e}' for r, k in rows[:3])} (limit 1e-3); "
+        f"over 1e-3, with what the nudged audio moves it on the CPU: {text}")
+    if loss_rel > 1e-4 or bad:
+        raise SystemExit(f"chip_smoke: the {name} train step on the card "
+                         f"disagrees with the CPU's ({bad})")
+
+
+def phase8_parity(hk, check, run_dir, smi):
+    """8c: one train step of each trainer, card against CPU; the HiFi-GAN
+    checkpoint of 8a served through hifigan_resblock."""
+    import numpy as np
+    import torch
+    from torch import nn
+    from cookietts_tpu_torch.audio.stft import TacotronSTFT
+    from cookietts_tpu_torch.data.mel2samp import Mel2SampConfig
+    from cookietts_tpu_torch.models.hifigan import (
+        Generator, HiFiGANConfig, MultiPeriodDiscriminator,
+        MultiScaleDiscriminator)
+    from cookietts_tpu_torch.models.waveglow import WaveGlow, WaveGlowConfig
+    from cookietts_tpu_torch.runtime.optim import adam
+    from cookietts_tpu_torch.runtime.train_state import GANTrainState, TrainState
+    from cookietts_tpu_torch.runtime.trainer import (
+        make_gan_trainer_step, make_hifigan_train_steps,
+        make_waveglow_train_step)
+    rng = np.random.default_rng(21)
+    d = Mel2SampConfig(**{k: v for k, v in HIFIGAN_DATA.items()
+                          if k != "batch_size"})
+    hcfg = HiFiGANConfig(**HIFIGAN, n_mel_channels=d.n_mel_channels)
+    stft_args = (d.filter_length, d.hop_length, d.win_length,
+                 d.n_mel_channels, d.sampling_rate, d.mel_fmin, d.mel_fmax)
+    seg = d.segment_length
+    audio = (0.3 * np.sin(np.arange(2 * seg) * 0.05).reshape(2, seg)
+             + 0.05 * rng.standard_normal((2, seg))).astype(np.float32)
+    mels = TacotronSTFT(*stft_args, device="cpu").mel_spectrogram_np(audio)
+
+    def gan_build():
+        return (Generator(hcfg, device="cpu", weight_norm=True),
+                nn.ModuleDict({"mpd": MultiPeriodDiscriminator(hcfg, "cpu"),
+                               "msd": MultiScaleDiscriminator(hcfg, "cpu")}))
+
+    def gan_step(modules, device):
+        gen, disc = modules
+        mel_fn = TacotronSTFT(*stft_args, device=device).mel_spectrogram
+        return (make_gan_trainer_step(*make_hifigan_train_steps(
+                    gen, disc["mpd"], disc["msd"], mel_fn)),
+                GANTrainState(TrainState.create(gen, adam(weight_decay=0.01)),
+                              TrainState.create(disc, adam(weight_decay=0.01))))
+
+    step_parity("HiFi-GAN", gan_build, gan_step,
+                {"audio": audio, "mels": mels.astype(np.float32)},
+                {"lr": 2e-4, "grad_clip": 1e9})
+    for name, kw in (("WaveGlow", WAVEGLOW_TRAIN), ("WaveFlow", WAVEFLOW)):
+        cfg = WaveGlowConfig(**kw)
+
+        def flow_build(cfg=cfg):
+            model = WaveGlow(cfg, device="cpu")
+            with torch.no_grad():        # end layers off zero: every WN learns
+                for wn in model.WN:
+                    wn.end.weight.normal_(std=0.05 * cfg.n_channels ** -0.5)
+            return (model,)
+
+        def flow_step(modules, device):
+            return (make_waveglow_train_step(modules[0]),
+                    TrainState.create(modules[0], adam()))
+
+        a = (0.3 * rng.standard_normal((1, FLOW_SEGMENT))).astype(np.float32)
+        m = rng.normal(-6, 1.5, (1, FLOW_SEGMENT // cfg.hop_length,
+                                 cfg.n_mel_channels)).astype(np.float32)
+        step_parity(name, flow_build, flow_step, {"audio": a, "mels": m},
+                    {"lr": 1e-4, "grad_clip": 1e9})
+
+    # the generator 8a trained, served
+    serving = Generator(hcfg, device=DEV)
+    serving.load_state_dict(torch.load(run_dir / "checkpoint_6",
+                                       map_location=DEV)["state_dict"])
+    trained = Generator(hcfg, device=DEV, weight_norm=True)
+    trained.load_state_dict(torch.load(run_dir / "checkpoint_6",
+                                       map_location=DEV)["state_dict"])
+    mel = torch.from_numpy(mels).to(DEV)
+    hk.reset_launch_counts()
+    audio_k = serving(mel, infer=True)
+    torch.cuda.synchronize()
+    n = hk.LAUNCHES["hifigan_resblock"]
+    with plain_kernels(hk):
+        audio_p = serving(mel, infer=True)
+    with torch.no_grad():
+        audio_t = trained(mel)
+    want = vocoder_launches(hk, serving, 1)
+    log(f"  the trained checkpoint served (B=2, T_mel={mel.shape[1]}): "
+        f"{n} hifigan_resblock launches (want {want})")
+    if n != want or n == 0:
+        raise SystemExit("chip_smoke: the served checkpoint's resblock "
+                         "launches")
+    check("slice", audio_k, audio_p, 1e-3, 1e-3,
+          "trained HiFi-GAN served, kernel vs plain")
+    check("slice", audio_k, audio_t, 1e-3, 1e-3,
+          "served vs the training form's convs")
+    rb = serving.resblocks[0]
+    x = torch.randn(2, rb.convs1[0].in_channels, 1024, device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(3))
+    args = (x, *rb.kernel_weights(), rb.dilations, rb.slope)
+    check("hifigan_resblock", hk.hifigan_resblock(*args),
+          hk.hifigan_resblock_plain(*args), *TOL["hifigan_resblock"],
+          "trained checkpoint, resblock 0")
+
+
+def phase8(hk, check, smi):
+    """8a HiFi-GAN and 8b WaveGlow / WaveFlow through the train command at
+    full width, each with its step timed; 8c card-against-CPU steps and
+    the trained HiFi-GAN served."""
+    import tempfile
+    import torch
+    from cookietts_tpu_torch.models.hifigan import HiFiGANConfig
+    from cookietts_tpu_torch.models.waveglow import WaveGlowConfig
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        sr = HIFIGAN_DATA["sampling_rate"]
+        hifigan_map = vocoder_corpus(tmp / "wav22k", sr, 20,
+                                     2.5 * HIFIGAN_DATA["segment_length"] / sr,
+                                     seed=4)
+        flow_map = vocoder_corpus(tmp / "wav48k", 48000, 10,
+                                  1.5 * FLOW_SEGMENT / 48000, seed=5)
+        hcfg = HiFiGANConfig(**HIFIGAN)
+        hp = hparams_of({**HIFIGAN, **HIFIGAN_DATA})
+        log(f"  8a HiFi-GAN, HiFiGANConfig({hparams_of(HIFIGAN)}) (MPD periods "
+            f"{hcfg.mpd_periods}, MSD {hcfg.msd_scales} scales): {hp}")
+        trainer, *_ = vocoder_train_cli(
+            hk, tmp / "hifigan", "hifigan", hifigan_map,
+            hparams_of({**HIFIGAN, **HIFIGAN_DATA, **CADENCE}), None, 0)
+        tree = torch.load(tmp / "hifigan" / "checkpoint_6")
+        if not {"state_dict", "opt_state", "d_state_dict",
+                "d_opt_state"} <= set(tree):
+            raise SystemExit(f"chip_smoke: the HiFi-GAN checkpoint holds "
+                             f"{sorted(tree)}, not G and D")
+        del tree
+        gan_step_times(trainer, trainer.val_batches[0], smi)
+        del trainer
+        log(f"  phase 8a in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for name, kw, key in (("WaveGlow", WAVEGLOW_TRAIN, "waveglow_wn_forward"),
+                              ("WaveFlow", WAVEFLOW, "waveflow_row_step")):
+            cfg = WaveGlowConfig(**kw)
+            log(f"  8b {name}: WaveGlowConfig({hparams_of(kw)}), "
+                f"{hparams_of(FLOW_DATA)}")
+            per_batch = cfg.n_flows * (
+                cfg.n_group if cfg.channel_mixing == "permuteheight" else 1
+            ) * hk.wn_launches(cfg.n_layers)
+            trainer, *_ = vocoder_train_cli(
+                hk, tmp / name, "waveglow", flow_map,
+                hparams_of({**kw, **FLOW_DATA, **CADENCE}), key, per_batch)
+            flow_validation_parity(hk, check, trainer, name, key)
+            flow_step_times(trainer, trainer.val_batches[0], name, smi)
+            del trainer
+        log(f"  phase 8b in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase8_parity(hk, check, tmp / "hifigan", smi)
+        log(f"  phase 8c in {time.perf_counter() - t0:.1f} s; {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1892,6 +2386,9 @@ def main() -> int:
 
     log("phase 7: the training slice, full width")
     phase7(hk, check, tcfg, smi)
+
+    log("phase 8: vocoder training, full width")
+    phase8(hk, check, smi)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -43,19 +43,22 @@ def window_sumsquare(window_name: str, n_frames: int, hop_length: int,
     return x
 
 
-def _dft_bases(filter_length: int, win_length: int, window: Optional[str]):
+def _dft_bases(filter_length: int, win_length: int, window: Optional[str],
+               inverse: bool = True):
     """(forward, inverse) windowed DFT bases, each [2 * cutoff, filter_length]
-    float64. The inverse is the plain pseudo-inverse of the forward basis."""
+    float64. The inverse is the plain pseudo-inverse of the forward basis
+    (None unless ``inverse``: an SVD, seconds at a filter length of 2400)."""
     fourier = np.fft.fft(np.eye(filter_length))
     cutoff = filter_length // 2 + 1
     basis = np.vstack([np.real(fourier[:cutoff]), np.imag(fourier[:cutoff])])
-    inv = np.linalg.pinv(basis).T
+    inv = np.linalg.pinv(basis).T if inverse else None
     if window is not None:
         if filter_length < win_length:
             raise ValueError("filter_length must be at least win_length")
         w = pad_center(get_window(window, win_length, fftbins=True),
                        filter_length)
-        basis, inv = basis * w, inv * w
+        basis = basis * w
+        inv = None if inv is None else inv * w
     return basis, inv
 
 
@@ -71,11 +74,23 @@ class STFT:
         self.win_length = int(win_length)
         self.window = window
         self.cutoff = self.filter_length // 2 + 1
-        fwd, inv = _dft_bases(self.filter_length, self.win_length, window)
-        as_t = lambda a: torch.tensor(a.T, dtype=torch.float32, device=self.device)
-        self.forward_basis = as_t(fwd)      # [filter_length, 2 * cutoff]
-        self.inverse_basis = as_t(inv)      # [filter_length, 2 * cutoff]
+        fwd, _ = _dft_bases(self.filter_length, self.win_length, window,
+                            inverse=False)
+        self.forward_basis = self._as_t(fwd)    # [filter_length, 2 * cutoff]
+        self._inverse_basis: Optional[torch.Tensor] = None
         self._wss_cache: Dict[int, torch.Tensor] = {}
+
+    def _as_t(self, a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(a.T, dtype=torch.float32, device=self.device)
+
+    @property
+    def inverse_basis(self) -> torch.Tensor:
+        """[filter_length, 2 * cutoff], built at first use (a transform-only
+        STFT never pays for the pseudo-inverse)."""
+        if self._inverse_basis is None:
+            self._inverse_basis = self._as_t(_dft_bases(
+                self.filter_length, self.win_length, self.window)[1])
+        return self._inverse_basis
 
     def transform(self, audio: torch.Tensor, return_phase: bool = True
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

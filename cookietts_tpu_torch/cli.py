@@ -1,18 +1,32 @@
-"""Command-line interface of the port (cookietts_tpu/cli.py:193-486).
+"""Command-line interface of the port (cookietts_tpu/cli.py:193-486,
+979-1300).
 
-    python -m cookietts_tpu_torch train --model tacotron2 --filelist f.txt \
-        [--val_filelist v.txt] [--hparams "a=1,b=[2,3]"] [--run_dir runs/x] \
-        [--iters N] [--resume [ckpt]] [--warm_start ckpt] [--live_config f.py] \
-        [--device cuda|cpu] [--seed S]
+    python -m cookietts_tpu_torch train --model tacotron2|hifigan|waveglow \
+        --filelist f.txt [--val_filelist v.txt] [--hparams "a=1,b=[2,3]"] \
+        [--run_dir runs/x] [--iters N] [--resume [ckpt]] [--warm_start ckpt] \
+        [--live_config f.py] [--device cuda|cpu] [--seed S]
 
-Single-process Tacotron2 training: TBPTT batches from the filelist through
-a background prefetcher, validation on a held-out filelist, checkpoints and
-full resume in ``--run_dir``. The run is on the card unless ``--device cpu``
-is given (without a card the default raises). ``--hparams`` uses the
-reference's ``k=v,k2=[..]`` grammar (config.parse_override_string); keys of
-Tacotron2Config, DataConfig and the live config apply, and ``batch_size``,
-``n_iters`` and ``log_every``. The other models' trainers, multi-host runs and ``--tp`` /
-``--sp`` are not ported yet.
+Single-process training, on the card unless ``--device cpu`` is given
+(without a card the default raises); validation on held-out data,
+checkpoints and full resume in ``--run_dir``. ``--hparams`` uses the
+reference's ``k=v,k2=[..]`` grammar (config.parse_override_string).
+
+- ``tacotron2``: TBPTT batches from the filelist through a background
+  prefetcher; keys of Tacotron2Config, DataConfig and the live config
+  apply, and ``batch_size``, ``n_iters`` and ``log_every``.
+- ``hifigan`` and ``waveglow`` (WaveFlow with
+  ``channel_mixing=permuteheight``): random segments of the wavs of a map
+  file (``wav|gta_mel|speaker`` lines; the mel may be empty) through
+  Mel2Samp; keys of Mel2SampConfig and HiFiGANConfig / WaveGlowConfig
+  apply, and ``batch_size``, ``n_iters``, ``lr``, ``grad_clip``,
+  ``optimizer`` (waveglow: adam or lamb), ``validation_interval``,
+  ``checkpoint_interval``, ``loss_explosion_threshold``,
+  ``max_val_batches`` and ``log_every``. Batch i
+  draws its segments' files from ``numpy.random.default_rng(i)``, so a
+  resumed run goes on with the data sequence.
+
+The other models' trainers, multi-host runs and ``--tp`` / ``--sp`` above 1
+(which raise) are not ported yet.
 """
 from __future__ import annotations
 
@@ -41,15 +55,17 @@ def _speaker_map(args, entries):
             for e in entries}
 
 
-def _heldout_split(args, entries):
+def _heldout_split(args, entries, load_val=None):
     """(train_entries, val_entries, desc): ``--val_filelist``; else a
     sibling ``filelist_validation.txt`` next to ``--filelist``; else the
     tail of the training filelist; a filelist under 4 entries validates on
-    its training data, loudly."""
-    from .data.filelist import load_filelist
+    its training data, loudly. ``load_val`` reads a validation file (the
+    TTS filelist reader by default)."""
+    if load_val is None:
+        from .data.filelist import load_filelist as load_val
     vf = getattr(args, "val_filelist", None)
     if vf:
-        val = load_filelist(vf)
+        val = load_val(vf)
         if not val:
             raise SystemExit(f"--val_filelist {vf} is empty")
         return entries, val, f"--val_filelist {vf} ({len(val)} entries)"
@@ -60,7 +76,7 @@ def _heldout_split(args, entries):
         if (os.path.exists(sib)
                 and os.path.abspath(sib) != os.path.abspath(base)):
             try:
-                val = load_filelist(sib)
+                val = load_val(sib)
             except Exception as e:           # wrong format for this trainer
                 print(f"[val] ignoring sibling {sib}: {e}")
                 val = None
@@ -150,9 +166,19 @@ def _build_tacotron2(overrides, device, seed: int):
 
 def cmd_train(args):
     """Train; returns the Trainer."""
+    for flag in ("tp", "sp"):
+        if int(getattr(args, flag, 1) or 1) > 1:
+            raise SystemExit(f"--{flag} > 1 needs the parallel runtime, which "
+                             "the port does not have yet; run without it")
+    if args.model in VOCODER_TRAINERS:
+        return VOCODER_TRAINERS[args.model](args)
     if args.model != "tacotron2":
         raise SystemExit(f"training CLI for {args.model!r} not wired yet in "
-                         "the port; only --model tacotron2")
+                         "the port; --model tacotron2, hifigan or waveglow")
+    return _train_tacotron2(args)
+
+
+def _train_tacotron2(args):
     import numpy as np
     import torch
 
@@ -289,6 +315,240 @@ def cmd_train(args):
     return trainer
 
 
+# -- the vocoder trainers ------------------------------------------------------
+
+def _build_seeded(seed: int, device, build):
+    """``build()`` on the CPU under the global RNG seeded ``seed`` (the
+    caller's RNG state untouched), then moved to ``device``."""
+    import torch
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = build()
+    return model.to(device)
+
+
+def _vocoder_data(args, overrides):
+    """(Mel2SampConfig, train dataset, validation items, description) from
+    the map file and the held-out split."""
+    from .data.mel2samp import Mel2Samp, Mel2SampConfig, load_map_file
+    dcfg = Mel2SampConfig(**{k: v for k, v in overrides.items()
+                             if k in set(Mel2SampConfig.__dataclass_fields__)})
+    entries = load_map_file(args.filelist)
+    train_entries, val_map, desc = _heldout_split(args, entries, load_map_file)
+    val = Mel2Samp(val_map, dcfg)
+    return dcfg, Mel2Samp(train_entries, dcfg), [val[i] for i in
+                                                 range(len(val))], desc
+
+
+def _vocoder_batches(dataset, val_items, batch_size, overrides, desc, keys):
+    """(make_batch(it), val_batches): batch ``it`` draws its files from
+    ``numpy.random.default_rng(it)``; the validation items, materialised
+    once, in batches at the training shape (the last cycle-filled)."""
+    import numpy as np
+    from .data.mel2samp import collate_mel2samp
+
+    def pick(batch):
+        return {k: batch[k] for k in keys}
+
+    def make_batch(it):
+        rng = np.random.default_rng(it)
+        idx = rng.integers(0, len(dataset), batch_size)
+        return pick(collate_mel2samp([dataset[int(i)] for i in idx]))
+
+    cap = int(overrides.get("max_val_batches", 0) or 0)
+    val_batches = [pick(collate_mel2samp([val_items[i] for i in chunk]))
+                   for chunk in _cycle_chunks(len(val_items), batch_size, cap)]
+    print(f"[val] {desc}: {len(val_items)} segments in {len(val_batches)} "
+          f"batch(es)")
+    return make_batch, val_batches
+
+
+def _make_trainer(args, overrides, state, train_step, device, eval_step=None,
+                  val_batches=None, plateau=None, base_lr=1e-4,
+                  grad_clip=150.0, validation_interval=200):
+    """The Trainer of a vocoder: a constant live LR (``lr``), the validation
+    and checkpoint cadence and the explosion threshold from the overrides,
+    all under the live file (``--live_config``)."""
+    from .runtime.trainer import Trainer, TrainerConfig
+    trainer = Trainer(
+        TrainerConfig(run_dir=args.run_dir, live_config_path=args.live_config,
+                      seed=args.seed,
+                      log_every=int(overrides.get("log_every", 10)),
+                      grad_clip=float(overrides.get("grad_clip", grad_clip)),
+                      plateau=plateau),
+        state, train_step, eval_step, val_batches=val_batches, device=device)
+    trainer.set_live_defaults({
+        "A_": float(overrides.get("lr", base_lr)),
+        "warmup_end": 0, "decay_start": 10 ** 12, "drop_frame_rate": 0.0,
+        "validation_interval": int(overrides.get("validation_interval",
+                                                 validation_interval)),
+        "checkpoint_interval": int(overrides.get("checkpoint_interval", 0)),
+        "LossExplosionThreshold": float(
+            overrides.get("loss_explosion_threshold", 1e3)),
+    })
+    return trainer
+
+
+def _trainer_loop(trainer, make_batch, n_iters, run_dir, resume=None,
+                  loss_name="loss"):
+    """Run ``trainer`` to ``n_iters`` (after a full --resume) and save a
+    final periodic checkpoint. Returns the trainer."""
+    if resume:
+        path = trainer.ckpt.latest() if resume == "auto" else resume
+        if path is None or not os.path.exists(path):
+            raise SystemExit(f"--resume: no checkpoint in {run_dir}")
+        if trainer.resume(path) >= n_iters:
+            raise SystemExit(f"--resume: checkpoint already at iter "
+                             f"{trainer.state.step} >= --iters {n_iters}; "
+                             "nothing to do")
+    it = int(trainer.state.step)
+    while it < n_iters:
+        metrics = trainer.step(make_batch(it))
+        if it % 10 == 0:
+            print(f"iter {it}: {loss_name}="
+                  f"{metrics.get('loss', float('nan')):.4f}")
+        it_next = int(trainer.state.step)
+        it = it_next if it_next > it else it + 1     # an explosion rolls back
+    trainer.save(periodic=True)
+    print(f"done: checkpoints in {run_dir}")
+    return trainer
+
+
+def _vocoder_metadata(name, dcfg, overrides, model_keys, base):
+    """The metadata stamped on a vocoder's checkpoints: the model's kind,
+    ``base`` and the model's keys among the overrides, the audio front end."""
+    return {
+        "model": name,
+        "model_config": {**base, **{k: v for k, v in overrides.items()
+                                    if k in model_keys and k not in base}},
+        "audio": {"sampling_rate": dcfg.sampling_rate,
+                  "hop_length": dcfg.hop_length,
+                  "n_mel_channels": dcfg.n_mel_channels},
+    }
+
+
+def _train_waveglow(args):
+    """WaveGlow / WaveFlow training (cookietts_tpu/cli.py:_train_waveglow):
+    the flow NLL with Adam or LAMB, validation through the inverse (STFT
+    MSE / MAE) driving ReduceLROnPlateau and best_val_model."""
+    from .config import parse_override_string
+    from .device import resolve_device
+    from .models.waveglow import WaveGlow, WaveGlowConfig
+    from .runtime.optim import ReduceLROnPlateau, adam, lamb
+    from .runtime.train_state import TrainState
+    from .runtime.trainer import (make_waveglow_train_step,
+                                  make_waveglow_val_step)
+
+    device = resolve_device(args.device)
+    overrides = parse_override_string(args.hparams) if args.hparams else {}
+    batch_size = int(overrides.get("batch_size", 4))
+    n_iters = int(overrides.get("n_iters", args.iters))
+    dcfg, dataset, val_items, desc = _vocoder_data(args, overrides)
+    m_keys = set(WaveGlowConfig.__dataclass_fields__)
+    wcfg = WaveGlowConfig(
+        n_mel_channels=dcfg.n_mel_channels, hop_length=dcfg.hop_length,
+        **{k: tuple(v) if isinstance(v, list) else v
+           for k, v in overrides.items()
+           if k in m_keys and k not in ("n_mel_channels", "hop_length")})
+    model = _build_seeded(args.seed, device,
+                          lambda: WaveGlow(wcfg, device="cpu"))
+    keys = ("audio", "mels") + (("speaker_id",) if wcfg.n_speakers else ())
+    make_batch, val_batches = _vocoder_batches(dataset, val_items, batch_size,
+                                               overrides, desc, keys)
+    tx = lamb() if str(overrides.get("optimizer", "adam")) == "lamb" else adam()
+    val_step = make_waveglow_val_step(model)
+
+    def eval_step(state, batch, generator, ctrl):
+        m = val_step(state, batch, generator)
+        return ({"loss": m["val_MSE"], "MSE": m["val_MSE"],
+                 "MAE": m["val_MAE"]}, {}, None)
+
+    trainer = _make_trainer(args, overrides, TrainState.create(model, tx),
+                            make_waveglow_train_step(model), device,
+                            eval_step=eval_step, val_batches=val_batches,
+                            plateau=ReduceLROnPlateau(), grad_clip=150.0)
+    trainer.default_metadata = _vocoder_metadata(
+        "waveglow", dcfg, overrides, m_keys,
+        {"n_mel_channels": dcfg.n_mel_channels, "hop_length": dcfg.hop_length})
+    return _trainer_loop(trainer, make_batch, n_iters, args.run_dir,
+                         resume=args.resume, loss_name="nll")
+
+
+def _train_hifigan(args):
+    """HiFi-GAN adversarial training (cookietts_tpu/cli.py:_train_hifigan):
+    AdamW (weight decay 0.01) on both sides, a discriminator then a
+    generator step each iteration, validation by the generated audio's mel
+    L1; checkpoints hold G and D."""
+    import numpy as np
+    from torch import nn
+
+    from .audio.stft import TacotronSTFT
+    from .config import parse_override_string
+    from .device import resolve_device
+    from .models.hifigan import (Generator, HiFiGANConfig,
+                                 MultiPeriodDiscriminator,
+                                 MultiScaleDiscriminator)
+    from .runtime.checkpoint import load_checkpoint, warm_start
+    from .runtime.optim import adam
+    from .runtime.train_state import GANTrainState, TrainState
+    from .runtime.trainer import (make_gan_trainer_step,
+                                  make_hifigan_eval_step,
+                                  make_hifigan_train_steps)
+
+    device = resolve_device(args.device)
+    overrides = parse_override_string(args.hparams) if args.hparams else {}
+    batch_size = int(overrides.get("batch_size", 4))
+    n_iters = int(overrides.get("n_iters", args.iters))
+    dcfg, dataset, val_items, desc = _vocoder_data(args, overrides)
+    h_keys = set(HiFiGANConfig.__dataclass_fields__)
+    hcfg = HiFiGANConfig(
+        n_mel_channels=dcfg.n_mel_channels,
+        **{k: tuple(v) if isinstance(v, list) else v
+           for k, v in overrides.items()
+           if k in h_keys and k != "n_mel_channels"})
+    up_prod = int(np.prod(hcfg.upsample_rates))
+    if up_prod != dcfg.hop_length:
+        raise SystemExit(f"prod(upsample_rates)={up_prod} must equal "
+                         f"hop_length={dcfg.hop_length}")
+    gen = _build_seeded(args.seed, device, lambda: Generator(
+        hcfg, device="cpu", weight_norm=True))
+    disc = _build_seeded(args.seed + 1, device, lambda: nn.ModuleDict({
+        "mpd": MultiPeriodDiscriminator(hcfg, device="cpu"),
+        "msd": MultiScaleDiscriminator(hcfg, device="cpu")}))
+    if args.warm_start:
+        tree, _ = load_checkpoint(args.warm_start)
+        ig = tuple(overrides.get("ignore_layers", ()) or ())
+        sd, n_l, n_s = warm_start(gen.state_dict(), tree["state_dict"],
+                                  ignore_layers=ig)
+        gen.load_state_dict(sd)
+        print(f"[hifigan] warm start: {n_l} loaded, {n_s} skipped"
+              + (f" (ignore_layers={list(ig)})" if ig else ""))
+    stft = TacotronSTFT(dcfg.filter_length, dcfg.hop_length, dcfg.win_length,
+                        dcfg.n_mel_channels, dcfg.sampling_rate,
+                        dcfg.mel_fmin, dcfg.mel_fmax, device=device)
+    d_step, g_step = make_hifigan_train_steps(
+        gen, disc["mpd"], disc["msd"], stft.mel_spectrogram)
+    make_batch, val_batches = _vocoder_batches(
+        dataset, val_items, batch_size, overrides, desc, ("audio", "mels"))
+    state = GANTrainState(g=TrainState.create(gen, adam(weight_decay=0.01)),
+                          d=TrainState.create(disc, adam(weight_decay=0.01)))
+    trainer = _make_trainer(
+        args, overrides, state, make_gan_trainer_step(d_step, g_step), device,
+        eval_step=make_hifigan_eval_step(gen, stft.mel_spectrogram),
+        val_batches=val_batches, base_lr=2e-4, grad_clip=1000.0)
+    trainer.default_metadata = _vocoder_metadata(
+        "hifigan", dcfg, overrides, h_keys,
+        {"n_mel_channels": dcfg.n_mel_channels})
+    if args.resume:
+        print(f"[hifigan] resuming G+D from "
+              f"{trainer.ckpt.latest() if args.resume == 'auto' else args.resume}")
+    return _trainer_loop(trainer, make_batch, n_iters, args.run_dir,
+                         resume=args.resume, loss_name="g_loss")
+
+
+VOCODER_TRAINERS = {"waveglow": _train_waveglow, "hifigan": _train_hifigan}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("cookietts_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -314,6 +574,10 @@ def main(argv=None):
                    help="cuda (the default; raises without a card) or cpu")
     t.add_argument("--seed", type=int, default=1234,
                    help="seeds the weights and every random draw")
+    t.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism (above 1 raises: not ported)")
+    t.add_argument("--sp", type=int, default=1,
+                   help="sequence parallelism (above 1 raises: not ported)")
     t.add_argument("--hparams", default="",
                    help='override string, e.g. "batch_size=32,p_arpabet=0"')
     t.add_argument("--run_dir", default="runs/default")

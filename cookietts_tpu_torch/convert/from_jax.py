@@ -14,6 +14,9 @@ cookietts_tpu/convert/*_torch.py):
 - flax OptimizedLSTMCell i*/h* gates   -> nn.LSTM *_l0 / *_l0_reverse
 - flax BatchNorm scale/bias + stats    -> BatchNorm1d weight/bias/running_*
 - flax WeightNorm (v, scale)           -> the folded weight v * scale / ||v||
+  (serving), or the pair itself as ``weight_v`` / ``weight_g`` with g [out]
+  on the output axis (the HiFi-GAN training form and discriminators)
+- flax Conv2d kernel [kh, kw, in, out] -> Conv2d weight [out, in, kh, kw]
 - WaveGlow/WaveFlow: 1x1 layers (flax Dense or Conv) -> Conv1d/Conv2d weights
   with unit taps; the WN end layer's output halves swap from (log_s, t) to
   the reference checkpoints' (t, log_s); the 1x1 mixing weight transposes
@@ -21,7 +24,7 @@ cookietts_tpu/convert/*_torch.py):
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -182,6 +185,80 @@ def hifigan_state_dict_from_jax(params: Mapping[str, Any]
                      f"Conv_{2 * m + 1}")
                 m += 1
     return sd
+
+
+def _wn_pair(sd, key, tree, wrapper: str, conv: str, transposed=False):
+    """A flax WeightNorm conv as the port's WNConv: weight_v in torch's
+    layout, weight_g the scale on the output axis, the bias."""
+    v = np.asarray(tree[conv]["kernel"], np.float32)
+    scale = np.asarray(tree[wrapper][f"{conv}/kernel/scale"], np.float32)
+    if transposed:                   # [k, in, out] -> [in, out, k], k flipped
+        w, g_shape = np.transpose(v[::-1], (1, 2, 0)), (1, -1, 1)
+    else:                            # [*taps, in, out] -> [out, in, *taps]
+        w = np.moveaxis(v, (-1, -2), (0, 1))
+        g_shape = (-1,) + (1,) * (v.ndim - 1)
+    sd[f"{key}.weight_v"] = _t(w)
+    sd[f"{key}.weight_g"] = _t(scale.reshape(g_shape))
+    sd[f"{key}.bias"] = _t(tree[conv]["bias"])
+
+
+def hifigan_train_state_dict_from_jax(params: Mapping[str, Any]
+                                      ) -> Dict[str, torch.Tensor]:
+    """State dict for the training form, ``Generator(cfg,
+    weight_norm=True)``: every conv's (v, scale) pair as weight_v /
+    weight_g. Linear in each leaf, so it maps JAX gradients too."""
+    sd: Dict[str, torch.Tensor] = {}
+    _wn_pair(sd, "conv_pre", params, "conv_pre", "Conv_0")
+    n_ups = 0
+    while f"up{n_ups}" in params:
+        _wn_pair(sd, f"ups.{n_ups}", params, f"up{n_ups}",
+                 f"ConvTranspose_{n_ups}", transposed=True)
+        n_ups += 1
+    _wn_pair(sd, "conv_post", params, "conv_post", "Conv_1")
+    n_kernels = sum(1 for k in params if k.startswith("resblock0_"))
+    for i in range(n_ups):
+        for j in range(n_kernels):
+            rb, n = params[f"resblock{i}_{j}"], i * n_kernels + j
+            m = 0
+            while f"conv1_{m}" in rb:
+                _wn_pair(sd, f"resblocks.{n}.convs1.{m}", rb, f"conv1_{m}",
+                         f"Conv_{2 * m}")
+                _wn_pair(sd, f"resblocks.{n}.convs2.{m}", rb, f"conv2_{m}",
+                         f"Conv_{2 * m + 1}")
+                m += 1
+    return sd
+
+
+def hifigan_discriminators_from_jax(mpd: Mapping[str, Any],
+                                    msd: Mapping[str, Any], periods
+                                    ) -> Tuple[Dict[str, torch.Tensor],
+                                               Dict[str, torch.Tensor]]:
+    """(MPD, MSD) state dicts from the JAX discriminators' param trees, in
+    the reference names (the inverse of cookietts_tpu/convert/
+    hifigan_torch.py:convert_hifigan_discriminators): the weight-normed
+    convs as weight_v / weight_g, the MSD's spectral-normed first scale as
+    weight_orig. Linear in each leaf, so it maps JAX gradients too."""
+    mpd_sd: Dict[str, torch.Tensor] = {}
+    for i, p in enumerate(periods):
+        tree, key = mpd[f"period{p}"], f"discriminators.{i}"
+        for j in range(5):
+            _wn_pair(mpd_sd, f"{key}.convs.{j}", tree, f"conv{j}", f"Conv_{j}")
+        _wn_pair(mpd_sd, f"{key}.conv_post", tree, "conv_post", "Conv_5")
+    msd_sd: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"scale{i}" in msd:
+        tree, key = msd[f"scale{i}"], f"discriminators.{i}"
+        names = [(f"convs.{j}", f"conv{j}", f"Conv_{j}") for j in range(7)]
+        names.append(("conv_post", "conv_post", "Conv_7"))
+        for dst, wrapper, conv in names:
+            if i == 0:
+                msd_sd[f"{key}.{dst}.weight_orig"] = _t(np.transpose(
+                    tree[wrapper]["kernel"], (2, 1, 0)))
+                msd_sd[f"{key}.{dst}.bias"] = _t(tree[wrapper]["bias"])
+            else:
+                _wn_pair(msd_sd, f"{key}.{dst}", tree, wrapper, conv)
+        i += 1
+    return mpd_sd, msd_sd
 
 
 def _nd_conv(kernel, ndim: int) -> torch.Tensor:

@@ -1,9 +1,12 @@
-"""The default-device rule shared by every entry point.
+"""The default-device rule shared by every entry point, and the float32
+context every numerics-critical path runs in.
 
 Entry points default to ``"cuda"``. Without a card they raise instead of
 falling back to the CPU; the CPU is used only when the caller asks for it.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -14,3 +17,17 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Matrix products and convolutions in full float32 (TF32 off) inside."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -1,5 +1,5 @@
-"""WaveGlow / WaveFlow flow vocoder, inference
-(cookietts_tpu/models/waveglow.py).
+"""WaveGlow / WaveFlow flow vocoder (cookietts_tpu/models/waveglow.py):
+the training forward and loss, and the inverse.
 
 - ``channel_mixing='1x1conv'``       -> WaveGlow: invertible 1x1 conv and an
   affine coupling over grouped channels, parallel over time.
@@ -10,10 +10,20 @@ Public layout is the JAX model's: audio [B, T], mel [B, T_mel, n_mel], z
 [B, T/G, G] (WaveGlow) or [B, G, T/G] (WaveFlow). Inside, activations are
 channels-first [B, C, T], which is also the kernels' layout.
 
-With the gated unit GTU each WN runs through the Hopper kernels
+``WaveGlow.forward(audio, mel)`` is the training forward (audio to z,
+with the log-determinants ``waveglow_loss`` takes): every flow's WN runs
+``forward_train`` from the live parameters under autograd, the coupling
+net of all rows at once for WaveFlow (causal in height), and with
+``memory_efficient`` (the default) each flow is recomputed in the backward
+(``torch.utils.checkpoint``), as JAX rematerialises each flow. The inverse
+(``inverse``, ``infer``; validation and serving) runs without autograd, and
+with the gated unit GTU each WN runs through the Hopper kernels
 ``waveglow_wn_forward`` / ``waveflow_row_step`` (ops/hopper_kernels.py); any
 other unit of ``GATED_UNITS`` takes the plain PyTorch version. That choice is
-made from the configuration before the call, never after a failed launch.
+made from the call (forward or inverse) and the configuration, never after a
+failed launch. The kernels' packed weights are cached and rebuilt when a
+parameter changes, so the inverse after an optimizer step sees the new
+weights.
 
 Parameter names follow the reference glow.py checkpoint that
 cookietts_tpu/convert/waveglow_torch.py reads: ``WN.{k}.start``,
@@ -31,24 +41,24 @@ checkpoints the rows of ``end`` are ordered (t, log_s); the modules return
 Traps kept from the JAX model: flax's "SAME" transposed conv with kernel 2s
 and stride s is the full transposed conv cut at ``_same_offset(s)``; torch's
 ``padding=s // 2`` matches it only for even s (5 and 75 are odd). W^-1 of
-the 1x1 conv is taken in float32 and the whole inverse runs with TF32 off,
-or forward and inverse stop being inverses at the 1e-2 level.
+the 1x1 conv and its log-determinant are taken in float32 and both
+directions run with TF32 off, or forward and inverse stop being inverses at
+the 1e-2 level.
 
-Not ported yet: the training forward and loss, and ISO-226 de-emphasis
-(``iso226_deemphasis=True`` raises).
+Not ported yet: ISO-226 de-emphasis (``iso226_deemphasis=True`` raises).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
-from ..device import resolve_device
+from ..device import full_float32, resolve_device
 from ..ops import hopper_kernels as hk
 
 
@@ -56,9 +66,12 @@ def _tanhshrink(x):
     return x - torch.tanh(x)
 
 
-# (a, b) are the two pre-activation halves of the WN conv output. The SIREN
-# units scale the sine's argument by 16 (the JAX model hides the factor from
-# autograd; at inference it is a plain factor).
+def _siren(a):
+    """sin(16 a), with 15 a hidden from autograd (the JAX model's SIREN)."""
+    return torch.sin(a + (15.0 * a).detach())
+
+
+# (a, b) are the two pre-activation halves of the WN conv output.
 GATED_UNITS: Dict[str, Callable] = {
     "GTU": hk.gtu,
     "GTRU": lambda a, b: torch.tanh(a) * F.relu(b),
@@ -68,11 +81,11 @@ GATED_UNITS: Dict[str, Callable] = {
     "GTSU": lambda a, b: _tanhshrink(a) * torch.sigmoid(b),
     "SPTU": lambda a, b: torch.tanh(a) * F.softplus(b),
     "GSIU": lambda a, b: torch.sin(a) * torch.sigmoid(b),
-    "GSIRU": lambda a, b: torch.sin(16.0 * a) * torch.sigmoid(b),
+    "GSIRU": lambda a, b: _siren(a) * torch.sigmoid(b),
     "GTSRU": lambda a, b: _tanhshrink(a) * F.relu(b),
-    "GSIRRU": lambda a, b: torch.sin(16.0 * a) * F.relu(b),
-    "GSIRLRU": lambda a, b: torch.sin(16.0 * a) * F.leaky_relu(b, 0.01),
-    "GSIRRLRU": lambda a, b: torch.sin(16.0 * a) * F.leaky_relu(b, 0.055),
+    "GSIRRU": lambda a, b: _siren(a) * F.relu(b),
+    "GSIRLRU": lambda a, b: _siren(a) * F.leaky_relu(b, 0.01),
+    "GSIRRLRU": lambda a, b: _siren(a) * F.leaky_relu(b, 0.055),
     "GTLRU": lambda a, b: torch.tanh(a) * F.leaky_relu(b, 0.01),
     "linear": lambda a, b: a,
 }
@@ -82,10 +95,11 @@ GATED_UNITS: Dict[str, Callable] = {
 class WaveGlowConfig:
     """The JAX model's configuration. Its knobs for the TPU kernels and the
     scan (``pallas_row_step``, ``pallas_row_tile``, ``inverse_height_unroll``)
-    and for training (``memory_efficient``) are accepted, so that a stored
-    configuration loads, and ignored: the card's kernels pick their own tiles
-    and there is one inverse path per gated unit. ``fused_height_inverse`` is
-    ignored too: both of its JAX paths compute the row step ported here.
+    are accepted, so that a stored configuration loads, and ignored: the
+    card's kernels pick their own tiles and there is one inverse path per
+    gated unit. ``fused_height_inverse`` is ignored too: both of its JAX
+    paths compute the row step ported here. ``memory_efficient`` recomputes
+    each flow in the training backward.
     ``cond_residual`` and ``cond_layers`` are carried as the JAX model carries
     them: neither model reads them."""
     n_mel_channels: int = 160
@@ -120,20 +134,6 @@ class WaveGlowConfig:
     dtype: Any = torch.float32
 
 
-@contextlib.contextmanager
-def full_float32():
-    """Matrix products and convolutions in full float32 (TF32 off) inside."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
 def permute_height_order(h: int, kind: str, flow_idx: int) -> np.ndarray:
     """Static height permutation orders: 'reverse' flips the height each
     flow; 'bipartize' alternates flipping the two halves and swapping them."""
@@ -147,7 +147,7 @@ def permute_height_order(h: int, kind: str, flow_idx: int) -> np.ndarray:
 
 
 class Invertible1x1Conv(nn.Module):
-    """The 1x1 channel-mixing conv, inverse only: x = W^-1 y on [B, C, T]."""
+    """The 1x1 channel-mixing conv on [B, C, T]: y = W x, and x = W^-1 y."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -157,6 +157,11 @@ class Invertible1x1Conv(nn.Module):
             q[:, 0] = -q[:, 0]
         with torch.no_grad():
             self.conv.weight.copy_(q[:, :, None])
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(W x, log|det W|), the log-determinant in float32."""
+        w = self.conv.weight[:, :, 0]
+        return torch.matmul(w, x), torch.linalg.slogdet(w.float())[1]
 
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         w = self.conv.weight
@@ -183,6 +188,27 @@ class _WNBase(nn.Module):
         self.end = conv(C, 2 * n_out, one)
         nn.init.zeros_(self.end.weight)
         nn.init.zeros_(self.end.bias)
+
+    def _train_layers(self, h, cond_all, conv):
+        """The layers and the end of the training forward, from the start's
+        output ``h`` and the cond projection ``cond_all`` [B, 2CL, ...];
+        ``conv(i, layer, h)`` is layer i's dilated conv. -> (log_s, t)."""
+        gate = GATED_UNITS[self.gated_unit]
+        C, L = self.n_channels, self.n_layers
+        cond_all = cond_all if h.dim() == 3 else cond_all[:, :, None]
+        skip = 0
+        for i, (layer, rs) in enumerate(zip(self.in_layers,
+                                            self.res_skip_layers)):
+            acts = conv(i, layer, h) + cond_all[:, 2 * C * i:2 * C * (i + 1)]
+            r = rs(gate(acts[:, :C], acts[:, C:]))
+            if i < L - 1:
+                h = h + r[:, :C]
+                skip = skip + r[:, C:]
+            else:
+                skip = skip + r
+        st = self.end(skip)                     # rows (t, log_s)
+        half = st.shape[1] // 2
+        return st[:, half:], st[:, :half]
 
     def kernel_weights(self):
         """(start_w, start_b, k_all, rs_w, rs_b, end_w, end_b) as the kernels
@@ -227,9 +253,24 @@ class WN(_WNBase):
         self.gated_unit = gated_unit
         self._make(nn.Conv1d, n_in, n_out, n_cond, (kernel_size,))
 
+    def forward_train(self, x: torch.Tensor, cond: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training forward (JAX ``WN.__call__``) from the live
+        parameters: x [B, C_in, T], cond [B, D, T] -> (log_s, t)."""
+        h = self.start(x)
+        cond_all = self.cond_layer(cond)
+
+        def conv(i, layer, h):
+            total = (layer.kernel_size[0] - 1) * 2 ** i     # flax's "SAME"
+            return F.conv1d(F.pad(h, (total // 2, total - total // 2)),
+                            layer.weight, layer.bias, dilation=2 ** i)
+
+        return self._train_layers(h, cond_all, conv)
+
     def forward(self, x: torch.Tensor, cond: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x [B, C_in, T], cond [B, D, T] -> (log_s, t), each [B, C_out, T]."""
+        """The inverse's WN, without autograd: x [B, C_in, T], cond
+        [B, D, T] -> (log_s, t), each [B, C_out, T]."""
         args = (x.contiguous(), self.cond_bc(cond), *self.kernel_weights())
         if self.gated_unit == "GTU":
             st = hk.waveglow_wn_forward(*args)
@@ -251,6 +292,23 @@ class WN2D(_WNBase):
         self.n_layers, self.n_channels = n_layers, n_channels
         self.kernel_size_h, self.gated_unit = kernel_size_h, gated_unit
         self._make(nn.Conv2d, 1, 1, n_cond, (kernel_size_h, kernel_size))
+
+    def forward_train(self, x: torch.Tensor, cond: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training forward over every row at once (JAX
+        ``WN2D.__call__``), from the live parameters: x [B, H, W], cond
+        [B, D, W] -> (log_s, t), each [B, H, W]; row h depends on the rows
+        above it only (the input shifted down a row, causal padding)."""
+        kh = self.kernel_size_h
+        h = self.start(F.pad(x, (0, 0, 1, 0))[:, None, :-1])
+
+        def conv(i, layer, h):
+            pad = (layer.kernel_size[1] // 2) * 2 ** i
+            return F.conv2d(F.pad(h, (pad, pad, kh - 1, 0)), layer.weight,
+                            layer.bias, dilation=(1, 2 ** i))
+
+        log_s, t = self._train_layers(h, self.cond_layer(cond), conv)
+        return log_s[:, 0], t[:, 0]
 
     def init_ring(self, batch: int, width: int) -> torch.Tensor:
         """[L, kh, B, C, W] zeros: the causal zero padding above row 0."""
@@ -388,6 +446,73 @@ class WaveGlow(nn.Module):
                 -1, -1, cond.shape[-1])], dim=1)
         return cond
 
+    def _flow(self, fn, *args):
+        if self.cfg.memory_efficient:
+            return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False)
+        return fn(*args)
+
+    def _glow_flow(self, k: int, x: torch.Tensor, cond: torch.Tensor):
+        """Flow k forward: 1x1 mixing, then the affine coupling. -> (y,
+        sum of log_s, log|det W|)."""
+        y, logdet = self.convinv[k](x)
+        xa, xb = y[:, :self._half[k]], y[:, self._half[k]:]
+        if self.cfg.couple_transform == "second":
+            log_s, t = self.WN[k].forward_train(xa, cond)
+            xb = xb * torch.exp(log_s) + t
+        else:
+            log_s, t = self.WN[k].forward_train(xb, cond)
+            xa = xa * torch.exp(log_s) + t
+        return torch.cat([xa, xb], dim=1), log_s.sum(), logdet
+
+    def _forward_waveglow(self, x: torch.Tensor, cond: torch.Tensor):
+        """x [B, G, T'] -> (z [B, G, T'] with the early outputs first,
+        sum of log_s, sum of the 1x1 log-determinants over positions)."""
+        B, _, T = x.shape
+        log_s_sum = logdet_sum = x.new_zeros(())
+        early = []
+        for k in range(self.cfg.n_flows):
+            if self._early[k]:
+                early.append(x[:, :self._early[k]])
+                x = x[:, self._early[k]:]
+            x, ls, lw = self._flow(self._glow_flow, k, x, cond)
+            log_s_sum = log_s_sum + ls
+            logdet_sum = logdet_sum + lw * (B * T)
+        return torch.cat(early + [x], dim=1), log_s_sum, logdet_sum
+
+    def _flow_2d(self, k: int, x: torch.Tensor, cond: torch.Tensor):
+        log_s, t = self.WN[k].forward_train(x, cond)
+        return x * torch.exp(log_s) + t, log_s.sum()
+
+    def _forward_waveflow(self, x: torch.Tensor, cond: torch.Tensor):
+        """x [B, H, W] -> (z [B, H, W], sum of log_s, 0): each flow permutes
+        the rows, then its height-causal affine coupling."""
+        log_s_sum = x.new_zeros(())
+        for k in range(self.cfg.n_flows):
+            x = x[:, permute_height_order(self.cfg.n_group, "bipartize", k)]
+            x, ls = self._flow(self._flow_2d, k, x, cond)
+            log_s_sum = log_s_sum + ls
+        return x, log_s_sum, x.new_zeros(())
+
+    def forward(self, audio: torch.Tensor, mel: torch.Tensor,
+                speaker_ids: Optional[torch.Tensor] = None
+                ) -> Dict[str, Any]:
+        """Training forward (JAX ``WaveGlow.__call__``): audio [B, T], mel
+        [B, T_mel, M] -> dict(z, log_s_sum, logdet_w_sum, n_elements), z in
+        the JAX layout: [B, T/G, G] for WaveGlow, [B, G, T/G] for WaveFlow."""
+        G = self.cfg.n_group
+        B, T = audio.shape
+        x = audio[:, :(T // G) * G].reshape(B, T // G, G).transpose(1, 2)
+        with full_float32():
+            cond = self._cond(mel, speaker_ids)[..., :x.shape[2]]
+            if self.waveflow:
+                z, log_s, logdet = self._forward_waveflow(x, cond)
+            else:
+                z, log_s, logdet = self._forward_waveglow(x, cond)
+                z = z.transpose(1, 2)
+        return {"z": z, "log_s_sum": log_s, "logdet_w_sum": logdet,
+                "n_elements": B * (T // G) * G}
+
     def _inverse_waveglow(self, z: torch.Tensor, cond: torch.Tensor
                           ) -> torch.Tensor:
         """z [B, G, T'] channels-first (early outputs first) -> x [B, G, T']."""
@@ -463,3 +588,16 @@ class WaveGlow(nn.Module):
             z = sigma * torch.randn(shape, generator=generator,
                                     device=self.device, dtype=torch.float32)
         return self.inverse(z, mel, speaker_ids)
+
+
+def waveglow_loss(out: Dict[str, Any], sigma: float = 1.0
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The flow NLL per element: (sum z^2 / (2 sigma^2) - log_s_sum -
+    logdet_w_sum) / n_elements, with its parts."""
+    z = out["z"].float()
+    n = out["n_elements"]
+    nll = ((z * z).sum() / (2.0 * sigma * sigma) - out["log_s_sum"]
+           - out["logdet_w_sum"]) / n
+    return nll, {"loss": nll, "z_mean_sq": (z * z).mean(),
+                 "log_s_mean": out["log_s_sum"] / n,
+                 "logdet_w_mean": out["logdet_w_sum"] / n}

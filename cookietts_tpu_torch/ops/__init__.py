@@ -1,2 +1,3 @@
 """Masking, the zoneout LSTM cell, location-sensitive attention, alignment
-metrics and the hand-written Hopper kernels (``hopper_kernels``)."""
+metrics, GTA mel alignment (``dtw``) and the hand-written Hopper kernels
+(``hopper_kernels``)."""

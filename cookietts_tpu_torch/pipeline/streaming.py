@@ -29,6 +29,7 @@ from typing import Callable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.hifigan import serving_vocoder
 from .chunk_graph import DecodeChunkGraphs
 
 
@@ -48,7 +49,8 @@ def streaming_vocode(vocoder_fn: Callable, mel, chunk_frames: int = 256,
 
     Every window is ``chunk + 2 * halo`` frames wide: edge windows slide
     inward over real frames instead of shrinking. Mels no longer than one
-    window vocode whole."""
+    window vocode whole. A HiFi-GAN ``Generator`` runs with ``infer=True``."""
+    vocoder_fn = serving_vocoder(vocoder_fn)
     mel = torch.as_tensor(mel)
     T = mel.shape[1]
     hop = hop_length
@@ -112,6 +114,7 @@ def streaming_tts(taco, vocoder_fn, *, text, text_lengths, speaker_id,
     budget.
     """
     cfg = taco.cfg
+    vocoder_fn = serving_vocoder(vocoder_fn)   # a Generator with infer=True
     r = cfg.n_frames_per_step
     hp = 2 * cfg.postnet_n_convolutions if cfg.use_postnet else 0
     S_total = -(-max_decoder_steps // r)

@@ -37,6 +37,7 @@ from ..models.tacotron2 import Tacotron2
 from ..ops.metrics import alignment_metric, weighted_score
 from ..text import text_to_sequence
 from .chunk_graph import DecodeChunkGraphs
+from ..models.hifigan import serving_vocoder
 from .streaming import vocode_streamed
 
 _SENT_SPLIT = re.compile(r"(?<=[.!?;:])\s+")
@@ -198,7 +199,8 @@ class T2S:
         T2S(cfg, tts_model, speaker_ids={name: id}, vocoder_fn=generator)
 
     ``vocoder_fn(mel [B, T, M] tensor) -> audio [B, T * hop]`` (the port's
-    HiFi-GAN ``Generator``, or a flow vocoder through
+    HiFi-GAN ``Generator``, called with ``infer=True``, or a flow vocoder
+    through
     :func:`make_flow_vocoder_fn`); ``denoiser_fn(audio [1, T] tensor,
     strength) -> audio [1, T]`` (a ``Denoiser``) runs when a request asks for
     ``denoise_strength > 0``; ``torchmoji_fn(text) -> [torchmoji_dim]`` and
@@ -221,7 +223,7 @@ class T2S:
         self.model = tts_model
         self.torchmoji_dim = tts_model.cfg.torchmoji_dim
         self.speaker_ids = dict(speaker_ids)
-        self.vocoder_fn = vocoder_fn
+        self.vocoder_fn = serving_vocoder(vocoder_fn)
         self.denoiser_fn = denoiser_fn
         self.torchmoji_fn = torchmoji_fn
         self.arpa_fn = arpa_fn

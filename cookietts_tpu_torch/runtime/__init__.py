@@ -1,2 +1,3 @@
-"""The port's training runtime (cookietts_tpu/runtime): optimizer, train
-state, checkpoints, live config, metrics logging and the Trainer."""
+"""The port's training runtime (cookietts_tpu/runtime): optimizers and the
+plateau scheduler, train states (GAN too), checkpoints, live config,
+metrics logging and the Trainer."""

@@ -9,7 +9,8 @@
 - a manual save trigger: a file named ``save`` in the run directory.
 
 Format: ``torch.save`` of {"step", "state_dict", "opt_state"} (and the
-trainer's generator state in periodic checkpoints). The state
+trainer's generator state in periodic checkpoints; a GAN's discriminators
+under "d_state_dict" and "d_opt_state"). The state
 dict keeps the reference CookieTTS key names (every parameter and buffer,
 the frozen LSTM biases and the BatchNorm statistics included); metadata
 (model kind and config, speakers, audio frontend, best losses, restarts)
@@ -51,15 +52,28 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Optional[Dict]]:
 
 def restore_train_state(state, path: str,
                         generator: Optional[torch.Generator] = None):
-    """Full resume into ``state`` (a TrainState), in place: the model's
-    state dict (strict), the optimizer moments and the step; and the state
-    of ``generator`` where the checkpoint saved one. Returns (state,
-    metadata)."""
+    """Full resume into ``state`` (a TrainState or a GANTrainState), in
+    place: the model's state dict (strict), the optimizer moments and the
+    step, for both sides of a GAN; and the state of ``generator`` where the
+    checkpoint saved one. Returns (state, metadata)."""
     tree, meta = load_checkpoint(path)
     if generator is not None and "generator" in tree:
         generator.set_state(tree["generator"])
-    state.model.load_state_dict(tree["state_dict"])
-    opt = tree.get("opt_state")
+    if hasattr(state, "d"):                       # a GANTrainState
+        if "d_state_dict" not in tree:
+            raise SystemExit(f"{path} has no discriminator state; use "
+                             "--warm_start for a generator-only load")
+        _restore(state.g, tree["state_dict"], tree.get("opt_state"), path)
+        _restore(state.d, tree["d_state_dict"], tree.get("d_opt_state"), path)
+        state.g.step = state.d.step = int(tree.get("step", state.step))
+        return state, meta
+    _restore(state, tree["state_dict"], tree.get("opt_state"), path)
+    state.step = int(tree.get("step", state.step))
+    return state, meta
+
+
+def _restore(state, state_dict, opt, path: str) -> None:
+    state.model.load_state_dict(state_dict)
     if opt is not None:
         like = state.opt_state.mu
         if set(opt["mu"]) != set(like):
@@ -70,8 +84,6 @@ def restore_train_state(state, path: str,
                         for k in like}
         state.opt_state = AdamState(int(opt["step"]), to(opt["mu"]),
                                     to(opt["nu"]))
-    state.step = int(tree.get("step", state.step))
-    return state, meta
 
 
 def warm_start(target: Dict[str, torch.Tensor],

@@ -1,5 +1,5 @@
-"""Adam and the gradient utilities of the Tacotron2 trainer
-(cookietts_tpu/runtime/optim.py:40-140).
+"""Adam, LAMB, the plateau LR scheduler and the gradient utilities of the
+trainers (cookietts_tpu/runtime/optim.py:40-198).
 
 Functional, like the JAX version: parameters, gradients and moments are
 dicts {name: tensor} keyed by ``state_dict`` names.
@@ -14,6 +14,7 @@ None (a parameter the loss does not reach) counts as zeros.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
@@ -69,6 +70,38 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return Optimizer(init, update)
 
 
+def lamb(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+         weight_decay: float = 0.0, min_trust: float = 0.0,
+         max_trust: float = 10.0) -> Optimizer:
+    """LAMB: Adam's direction without bias correction, each tensor's step
+    scaled by the trust ratio ||p|| / ||direction|| (clamped; 1 where either
+    norm is 0). The vocoder trainer's ``optimizer=lamb``."""
+
+    def init(params: Tree) -> AdamState:
+        return AdamState(0, _zeros_like(params), _zeros_like(params))
+
+    def update(grads: Tree, state: AdamState, params: Tree = None, lr=1e-4):
+        if params is None:
+            raise ValueError("LAMB needs the parameters for its trust ratio")
+        mu, nu, updates = {}, {}, {}
+        for name, m in state.mu.items():
+            g = _grad(grads, name, m).to(m.dtype)
+            mu[name] = b1 * m + (1 - b1) * g
+            nu[name] = b2 * state.nu[name] + (1 - b2) * g * g
+            a = mu[name] / (torch.sqrt(nu[name]) + eps)
+            p = params[name]
+            if weight_decay:
+                a = a + weight_decay * p
+            w_norm, a_norm = p.norm(), a.norm()
+            trust = torch.where((w_norm > 0) & (a_norm > 0),
+                                (w_norm / a_norm).clamp(min_trust, max_trust),
+                                torch.ones_like(w_norm))
+            updates[name] = -lr * trust * a
+        return updates, AdamState(state.step + 1, mu, nu)
+
+    return Optimizer(init, update)
+
+
 @torch.no_grad()
 def apply_updates(params: Tree, updates: Tree) -> None:
     """params += updates, in place (the parameters keep their storage)."""
@@ -93,3 +126,31 @@ def clip_by_global_norm(grads: Tree, max_norm) -> Tuple[Tree, torch.Tensor]:
                torch.where(finite, g * scale.to(g.dtype), torch.zeros_like(g))
                for k, g in grads.items()}
     return clipped, norm
+
+
+@dataclasses.dataclass
+class ReduceLROnPlateau:
+    """Plateau LR multiplier, stepped with each validation's loss: after
+    more than ``patience`` validations without a relative improvement of
+    ``threshold``, ``scale`` drops by ``factor``. The trainer applies it as
+    ``lr = max(base_lr * scale, min(min_lr, base_lr))``: ``min_lr`` floors
+    the effective rate (torch's semantics), never raising it above the base
+    schedule."""
+    factor: float = 0.5
+    patience: int = 5
+    min_lr: float = 1e-6
+    threshold: float = 1e-4
+    scale: float = 1.0
+    _best: float = float("inf")
+    _bad_steps: int = 0
+
+    def step(self, metric: float) -> float:
+        if metric < self._best * (1.0 - self.threshold):
+            self._best = metric
+            self._bad_steps = 0
+        else:
+            self._bad_steps += 1
+            if self._bad_steps > self.patience:
+                self.scale = max(self.scale * self.factor, 1e-12)
+                self._bad_steps = 0
+        return self.scale

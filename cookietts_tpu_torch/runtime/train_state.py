@@ -1,6 +1,7 @@
 """Train state shared by the trainer (cookietts_tpu/runtime/train_state.py):
 the step, the model (its trainable parameters and buffers such as the
-BatchNorm statistics) and the optimizer state.
+BatchNorm statistics) and the optimizer state; ``GANTrainState`` pairs a
+generator's with its discriminators'.
 
 The trainable parameters are the model's parameters that require a
 gradient, keyed by their ``state_dict`` names; the frozen half of each
@@ -55,3 +56,30 @@ class TrainState:
                 "opt_state": {"step": int(opt.step),
                               "mu": {k: cpu(v) for k, v in opt.mu.items()},
                               "nu": {k: cpu(v) for k, v in opt.nu.items()}}}
+
+
+@dataclasses.dataclass
+class GANTrainState:
+    """A generator's and its discriminators' states, so an adversarial
+    trainer rides the same Trainer. ``step``, ``model`` and ``params`` are
+    the generator's; its checkpoint keeps G under the usual keys and D
+    under ``d_state_dict`` / ``d_opt_state``."""
+    g: TrainState
+    d: TrainState
+
+    @property
+    def step(self) -> int:
+        return self.g.step
+
+    @property
+    def model(self) -> nn.Module:
+        return self.g.model
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return self.g.params
+
+    def to_host_tree(self) -> Dict[str, Any]:
+        d = self.d.to_host_tree()
+        return {**self.g.to_host_tree(), "d_state_dict": d["state_dict"],
+                "d_opt_state": d["opt_state"]}

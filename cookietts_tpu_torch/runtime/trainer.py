@@ -1,4 +1,11 @@
-"""The Tacotron2 training loop (cookietts_tpu/runtime/trainer.py:39-712).
+"""The training loop (cookietts_tpu/runtime/trainer.py) and the steps it
+drives: Tacotron2's, HiFi-GAN's (a discriminator then a generator step
+each iteration, ``make_gan_trainer_step``) and the flow vocoders' (the
+flow NLL; validation through the inverse).
+
+A step is ``step(state, batch, generator, ctrl) -> (state, metrics)``; a
+step marked ``carries_state`` (Tacotron2's) takes and returns the TBPTT
+carry too, with per-file losses. For Tacotron2:
 
 - the train step: the teacher-forced forward in training mode, the loss,
   backward, clipping by the global norm and an Adam step, in place;
@@ -14,6 +21,11 @@
   batch with its own seeded generator;
 - per-file losses feed the FileLossDB for dataset curation.
 
+For every model: loss explosion recovery restores every side of the state
+(G and D of a GAN), a ``ReduceLROnPlateau`` (``TrainerConfig.plateau``,
+the vocoders') stepped with each validation's loss scales the live LR, and
+its scale rides the checkpoints' metadata.
+
 Single process; the multi-host and tensor-parallel branches of the JAX
 trainer wait for the parallel runtime. Validation images are not logged.
 """
@@ -22,19 +34,24 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from ..audio.stft import STFT
+from ..device import full_float32
 from ..losses import DEFAULT_LOSS_SCALARS, tacotron2_loss
+from ..models.hifigan import (discriminator_loss, feature_loss, generator_loss,
+                              mel_l1_loss)
+from ..models.waveglow import waveglow_loss
 from ..ops.metrics import alignment_metric, weighted_score
 from .checkpoint import Checkpointer, restore_train_state
 from .live_config import LiveConfig, LossExplosion
 from .logging_util import FileLossDB, MetricsLogger
-from .optim import AdamState, clip_by_global_norm
-from .train_state import TrainState
+from .optim import AdamState, ReduceLROnPlateau, clip_by_global_norm
+from .train_state import GANTrainState, TrainState
 
 _INT_KEYS = ("text", "text_lengths", "mel_lengths", "speaker_id")
 
@@ -211,6 +228,11 @@ class TrainerConfig:
     # written to run_dir/profile/trace.json
     profile_start: Optional[int] = None
     profile_stop: Optional[int] = None
+    # the live config's grad_clip_thresh under the live file (None: the
+    # live default)
+    grad_clip: Optional[float] = None
+    # stepped with each validation's val_loss; its scale multiplies the LR
+    plateau: Optional[ReduceLROnPlateau] = None
 
 
 class Trainer:
@@ -229,6 +251,9 @@ class Trainer:
         self.val_batches = val_batches
         self.device = torch.device(device)
         self.live = LiveConfig(cfg.live_config_path)
+        if cfg.grad_clip is not None:
+            self.set_live_defaults({"grad_clip_thresh": float(cfg.grad_clip)})
+        self.plateau = cfg.plateau
         self.ckpt = Checkpointer(cfg.run_dir)
         self.logger = MetricsLogger(cfg.run_dir)
         self.file_db = FileLossDB()
@@ -236,11 +261,25 @@ class Trainer:
         self.default_metadata: Dict[str, Any] = {}   # stamped on every ckpt
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
         # the explosion fallback when no best_val_model exists yet
-        self._init_params = {k: v.detach().cpu().clone()
-                             for k, v in state.params.items()}
+        self._init_params = [{k: v.detach().cpu().clone()
+                              for k, v in side.params.items()}
+                             for side in self._sides()]
         self.carry = None            # TBPTT decoder state across iterations
         self._iter_time_ema = None
         self._profiler = None
+
+    def _sides(self):
+        """The TrainStates of the state: G and D for a GAN."""
+        if isinstance(self.state, GANTrainState):
+            return [self.state.g, self.state.d]
+        return [self.state]
+
+    def set_live_defaults(self, values: Dict[str, Any]) -> None:
+        """Set live-config values, then lay the live file over them again
+        (the file wins)."""
+        self.live.values.update(values)
+        self.live._mtime = -1.0
+        self.live.poll()
 
     def resume(self, path: Optional[str] = None) -> int:
         """Full resume (model, optimizer, step, the generator's state) from
@@ -257,12 +296,17 @@ class Trainer:
             self.ckpt.best_inf_attsc = float(
                 meta.get("best_inf_attsc", self.ckpt.best_inf_attsc))
             self.n_restarts = int(meta.get("n_restarts", self.n_restarts))
+            if self.plateau is not None and "plateau_scale" in meta:
+                self.plateau.scale = float(meta["plateau_scale"])
         print(f"[trainer] resumed from {path} at step {self.state.step}")
         return int(self.state.step)
 
     def ctrl(self, iteration: int) -> Dict[str, float]:
         live = self.live.values
         lr = self.live.lr(iteration) / (2.0 ** (self.n_restarts / 3.0))
+        if self.plateau is not None:
+            # torch's ReduceLROnPlateau floors the effective LR at min_lr
+            lr = max(lr * self.plateau.scale, min(self.plateau.min_lr, lr))
         ctrl = {
             "lr": lr,
             "grad_clip": float(live.get("grad_clip_thresh", 1.0)),
@@ -305,10 +349,15 @@ class Trainer:
         ctrl = self.ctrl(it)
         paths = batch.get("audiopath")
         dev = batch_to_device(batch, self.device)
-        carry = adapt_carry(self.carry, int(dev["text"].shape[1]),
-                            int(dev["text"].shape[0]))
-        state, loss_dict, file_losses, new_carry = self.train_step(
-            self.state, dev, self.generator, ctrl, carry)
+        if getattr(self.train_step, "carries_state", False):
+            carry = adapt_carry(self.carry, int(dev["text"].shape[1]),
+                                int(dev["text"].shape[0]))
+            state, loss_dict, file_losses, new_carry = self.train_step(
+                self.state, dev, self.generator, ctrl, carry)
+        else:
+            state, loss_dict = self.train_step(self.state, dev,
+                                               self.generator, ctrl)
+            file_losses, new_carry = {}, None
 
         loss = float(loss_dict["loss"])
         thresh = float(self.live.get("LossExplosionThreshold", 1e3))
@@ -344,6 +393,8 @@ class Trainer:
         if (self.eval_step is not None and self.val_batches
                 and vi > 0 and it_now % vi == 0):
             means = self.validate(self.val_batches, iteration=it_now)
+            if self.plateau is not None and "val_loss" in means:
+                self.plateau.step(means["val_loss"])
             att_score = means.get("val_weighted_score")
             if self.inference_eval_step is not None:
                 inf = self.validate(self.val_batches, iteration=it_now,
@@ -358,10 +409,10 @@ class Trainer:
         return metrics
 
     def _recover(self, loss: float) -> None:
-        """Reload best_val_model (model, optimizer, step) and decay the LR;
-        without one, go on from the updated state, or restart from the
-        initial parameters with fresh moments if the update left them not
-        finite."""
+        """Reload best_val_model (model, optimizer, step; both sides of a
+        GAN) and decay the LR; without one, go on from the updated state, or
+        restart every side from its initial parameters with fresh moments if
+        the update left any not finite."""
         self.n_restarts += 1
         if self.n_restarts > self.cfg.n_restarts_max:
             raise LossExplosion(
@@ -369,8 +420,8 @@ class Trainer:
         best = os.path.join(self.cfg.run_dir, "best_val_model")
         if os.path.exists(best):
             self.state, _ = restore_train_state(self.state, best)
-        elif not all(bool(torch.isfinite(p).all())
-                     for p in self.state.params.values()):
+        elif not all(bool(torch.isfinite(p).all()) for side in self._sides()
+                     for p in side.params.values()):
             self._reset_to_initial()
             print("[trainer] non-finite params with no best checkpoint; "
                   "reset to initial params")
@@ -379,11 +430,12 @@ class Trainer:
 
     @torch.no_grad()
     def _reset_to_initial(self) -> None:
-        for k, p in self.state.params.items():
-            p.copy_(self._init_params[k])
-        opt = self.state.opt_state
         zeros = lambda d: {k: torch.zeros_like(v) for k, v in d.items()}  # noqa: E731
-        self.state.opt_state = AdamState(0, zeros(opt.mu), zeros(opt.nu))
+        for side, init in zip(self._sides(), self._init_params):
+            for k, p in side.params.items():
+                p.copy_(init[k])
+            opt = side.opt_state
+            side.opt_state = AdamState(0, zeros(opt.mu), zeros(opt.nu))
 
     def save(self, periodic=True, val_loss: Optional[float] = None,
              att_score: Optional[float] = None, metadata=None) -> None:
@@ -392,6 +444,8 @@ class Trainer:
         metadata.setdefault("best_val_loss", self.ckpt.best_val_loss)
         metadata.setdefault("best_inf_attsc", self.ckpt.best_inf_attsc)
         metadata.setdefault("n_restarts", self.n_restarts)
+        if self.plateau is not None:
+            metadata.setdefault("plateau_scale", self.plateau.scale)
         if periodic:
             # with the generator, so a resume draws what the run would have
             self.ckpt.save_periodic(int(self.state.step), {
@@ -424,3 +478,145 @@ class Trainer:
         means = {f"val_{k}": float(np.mean(v)) for k, v in agg.items()}
         self.logger.log_scalars(it, means, prefix=prefix)
         return means
+
+
+# -- HiFi-GAN ------------------------------------------------------------------
+
+def make_gan_trainer_step(d_step: Callable, g_step: Callable,
+                          loss_key: str = "g_loss",
+                          d_lr_scale: float = 1.0) -> Callable:
+    """One Trainer step over a GANTrainState from a (d_step, g_step) pair:
+    the discriminator step, then the generator step against the updated
+    discriminators. ``metrics['loss']`` is ``metrics[loss_key]`` (explosion
+    detection and logging read it); ``d_lr_scale`` scales D's LR. The two
+    steps stay reachable as ``step.d_step`` and ``step.g_step``."""
+
+    def step(state: GANTrainState, batch, generator, ctrl):
+        del generator
+        d_ctrl = dict(ctrl, lr=ctrl["lr"] * d_lr_scale)
+        _, d_m = d_step(state.d, state.g, batch, d_ctrl)
+        _, g_m = g_step(state.g, state.d, batch, ctrl)
+        metrics = {**d_m, **g_m}
+        metrics["loss"] = metrics[loss_key]
+        return state, metrics
+
+    step.d_step, step.g_step = d_step, g_step
+    return step
+
+
+def _apply_clipped(state: TrainState, loss: torch.Tensor, ctrl):
+    """Gradients of ``loss`` for the state's parameters, clipped by their
+    global norm, and one optimizer step. Returns the pre-clip norm."""
+    params = state.params
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    grads, norm = clip_by_global_norm(dict(zip(params, grads)),
+                                      ctrl["grad_clip"])
+    state.apply_gradients(grads, ctrl["lr"])
+    return norm
+
+
+def _real_fake(fake: torch.Tensor, audio: torch.Tensor):
+    n = min(fake.shape[1], audio.shape[1])
+    return audio[:, :n], fake[:, :n]
+
+
+def make_hifigan_train_steps(gen, mpd, msd, mel_fn: Callable,
+                             mel_weight: float = 45.0, fm_weight: float = 2.0
+                             ) -> Tuple[Callable, Callable]:
+    """(d_step, g_step) of HiFi-GAN (cookietts_tpu/runtime/trainer.py:
+    make_hifigan_train_steps): LSGAN losses over the MPD and the MSD,
+    feature matching, and the mel L1 of ``mel_fn`` (audio [B, T] -> log-mel)
+    on real against generated audio. ``d_step(d_state, g_state, batch,
+    ctrl)`` and ``g_step(g_state, d_state, batch, ctrl)`` take batch =
+    {mels, audio} on the device, update their own side in place and return
+    (state, metrics). The generator runs its training form (``infer=False``)
+    in both; everything in float32 with TF32 off."""
+
+    def d_step(d_state, g_state, batch, ctrl):
+        with full_float32():
+            with torch.no_grad():
+                fake = gen(batch["mels"])
+            real, fake = _real_fake(fake, batch["audio"])
+            rl, fl, _, _ = mpd(real, fake)
+            rl2, fl2, _, _ = msd(real, fake)
+            loss = discriminator_loss(rl + rl2, fl + fl2)
+            norm = _apply_clipped(d_state, loss, ctrl)
+        return d_state, {"d_loss": loss.detach(), "d_grad_norm": norm}
+
+    def g_step(g_state, d_state, batch, ctrl):
+        with full_float32():
+            real, fake = _real_fake(gen(batch["mels"]), batch["audio"])
+            _, fl, rf, ff = mpd(real, fake)
+            _, fl2, rf2, ff2 = msd(real, fake)
+            adv = generator_loss(fl + fl2)
+            fm = feature_loss(rf + rf2, ff + ff2)
+            mel_rec = mel_l1_loss(mel_fn(real), mel_fn(fake))
+            loss = adv + fm_weight * fm + mel_weight * mel_rec
+            norm = _apply_clipped(g_state, loss, ctrl)
+        return g_state, {"g_adv": adv.detach(), "g_fm": fm.detach(),
+                         "g_mel_l1": mel_rec.detach(), "g_loss": loss.detach(),
+                         "g_grad_norm": norm}
+
+    return d_step, g_step
+
+
+def make_hifigan_eval_step(gen, mel_fn: Callable) -> Callable:
+    """Validation: the mel L1 of the generator's audio (training form, as
+    JAX validates) against the batch's. Returns ({loss, mel_l1}, {}, None)."""
+
+    @torch.no_grad()
+    def step(state, batch, generator, ctrl):
+        del state, generator, ctrl
+        with full_float32():
+            real, fake = _real_fake(gen(batch["mels"]), batch["audio"])
+            l1 = mel_l1_loss(mel_fn(real), mel_fn(fake))
+        return {"loss": l1, "mel_l1": l1}, {}, None
+
+    return step
+
+
+# -- WaveGlow / WaveFlow ---------------------------------------------------------
+
+def make_waveglow_train_step(model, sigma: float = 1.0) -> Callable:
+    """The flow NLL step: step(state, batch{audio, mels[, speaker_id]},
+    generator, ctrl{lr, grad_clip}) -> (state, metrics), in place."""
+
+    def step(state: TrainState, batch, generator, ctrl):
+        del generator
+        out = model(batch["audio"], batch["mels"],
+                    speaker_ids=batch.get("speaker_id"))
+        loss, loss_dict = waveglow_loss(out, sigma=sigma)
+        with full_float32():
+            norm = _apply_clipped(state, loss, ctrl)
+        metrics = {k: v.detach() for k, v in loss_dict.items()}
+        metrics["grad_norm"] = norm
+        return state, metrics
+
+    return step
+
+
+def make_waveglow_val_step(model, stft_windows=((1200, 300, 1200),
+                                                (2400, 600, 2400)),
+                           sigma: float = 1.0) -> Callable:
+    """Validation through the inverse: audio from z ~ N(0, sigma) drawn from
+    ``generator`` (or the ``z`` given), against the batch's audio in STFT
+    magnitude at each of ``stft_windows`` (filter, hop, window), averaged.
+    step(state, batch, generator, z=None) -> {val_MSE, val_MAE}."""
+    banks = [STFT(f, h, w, device=model.device) for f, h, w in stft_windows]
+
+    @torch.no_grad()
+    def step(state, batch, generator, z=None):
+        del state
+        gen = model.infer(batch["mels"], generator, sigma=sigma, z=z)
+        gt = batch["audio"][:, :gen.shape[1]]
+        gen = gen[:, :gt.shape[1]].float()
+        mse = mae = gen.new_zeros(())
+        with full_float32():
+            for bank in banks:
+                mag_gen, _ = bank.transform(gen, return_phase=False)
+                mag_gt, _ = bank.transform(gt, return_phase=False)
+                mse = mse + torch.mean((mag_gen - mag_gt) ** 2)
+                mae = mae + torch.mean(torch.abs(mag_gen - mag_gt))
+        return {"val_MSE": mse / len(banks), "val_MAE": mae / len(banks)}
+
+    return step

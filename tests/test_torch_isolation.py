@@ -111,6 +111,31 @@ def test_flow_vocoder_entry_points_raise_without_cuda(monkeypatch, entry):
     assert make(device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("entry", ["mpd", "msd", "train-hifigan",
+                                   "train-waveglow"])
+def test_vocoder_training_entry_points_raise_without_cuda(monkeypatch,
+                                                         tmp_path, entry):
+    """The discriminators and the vocoder train commands (whose modules,
+    data/mel2samp.py and ops/dtw.py among them, the import tests above
+    cover) run on the card unless asked for the CPU."""
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.models.hifigan import (HiFiGANConfig,
+                                                    MultiPeriodDiscriminator,
+                                                    MultiScaleDiscriminator)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = HiFiGANConfig(mpd_periods=(2,), msd_scales=1)
+    make = {"mpd": lambda **kw: MultiPeriodDiscriminator(cfg, **kw),
+            "msd": lambda **kw: MultiScaleDiscriminator(cfg, **kw)}.get(entry)
+    if make is None:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli(["train", "--model", entry.split("-")[1], "--filelist",
+                 str(tmp_path / "map.txt"), "--run_dir", str(tmp_path)])
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    make(device="cpu")
+
+
 _IMPORT_SERVING = """
 import sys
 BLOCKED = {blocked!r}

@@ -161,9 +161,9 @@ def test_streaming_vocode_windows_share_one_width(models):
 
     def spy(m):
         widths.append(m.shape[1])
-        return gen(m)
+        return gen(m, infer=True)
 
-    whole = gen(mel).numpy()
+    whole = gen(mel, infer=True).numpy()
     got = vocode_streamed(spy, mel, chunk_frames=48, halo_frames=24)
     assert set(widths) == {48 + 2 * 24} and len(widths) == 4
     assert got.shape == whole.shape
@@ -195,7 +195,8 @@ def test_streaming_tts_matches_jax_and_the_whole_pipeline(models, steps):
     assert streamed.shape == (B, steps * HOP)
     _close(streamed, np.concatenate([p for _, p in j_pieces], axis=1))
     whole = taco.inference(**inputs, max_decoder_steps=steps)
-    _close(streamed, gen(whole["mel_outputs_postnet"]).numpy(), atol=1e-6)
+    _close(streamed, gen(whole["mel_outputs_postnet"], infer=True).numpy(),
+           atol=1e-6)
 
 
 def test_t2s_streaming_over_frames_matches_batch_vocode(models):
@@ -215,7 +216,7 @@ def test_t2s_streaming_over_frames_matches_batch_vocode(models):
 
     def voc(m):
         calls.append(m.shape[1])
-        return gen(m)
+        return gen(m, infer=True)
 
     t2s = T2S(cfg, taco, {"alice": 0}, vocoder_fn=voc, hop_length=HOP,
               device="cpu")

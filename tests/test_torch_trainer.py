@@ -103,7 +103,7 @@ def test_train_command_needs_a_card_unless_asked(corpus, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli(["train", "--filelist", corpus, "--run_dir", str(tmp_path)])
     with pytest.raises(SystemExit, match="not wired"):
-        cli(["train", "--model", "waveglow", "--device", "cpu",
+        cli(["train", "--model", "gantts", "--device", "cpu",
              "--filelist", corpus, "--run_dir", str(tmp_path)])
 
 
