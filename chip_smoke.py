@@ -100,6 +100,27 @@ non-zero:
    times what a relative 1e-6 nudge of the audio moves it on the CPU),
    and 8a's generator checkpoint served through hifigan_resblock
    (launches counted) against the plain path and the training form.
+9. serving checkpoints through the port's own commands, at full width:
+   seeded checkpoints with their sidecars (Tacotron2Config() with use_gst
+   and use_emotionnet, at 80 and at 160 mels; phase 4's HiFi-GAN; phase
+   4b's WaveGlow; the full torchMoji, 50000 x 256 and 2 x BiLSTM 512), a
+   vocabulary of the specials and 5000 words, an ARPA dictionary and a
+   speaker_info.txt. 9a: `python -m cookietts_tpu_torch tts` as a process,
+   default device, with --torchmoji, --arpa_dict and --speaker_info (gate
+   threshold 2, one 128-step bucket, one attempt: a fixed decode length);
+   the WAV's length, the stats line, the process's cold wall time. 9b: the
+   same with the WaveGlow behind the 160-mel Tacotron2 and --denoiser. 9c:
+   the server's worker from _build_t2s, three requests through handle_tts
+   (style_mode torchmoji and none, both field spellings), warm latency and
+   peak memory; the torchmoji and none mels must differ, and the same
+   requests through the plain versions must give the same mels and audio
+   (phase 5's tolerance). 9d: TorchMojiEncoder on the card against the CPU
+   (1e-5 relative), ms per segment and its share of a request. 9e: each
+   run's launches must equal the decode steps (attention_step 1 and
+   lstm_gates 3 a step) and the vocoder calls (resblock launches of a
+   generator call; 18 waveglow_wn_forward launches a flow of the vocode;
+   the tts command counts from the request on, after the worker and its
+   denoiser are built).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -1877,8 +1898,8 @@ FLOW_DATA = dict(batch_size=4)
 FLOW_SEGMENT = 24000
 CADENCE = dict(load_from_disk_dtw=False, validation_interval=2,
                checkpoint_interval=2, log_every=1)
-DEV = "cuda"    # phase 8's device (a rehearsal of its control flow on the
-                # CPU, at small sizes, sets "cpu")
+DEV = "cuda"    # phases 8 and 9's device (a rehearsal of their control flow
+                # on the CPU, at small sizes, sets "cpu")
 
 
 def hparams_of(kw):
@@ -2306,6 +2327,272 @@ def phase8(hk, check, smi):
         log(f"  phase 8c in {time.perf_counter() - t0:.1f} s; {smi}")
 
 
+# -- phase 9: serving checkpoints through the tts and server commands ---------
+
+P9_STEPS = 128
+# the gates of random weights fire at once or never: a threshold above 1,
+# one step bucket and one attempt fix every decode at P9_STEPS steps
+P9_HPARAMS = (f"batch_size=4,step_buckets=[{P9_STEPS}],"
+              f"max_decoder_steps={P9_STEPS},gate_threshold=2.0")
+P9_TEXT = ('Hello world, the port serves a checkpoint. "What a quick fox!" '
+           "she said.")
+P9_SEGMENTS = 3
+P9_ARPA = ("HELLO  HH AH0 L OW1\nWORLD  W ER1 L D\nQUICK  K W IH1 K\n"
+           "FOX  F AA1 K S\nPORT  P AO1 R T\n")
+TORCHMOJI_VOCAB_WORDS = 5000
+
+
+def p9_files(tmp, tcfg, hcfg):
+    """Seeded checkpoints with their sidecars (Tacotron2 with GST and
+    EmotionNet at 80 and at 160 mels, the phase-4 HiFi-GAN, the phase-4b
+    WaveGlow, the full torchMoji as a pytorch_model.bin), a vocabulary of
+    the ten specials and some thousands of words, an ARPA dictionary and a
+    speaker_info.txt. Returns their paths."""
+    import random
+    import torch
+    from cookietts_tpu_torch.models.hifigan import Generator
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2
+    from cookietts_tpu_torch.models.torchmoji import SPECIAL_TOKENS, TorchMoji
+    from cookietts_tpu_torch.runtime.checkpoint import save_checkpoint
+    config_json = lambda cfg: {k: v for k, v in dataclasses.asdict(  # noqa: E731
+        cfg).items() if k != "dtype"}
+    heads = {"use_gst": True, "use_emotionnet": True}
+    files = {k: str(tmp / k) for k in ("taco80", "taco160", "hifigan",
+                                       "waveglow", "pytorch_model.bin",
+                                       "vocabulary.json", "merged.dict",
+                                       "speaker_info.txt")}
+    for key, n_mel, seed in (("taco80", tcfg.n_mel_channels, 20),
+                             ("taco160", FLOW_MELS, 21)):
+        torch.manual_seed(seed)
+        cfg = dataclasses.replace(tcfg, n_mel_channels=n_mel, **heads)
+        save_checkpoint(files[key],
+                        {"state_dict": Tacotron2(cfg, device="cpu").state_dict()},
+                        {"model": "tacotron2", "model_config": config_json(cfg),
+                         "speaker_ids": {"narrator": 0},
+                         "audio": {"sampling_rate": SR, "hop_length": HOP,
+                                   "n_mel_channels": n_mel}})
+    torch.manual_seed(22)
+    save_checkpoint(files["hifigan"],
+                    {"state_dict": Generator(hcfg, device="cpu").state_dict()},
+                    {"model": "hifigan", "model_config": config_json(hcfg),
+                     "audio": {"sampling_rate": SR, "hop_length": HOP,
+                               "n_mel_channels": hcfg.n_mel_channels}})
+    save_checkpoint(files["waveglow"],
+                    {"state_dict": make_flow_vocoder(WAVEGLOW, seed=23).state_dict()},
+                    {"model": "waveglow", "model_config": WAVEGLOW,
+                     "audio": {"sampling_rate": FLOW_SR, "hop_length": FLOW_HOP,
+                               "n_mel_channels": FLOW_MELS}})
+    torch.manual_seed(24)
+    torch.save(TorchMoji(device="cpu").state_dict(), files["pytorch_model.bin"])
+    rng = random.Random(25)
+    words = {w.strip('.,!"').lower() for w in P9_TEXT.split()} | {".", "!", ","}
+    while len(words) < TORCHMOJI_VOCAB_WORDS:
+        words.add("".join(rng.choice("abcdefghijklmnopqrstuvwxyz")
+                          for _ in range(rng.randint(2, 9))))
+    vocab = {t: i for i, t in enumerate(SPECIAL_TOKENS)}
+    vocab.update({w: len(vocab) + i for i, w in enumerate(sorted(words))})
+    Path(files["vocabulary.json"]).write_text(json.dumps(vocab))
+    Path(files["merged.dict"]).write_text(P9_ARPA)
+    Path(files["speaker_info.txt"]).write_text(
+        ";dataset|speaker_name|speaker_id|duration_hrs\n"
+        "ds|alice|0|1.0\nds|bob|1|1.0\n")
+    return files
+
+
+def p9_tts(files, taco, vocoder, extra, out, smi):
+    """``python -m cookietts_tpu_torch tts`` in a process of its own, default
+    device; returns (its stats line, its kernel launches)."""
+    cmd = [sys.executable, "-m", "cookietts_tpu_torch", "tts",
+           "--checkpoint", files[taco], "--vocoder", files[vocoder],
+           "--torchmoji", files["pytorch_model.bin"],
+           "--torchmoji_vocab", files["vocabulary.json"],
+           "--arpa_dict", files["merged.dict"],
+           "--speaker_info", files["speaker_info.txt"], "--speaker", "bob",
+           "--text", P9_TEXT, "--max_attempts", "1", "--hparams", P9_HPARAMS,
+           "-o", str(out), *extra, *([] if DEV == "cuda" else ["--device", DEV])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-3000:])
+        raise SystemExit(f"chip_smoke: tts with {vocoder} exited "
+                         f"{proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    stats = json.loads(lines[-1])
+    launches = next(json.loads(l)["kernel_launches"] for l in lines
+                    if l.startswith('{"kernel_launches"'))
+    log(f"  tts {vocoder}: cold process {seconds:.2f} s wall (imports, "
+        f"checkpoint loads and the first capture included); its own gen_time "
+        f"{stats['gen_time']:.3f} s, total {stats['total_time']:.3f} s, xrt "
+        f"{stats['xrt']:.3f}, {stats['audio_seconds']:.3f} s of audio; "
+        f"launches {launches} ({smi})")
+    return stats, launches
+
+
+def p9_expect(got, want, what):
+    log(f"  {what} launches {got}, expected {want}")
+    if any(got.get(k) != n for k, n in want.items()) or min(want.values()) <= 0:
+        raise SystemExit(f"chip_smoke: {what} launch counts")
+
+
+def phase9(hk, check, tcfg, hcfg, smi):
+    """9a, 9b: the tts command as a process on the card, with --torchmoji,
+    --arpa_dict and --speaker_info, HiFi-GAN then WaveGlow with --denoiser;
+    9c: the server's worker from _build_t2s answering three requests
+    through handle_tts, kernels against the plain path; 9d: TorchMojiEncoder
+    on the card against the CPU; 9e: launch counts against the decode and
+    vocode steps."""
+    import io
+    import tempfile
+    import wave
+
+    import numpy as np
+    import torch
+    from cookietts_tpu_torch import cli
+    from cookietts_tpu_torch.models.torchmoji import TorchMojiEncoder
+    from cookietts_tpu_torch.pipeline.server import ModelRegistry, handle_tts
+    from cookietts_tpu_torch.pipeline.text2speech import T2S
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        files = p9_files(tmp, tcfg, hcfg)
+        mb = sum(Path(f).stat().st_size for f in files.values()) / 2 ** 20
+        log(f"  checkpoints, vocabulary ({TORCHMOJI_VOCAB_WORDS} words), ARPA "
+            f"dictionary and speaker_info written in "
+            f"{time.perf_counter() - t0:.1f} s ({mb:.0f} MiB)")
+        decode = {"attention_step": P9_STEPS, "lstm_gates": 3 * P9_STEPS}
+        n_samples = P9_SEGMENTS * P9_STEPS * HOP
+
+        # 9a: HiFi-GAN
+        stats, got = p9_tts(files, "taco80", "hifigan", [], tmp / "a.wav", smi)
+        with wave.open(str(tmp / "a.wav")) as w:
+            rate, n = w.getframerate(), w.getnframes()
+        if (rate, n, stats["segments"]) != (SR, n_samples, P9_SEGMENTS):
+            raise SystemExit(f"chip_smoke: 9a wrote {n} samples at {rate} Hz in "
+                             f"{stats['segments']} segments, expected "
+                             f"{n_samples} at {SR} in {P9_SEGMENTS}")
+        gen = cli._load_vocoder(files["hifigan"], {}, device=DEV)[0]
+        p9_expect(got, {**decode, "hifigan_resblock":
+                            vocoder_launches(hk, gen, 1)}, "9a tts (HiFi-GAN)")
+        del gen
+
+        # 9b: WaveGlow behind a 160-mel Tacotron2, with the denoiser
+        stats, got = p9_tts(files, "taco160", "waveglow",
+                               ["--denoiser", "--denoise_strength", "0.1"],
+                               tmp / "b.wav", smi)
+        with wave.open(str(tmp / "b.wav")) as w:
+            rate, n = w.getframerate(), w.getnframes()
+        flow = P9_SEGMENTS * P9_STEPS * FLOW_HOP
+        if (rate, n) != (FLOW_SR, flow):
+            raise SystemExit(f"chip_smoke: 9b wrote {n} samples at {rate} Hz, "
+                             f"expected {flow} at {FLOW_SR}")
+        # the request's one vocode (the denoiser's bias pass runs while the
+        # worker is built, before the command starts counting)
+        per_infer = WAVEGLOW["n_flows"] * hk.wn_launches(WAVEGLOW["n_layers"])
+        p9_expect(got, {**decode, "waveglow_wn_forward": per_infer},
+                  "9b tts (WaveGlow, --denoiser)")
+
+        # 9c: the server's worker, in this process
+        torch.cuda.reset_peak_memory_stats()
+        args = cli.build_parser().parse_args(
+            ["server", "--checkpoint", files["taco80"], "--vocoder",
+             files["hifigan"], "--torchmoji", files["pytorch_model.bin"],
+             "--torchmoji_vocab", files["vocabulary.json"], "--arpa_dict",
+             files["merged.dict"], "--speaker_info", files["speaker_info.txt"],
+             "--hparams", P9_HPARAMS, "--device", DEV])
+        t0 = time.perf_counter()
+        t2s = cli._build_t2s(args)
+        log(f"  9c _build_t2s in {time.perf_counter() - t0:.2f} s")
+        plain = T2S(t2s.cfg, t2s.model, t2s.speaker_ids, vocoder_fn=t2s.vocoder_fn,
+                    torchmoji_fn=t2s.torchmoji_fn, arpa_fn=t2s.arpa_fn,
+                    sample_rate=t2s.sample_rate, hop_length=t2s.hop_length,
+                    device=DEV)
+        results = {}
+
+        def recording(worker, name):
+            infer = worker.infer
+
+            def run(*a, **kw):
+                res = infer(*a, **kw)
+                results.setdefault((name, kw["style_mode"]), []).append(res)
+                return res
+            worker.infer = run
+        recording(t2s, "main")
+        recording(plain, "plain")
+        registry = ModelRegistry({"main": t2s, "plain": plain}, "main")
+        requests = [{"text": P9_TEXT, "speaker": "alice", "style_mode": "torchmoji",
+                     "use_arpabet": "1", "batch_size": 4, "max_attempts": 1},
+                    {"input_text": P9_TEXT, "input_speaker": "bob",
+                     "input_style_mode": "none", "input_batch_size": "4",
+                     "input_max_attempts": "1"},
+                    {"text": P9_TEXT, "speaker": "bob", "style_mode": "torchmoji",
+                     "batch_size": 4, "max_attempts": 1}]
+        gen = t2s.vocoder_fn.func
+        (tmp / "out").mkdir()
+        handle_tts(registry, requests[0].get, str(tmp / "out"))    # warm-up
+        results.clear()
+        hk.reset_launch_counts()
+        times = []
+        for fields in requests:
+            t0 = time.perf_counter()
+            _, wav = handle_tts(registry, fields.get, str(tmp / "out"))
+            times.append(time.perf_counter() - t0)
+            with wave.open(io.BytesIO(wav)) as w:
+                if (w.getframerate(), w.getnframes()) != (SR, n_samples):
+                    raise SystemExit("chip_smoke: 9c handle_tts gave a bad WAV")
+        got = dict(hk.LAUNCHES)
+        log(f"  9c handle_tts, warm: {', '.join(f'{t * 1e3:.1f}' for t in times)} "
+            f"ms per request ({P9_SEGMENTS} segments, {P9_STEPS} steps, B=4); "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+            f"({smi})")
+        p9_expect(got, {k: 3 * n for k, n in decode.items()} | {
+            "hifigan_resblock": vocoder_launches(hk, gen, 3)},
+            "9c handle_tts x3")
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(
+            results[("main", "torchmoji")][0]["mels"],
+            results[("main", "none")][0]["mels"]))
+        log(f"  9c style_mode torchmoji against none: max |mel diff| {diff:.3e}")
+        if not diff > 1e-3:
+            raise SystemExit("chip_smoke: the torchMoji feature does not "
+                             "condition the served mels")
+        with plain_kernels(hk):
+            for fields in requests:
+                handle_tts(registry, lambda k, _f=fields: "plain" if k == "model"
+                           else _f.get(k), str(tmp / "out"))
+        for mode in ("torchmoji", "none"):
+            for k_res, p_res in zip(results[("main", mode)],
+                                    results[("plain", mode)]):
+                for m_k, m_p in zip(k_res["mels"], p_res["mels"]):
+                    check("slice", torch.from_numpy(m_k), torch.from_numpy(m_p),
+                          1e-3, 1e-3, f"9c served mel ({mode})")
+                check("slice", torch.from_numpy(k_res["audio"]),
+                      torch.from_numpy(p_res["audio"]), 1e-3, 1e-3,
+                      f"9c served audio ({mode})")
+
+        # 9d: torchMoji on the card against the CPU, and its share
+        enc = t2s.torchmoji_fn
+        cpu = TorchMojiEncoder(enc.vocab, enc.model.state_dict(), device="cpu")
+        segs = results[("main", "torchmoji")][0]["segments"]
+        for text in segs + ["@someone check https://x.org 3.5 :)"]:
+            card, ref = torch.from_numpy(enc(text)), torch.from_numpy(cpu(text))
+            check("torchmoji", card, ref, 1e-5 * float(ref.abs().max()), 1e-5,
+                  "card against CPU")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for text in segs * 5:
+            enc(text)
+        tm_ms = (time.perf_counter() - t0) * 1e3 / (5 * len(segs))
+        share = tm_ms * len(segs) / (times[0] * 1e3)
+        log(f"  9d torchMoji: {tm_ms:.2f} ms per segment (tokens to the feature "
+            f"on the host), {share:.3f} of a warm {P9_SEGMENTS}-segment request "
+            f"({smi})")
+        del t2s, plain, registry, gen, enc
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2389,6 +2676,11 @@ def main() -> int:
 
     log("phase 8: vocoder training, full width")
     phase8(hk, check, smi)
+
+    log("phase 9: serving checkpoints through the tts and server commands")
+    t9 = time.perf_counter()
+    phase9(hk, check, tcfg, hcfg, smi)
+    log(f"  phase 9 in {time.perf_counter() - t9:.1f} s; {smi}")
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -1,5 +1,5 @@
 """Command-line interface of the port (cookietts_tpu/cli.py:193-486,
-979-1300).
+979-1300, 1454-1697).
 
     python -m cookietts_tpu_torch train --model tacotron2|hifigan|waveglow \
         --filelist f.txt [--val_filelist v.txt] [--hparams "a=1,b=[2,3]"] \
@@ -25,8 +25,25 @@ reference's ``k=v,k2=[..]`` grammar (config.parse_override_string).
   draws its segments' files from ``numpy.random.default_rng(i)``, so a
   resumed run goes on with the data sequence.
 
-The other models' trainers, multi-host runs and ``--tp`` / ``--sp`` above 1
-(which raise) are not ported yet.
+Serving, on the card unless ``--device cpu`` is given:
+
+    python -m cookietts_tpu_torch tts --checkpoint taco.pt --text "Hi." \
+        [--vocoder voc.pt [--vocoder_model hifigan|waveglow] [--denoiser]] \
+        [--torchmoji pytorch_model.bin --torchmoji_vocab vocabulary.json] \
+        [--arpa_dict merged.dict] [--speaker_info speaker_info.txt] \
+        [-c t2s_config.json] [--hparams "..."] [-o out.wav] [--speaker S] \
+        [--target_score x] [--max_attempts n] [--denoise_strength x] \
+        [--cat_silence_s x] [--seed n]
+    python -m cookietts_tpu_torch server --checkpoint taco.pt [...] [--port P]
+
+The checkpoints are the port's own (``torch.save`` trees with a
+``state_dict`` and the JSON sidecar the train command writes). Without
+``--vocoder``, ``tts`` writes the mel as ``.npy``.
+
+The other models' trainers, training with the GST / EmotionNet heads,
+multi-host runs and ``--tp`` / ``--sp`` above 1 (which raise), serving an
+exported artifact (``--artifact`` exits) and the ``convert`` command are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -147,17 +164,33 @@ def _tts_val_batches(val_entries, dcfg, features, batch_size, overrides,
     return ValBatches(vds, dcfg, chunks, (t_pad, m_pad))
 
 
-def _build_tacotron2(overrides, device, seed: int):
-    """Tacotron2Config from the overrides (n_symbols from the text
-    frontend) and the model on ``device``, initialised from ``seed``
-    without touching the caller's global RNG state."""
-    import torch
-    from .models.tacotron2 import Tacotron2, Tacotron2Config
+def _tuples(v):
+    return tuple(_tuples(x) for x in v) if isinstance(v, list) else v
+
+
+def _dataclass_kwargs(cls, mapping):
+    """The keys of ``mapping`` that are fields of the dataclass ``cls``,
+    lists (a JSON sidecar's) as tuples."""
+    valid = set(cls.__dataclass_fields__)
+    return {k: _tuples(v) for k, v in mapping.items() if k in valid}
+
+
+def _tacotron2_config(overrides):
+    """Tacotron2Config from the overrides' model keys (n_symbols from the
+    text frontend)."""
+    from .models.tacotron2 import Tacotron2Config
     from .text import N_SYMBOLS
-    valid = set(Tacotron2Config.__dataclass_fields__)
-    cfg = Tacotron2Config(**{"n_symbols": N_SYMBOLS,
-                             **{k: v for k, v in overrides.items()
-                                if k in valid}})
+    return Tacotron2Config(**{"n_symbols": N_SYMBOLS,
+                              **_dataclass_kwargs(Tacotron2Config, overrides)})
+
+
+def _build_tacotron2(overrides, device, seed: int):
+    """Tacotron2Config from the overrides and the model on ``device``,
+    initialised from ``seed`` without touching the caller's global RNG
+    state."""
+    import torch
+    from .models.tacotron2 import Tacotron2
+    cfg = _tacotron2_config(overrides)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = Tacotron2(cfg, device="cpu")
@@ -190,15 +223,17 @@ def _train_tacotron2(args):
     from .runtime.checkpoint import load_checkpoint, warm_start
     from .runtime.optim import adam
     from .runtime.train_state import TrainState
+    from .models.tacotron2 import refuse_training_heads
     from .runtime.trainer import (
         Trainer, TrainerConfig, make_tacotron2_eval_step,
         make_tacotron2_inference_eval_step, make_tacotron2_train_step)
 
+    overrides = parse_override_string(args.hparams) if args.hparams else {}
+    refuse_training_heads(_tacotron2_config(overrides))
     device = resolve_device(args.device)
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
         print("[train] detect_anomaly: autograd anomaly mode on (slow)")
-    overrides = parse_override_string(args.hparams) if args.hparams else {}
     batch_size = int(overrides.get("batch_size", 8))
     n_iters = int(overrides.get("n_iters", args.iters))
 
@@ -549,7 +584,225 @@ def _train_hifigan(args):
 VOCODER_TRAINERS = {"waveglow": _train_waveglow, "hifigan": _train_hifigan}
 
 
-def main(argv=None):
+# -- serving: tts and server ---------------------------------------------------
+
+def _load_vocoder(path, overrides, vocoder_model=None, device="cuda"):
+    """(vocoder_fn, infer_with_generator, audio_info) from a port vocoder
+    checkpoint (cookietts_tpu/cli.py:_load_vocoder). HiFi-GAN or
+    WaveGlow/WaveFlow from the sidecar's ``model``, else from the state
+    dict's layout. A HiFi-GAN checkpoint's weight-norm pairs are folded on
+    load; a flow vocoder draws each call's z from a generator seeded from a
+    counter and is marked ``stochastic`` (make_flow_vocoder_fn)."""
+    import numpy as np
+    from .runtime.checkpoint import load_checkpoint
+
+    tree, meta = load_checkpoint(path)
+    meta = meta or {}
+    sd = tree["state_dict"]
+    kind = vocoder_model or meta.get("model")
+    if not kind:
+        roots = {k.split(".")[0] for k in sd}
+        kind = ("hifigan" if "conv_pre" in roots
+                else "waveglow" if "WN" in roots else None)
+        if kind is None:
+            raise SystemExit(f"cannot detect the vocoder type of {path}; "
+                             "pass --vocoder_model")
+    if kind not in ("hifigan", "waveglow"):
+        raise SystemExit(f"{path} holds a {kind} model, not a vocoder")
+    mc = {**meta.get("model_config", {}), **overrides}
+    audio_info = dict(meta.get("audio", {}))
+
+    if kind == "hifigan":
+        from .models.hifigan import Generator, HiFiGANConfig
+        kw = _dataclass_kwargs(HiFiGANConfig, mc)
+        if "upsample_kernel_sizes" in kw and "upsample_rates" not in kw:
+            # the reference configs use rate = kernel // 2 throughout
+            kw["upsample_rates"] = tuple(k // 2 for k in kw["upsample_kernel_sizes"])
+        cfg = HiFiGANConfig(**kw)
+        gen = Generator(cfg, device="cpu")
+        gen.load_state_dict(sd)
+        gen.to(device)
+        audio_info.setdefault("hop_length", int(np.prod(cfg.upsample_rates)))
+        audio_info.setdefault("n_mel_channels", cfg.n_mel_channels)
+        return gen, lambda mel, generator: gen(mel, infer=True), audio_info
+
+    from .models.waveglow import WaveGlow, WaveGlowConfig
+    from .pipeline.text2speech import make_flow_vocoder_fn
+    cfg = WaveGlowConfig(**_dataclass_kwargs(WaveGlowConfig, mc))
+    model = WaveGlow(cfg, device="cpu")
+    model.load_state_dict(sd)
+    model.to(device)
+    vocoder_fn, infer = make_flow_vocoder_fn(
+        model, sigma=float(overrides.get("sigma", cfg.sigma)))
+    audio_info.setdefault("hop_length", cfg.hop_length)
+    audio_info.setdefault("sampling_rate", cfg.sampling_rate)
+    audio_info.setdefault("n_mel_channels", cfg.n_mel_channels)
+    return vocoder_fn, infer, audio_info
+
+
+def _build_t2s(args):
+    """A serving T2S worker from the port's checkpoints and the flags
+    (cookietts_tpu/cli.py:_build_t2s): the Tacotron2 checkpoint's sidecar
+    gives the model config, the speaker map and the audio front end; the
+    vocoder, denoiser, ARPAbet dictionary and torchMoji are optional. On
+    ``args.device``, the card unless ``--device cpu``."""
+    import json
+
+    import torch
+
+    from .config import parse_override_string
+    from .device import resolve_device
+    from .models.tacotron2 import Tacotron2
+    from .pipeline.text2speech import T2S, T2SConfig
+    from .runtime.checkpoint import load_checkpoint
+
+    if args.artifact:
+        raise SystemExit("--artifact: serving an exported artifact is not "
+                         "ported yet; serve a --checkpoint")
+    if not args.checkpoint:
+        raise SystemExit("pass --checkpoint (a Tacotron2 checkpoint)")
+    device = resolve_device(args.device)
+    overrides = parse_override_string(args.hparams) if args.hparams else {}
+    cfg_kw = {}
+    if args.config:
+        with open(args.config) as f:
+            cfg_kw = _dataclass_kwargs(T2SConfig, json.load(f))
+    cfg_kw.update(_dataclass_kwargs(T2SConfig, overrides))
+
+    tree, meta = load_checkpoint(args.checkpoint)
+    meta = meta or {}
+    model = Tacotron2(_tacotron2_config({**meta.get("model_config", {}),
+                                         **overrides}), device="cpu")
+    model.load_state_dict(tree["state_dict"])
+    model.to(device)
+    if args.speaker_info:
+        from .data.filelist import load_speaker_info
+        speaker_ids = load_speaker_info(args.speaker_info)
+    else:
+        speaker_ids = meta.get("speaker_ids") or {"default": 0}
+
+    audio_info = dict(meta.get("audio", {}))
+    vocoder_fn = denoiser_fn = None
+    if args.vocoder:
+        vocoder_fn, infer, v_audio = _load_vocoder(
+            args.vocoder, overrides, args.vocoder_model, device)
+        audio_info.update(v_audio)
+        if args.denoiser:
+            from .models.denoiser import Denoiser
+            denoiser_fn = Denoiser(
+                infer, sampling_rate=int(audio_info.get("sampling_rate", 44100)),
+                n_mel_channels=int(audio_info.get("n_mel_channels", 80)),
+                device=device)
+    elif args.denoiser:
+        raise SystemExit("--denoiser needs a --vocoder")
+
+    arpa_fn = None
+    if args.arpa_dict:
+        from .text.cmudict import ARPADict
+        arpa_fn = ARPADict(args.arpa_dict).get
+
+    torchmoji_fn = None
+    if args.torchmoji:
+        from .models.torchmoji import TorchMojiEncoder, load_vocabulary
+        if not args.torchmoji_vocab:
+            raise SystemExit("--torchmoji needs --torchmoji_vocab")
+        # the published pytorch_model.bin (a state dict) or a port checkpoint
+        tm = torch.load(args.torchmoji, map_location="cpu", weights_only=True)
+        torchmoji_fn = TorchMojiEncoder(load_vocabulary(args.torchmoji_vocab),
+                                        tm.get("state_dict", tm), device=device)
+
+    sr = int(overrides.get("sampling_rate", audio_info.get("sampling_rate", 44100)))
+    hop = int(overrides.get("hop_length", audio_info.get("hop_length", 512)))
+    return T2S(T2SConfig(**cfg_kw), model, speaker_ids, vocoder_fn=vocoder_fn,
+               denoiser_fn=denoiser_fn, torchmoji_fn=torchmoji_fn,
+               arpa_fn=arpa_fn, sample_rate=sr, hop_length=hop, device=device)
+
+
+def cmd_tts(args):
+    """One-shot synthesis: text -> a WAV, or the mel as .npy without a
+    vocoder; prints the hand-written kernels' launch counts (none on the
+    CPU) on one line, then the stats JSON line (cookietts_tpu/cli.py:cmd_tts)."""
+    import json
+
+    import numpy as np
+
+    from .device import full_float32
+    from .ops import hopper_kernels as hk
+
+    t2s = _build_t2s(args)
+    hk.reset_launch_counts()
+    with full_float32():
+        res = t2s.infer(args.text, speaker=args.speaker or (),
+                        use_arpabet=bool(args.arpa_dict),
+                        target_score=args.target_score,
+                        max_attempts=args.max_attempts,
+                        denoise_strength=args.denoise_strength,
+                        cat_silence_s=args.cat_silence_s, seed=args.seed)
+    print(json.dumps({"kernel_launches": dict(hk.LAUNCHES)}))
+    stats = {k: (float(v) if isinstance(v, (int, float, np.floating)) else None)
+             for k, v in res.items()
+             if k in ("audio_seconds", "gen_time", "total_time", "xrt",
+                      "failure_rate")}
+    stats["segments"] = len(res["segments"])
+    stats["scores"] = [round(float(s), 4) for s in res["scores"]]
+    if res["audio"].size:
+        from .data.audio_io import save_wav
+        save_wav(args.out, res["audio"], t2s.sample_rate)
+        stats["out"] = args.out
+    else:
+        out = args.out.rsplit(".", 1)[0] + ".mel.npy"
+        np.save(out, res["mels"][0] if len(res["mels"]) == 1
+                else np.asarray(res["mels"], dtype=object))
+        stats["out"] = out
+        stats["note"] = "no --vocoder: wrote mel instead of audio"
+    print(json.dumps(stats))
+    return stats
+
+
+def cmd_server(args):
+    """The HTTP server (pipeline/server.py) over one worker from
+    ``_build_t2s``."""
+    from .device import full_float32
+    from .pipeline.server import serve
+    t2s = _build_t2s(args)
+    with full_float32():
+        serve(t2s, port=args.port)
+
+
+def _add_t2s_args(sp):
+    sp.add_argument("--artifact", default=None,
+                    help="an exported serving artifact (not ported yet: "
+                         "exits with a message)")
+    sp.add_argument("--checkpoint", default=None,
+                    help="Tacotron2 checkpoint of the port (its JSON sidecar "
+                         "gives the model config, speakers and audio)")
+    sp.add_argument("-c", "--config", default=None,
+                    help="t2s_config.json (T2SConfig keys)")
+    sp.add_argument("--vocoder", default=None,
+                    help="HiFi-GAN, WaveGlow or WaveFlow checkpoint of the port")
+    sp.add_argument("--vocoder_model", default=None,
+                    choices=("hifigan", "waveglow"),
+                    help="override the vocoder's detection")
+    sp.add_argument("--denoiser", action="store_true",
+                    help="vocoder-bias removal (denoise_strength per request)")
+    sp.add_argument("--arpa_dict", default=None,
+                    help="merged.dict for {ARPA} substitution")
+    sp.add_argument("--torchmoji", default=None,
+                    help="torchMoji weights: pytorch_model.bin or a port "
+                         "checkpoint")
+    sp.add_argument("--torchmoji_vocab", default=None,
+                    help="vocabulary.json for --torchmoji")
+    sp.add_argument("--speaker_info", default=None,
+                    help="speaker_info.txt overriding the checkpoint's "
+                         "speaker map")
+    sp.add_argument("--hparams", default="",
+                    help='overrides of T2SConfig and the model configs, e.g. '
+                         '"batch_size=8,gate_threshold=0.6"')
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+
+
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("cookietts_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("train")
@@ -582,5 +835,27 @@ def main(argv=None):
                    help='override string, e.g. "batch_size=32,p_arpabet=0"')
     t.add_argument("--run_dir", default="runs/default")
     t.set_defaults(fn=cmd_train)
-    args = p.parse_args(argv)
+
+    sv = sub.add_parser("server", help="the HTTP TTS server")
+    _add_t2s_args(sv)
+    sv.add_argument("--port", type=int, default=5000)
+    sv.set_defaults(fn=cmd_server)
+
+    tt = sub.add_parser("tts", help="one-shot synthesis: text -> wav")
+    _add_t2s_args(tt)
+    tt.add_argument("--text", required=True)
+    tt.add_argument("-o", "--out", default="tts_out.wav")
+    tt.add_argument("--speaker", action="append", default=None,
+                    help="speaker name (repeatable; fuzzy-matched)")
+    tt.add_argument("--target_score", type=float, default=None)
+    tt.add_argument("--max_attempts", type=int, default=None)
+    tt.add_argument("--denoise_strength", type=float, default=0.0)
+    tt.add_argument("--cat_silence_s", type=float, default=0.0)
+    tt.add_argument("--seed", type=int, default=0)
+    tt.set_defaults(fn=cmd_tts)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     return args.fn(args)

@@ -17,6 +17,11 @@ cookietts_tpu/convert/*_torch.py):
   (serving), or the pair itself as ``weight_v`` / ``weight_g`` with g [out]
   on the output axis (the HiFi-GAN training form and discriminators)
 - flax Conv2d kernel [kh, kw, in, out] -> Conv2d weight [out, in, kh, kw]
+- flax GRUCell ir/iz/in/hr/hz/hn       -> nn.GRU *_l0 (r, z, n stacked); flax
+  has no hidden-side r/z bias, so those are zero and the input-side ones
+  carry it, while n keeps its two (r multiplies W_hn h + b_hn)
+- torchMoji's hard-sigmoid LSTM ih/hh  -> *_l0 / *_l0_reverse, one bias in
+  bias_ih (bias_hh = 0)
 - WaveGlow/WaveFlow: 1x1 layers (flax Dense or Conv) -> Conv1d/Conv2d weights
   with unit taps; the WN end layer's output halves swap from (log_s, t) to
   the reference checkpoints' (t, log_s); the 1x1 mixing weight transposes
@@ -76,10 +81,100 @@ def _bilstm_direction(sd, key, suffix, p):
     sd[f"{key}.bias_hh_l0{suffix}"] = torch.zeros(bias.shape[0])
 
 
+def _gru(sd, key, p):
+    sd[f"{key}.weight_ih_l0"] = _t(np.concatenate(
+        [np.asarray(p[g]["kernel"]).T for g in ("ir", "iz", "in")]))
+    sd[f"{key}.weight_hh_l0"] = _t(np.concatenate(
+        [np.asarray(p[g]["kernel"]).T for g in ("hr", "hz", "hn")]))
+    sd[f"{key}.bias_ih_l0"] = _t(np.concatenate(
+        [np.asarray(p[g]["bias"]) for g in ("ir", "iz", "in")]))
+    E = np.asarray(p["hn"]["bias"]).shape[0]
+    sd[f"{key}.bias_hh_l0"] = _t(np.concatenate(
+        [np.zeros(2 * E, np.float32), np.asarray(p["hn"]["bias"])]))
+
+
+def _ref_encoder(sd, key, p, stats):
+    i = 0
+    while f"conv{i}" in p:
+        sd[f"{key}.convs.{i}.weight"] = _t(np.transpose(p[f"conv{i}"]["kernel"],
+                                                        (3, 2, 0, 1)))
+        _bn(sd, f"{key}.convs.{i}.batch_norm", p[f"bn{i}"], stats[f"bn{i}"])
+        i += 1
+    _gru(sd, f"{key}.gru", p["GRUCell_0"])
+    _lin(sd, f"{key}.fc.0", p["fc"])
+
+
+def gst_state_dict_from_jax(params: Mapping[str, Any],
+                            batch_stats: Mapping[str, Any], prefix: str = ""
+                            ) -> Dict[str, torch.Tensor]:
+    """State dict for models/gst.py:GST (keys under ``prefix``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _ref_encoder(sd, f"{prefix}ref_encoder", params["ref_encoder"],
+                 batch_stats["ref_encoder"])
+    att = params["att"]
+    for name in ("conv_Q", "conv_K"):                 # 1x1 Conv1d [U, E, 1]
+        sd[f"{prefix}att.{name}.weight"] = _t(
+            np.asarray(att[name]["kernel"]).T[:, :, None])
+        sd[f"{prefix}att.{name}.bias"] = _t(att[name]["bias"])
+    for name in ("fc_Q", "fc_K", "fc_V", "fc_A"):
+        _lin(sd, f"{prefix}att.{name}.0", att[name])
+    sd[f"{prefix}token_embedding"] = _t(params["token_embedding"])
+    _lin(sd, f"{prefix}map_lin.linear_layer", params["map_lin"])
+    if "ss_vae_layers" in params:
+        _lin(sd, f"{prefix}ss_vae_layers.0", params["ss_vae_layers"])
+    return sd
+
+
+def emotionnet_state_dict_from_jax(params: Mapping[str, Any],
+                                   batch_stats: Mapping[str, Any],
+                                   prefix: str = "") -> Dict[str, torch.Tensor]:
+    """State dict for models/emotionnet.py:EmotionNet."""
+    sd: Dict[str, torch.Tensor] = {}
+    _ref_encoder(sd, f"{prefix}ref_enc", params["ref_enc"], batch_stats["ref_enc"])
+    _gru(sd, f"{prefix}text_rnn", params["GRUCell_0"])
+    _lin(sd, f"{prefix}classifier_layer.linear_layer", params["classifier"])
+    _lin(sd, f"{prefix}latent_layer.linear_layer", params["latent"])
+    return sd
+
+
+def auxemotionnet_state_dict_from_jax(params: Mapping[str, Any],
+                                      prefix: str = ""
+                                      ) -> Dict[str, torch.Tensor]:
+    """State dict for models/emotionnet.py:AuxEmotionNet (the seq MLP's
+    Linears sit at the even Sequential indices)."""
+    sd: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"seq{i}" in params:
+        _lin(sd, f"{prefix}seq_layers.{2 * i}.linear_layer", params[f"seq{i}"])
+        i += 1
+    _gru(sd, f"{prefix}text_rnn", params["GRUCell_0"])
+    _lin(sd, f"{prefix}latent_classifier_layer.linear_layer",
+         params["latent_classifier"])
+    return sd
+
+
+def torchmoji_state_dict_from_jax(params: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """State dict for models/torchmoji.py:TorchMoji, in the published
+    pytorch_model.bin's names."""
+    sd = {"embed.weight": _t(params["embed"]["embedding"]),
+          "attention_layer.attention_vector": _t(params["attention_vector"])}
+    for i in (0, 1):
+        for direction, sfx in (("fwd", ""), ("bwd", "_reverse")):
+            p, key = params[f"lstm_{i}_{direction}"], f"lstm_{i}"
+            sd[f"{key}.weight_ih_l0{sfx}"] = _t(np.asarray(p["ih"]["kernel"]).T)
+            sd[f"{key}.weight_hh_l0{sfx}"] = _t(np.asarray(p["hh"]["kernel"]).T)
+            sd[f"{key}.bias_ih_l0{sfx}"] = _t(p["ih"]["bias"])
+            sd[f"{key}.bias_hh_l0{sfx}"] = torch.zeros(
+                np.asarray(p["ih"]["bias"]).shape[0])
+    return sd
+
+
 def tacotron2_state_dict_from_jax(params: Mapping[str, Any],
                                   batch_stats: Mapping[str, Any]
                                   ) -> Dict[str, torch.Tensor]:
-    """State dict for models/tacotron2.py:Tacotron2 (attention type 0)."""
+    """State dict for models/tacotron2.py:Tacotron2 (attention type 0), the
+    GST and EmotionNet heads included where the params hold them."""
     sd: Dict[str, torch.Tensor] = {}
     sd["embedding.weight"] = _t(params["embedding"]["embedding"])
     sd["speaker_embedding.weight"] = _t(params["speaker_embedding"]["embedding"])
@@ -110,6 +205,14 @@ def tacotron2_state_dict_from_jax(params: Mapping[str, Any],
     if "memory_bottleneck" in params:
         _lin(sd, "decoder.memory_bottleneck.bottleneck.linear_layer",
              params["memory_bottleneck"])
+    if "gst" in params:
+        sd.update(gst_state_dict_from_jax(params["gst"], batch_stats["gst"],
+                                          "gst."))
+    if "emotion_net" in params:
+        sd.update(emotionnet_state_dict_from_jax(
+            params["emotion_net"], batch_stats["emotion_net"], "emotion_net."))
+        sd.update(auxemotionnet_state_dict_from_jax(params["aux_emotion_net"],
+                                                    "aux_emotion_net."))
 
     cell = params["decoder"]["cell"]
     i = 0

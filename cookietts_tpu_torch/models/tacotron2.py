@@ -2,7 +2,9 @@
 teacher-forced training forward.
 
 Text -> encoder (3 x conv+BN, BiLSTM, sylps head) -> memory (encoder
-outputs, speaker embedding, SylpsNet z, crushed torchMoji; bottleneck) ->
+outputs, speaker embedding, SylpsNet z, crushed torchMoji, and with
+``use_gst`` / ``use_emotionnet`` the GST style embedding and the emotion
+latents, models/gst.py and models/emotionnet.py; bottleneck) ->
 autoregressive decoder (prenet with always-on dropout, attention-RNN,
 location-sensitive windowed attention, decoder RNNs, mel projection and
 gate) -> postnet. Mels are [B, T, n_mel], alignments [B, T_dec, T_enc].
@@ -25,6 +27,8 @@ drawn per step, the per-lane TBPTT carry), with drop-frame and the postnet.
 sampling, the LSTM cells' zoneout and dropout and the postnet dropout (0.5,
 fixed as in JAX). Randomness comes from the ``generator`` passed in. The
 model starts in eval mode; the inference methods always run in eval form.
+Training with the style heads raises (their loss terms are not ported), as
+does an ``attention_type`` other than 0.
 
 Submodule and parameter names follow the reference torch checkpoint, so its
 ``state_dict`` (and ``convert.from_jax``'s) loads as it is. The reference's
@@ -45,8 +49,10 @@ from ..device import resolve_device
 from ..ops.attention import (AttentionState, ConvNorm, LinearNorm,
                              LocationSensitiveAttention)
 from ..ops.lstm import ZoneoutLSTMCell
-from ..ops.masking import (dropout_frame, get_first_over_thresh,
+from ..ops.masking import (dropout, dropout_frame, get_first_over_thresh,
                            get_mask_from_lengths)
+from .emotionnet import AuxEmotionNet, EmotionNet, EmotionNetConfig
+from .gst import GST, GSTConfig
 from .sylpsnet import SylpsNet
 
 
@@ -117,7 +123,7 @@ class Tacotron2Config:
     postnet_kernel_size: int = 5
     postnet_n_convolutions: int = 6
     postnet_residual_connections: int = 3
-    # style heads (not in this port yet)
+    # style heads (inference and the eval forward; training not ported)
     use_gst: bool = False
     gst_token_num: int = 10
     gst_token_embedding_size: int = 256
@@ -133,13 +139,6 @@ class Tacotron2Config:
     max_decoder_steps: int = 3000
     # precision
     dtype: Any = torch.float32
-
-
-def _dropout(x: torch.Tensor, p: float,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with a keep mask drawn from ``generator``."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
-    return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 class BatchNorm1d(nn.BatchNorm1d):
@@ -185,7 +184,7 @@ class Prenet(nn.Module):
             x = F.relu(layer(x))
             if self.p > 0:
                 x = (torch.where(masks[i], x / (1.0 - self.p), 0.0)
-                     if masks is not None else _dropout(x, self.p, generator))
+                     if masks is not None else dropout(x, self.p, generator))
         return x
 
 
@@ -222,7 +221,7 @@ class Postnet(nn.Module):
             else:
                 h = torch.tanh(y)
                 if self.training:
-                    h = _dropout(h, 0.5, generator)
+                    h = dropout(h, 0.5, generator)
         return x_orig.transpose(1, 2)
 
 
@@ -272,7 +271,7 @@ class Encoder(nn.Module):
         for layer in self.convolutions:
             x = F.leaky_relu(layer(x * mask_c), 0.01)
             if self.training and cfg.encoder_conv_dropout > 0:
-                x = _dropout(x, cfg.encoder_conv_dropout, generator)
+                x = dropout(x, cfg.encoder_conv_dropout, generator)
         x = x.transpose(1, 2)
         if spk is not None and cfg.encoder_concat_speaker_embed == "before_lstm":
             x = torch.cat([x, spk], dim=-1)
@@ -573,13 +572,25 @@ def _eval_form(method):
     return run
 
 
+def refuse_training_heads(cfg: Tacotron2Config) -> None:
+    """Training with the GST / EmotionNet heads needs their loss terms,
+    which the port does not have yet: raise rather than train without."""
+    if cfg.use_gst or cfg.use_emotionnet:
+        raise NotImplementedError(
+            "training with use_gst / use_emotionnet is not ported yet: the "
+            "heads' loss terms (em_kld, sup_em_nll and aux_em_MSE, "
+            "cookietts_tpu/losses/tacotron2_loss.py) are missing; the heads "
+            "run in inference and the eval-mode forward only")
+
+
 class Tacotron2(nn.Module):
     def __init__(self, cfg: Tacotron2Config, device: str | torch.device = "cuda"):
         super().__init__()
-        if cfg.use_gst or cfg.use_emotionnet or cfg.attention_type != 0:
+        if cfg.attention_type != 0:
             raise NotImplementedError(
-                "GST, EmotionNet and attention types other than 0 are not "
-                "ported yet")
+                f"attention_type={cfg.attention_type}: GMM (1) and dynamic "
+                "convolution (2) attention are not ported yet; only the "
+                "location-sensitive attention (0) is")
         if cfg.dtype != torch.float32:
             raise NotImplementedError("the port's kernels run in float32")
         self.cfg = cfg
@@ -591,8 +602,29 @@ class Tacotron2(nn.Module):
         if cfg.torchmoji_batchnorm:
             self.tm_bn = BatchNorm1d(cfg.torchmoji_dim)
         self.tm_linear = nn.Linear(cfg.torchmoji_dim, cfg.torchmoji_crushed_dim)
-        self.decoder = Decoder(cfg, cfg.encoder_lstm_dim + cfg.speaker_embedding_dim
-                               + 1 + cfg.torchmoji_crushed_dim)
+        memory_dim = (cfg.encoder_lstm_dim + cfg.speaker_embedding_dim + 1
+                      + cfg.torchmoji_crushed_dim)
+        if cfg.use_gst:
+            self.gst = GST(GSTConfig(
+                n_mel_channels=cfg.n_mel_channels,
+                token_embedding_size=cfg.gst_token_embedding_size,
+                token_num=cfg.gst_token_num, num_heads=cfg.gst_num_heads,
+                gst_att_dim=cfg.gst_att_dim,
+                ref_enc_filters=tuple(cfg.gst_ref_enc_filters),
+                torchmoji_dim=cfg.torchmoji_dim))
+            memory_dim += cfg.gst_token_embedding_size
+        if cfg.use_emotionnet:
+            em_cfg = EmotionNetConfig(
+                n_classes=cfg.n_emotion_classes,
+                latent_dim=cfg.emotionnet_latent_dim,
+                speaker_embedding_dim=cfg.speaker_embedding_dim,
+                torchmoji_dim=cfg.torchmoji_dim,
+                n_mel_channels=cfg.n_mel_channels,
+                encoder_dim=cfg.encoder_lstm_dim)
+            self.emotion_net = EmotionNet(em_cfg)
+            self.aux_emotion_net = AuxEmotionNet(em_cfg)
+            memory_dim += cfg.n_emotion_classes + cfg.emotionnet_latent_dim
+        self.decoder = Decoder(cfg, memory_dim)
         if cfg.use_postnet:
             self.postnet = Postnet(cfg)
         self.eval()
@@ -603,7 +635,14 @@ class Tacotron2(nn.Module):
         return self.embedding.weight.device
 
     def _build_memory(self, text, text_lengths, speaker_id, sylps=None,
-                      torchmoji_hidden=None, generator=None, sylps_noise=None):
+                      torchmoji_hidden=None, generator=None, sylps_noise=None,
+                      ref_mel=None, emotion_id=None, emotion_onehot=None):
+        """(memory [B, T, memory dim], heads). The parts, in JAX's order:
+        encoder outputs, speaker, SylpsNet z, crushed torchMoji; with GST its
+        style embedding, from ``ref_mel`` (ref_mode 1) when one is given,
+        else from the raw torchMoji hidden (ref_mode 3); with EmotionNet
+        exp(zs) and zu, from EmotionNet over ``ref_mel`` when one is given,
+        else from AuxEmotionNet. Then the bottleneck."""
         cfg = self.cfg
         B, T = text.shape
         # out-of-range ids would index out of the table: clamp like JAX
@@ -616,19 +655,34 @@ class Tacotron2(nn.Module):
         syl_zu, syl_mu, syl_logvar = self.sylps_net(
             pred_sylps if sylps is None else sylps, generator, sylps_noise)
         spk = self.speaker_embedding(speaker_id)
-        tm = (torch.zeros(B, cfg.torchmoji_dim, device=text.device)
-              if torchmoji_hidden is None else torchmoji_hidden)
-        if cfg.torchmoji_batchnorm:
-            tm = self.tm_bn(tm)
+        tm_hidden = (torch.zeros(B, cfg.torchmoji_dim, device=text.device)
+                     if torchmoji_hidden is None else torchmoji_hidden)
+        tm = self.tm_bn(tm_hidden) if cfg.torchmoji_batchnorm else tm_hidden
         tm = self.tm_linear(tm)
-        memory = torch.cat([
-            enc_out, spk[:, None, :].expand(B, T, -1),
-            syl_zu[:, None, :].expand(B, T, -1), tm[:, None, :].expand(B, T, -1),
-        ], dim=-1)
-        if cfg.use_memory_bottleneck:
-            memory = self.decoder.memory_bottleneck(memory)
+        parts = [enc_out, spk, syl_zu, tm]
         heads = {"pred_sylps": pred_sylps, "syl_mu": syl_mu,
                  "syl_logvar": syl_logvar}
+        if cfg.use_gst:
+            gst = (self.gst(ref_mel, ref_mode=1) if ref_mel is not None
+                   else self.gst(tm_hidden, ref_mode=3))
+            parts.append(gst["style_embedding"])
+            heads["gst_style_tokens"] = gst["style_tokens"]
+        if cfg.use_emotionnet:
+            aux = self.aux_emotion_net(tm_hidden, spk, enc_out, text_lengths)
+            heads.update({"aux_zs": aux["zs"], "aux_zu_mu": aux["zu_mu"],
+                          "aux_zu_logvar": aux["zu_logvar"]})
+            zs, zu = aux["zs"], aux["zu"]
+            if ref_mel is not None:
+                em = self.emotion_net(ref_mel, spk, enc_out, text_lengths,
+                                      emotion_id, emotion_onehot)
+                zs, zu = em["ss_zs"], em["zu"]
+                heads.update({"em_zs": em["zs"], "em_zu_mu": em["zu_mu"],
+                              "em_zu_logvar": em["zu_logvar"]})
+            parts.append(torch.cat([torch.exp(zs), zu], dim=-1))
+        memory = torch.cat([enc_out] + [p[:, None, :].expand(B, T, -1)
+                                        for p in parts[1:]], dim=-1)
+        if cfg.use_memory_bottleneck:
+            memory = self.decoder.memory_bottleneck(memory)
         return memory.contiguous(), heads
 
     def _inputs(self, text, text_lengths, speaker_id, torchmoji_hidden, sylps):
@@ -647,17 +701,25 @@ class Tacotron2(nn.Module):
                 global_mean: Optional[torch.Tensor] = None,
                 init_carry: Optional[TrainCarry] = None,
                 pres_prev_state: Optional[torch.Tensor] = None,
-                sylps_noise: Optional[torch.Tensor] = None):
+                sylps_noise: Optional[torch.Tensor] = None,
+                emotion_id: Optional[torch.Tensor] = None,
+                emotion_onehot: Optional[torch.Tensor] = None):
         """Teacher-forced forward over tensors on the model's device ->
         (outputs, TrainCarry) (JAX ``Tacotron2.__call__``). In training,
         drop-frame replaces valid input frames with ``global_mean`` at
         ``drop_frame_rate`` (the loss targets stay as they are); every draw
         comes from ``generator`` (``sylps_noise`` [B] sets SylpsNet's eps).
-        Mels past ``mel_lengths`` are zeroed in the outputs."""
+        Mels past ``mel_lengths`` are zeroed in the outputs. With the GST /
+        EmotionNet heads the target mels are their reference (eval mode
+        only: training with the heads raises)."""
         cfg = self.cfg
-        memory, heads = self._build_memory(text, text_lengths, speaker_id,
-                                           sylps, torchmoji_hidden, generator,
-                                           sylps_noise)
+        heads_on = cfg.use_gst or cfg.use_emotionnet
+        if self.training:
+            refuse_training_heads(cfg)
+        memory, heads = self._build_memory(
+            text, text_lengths, speaker_id, sylps, torchmoji_hidden, generator,
+            sylps_noise, ref_mel=mels if heads_on else None,
+            emotion_id=emotion_id, emotion_onehot=emotion_onehot)
         dec_target = mels
         if self.training and global_mean is not None:
             dec_target = dropout_frame(mels, global_mean, mel_lengths,
@@ -709,7 +771,8 @@ class Tacotron2(nn.Module):
                   chunk_fn: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
         """Free-running inference. ``generator`` draws the prenet dropout
         (the global RNG when None); a ``sylps`` [B] tensor sets the pace;
-        ``chunk_fn`` runs the decode's chunks (Decoder.inference)."""
+        ``chunk_fn`` runs the decode's chunks (Decoder.inference). The style
+        heads take the torchMoji hidden, as in JAX."""
         text, text_lengths, speaker_id, tm, sylps = self._inputs(
             text, text_lengths, speaker_id, torchmoji_hidden, sylps)
         memory, heads = self._build_memory(text, text_lengths, speaker_id,

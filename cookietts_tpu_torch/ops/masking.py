@@ -1,6 +1,8 @@
-"""Length masks, the gate stop index and drop-frame
+"""Length masks, the gate stop index, drop-frame and dropout
 (cookietts_tpu/ops/masking.py)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -31,3 +33,10 @@ def dropout_frame(mels: torch.Tensor, global_mean: torch.Tensor,
                       device=mels.device) < drop_frame_rate
     return torch.where((drop & valid)[:, :, None],
                        global_mean.to(mels.dtype)[None, None, :], mels)
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a keep mask drawn from ``generator``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), 0.0)

@@ -136,6 +136,32 @@ def test_vocoder_training_entry_points_raise_without_cuda(monkeypatch,
     make(device="cpu")
 
 
+@pytest.mark.parametrize("entry", ["torchmoji", "encoder", "tts", "server"])
+def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
+    """torchMoji, its encoder and the tts / server commands (through
+    _build_t2s) run on the card unless asked for the CPU."""
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.models.torchmoji import TorchMoji, TorchMojiEncoder
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    weights = TorchMoji(16, device="cpu").state_dict()
+    ckpt = str(tmp_path / "taco.pt")
+    make = {
+        "torchmoji": lambda *a: TorchMoji(16, *a),
+        "encoder": lambda *a: TorchMojiEncoder({}, weights, 30, *a),
+        "tts": lambda *a: cli(["tts", "--checkpoint", ckpt, "--text", "x"]
+                              + (["--device", *a] if a else [])),
+        "server": lambda *a: cli(["server", "--checkpoint", ckpt]
+                                 + (["--device", *a] if a else [])),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    if entry in ("tts", "server"):
+        with pytest.raises(FileNotFoundError):   # past the device, on the CPU
+            make("cpu")
+    else:
+        make("cpu")
+
+
 _IMPORT_SERVING = """
 import sys
 BLOCKED = {blocked!r}
