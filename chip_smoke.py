@@ -121,6 +121,29 @@ non-zero:
    generator call; 18 waveglow_wn_forward launches a flow of the vocode;
    the tts command counts from the request on, after the worker and its
    denoiser are built).
+10. the other attention types, training with the style heads, and the
+   convert command, at full width. 10a: Tacotron2Config(attention_type=1,
+   num_att_mixtures=5) (GMM) and Tacotron2Config(attention_type=2) (DCA,
+   128 filters of 21) behind phase 4's HiFi-GAN, gate threshold 2 (a fixed
+   128-step decode): one T2S request each, launch counters zeroed before
+   and read after (attention_step exactly 0 times: GMM and DCA are plain
+   PyTorch; lstm_gates 3 a step; the resblock its launches a vocoder call);
+   the decode chunk replayed as a CUDA graph against the eager chunk (bit
+   for bit, every state leaf, GMM's means included) and against the plain
+   kernels (phase 5's tolerance); one streaming_tts request each (phase 6's
+   checks). 10b: one train step with use_gst and use_emotionnet at B=16,
+   T_txt=64, T_dec=200 (phase 7's 800 cut to hold the script's time), with
+   a quarter of the emotion ids unknown: kernels against the plain versions
+   (loss rel 1e-5, every gradient relative L2 1e-4), then the card against
+   the CPU with nothing drawn (dropouts 0, no postnet, the eps given; 1e-4);
+   the train command with both heads on phase 7a's corpus, emotion ids on
+   half of its lines, 2 iterations then a resume to 3 (launches counted).
+   10c: `python -m cookietts_tpu_torch convert` as a process on
+   reference-layout .pt files of phase 9's seeded weights (Tacotron2 with
+   both heads, HiFi-GAN, torchMoji) and of a WaveGlow at phase 4b's widths
+   in the reference layout: each converted state dict equals its source bit
+   for bit; the converted Tacotron2 and HiFi-GAN served through _build_t2s
+   give phase 9's checkpoints' mels and audio exactly.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -1399,8 +1422,9 @@ def phase6_stream(hk, check, taco, gen, B, smi, steps=256):
     """streaming_tts at a fixed decode length (gate threshold 2.0: the gate
     never stops it) against the whole pipeline run on the card with the same
     generator seed. Counters zeroed before the warm stream, read after; the
-    decode kernels must show one launch per step (attention) and three
-    (lstm), the resblock kernel its launches per vocoder call."""
+    decode kernels must show one launch per step (attention; none for the
+    GMM and DCA attention types, which are plain PyTorch) and three (lstm),
+    the resblock kernel its launches per vocoder call."""
     import numpy as np
     import torch
     from cookietts_tpu_torch.pipeline.streaming import make_streaming_fns, streaming_tts
@@ -1434,7 +1458,8 @@ def phase6_stream(hk, check, taco, gen, B, smi, steps=256):
     torch.cuda.synchronize()
     launches = {k: hk.LAUNCHES[k] for k in ("attention_step", "lstm_gates",
                                             "hifigan_resblock")}
-    want = {"attention_step": steps, "lstm_gates": 3 * steps,
+    want = {"attention_step": steps if taco.cfg.attention_type == 0 else 0,
+            "lstm_gates": 3 * steps,
             "hifigan_resblock": vocoder_launches(hk, gen, calls[0])}
     seconds = audio.shape[1] / SR
     log(f"  streaming_tts B={B}, {steps} steps ({seconds:.2f} s of audio a row): "
@@ -1675,17 +1700,21 @@ def synthetic_batch(cfg, seed, B=TRAIN_B, T_txt=TRAIN_TXT, T_dec=TRAIN_DEC):
             "global_mean": (mels.sum((0, 1)) / valid.sum()).contiguous()}
 
 
-def timed_train_step(model, state, batch, ctrl, seed):
+def timed_train_step(model, state, batch, ctrl, seed, **noise):
     """One train step as make_tacotron2_train_step runs it (forward in
     training mode, loss, backward, clipping, Adam), timed in parts on the
-    host's clock with a synchronize after each. Returns (loss, clipped-
-    before gradients by name, ms forward, ms backward, ms update)."""
+    host's clock with a synchronize after each; the batch's emotion labels,
+    where it has them, go to the model and the loss, and ``noise``
+    (sylps_noise, head_noise) to the model. Returns (loss, clipped-before
+    gradients by name, ms forward, ms backward, ms update)."""
     import torch
     from cookietts_tpu_torch.losses import DEFAULT_LOSS_SCALARS, tacotron2_loss
     from cookietts_tpu_torch.runtime.optim import clip_by_global_norm
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = batch["text"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
     model.train()
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     out, _ = model(
         batch["text"], batch["text_lengths"], batch["mels"],
@@ -1693,23 +1722,24 @@ def timed_train_step(model, state, batch, ctrl, seed):
         generator=gen, p_teacher_forcing=ctrl["p_teacher_forcing"],
         teacher_force_till=ctrl["teacher_force_till"],
         drop_frame_rate=ctrl["drop_frame_rate"],
-        global_mean=batch["global_mean"])
+        global_mean=batch["global_mean"], emotion_id=batch.get("emotion_id"),
+        emotion_onehot=batch.get("emotion_onehot"), **noise)
+    keys = ("mels", "mel_lengths", "text_lengths", "sylps", "gate_target",
+            "pres_prev_state", "emotion_id", "emotion_onehot")
     total, _, _ = tacotron2_loss(
-        out, {k: batch[k] for k in ("mels", "mel_lengths", "text_lengths",
-                                    "sylps", "gate_target",
-                                    "pres_prev_state")},
+        out, {k: batch[k] for k in keys if k in batch},
         {k: ctrl[k] for k in DEFAULT_LOSS_SCALARS}, 10.0,
         ctrl["guided_att_sigma"])
-    torch.cuda.synchronize()
+    sync()
     t1 = time.perf_counter()
     params = state.params
     grads = dict(zip(params, torch.autograd.grad(
         total, list(params.values()), allow_unused=True)))
-    torch.cuda.synchronize()
+    sync()
     t2 = time.perf_counter()
     clipped, _ = clip_by_global_norm(grads, ctrl["grad_clip"])
     state.apply_gradients(clipped, ctrl["lr"])
-    torch.cuda.synchronize()
+    sync()
     t3 = time.perf_counter()
     return (total.item(), grads, 1e3 * (t1 - t0), 1e3 * (t2 - t1),
             1e3 * (t3 - t2))
@@ -1717,6 +1747,27 @@ def timed_train_step(model, state, batch, ctrl, seed):
 
 def rel_l2(a, b):
     return float((a - b).norm() / b.norm()) if float(b.norm()) else float(a.norm())
+
+
+def compare_grads(got, want):
+    """([(relative L2, name)] worst first, [names of numerically zero
+    gradients]): a gradient below 1e-6 of the whole gradient's norm (a conv
+    bias ahead of a training-mode BatchNorm has a zero gradient; its
+    computed one is rounding noise on both sides) is held to that norm."""
+    if set(got) != set(want):
+        raise SystemExit("chip_smoke: the two runs give gradients to "
+                         "different parameters")
+    g_all = math.sqrt(sum(float(g.norm()) ** 2 for g in want.values()))
+    worst, tiny = [], []
+    for k in want:
+        g = got[k].to(want[k].device)
+        r = rel_l2(g, want[k])
+        if float(want[k].norm()) < 1e-6 * g_all:
+            tiny.append(k)
+            r = float((g - want[k]).norm()) / g_all
+        worst.append((r, k))
+    worst.sort(reverse=True)
+    return worst, tiny
 
 
 def phase7_step(hk, tcfg, smi):
@@ -1778,20 +1829,7 @@ def phase7_step(hk, tcfg, smi):
             np_[k] for k in ("attention_step", "lstm_gates")):
         raise SystemExit("chip_smoke: train step launch counts")
     loss_rel = abs(lk - lp) / abs(lp)
-    if set(gk) != set(gp):
-        raise SystemExit("chip_smoke: the two paths give gradients to "
-                         "different parameters")
-    g_all = math.sqrt(sum(float(g.norm()) ** 2 for g in gp.values()))
-    worst, tiny = [], []
-    for k in gp:
-        r = rel_l2(gk[k], gp[k])
-        # a conv bias ahead of a training-mode BatchNorm has a zero
-        # gradient; its computed one is rounding noise on both paths
-        if float(gp[k].norm()) < 1e-6 * g_all:
-            tiny.append(k)
-            r = float((gk[k] - gp[k]).norm()) / g_all
-        worst.append((r, k))
-    worst.sort(reverse=True)
+    worst, tiny = compare_grads(gk, gp)
     # after one Adam step: a numerically-zero gradient's rounding noise
     # becomes a step of up to lr of either sign (g / (|g| + eps)), so those
     # parameters are held to 2 lr; every other entry to relative L2 1e-4
@@ -2593,6 +2631,359 @@ def phase9(hk, check, tcfg, hcfg, smi):
         del t2s, plain, registry, gen, enc
 
 
+# -- phase 10: GMM and DCA attention, training with the heads, convert -------
+
+P10_STEPS = 128
+P10_TYPES = ((1, dict(num_att_mixtures=5)), (2, {}))     # GMM 5, DCA 128 x 21
+P10_DEC = 200            # phase 7's T_dec (800) cut to hold the script's time
+
+
+def phase10a(hk, check, tcfg, hcfg, smi):
+    """GMM (5 mixtures) and DCA (128 filters of 21) decodes at full width
+    behind phase 4's HiFi-GAN, gate threshold 2 (a fixed length): one T2S
+    request (attention_step must launch 0 times, lstm_gates 3 a step, the
+    resblock its launches a vocoder call), the decode chunk replayed as a
+    CUDA graph against the eager chunk (bit for bit, every state leaf and
+    GMM's means included) and against the plain kernels (phase 5's
+    tolerance), and one streaming_tts request."""
+    import torch
+    from cookietts_tpu_torch.models.hifigan import Generator
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2
+    from cookietts_tpu_torch.pipeline.chunk_graph import DecodeChunkGraphs
+    from cookietts_tpu_torch.pipeline.text2speech import T2S, T2SConfig
+    from torch.utils import _pytree as pytree
+    out = {}
+    for att, extra in P10_TYPES:
+        name = {1: "GMM", 2: "DCA"}[att]
+        torch.manual_seed(30 + att)
+        taco = Tacotron2(dataclasses.replace(tcfg, attention_type=att,
+                                             gate_threshold=2.0, **extra),
+                         device="cuda")
+        gen = Generator(hcfg, device="cuda")
+        t2s = T2S(T2SConfig(batch_size=4, max_attempts=1,
+                            step_buckets=(P10_STEPS,),
+                            max_decoder_steps=P10_STEPS, gate_threshold=2.0),
+                  taco, {"alice": 0, "bob": 1}, vocoder_fn=gen,
+                  sample_rate=SR, hop_length=HOP, device="cuda")
+        t2s.infer(P9_TEXT, speaker=["alice"], seed=1)          # captures
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = t2s.infer(P9_TEXT, speaker=["alice", "bob"], seed=2)
+        torch.cuda.synchronize()
+        req_ms = (time.perf_counter() - t0) * 1e3
+        got = {k: hk.LAUNCHES[k] for k in ("attention_step", "lstm_gates",
+                                           "hifigan_resblock")}
+        want = {"attention_step": 0, "lstm_gates": 3 * P10_STEPS,
+                "hifigan_resblock": vocoder_launches(hk, gen, 1)}
+        n = len(res["audio"])
+        log(f"  10a {name}: T2S request, {len(res['segments'])} segments at "
+            f"B=4, {P10_STEPS} steps: {req_ms:.1f} ms ({req_ms / P10_STEPS:.3f} "
+            f"ms a decode step, vocoder included), {n / SR:.2f} s of audio; "
+            f"launches {got} (expected {want}) ({smi})")
+        if got != want:
+            raise SystemExit(f"chip_smoke: 10a {name} launch counts")
+        if n != len(res["segments"]) * P10_STEPS * HOP or not np_finite(res["audio"]):
+            raise SystemExit(f"chip_smoke: 10a {name} audio: {n} samples")
+
+        B, T, S = 4, 64, 32
+        memory, const, state = taco.inference_prepare(*decode_inputs(taco, B, T, 13))
+        program = DecodeChunkGraphs(taco.decoder)
+        seeded = lambda: torch.Generator(device="cuda").manual_seed(23)  # noqa: E731
+        program(memory, const, state, S, seeded())              # eager, capture
+        per_replay = program.graphs[(tuple(memory.shape), S)].launches
+        replayed = program(memory, const, state, S, seeded())
+        eager = taco.decode_chunk(memory, const, state, S, seeded())
+        with plain_kernels(hk):
+            plain = taco.decode_chunk(memory, const, state, S, seeded())
+        want = {**{k: 0 for k in hk.LAUNCHES}, "lstm_gates": 3 * S}
+        same = all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(replayed), pytree.tree_leaves(eager)))
+        log(f"  10a {name}: replayed chunk (B={B} T_enc={T} S={S}, launches "
+            f"{per_replay}) bit-identical to the eager chunk, every state leaf "
+            f"(mu {tuple(eager[3].attention.mu.shape)}) included: {same}")
+        if per_replay != want or not same:
+            raise SystemExit(f"chip_smoke: 10a {name} replayed chunk")
+        for i, what in enumerate(("mel", "gate", "alignments")):
+            check("slice", eager[i], plain[i], (1e-3, 1e-3, 1e-4)[i], 1e-3,
+                  f"{name} chunk {what} vs plain")
+        out[name] = dict(request_ms=req_ms,
+                         stream=phase6_stream(hk, check, taco, gen, 1, smi,
+                                              steps=P10_STEPS))
+        del t2s, taco, gen, program
+    return out
+
+
+def np_finite(a):
+    import numpy as np
+    return bool(np.isfinite(a).all())
+
+
+def labelled_batch(cfg, seed, T_dec):
+    """synthetic_batch with emotion ids (a quarter unknown) and their
+    one-hot rows."""
+    import torch
+    batch = synthetic_batch(cfg, seed, T_dec=T_dec)
+    C = cfg.n_emotion_classes
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    ids = torch.randint(0, C, (TRAIN_B,), device="cuda", generator=g)
+    ids[::4] = C
+    onehot = torch.nn.functional.one_hot(ids.clamp_max(C - 1), C).float()
+    batch["emotion_id"] = ids
+    batch["emotion_onehot"] = onehot * (ids < C)[:, None]
+    return batch
+
+
+def phase10b_step(hk, tcfg, smi):
+    """One train step with both heads at B=16, T_txt=64, T_dec=200: the
+    kernels against the plain versions from the same weights and generator
+    seed (loss rel 1e-5, every gradient relative L2 1e-4), then the card
+    against the CPU with every draw fixed (dropouts 0, no postnet, SylpsNet
+    and zu eps given; 1e-4)."""
+    import torch
+    from cookietts_tpu_torch.losses import DEFAULT_LOSS_SCALARS
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2
+    from cookietts_tpu_torch.runtime.optim import adam
+    from cookietts_tpu_torch.runtime.train_state import TrainState
+    cfg = dataclasses.replace(tcfg, use_gst=True, use_emotionnet=True)
+    ctrl = {"lr": 1e-3, "grad_clip": 1.0, "p_teacher_forcing": 1.0,
+            "teacher_force_till": 20, "drop_frame_rate": 0.0,
+            "guided_att_sigma": 0.5, **DEFAULT_LOSS_SCALARS}
+    batch = labelled_batch(cfg, 8, P10_DEC)
+
+    def step(model, b, plain=False, **noise):
+        state = TrainState.create(model, adam())
+        hk.reset_launch_counts()
+        with plain_kernels(hk) if plain else contextlib.nullcontext():
+            loss, grads, fwd, bwd, upd = timed_train_step(model, state, b, ctrl,
+                                                          seed=12, **noise)
+        return (loss, {k: v for k, v in grads.items() if v is not None},
+                fwd + bwd + upd, dict(hk.LAUNCHES))
+
+    torch.manual_seed(9)
+    model = Tacotron2(cfg, device="cuda")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    lk, gk, msk, nk = step(model, batch)
+    model.load_state_dict(init)
+    lp, gp, msp, np_ = step(model, batch, plain=True)
+    model.load_state_dict(init)
+    msk_warm = step(model, batch)[2]          # the first step ran cold
+    worst, tiny = compare_grads(gk, gp)
+    loss_rel = abs(lk - lp) / abs(lp)
+    heads = sum(1 for k in gk if k.startswith(("gst.", "emotion_net.",
+                                               "aux_emotion_net.")))
+    log(f"  10b train step with both heads, B={TRAIN_B} T_dec={P10_DEC}: kernels "
+        f"{msk / 1e3:.3f} s/iter (first), {msk_warm / 1e3:.3f} (warm), plain "
+        f"{msp / 1e3:.3f} s/iter ({smi}); "
+        f"launches attention_step {nk['attention_step']} lstm_gates "
+        f"{nk['lstm_gates']} (want {P10_DEC}, {3 * P10_DEC}); loss kernels "
+        f"{lk:.7f} plain {lp:.7f} rel {loss_rel:.2e} (limit 1e-5); {len(gp)} "
+        f"gradients ({heads} of the heads), largest relative L2 "
+        f"{', '.join(f'{k} {r:.2e}' for r, k in worst[:3])} (limit 1e-4; "
+        f"{len(tiny)} numerically zero)")
+    if (nk["attention_step"], nk["lstm_gates"]) != (P10_DEC, 3 * P10_DEC) or any(
+            np_[k] for k in ("attention_step", "lstm_gates")):
+        raise SystemExit("chip_smoke: 10b train step launch counts")
+    if not (loss_rel <= 1e-5 and worst[0][0] <= 1e-4 and heads > 0
+            and math.isfinite(lk)):
+        raise SystemExit("chip_smoke: 10b the kernel-path train step with the "
+                         "heads disagrees with the plain path")
+    del model, gk, gp
+
+    # the card against the CPU: nothing drawn
+    fixed = dataclasses.replace(cfg, p_prenet_dropout=0.0, encoder_conv_dropout=0.0,
+                                p_attrnn_dropout=0.0, p_decrnn_dropout=0.0,
+                                use_postnet=False)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    noise = {"sylps_noise": torch.randn(TRAIN_B, device="cuda", generator=g),
+             "head_noise": {k: torch.randn(TRAIN_B, cfg.emotionnet_latent_dim,
+                                           device="cuda", generator=g)
+                            for k in ("emotion_net", "aux_emotion_net")}}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        torch.manual_seed(9)
+        model = Tacotron2(fixed, device="cpu")
+        for net in (model.emotion_net, model.aux_emotion_net):
+            net.cfg = dataclasses.replace(net.cfg, classifier_dropout=0.0,
+                                          encoder_outputs_dropout=0.0)
+        model.to(dev)
+        to = lambda t: t.to(dev)  # noqa: E731
+        runs[dev] = step(model, {k: to(v) for k, v in batch.items()},
+                         sylps_noise=to(noise["sylps_noise"]),
+                         head_noise={k: to(v) for k, v in noise["head_noise"].items()})
+        del model
+    (lc, gc, msc, _), (lh, gh, msh, _) = runs["cuda"], runs["cpu"]
+    worst, tiny = compare_grads(gc, gh)
+    loss_rel = abs(lc - lh) / abs(lh)
+    log(f"  10b card against CPU (no draws): loss {lc:.7f} / {lh:.7f} rel "
+        f"{loss_rel:.2e} (limit 1e-4); largest gradient relative L2 "
+        f"{', '.join(f'{k} {r:.2e}' for r, k in worst[:3])} (limit 1e-4; "
+        f"{len(tiny)} numerically zero); card {msc / 1e3:.3f} s/iter, CPU "
+        f"{msh / 1e3:.3f} s/iter")
+    if not (loss_rel <= 1e-4 and worst[0][0] <= 1e-4):
+        raise SystemExit("chip_smoke: 10b the card's train step with the heads "
+                         "disagrees with the CPU's")
+    return dict(kernels_s=msk_warm / 1e3, plain_s=msp / 1e3)
+
+
+def phase10b_cli(hk, tmp):
+    """The train command with both heads on phase 7a's corpus, emotion ids
+    on half of its lines (the rest unlabelled): 2 iterations, then a resume
+    to 3 (with a validation); the kernels launched once per decoder step."""
+    import torch
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.data.evidence_corpus import make_corpus
+    train_fl, val_fl = make_corpus(str(tmp / "corpus"), seed=0, n_train=32,
+                                   n_val=16)
+    for fl in (train_fl, val_fl):
+        lines = Path(fl).read_text().splitlines()
+        Path(fl).write_text("".join(ln + (f"||{i % 5}" if i % 2 == 0 else "")
+                                    + "\n" for i, ln in enumerate(lines)))
+    run = tmp / "run10"
+    args = ["train", "--model", "tacotron2", "--filelist", train_fl,
+            "--run_dir", str(run), "--seed", "0", "--hparams",
+            TRAIN_HPARAMS + ",use_gst=True,use_emotionnet=True"]
+    for iters, resume, validations in ((2, [], 0), (3, ["--resume"], 1)):
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = cli(args + ["--iters", str(iters)] + resume)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = dict(hk.LAUNCHES)
+        want = expected_launches(trainer, iters - (2 if resume else 0), validations)
+        log(f"  10b train with both heads {'--resume ' if resume else ''}to "
+            f"{iters}: {dt:.1f} s (data and validation included); launches "
+            f"attention_step {n['attention_step']} (want {want}), lstm_gates "
+            f"{n['lstm_gates']} (want {3 * want})")
+        if (n["attention_step"], n["lstm_gates"]) != (want, 3 * want):
+            raise SystemExit("chip_smoke: 10b train command launch counts")
+        if int(trainer.state.step) != iters:
+            raise SystemExit(f"chip_smoke: 10b trained to {trainer.state.step}")
+    train, val = train_events(run)
+    log(f"  10b losses by step {[(k, round(v, 4)) for k, v, _ in train]}; "
+        f"validation {[round(v, 4) for v in val]}")
+    if [k for k, _, _ in train] != [0, 1, 2] or len(val) != 1 or not all(
+            math.isfinite(v) for v in [v for _, v, _ in train] + val):
+        raise SystemExit("chip_smoke: 10b a loss is missing or not finite")
+    meta = json.loads((run / "checkpoint_3.json").read_text())
+    if not (meta["model_config"].get("use_gst")
+            and meta["model_config"].get("use_emotionnet")):
+        raise SystemExit("chip_smoke: 10b checkpoint sidecar lacks the heads")
+
+
+def p10_convert(model, src, dst):
+    """``python -m cookietts_tpu_torch convert`` as a process; its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cookietts_tpu_torch", "convert",
+                           "--model", model, "--torch_ckpt", str(src), "-o",
+                           str(dst)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        log(proc.stdout[-2000:])
+        log(proc.stderr[-2000:])
+        raise SystemExit(f"chip_smoke: 10c convert {model} exited "
+                         f"{proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def phase10c(tmp, tcfg, hcfg, smi):
+    """The convert command on reference-layout files of phase 9's seeded
+    weights (Tacotron2 with both heads, the phase-4 HiFi-GAN, torchMoji) and
+    a WaveGlow of phase 4b's widths in the reference layout (single
+    upsampler, coupling "second"): every converted state dict equals its
+    source bit for bit; the converted Tacotron2 and HiFi-GAN served through
+    _build_t2s give phase 9's checkpoints' mels and audio."""
+    import numpy as np
+    import torch
+    from cookietts_tpu_torch import cli
+    from cookietts_tpu_torch.models.hifigan import Generator
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2
+    from cookietts_tpu_torch.models.torchmoji import TorchMoji
+    from cookietts_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+    heads = {"use_gst": True, "use_emotionnet": True}
+    cfg = dataclasses.replace(tcfg, **heads)
+    torch.manual_seed(20)                               # p9_files' taco80
+    taco = Tacotron2(cfg, device="cpu").state_dict()
+    torch.manual_seed(22)                               # p9_files' hifigan
+    hifi = Generator(hcfg, device="cpu").state_dict()
+    torch.manual_seed(24)
+    tm = TorchMoji(device="cpu").state_dict()
+    wg = make_flow_vocoder(dict(WAVEGLOW, upsample_mode="single",
+                                upsample_win_length=2 * FLOW_HOP,
+                                couple_transform="second", upsample_strides=()),
+                           seed=23).cpu().state_dict()
+    sources = {"tacotron2": ({"state_dict": taco}, taco),
+               "hifigan": ({"model": hifi}, hifi),
+               "torchmoji": (tm, tm), "waveglow": ({"state_dict": wg}, wg)}
+    times = {}
+    for name, (tree, sd) in sources.items():
+        torch.save(tree, tmp / f"{name}_ref.pt")
+        times[name] = p10_convert(name, tmp / f"{name}_ref.pt", tmp / name)
+        got, meta = load_checkpoint(str(tmp / name))
+        same = set(got["state_dict"]) == set(sd) and all(
+            torch.equal(got["state_dict"][k], t) for k, t in sd.items())
+        log(f"  10c convert {name}: {times[name]:.2f} s as a process "
+            f"({sum(t.numel() for t in sd.values()) / 1e6:.1f} M values); "
+            f"state dict bit for bit: {same}; sidecar {meta}")
+        if not same or meta["model"] != name:
+            raise SystemExit(f"chip_smoke: 10c convert {name}")
+    hints = json.loads((tmp / "waveglow.json").read_text())["model_config"]
+    if any(hints[k] != WAVEGLOW[k] for k in ("n_flows", "n_group", "n_layers",
+                                             "n_channels", "n_early_every",
+                                             "n_early_size")):
+        raise SystemExit(f"chip_smoke: 10c WaveGlow hints {hints}")
+
+    # phase 9's checkpoints of the same weights, and the converted ones
+    save_checkpoint(str(tmp / "taco80"), {"state_dict": taco},
+                    {"model": "tacotron2", "model_config": {
+                        k: v for k, v in dataclasses.asdict(cfg).items()
+                        if k != "dtype"}, "speaker_ids": {"narrator": 0}})
+    save_checkpoint(str(tmp / "hifigan80"), {"state_dict": hifi},
+                    {"model": "hifigan", "model_config": {
+                        k: v for k, v in dataclasses.asdict(hcfg).items()
+                        if k != "dtype"}})
+    served = {}
+    for key, taco_ckpt, voc in (("phase 9", "taco80", "hifigan80"),
+                                ("converted", "tacotron2", "hifigan")):
+        args = cli.build_parser().parse_args(
+            ["server", "--checkpoint", str(tmp / taco_ckpt), "--vocoder",
+             str(tmp / voc), "--device", "cuda", "--hparams",
+             P9_HPARAMS + ",use_gst=True,use_emotionnet=True"])
+        t2s = cli._build_t2s(args)
+        t0 = time.perf_counter()
+        served[key] = t2s.infer(P9_TEXT, seed=3, max_attempts=1)
+        log(f"  10c {key} checkpoints served through _build_t2s: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms (cold, captures "
+            f"included) ({smi})")
+        del t2s
+    a, b = served["phase 9"], served["converted"]
+    diff = max([float(np.abs(x - y).max()) for x, y in zip(a["mels"], b["mels"])]
+               + [float(np.abs(a["audio"] - b["audio"]).max())])
+    log(f"  10c converted against phase 9's checkpoints: max |diff| of mels "
+        f"and audio {diff:.3e} (must be 0)")
+    if diff != 0.0 or len(a["audio"]) == 0:
+        raise SystemExit("chip_smoke: 10c the converted checkpoints serve "
+                         "other mels or audio")
+    return times
+
+
+def phase10(hk, check, tcfg, hcfg, smi):
+    import tempfile
+    t0 = time.perf_counter()
+    out = {"a": phase10a(hk, check, tcfg, hcfg, smi)}
+    log(f"  phase 10a in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    out["b"] = phase10b_step(hk, tcfg, smi)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        phase10b_cli(hk, Path(tmp))
+        log(f"  phase 10b in {time.perf_counter() - t1:.1f} s")
+        t2 = time.perf_counter()
+        out["c"] = phase10c(Path(tmp), tcfg, hcfg, smi)
+        log(f"  phase 10c in {time.perf_counter() - t2:.1f} s")
+    log(f"  phase 10 in {time.perf_counter() - t0:.1f} s; {smi}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2681,6 +3072,9 @@ def main() -> int:
     t9 = time.perf_counter()
     phase9(hk, check, tcfg, hcfg, smi)
     log(f"  phase 9 in {time.perf_counter() - t9:.1f} s; {smi}")
+
+    log("phase 10: GMM and DCA attention, training with the heads, convert")
+    phase10(hk, check, tcfg, hcfg, smi)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

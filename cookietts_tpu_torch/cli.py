@@ -40,9 +40,13 @@ The checkpoints are the port's own (``torch.save`` trees with a
 ``state_dict`` and the JSON sidecar the train command writes). Without
 ``--vocoder``, ``tts`` writes the mel as ``.npy``.
 
-The other models' trainers, training with the GST / EmotionNet heads,
-multi-host runs and ``--tp`` / ``--sp`` above 1 (which raise), serving an
-exported artifact (``--artifact`` exits) and the ``convert`` command are not
+Reference CookieTTS checkpoints become the port's (convert/reference.py):
+
+    python -m cookietts_tpu_torch convert --model tacotron2|waveglow|hifigan|\
+        torchmoji|gst|emotionnet|auxemotionnet --torch_ckpt X.pt|X.npz -o Y
+
+The other models' trainers, multi-host runs and ``--tp`` / ``--sp`` above 1
+(which raise) and serving an exported artifact (``--artifact`` exits) are not
 ported yet.
 """
 from __future__ import annotations
@@ -223,13 +227,11 @@ def _train_tacotron2(args):
     from .runtime.checkpoint import load_checkpoint, warm_start
     from .runtime.optim import adam
     from .runtime.train_state import TrainState
-    from .models.tacotron2 import refuse_training_heads
     from .runtime.trainer import (
         Trainer, TrainerConfig, make_tacotron2_eval_step,
         make_tacotron2_inference_eval_step, make_tacotron2_train_step)
 
     overrides = parse_override_string(args.hparams) if args.hparams else {}
-    refuse_training_heads(_tacotron2_config(overrides))
     device = resolve_device(args.device)
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
@@ -241,6 +243,10 @@ def _train_tacotron2(args):
     dcfg = DataConfig(**{k: v for k, v in overrides.items()
                          if k in set(DataConfig.__dataclass_fields__)})
     features = ["text", "mel", "speaker_id", "sylps", "gate"]
+    if overrides.get("use_emotionnet"):
+        # the filelist's emotion ids reach EmotionNet and sup_em_nll
+        # (n_emotion_classes is a key of both configs)
+        features.append("emotion_id")
     entries, val_entries, val_desc = _heldout_split(args, entries)
     dataset = TTSDataset(entries, dcfg, features=features)
     model, mcfg = _build_tacotron2(overrides, device, args.seed)
@@ -769,6 +775,15 @@ def cmd_server(args):
         serve(t2s, port=args.port)
 
 
+def cmd_convert(args):
+    """A reference torch checkpoint -> a port checkpoint with its sidecar
+    (cookietts_tpu/cli.py:cmd_convert)."""
+    from .convert.reference import convert_checkpoint
+    meta = convert_checkpoint(args.model, args.torch_ckpt, args.output)
+    print(f"converted {args.model} -> {args.output} (sidecar {meta})")
+    return meta
+
+
 def _add_t2s_args(sp):
     sp.add_argument("--artifact", default=None,
                     help="an exported serving artifact (not ported yet: "
@@ -853,6 +868,16 @@ def build_parser() -> argparse.ArgumentParser:
     tt.add_argument("--cat_silence_s", type=float, default=0.0)
     tt.add_argument("--seed", type=int, default=0)
     tt.set_defaults(fn=cmd_tts)
+
+    from .convert.reference import MODELS
+    c = sub.add_parser("convert", help="convert a reference torch checkpoint "
+                       "into the port's checkpoint format")
+    c.add_argument("--model", choices=MODELS, required=True)
+    c.add_argument("--torch_ckpt", required=True,
+                   help=".pt/.pth (unpickled: trusted files only) or an .npz "
+                        "of the state dict")
+    c.add_argument("-o", "--output", required=True)
+    c.set_defaults(fn=cmd_convert)
     return p
 
 

@@ -173,8 +173,9 @@ def torchmoji_state_dict_from_jax(params: Mapping[str, Any]
 def tacotron2_state_dict_from_jax(params: Mapping[str, Any],
                                   batch_stats: Mapping[str, Any]
                                   ) -> Dict[str, torch.Tensor]:
-    """State dict for models/tacotron2.py:Tacotron2 (attention type 0), the
-    GST and EmotionNet heads included where the params hold them."""
+    """State dict for models/tacotron2.py:Tacotron2 of every attention type
+    (by the attention params' names), the GST and EmotionNet heads included
+    where the params hold them."""
     sd: Dict[str, torch.Tensor] = {}
     sd["embedding.weight"] = _t(params["embedding"]["embedding"])
     sd["speaker_embedding.weight"] = _t(params["speaker_embedding"]["embedding"])
@@ -223,11 +224,20 @@ def tacotron2_state_dict_from_jax(params: Mapping[str, Any],
         if name in cell:
             _zoneout_cell(sd, f"decoder.{name}", cell[name]["gates"])
     att, key = cell["attention"], "decoder.attention_layer"
-    for name in ("query_layer", "memory_layer", "v"):
-        _lin(sd, f"{key}.{name}.linear_layer", att[name])
-    _conv(sd, f"{key}.location_layer.location_conv.conv", att["location_conv"])
-    _lin(sd, f"{key}.location_layer.location_dense.linear_layer",
-         att["location_dense"])
+    if "lin" in att:                     # GMM: the reference's F Sequential
+        _lin(sd, f"{key}.F.0.linear_layer", att["F"])
+        _lin(sd, f"{key}.F.2", att["lin"])
+    elif "dynamic_fc" in att:            # DCA: JAX's module names
+        for name in ("dynamic_fc", "W_static", "W_dynamic", "v"):
+            _lin(sd, f"{key}.{name}", att[name])
+        _conv(sd, f"{key}.static_conv", att["static_conv"])
+    else:
+        for name in ("query_layer", "memory_layer", "v"):
+            _lin(sd, f"{key}.{name}.linear_layer", att[name])
+        _conv(sd, f"{key}.location_layer.location_conv.conv",
+              att["location_conv"])
+        _lin(sd, f"{key}.location_layer.location_dense.linear_layer",
+             att["location_dense"])
     if "window_offset" in att:
         sd[f"{key}.windowed_att_pos_offset"] = _t(att["window_offset"])
     if "exp_smoothing_factor" in att:

@@ -6,8 +6,11 @@ Rebuild of the reference's TTSDataset
 (CookieTTS/utils/dataset/data_utils.py:329-905):
 
 - features are selected by NAME: text, mel, speaker_id, sylps, gate,
-  torchmoji (the NAR models' durations, f0 and energy, and EmotionNet's
-  emotion ids, are not ported yet).
+  torchmoji, emotion_id (the NAR models' durations, f0 and energy are not
+  ported yet). ``emotion_id`` is the filelist's (-1 when it has none);
+  collate maps every id outside [0, n_emotion_classes) to the "unknown"
+  class n_emotion_classes and adds the ``emotion_onehot`` rows (zero for
+  unknown ids).
 - batches are padded to BUCKETED static shapes (text and mel lengths are
   rounded up to bucket boundaries), so a run sees a handful of shapes
   instead of one per batch — replaces the reference's sort-by-length
@@ -80,6 +83,8 @@ class DataConfig:
     cache_mels: bool = True
     force_load: bool = True
     torchmoji_dim: int = 2304
+    # semi-supervised emotion (id == n_emotion_classes -> unlabelled)
+    n_emotion_classes: int = 16
 
 
 def mel_cache_hash(cfg: "DataConfig") -> str:
@@ -105,7 +110,8 @@ def bucket_size(n: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
-FEATURES = ("text", "mel", "speaker_id", "sylps", "gate", "torchmoji")
+FEATURES = ("text", "mel", "speaker_id", "sylps", "gate", "torchmoji",
+            "emotion_id")
 
 
 class TTSDataset:
@@ -373,6 +379,8 @@ class TTSDataset:
             out["transcript"] = e["quote"]
         if "speaker_id" in self.features:
             out["speaker_id"] = int(e.get("speaker_id", 0))
+        if "emotion_id" in self.features:
+            out["emotion_id"] = int(e.get("emotion_id", -1))   # -1: unknown
         if "sylps" in self.features:
             n_syl = audio_io.count_syllables(e["quote"])
             # mel_length when the mel was built; otherwise the cheap
@@ -559,6 +567,15 @@ def collate(items: Sequence[Dict[str, Any]],
     if "speaker_id" in items[0]:
         out["speaker_id"] = np.asarray([it["speaker_id"] for it in items],
                                        np.int32)
+    if "emotion_id" in items[0]:
+        C = cfg.n_emotion_classes
+        ids = np.asarray([it["emotion_id"] for it in items], np.int32)
+        unknown = (ids < 0) | (ids >= C)
+        out["emotion_id"] = np.where(unknown, C, ids).astype(np.int32)
+        onehot = np.zeros((len(items), C), np.float32)
+        known = np.nonzero(~unknown)[0]
+        onehot[known, ids[known]] = 1.0
+        out["emotion_onehot"] = onehot
     if "sylps" in items[0]:
         out["sylps"] = np.asarray([it["sylps"] for it in items], np.float32)
     if "torchmoji" in items[0]:

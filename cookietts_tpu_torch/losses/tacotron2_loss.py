@@ -2,7 +2,10 @@
 
 Mask-weighted means over the padded shapes: decoder and postnet MSE and
 MFSE, the gate BCE with a positive weight, the SylpsNet KLD and regression,
-and the diagonal guided-attention prior, summed with ``DEFAULT_LOSS_SCALARS``
+and the diagonal guided-attention prior, and, when the model emits the GST /
+EmotionNet heads' outputs, the emotion VAE's KLD, the supervised class NLL
+over the rows with a known label and the text-only AuxEmotionNet's MSE to
+the (detached) EmotionNet latents; summed with ``DEFAULT_LOSS_SCALARS``
 (each overridable). Alongside: per-file losses [B] for dataset curation and
 the alignment metrics (no gradient).
 """
@@ -32,7 +35,8 @@ DEFAULT_LOSS_SCALARS: Dict[str, float] = {
     "aux_em_MSE_weight": 0.1,
 }
 _TERMS = ("spec_MSE", "spec_MFSE", "postnet_MSE", "postnet_MFSE", "gate_loss",
-          "sylps_kld", "sylps_MSE", "sylps_MAE", "diag_att")
+          "sylps_kld", "sylps_MSE", "sylps_MAE", "diag_att", "em_kld",
+          "sup_em_nll", "aux_em_MSE")
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -79,7 +83,8 @@ def tacotron2_loss(pred: Dict[str, torch.Tensor], gt: Dict[str, torch.Tensor],
                               Dict[str, torch.Tensor]]:
     """(total, loss_dict, per-file losses [B]) of the model's outputs
     ``pred`` against the batch ``gt`` (mels, mel_lengths, text_lengths,
-    gate_target, sylps, optional pres_prev_state)."""
+    gate_target, sylps, optional pres_prev_state, emotion_id and
+    emotion_onehot)."""
     scalars = dict(DEFAULT_LOSS_SCALARS)
     scalars.update(loss_scalars or {})
     gt_mel = gt["mels"].float()
@@ -114,9 +119,25 @@ def tacotron2_loss(pred: Dict[str, torch.Tensor], gt: Dict[str, torch.Tensor],
     loss["diag_att"] = guided_attention_loss(
         pred["alignments"], text_lengths, mel_lengths, guided_att_sigma, item_w)
 
+    if "em_zu_mu" in pred:
+        em_mu, em_logvar = pred["em_zu_mu"].float(), pred["em_zu_logvar"].float()
+        loss["em_kld"] = -0.5 * (1.0 + em_logvar - em_logvar.exp()
+                                 - em_mu ** 2).sum() / B
+        em_zs = pred["em_zs"].float()             # log-probabilities
+        if "emotion_onehot" in gt and "emotion_id" in gt:
+            known = (gt["emotion_id"] != em_zs.shape[-1]).float()
+            nll = -(em_zs * gt["emotion_onehot"].float()).sum(-1)
+            loss["sup_em_nll"] = (nll * known).sum() / known.sum().clamp_min(1.0)
+        if "aux_zs" in pred:
+            loss["aux_em_MSE"] = (
+                ((pred["aux_zs"].float().exp() - em_zs.exp().detach()) ** 2).mean()
+                + ((pred["aux_zu_mu"].float() - em_mu.detach()) ** 2).mean()
+                + ((pred["aux_zu_logvar"].float() - em_logvar.detach()) ** 2).mean())
+
     total = torch.zeros((), device=gt_mel.device)
     for name in _TERMS:
-        total = total + loss[name] * scalars[f"{name}_weight"]
+        if name in loss:
+            total = total + loss[name] * scalars[f"{name}_weight"]
     loss["loss"] = total
 
     with torch.no_grad():

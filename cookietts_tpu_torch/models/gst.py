@@ -20,10 +20,9 @@ Flax's GRU has no bias on the hidden side of the r and z gates; torch's
 ``nn.GRU`` has, and ``convert.from_jax`` sets those to zero.
 
 In eval mode the VAE draws return the mean. In training mode the BatchNorms
-normalise by the batch statistics (torch and flax both divide by the biased
-variance; their running averages move differently, which only training
-would see) and every draw comes from the ``generator`` passed in, or is the
-``eps`` given.
+follow flax (ops/batchnorm.py: the biased batch variance, running averages
+moved by 0.01) and every draw comes from the ``generator`` passed in, or is
+the ``eps`` given.
 """
 from __future__ import annotations
 
@@ -35,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import LinearNorm
+from ..ops.batchnorm import BatchNorm2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +70,7 @@ class ConvBN2d(nn.Conv2d):
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(in_ch, out_ch, 3, stride=2, padding=1, bias=False)
-        self.batch_norm = nn.BatchNorm2d(out_ch, eps=1e-3)
+        self.batch_norm = BatchNorm2d(out_ch, eps=1e-3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.batch_norm(super().forward(x)))

@@ -6,13 +6,15 @@ outputs, speaker embedding, SylpsNet z, crushed torchMoji, and with
 ``use_gst`` / ``use_emotionnet`` the GST style embedding and the emotion
 latents, models/gst.py and models/emotionnet.py; bottleneck) ->
 autoregressive decoder (prenet with always-on dropout, attention-RNN,
-location-sensitive windowed attention, decoder RNNs, mel projection and
-gate) -> postnet. Mels are [B, T, n_mel], alignments [B, T_dec, T_enc].
+the attention ``attention_type`` names: 0 location-sensitive and windowed,
+1 GMM, 2 dynamic convolution; decoder RNNs, mel projection and gate) ->
+postnet. Mels are [B, T, n_mel], alignments [B, T_dec, T_enc].
 
 The decoder runs in chunks of steps (``Decoder.decode_chunk``), one step at
 a time in Python; the per-step work runs in the ``lstm_gates`` (three cells)
-and ``attention_step`` kernels. ``Decoder.inference`` is a loop over chunks,
-through ``chunk_fn`` when the caller passes one (``pipeline/chunk_graph.py``:
+and, for attention type 0, ``attention_step`` kernels (GMM and DCA are plain
+PyTorch, as they are plain XLA in JAX). ``Decoder.inference`` is a loop over
+chunks, through ``chunk_fn`` when the caller passes one (``pipeline/chunk_graph.py``:
 the chunk captured as a CUDA graph). ``early_exit`` stops one chunk after
 every row's gate has fired, as the JAX while-loop does; frames after the last
 chunk run stay zero (gates -1e4). ``Tacotron2.inference_prepare`` /
@@ -24,11 +26,10 @@ chunk run stay zero (gates -1e4). ``Tacotron2.inference_prepare`` /
 drawn per step, the per-lane TBPTT carry), with drop-frame and the postnet.
 ``train()`` switches on the encoder conv dropout, BatchNorm batch statistics
 (flax's: the biased variance over every position, momentum 0.99), SylpsNet
-sampling, the LSTM cells' zoneout and dropout and the postnet dropout (0.5,
-fixed as in JAX). Randomness comes from the ``generator`` passed in. The
-model starts in eval mode; the inference methods always run in eval form.
-Training with the style heads raises (their loss terms are not ported), as
-does an ``attention_type`` other than 0.
+sampling, the LSTM cells' zoneout and dropout, the postnet dropout (0.5,
+fixed as in JAX) and the style heads' dropouts and draws. Randomness comes
+from the ``generator`` passed in. The model starts in eval mode; the
+inference methods always run in eval form.
 
 Submodule and parameter names follow the reference torch checkpoint, so its
 ``state_dict`` (and ``convert.from_jax``'s) loads as it is. The reference's
@@ -46,8 +47,10 @@ import torch.utils._pytree as pytree
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.attention import (AttentionState, ConvNorm, LinearNorm,
+from ..ops.attention import (ConvNorm, DynamicConvolutionAttention,
+                             GMMAttention, LinearNorm,
                              LocationSensitiveAttention)
+from ..ops.batchnorm import BatchNorm1d
 from ..ops.lstm import ZoneoutLSTMCell
 from ..ops.masking import (dropout, dropout_frame, get_first_over_thresh,
                            get_mask_from_lengths)
@@ -123,7 +126,7 @@ class Tacotron2Config:
     postnet_kernel_size: int = 5
     postnet_n_convolutions: int = 6
     postnet_residual_connections: int = 3
-    # style heads (inference and the eval forward; training not ported)
+    # style heads
     use_gst: bool = False
     gst_token_num: int = 10
     gst_token_embedding_size: int = 256
@@ -139,31 +142,6 @@ class Tacotron2Config:
     max_decoder_steps: int = 3000
     # precision
     dtype: Any = torch.float32
-
-
-class BatchNorm1d(nn.BatchNorm1d):
-    """BatchNorm with flax's training statistics: normalise by the biased
-    batch variance E[x^2] - E[x]^2 over every position but the channel one
-    (padding included), and move the running averages by 1 - 0.99 with that
-    same variance. Eval uses the running averages as nn.BatchNorm1d does."""
-
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-5, momentum=0.01)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        dims = [0] + list(range(2, x.dim()))
-        shape = [1, -1] + [1] * (x.dim() - 2)
-        mean = x.mean(dims)
-        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
-            self.num_batches_tracked.add_(1)
-        y = (x - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
-        return y * self.weight.view(shape) + self.bias.view(shape)
 
 
 class Prenet(nn.Module):
@@ -337,14 +315,27 @@ class Decoder(nn.Module):
         self.attention_rnn = ZoneoutLSTMCell(
             attn_in, cfg.attention_rnn_dim, cfg.attrnn_zoneout,
             cfg.p_attrnn_dropout)
-        self.attention_layer = LocationSensitiveAttention(
-            cfg.attention_rnn_dim, mem, cfg.attention_dim,
-            cfg.attention_location_n_filters,
-            cfg.attention_location_kernel_size,
-            cfg.windowed_attention_range, cfg.windowed_att_pos_learned,
-            cfg.windowed_att_pos_offset, cfg.attention_learned_temperature)
-        if cfg.windowed_attention_range > 0:
-            self.exp_smoothing_factor = nn.Parameter(torch.zeros(1))
+        q = cfg.attention_rnn_dim
+        if cfg.attention_type == 0:
+            self.attention_layer = LocationSensitiveAttention(
+                q, mem, cfg.attention_dim, cfg.attention_location_n_filters,
+                cfg.attention_location_kernel_size,
+                cfg.windowed_attention_range, cfg.windowed_att_pos_learned,
+                cfg.windowed_att_pos_offset, cfg.attention_learned_temperature)
+            if cfg.windowed_attention_range > 0:
+                self.exp_smoothing_factor = nn.Parameter(torch.zeros(1))
+        elif cfg.attention_type == 1:
+            self.attention_layer = GMMAttention(
+                q, cfg.num_att_mixtures, cfg.attention_dim,
+                cfg.delta_min_limit, cfg.delta_offset)
+        elif cfg.attention_type == 2:
+            self.attention_layer = DynamicConvolutionAttention(
+                q, cfg.attention_dim, dynamic_channels=cfg.dynamic_filter_num,
+                dynamic_kernel_size=cfg.dynamic_filter_len)
+        else:
+            raise ValueError(f"attention_type={cfg.attention_type}: 0 "
+                             "(location-sensitive), 1 (GMM) or 2 (dynamic "
+                             "convolution)")
         self.decoder_rnn = ZoneoutLSTMCell(
             cfg.attention_rnn_dim + mem, cfg.decoder_rnn_dim,
             cfg.decrnn_zoneout, cfg.p_decrnn_dropout)
@@ -364,7 +355,7 @@ class Decoder(nn.Module):
         return DecoderState(
             attn=z(cfg.attention_rnn_dim), dec=z(cfg.decoder_rnn_dim),
             dec2=z(max(cfg.second_decoder_rnn_dim, 1)),
-            attention=LocationSensitiveAttention.init_state(batch, t_enc, device),
+            attention=self.attention_layer.init_state(batch, t_enc, device),
             context=torch.zeros(batch, self.memory_dim, device=device),
             prev_output=torch.zeros(
                 batch, cfg.n_mel_channels * cfg.n_frames_per_step, device=device),
@@ -572,25 +563,9 @@ def _eval_form(method):
     return run
 
 
-def refuse_training_heads(cfg: Tacotron2Config) -> None:
-    """Training with the GST / EmotionNet heads needs their loss terms,
-    which the port does not have yet: raise rather than train without."""
-    if cfg.use_gst or cfg.use_emotionnet:
-        raise NotImplementedError(
-            "training with use_gst / use_emotionnet is not ported yet: the "
-            "heads' loss terms (em_kld, sup_em_nll and aux_em_MSE, "
-            "cookietts_tpu/losses/tacotron2_loss.py) are missing; the heads "
-            "run in inference and the eval-mode forward only")
-
-
 class Tacotron2(nn.Module):
     def __init__(self, cfg: Tacotron2Config, device: str | torch.device = "cuda"):
         super().__init__()
-        if cfg.attention_type != 0:
-            raise NotImplementedError(
-                f"attention_type={cfg.attention_type}: GMM (1) and dynamic "
-                "convolution (2) attention are not ported yet; only the "
-                "location-sensitive attention (0) is")
         if cfg.dtype != torch.float32:
             raise NotImplementedError("the port's kernels run in float32")
         self.cfg = cfg
@@ -636,13 +611,16 @@ class Tacotron2(nn.Module):
 
     def _build_memory(self, text, text_lengths, speaker_id, sylps=None,
                       torchmoji_hidden=None, generator=None, sylps_noise=None,
-                      ref_mel=None, emotion_id=None, emotion_onehot=None):
+                      ref_mel=None, emotion_id=None, emotion_onehot=None,
+                      head_noise=None):
         """(memory [B, T, memory dim], heads). The parts, in JAX's order:
         encoder outputs, speaker, SylpsNet z, crushed torchMoji; with GST its
         style embedding, from ``ref_mel`` (ref_mode 1) when one is given,
         else from the raw torchMoji hidden (ref_mode 3); with EmotionNet
         exp(zs) and zu, from EmotionNet over ``ref_mel`` when one is given,
-        else from AuxEmotionNet. Then the bottleneck."""
+        else from AuxEmotionNet. Then the bottleneck. In training the heads
+        draw their dropout and zu from ``generator``; ``head_noise`` (keys
+        ``emotion_net``, ``aux_emotion_net``) sets zu's eps instead."""
         cfg = self.cfg
         B, T = text.shape
         # out-of-range ids would index out of the table: clamp like JAX
@@ -662,19 +640,22 @@ class Tacotron2(nn.Module):
         parts = [enc_out, spk, syl_zu, tm]
         heads = {"pred_sylps": pred_sylps, "syl_mu": syl_mu,
                  "syl_logvar": syl_logvar}
+        noise = head_noise or {}
         if cfg.use_gst:
-            gst = (self.gst(ref_mel, ref_mode=1) if ref_mel is not None
-                   else self.gst(tm_hidden, ref_mode=3))
+            gst = (self.gst(ref_mel, 1, generator) if ref_mel is not None
+                   else self.gst(tm_hidden, 3, generator))
             parts.append(gst["style_embedding"])
             heads["gst_style_tokens"] = gst["style_tokens"]
         if cfg.use_emotionnet:
-            aux = self.aux_emotion_net(tm_hidden, spk, enc_out, text_lengths)
+            aux = self.aux_emotion_net(tm_hidden, spk, enc_out, text_lengths,
+                                       generator, noise.get("aux_emotion_net"))
             heads.update({"aux_zs": aux["zs"], "aux_zu_mu": aux["zu_mu"],
                           "aux_zu_logvar": aux["zu_logvar"]})
             zs, zu = aux["zs"], aux["zu"]
             if ref_mel is not None:
                 em = self.emotion_net(ref_mel, spk, enc_out, text_lengths,
-                                      emotion_id, emotion_onehot)
+                                      emotion_id, emotion_onehot, generator,
+                                      noise.get("emotion_net"))
                 zs, zu = em["ss_zs"], em["zu"]
                 heads.update({"em_zs": em["zs"], "em_zu_mu": em["zu_mu"],
                               "em_zu_logvar": em["zu_logvar"]})
@@ -703,23 +684,25 @@ class Tacotron2(nn.Module):
                 pres_prev_state: Optional[torch.Tensor] = None,
                 sylps_noise: Optional[torch.Tensor] = None,
                 emotion_id: Optional[torch.Tensor] = None,
-                emotion_onehot: Optional[torch.Tensor] = None):
+                emotion_onehot: Optional[torch.Tensor] = None,
+                head_noise: Optional[Dict[str, torch.Tensor]] = None):
         """Teacher-forced forward over tensors on the model's device ->
         (outputs, TrainCarry) (JAX ``Tacotron2.__call__``). In training,
         drop-frame replaces valid input frames with ``global_mean`` at
         ``drop_frame_rate`` (the loss targets stay as they are); every draw
-        comes from ``generator`` (``sylps_noise`` [B] sets SylpsNet's eps).
+        comes from ``generator`` (``sylps_noise`` [B] sets SylpsNet's eps,
+        ``head_noise`` the emotion heads', see ``_build_memory``).
         Mels past ``mel_lengths`` are zeroed in the outputs. With the GST /
-        EmotionNet heads the target mels are their reference (eval mode
-        only: training with the heads raises)."""
+        EmotionNet heads the target mels are their reference, and the
+        outputs hold the heads' (em_zs, em_zu_mu, em_zu_logvar, aux_zs,
+        aux_zu_mu, aux_zu_logvar, gst_style_tokens) for the loss."""
         cfg = self.cfg
         heads_on = cfg.use_gst or cfg.use_emotionnet
-        if self.training:
-            refuse_training_heads(cfg)
         memory, heads = self._build_memory(
             text, text_lengths, speaker_id, sylps, torchmoji_hidden, generator,
             sylps_noise, ref_mel=mels if heads_on else None,
-            emotion_id=emotion_id, emotion_onehot=emotion_onehot)
+            emotion_id=emotion_id, emotion_onehot=emotion_onehot,
+            head_noise=head_noise)
         dec_target = mels
         if self.training and global_mean is not None:
             dec_target = dropout_frame(mels, global_mean, mel_lengths,

@@ -53,7 +53,7 @@ from .logging_util import FileLossDB, MetricsLogger
 from .optim import AdamState, ReduceLROnPlateau, clip_by_global_norm
 from .train_state import GANTrainState, TrainState
 
-_INT_KEYS = ("text", "text_lengths", "mel_lengths", "speaker_id")
+_INT_KEYS = ("text", "text_lengths", "mel_lengths", "speaker_id", "emotion_id")
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -70,15 +70,22 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 def _model_inputs(batch):
+    """The model's inputs; the emotion labels (when the batch has them)
+    reach EmotionNet, whose known rows take their one-hot."""
     return dict(text=batch["text"], text_lengths=batch["text_lengths"],
                 mels=batch["mels"], mel_lengths=batch["mel_lengths"],
                 speaker_id=batch["speaker_id"], sylps=batch["sylps"],
-                torchmoji_hidden=batch.get("torchmoji"))
+                torchmoji_hidden=batch.get("torchmoji"),
+                emotion_id=batch.get("emotion_id"),
+                emotion_onehot=batch.get("emotion_onehot"))
 
 
 def _targets(batch):
-    return {k: batch[k] for k in ("mels", "mel_lengths", "text_lengths",
-                                  "sylps", "gate_target")}
+    """The loss's targets, with the emotion labels for sup_em_nll."""
+    keys = ("mels", "mel_lengths", "text_lengths", "sylps", "gate_target")
+    if "emotion_id" in batch:
+        keys += ("emotion_id", "emotion_onehot")
+    return {k: batch[k] for k in keys}
 
 
 def make_tacotron2_train_step(model, gate_positive_weight: float = 10.0,

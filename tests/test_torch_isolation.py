@@ -195,3 +195,67 @@ def test_streaming_and_server_import_without_jax_or_tornado():
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "make_app: blocked tornado" in proc.stdout
+
+
+@pytest.mark.parametrize("entry", ["gmm", "dca", "train-heads"])
+def test_attention_types_and_heads_training_raise_without_cuda(
+        monkeypatch, tmp_path, entry):
+    """A Tacotron2 of attention type 1 or 2, and the train command with the
+    GST and EmotionNet heads, run on the card unless asked for the CPU."""
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2, Tacotron2Config
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "train-heads":
+        args = ["train", "--filelist", str(tmp_path / "absent.txt"),
+                "--run_dir", str(tmp_path),
+                "--hparams", "use_gst=True,use_emotionnet=True"]
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli(args)
+        with pytest.raises(FileNotFoundError):      # past the device
+            cli(args + ["--device", "cpu"])
+        return
+    cfg = Tacotron2Config(
+        n_symbols=20, symbols_embedding_dim=8, n_speakers=2,
+        speaker_embedding_dim=4, encoder_speaker_embed_dim=2,
+        encoder_conv_hidden_dim=8, encoder_lstm_dim=8, torchmoji_dim=4,
+        torchmoji_crushed_dim=2, memory_bottleneck_dim=8, prenet_dim=4,
+        attention_rnn_dim=8, decoder_rnn_dim=8, second_decoder_rnn_dim=8,
+        attention_dim=4, postnet_embedding_dim=8, num_att_mixtures=2,
+        dynamic_filter_num=2, dynamic_filter_len=5,
+        attention_type={"gmm": 1, "dca": 2}[entry])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Tacotron2(cfg)
+    assert Tacotron2(cfg, device="cpu").device.type == "cpu"
+
+
+_CONVERT_WITHOUT_JAX = """
+import sys
+BLOCKED = {blocked!r}
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked " + name)
+
+for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
+    del sys.modules[name]
+sys.meta_path.insert(0, Block())
+import torch
+from cookietts_tpu_torch.cli import main
+from cookietts_tpu_torch.models.torchmoji import TorchMoji
+torch.save(TorchMoji(16, device="cpu").state_dict(), sys.argv[1] + "/tm.bin")
+meta = main(["convert", "--model", "torchmoji", "--torch_ckpt",
+             sys.argv[1] + "/tm.bin", "-o", sys.argv[1] + "/tm.pt"])
+print(meta["model_config"]["nb_tokens"])
+"""
+
+
+def test_convert_command_runs_without_jax(tmp_path):
+    """The convert command (convert/reference.py) reads and writes torch
+    files with jax, flax and cookietts_tpu unimportable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _CONVERT_WITHOUT_JAX.format(blocked=FORBIDDEN),
+         str(tmp_path)], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "16"
+    assert (tmp_path / "tm.pt").exists() and (tmp_path / "tm.pt.json").exists()

@@ -142,7 +142,7 @@ def test_location_sensitive_attention_windowed(models):
             torch.from_numpy(q), mem_t,
             att.precompute(mem_t, torch.from_numpy(LENGTHS)),
             AttentionState(torch.from_numpy(w), torch.from_numpy(wc),
-                           torch.from_numpy(pos)),
+                           torch.from_numpy(pos), torch.zeros(B, 1)),
             port.decoder.exp_smoothing_factor)
     # the window really masks: some in-length positions carry no weight
     assert (w_r[0] == 0).any()

@@ -5,9 +5,8 @@ Without a reference mel the heads take the torchMoji hidden (GST ref_mode 3,
 AuxEmotionNet); with one, GST ref_mode 1 and EmotionNet. The memory
 assembly (with and without a reference), inference and the streaming entry
 (without: JAX's inference takes none) and the eval-mode teacher-forced
-forward (its target mels are the reference) are held to JAX;
-training with the heads, an attention type other than 0, and the train
-command with the heads are refused.
+forward (its target mels are the reference) are held to JAX; the model
+with the heads trains, and attention types 1 and 2 build.
 """
 import jax
 import jax.numpy as jnp
@@ -133,20 +132,48 @@ def test_eval_forward_matches_jax(models):
 
 
 def test_training_with_heads_and_other_attention_refused(models, tmp_path):
+    """Once refusals, now positive checks (the test keeps its name): the
+    model with both heads trains (its loss has the three emotion terms and
+    every head gets a gradient), attention types 1 and 2 build, and the
+    train command with each head gets past its configuration (to the absent
+    filelist)."""
     from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.losses import tacotron2_loss
     _, _, port, inputs, mels = models
     t = {k: torch.as_tensor(x) for k, x in inputs.items()}
+    ids = torch.tensor([1, HEADS["n_emotion_classes"]])
+    onehot = torch.nn.functional.one_hot(ids.clamp_max(2), 3).float()
+    onehot[1] = 0.0
     port.train()
     try:
-        with pytest.raises(NotImplementedError, match="em_kld"):
-            port(t["text"], t["text_lengths"], torch.from_numpy(mels),
-                 torch.full((B,), T_MEL), t["speaker_id"], torch.full((B,), 4.0))
+        out, _ = port(t["text"], t["text_lengths"], torch.from_numpy(mels),
+                      torch.full((B,), T_MEL), t["speaker_id"],
+                      torch.full((B,), 4.0), t["torchmoji_hidden"],
+                      generator=torch.Generator().manual_seed(0),
+                      emotion_id=ids, emotion_onehot=onehot)
+        gate = (torch.arange(T_MEL)[None] >= T_MEL - 1).float().expand(B, -1)
+        total, ld, _ = tacotron2_loss(out, {
+            "mels": torch.from_numpy(mels), "mel_lengths": torch.full((B,), T_MEL),
+            "text_lengths": t["text_lengths"], "sylps": torch.full((B,), 4.0),
+            "gate_target": gate, "emotion_id": ids, "emotion_onehot": onehot})
+        total.backward()
     finally:
         port.eval()
-    with pytest.raises(NotImplementedError, match="attention_type=1"):
-        Tacotron2(Tacotron2Config(**{**TINY, "attention_type": 1}), device="cpu")
+    assert all(torch.isfinite(ld[k]) for k in ("em_kld", "sup_em_nll",
+                                                "aux_em_MSE", "loss"))
+    # (GST's map_lin serves the torchMoji path only: no gradient from a mel)
+    for head in ("gst.ref_encoder.", "gst.att.", "emotion_net.",
+                 "aux_emotion_net."):
+        grads = [p.grad for n, p in port.named_parameters() if n.startswith(head)]
+        assert grads and all(g is not None for g in grads), head
+    port.zero_grad(set_to_none=True)
+    for att in (1, 2):
+        taco = Tacotron2(Tacotron2Config(**{**TINY, "attention_type": att}),
+                         device="cpu")
+        assert type(taco.decoder.attention_layer).__name__ == (
+            "GMMAttention" if att == 1 else "DynamicConvolutionAttention")
     for heads in ("use_gst=True", "use_emotionnet=True"):
-        with pytest.raises(NotImplementedError, match="aux_em_MSE"):
+        with pytest.raises(FileNotFoundError):
             cli(["train", "--device", "cpu", "--filelist",
                  str(tmp_path / "absent.txt"), "--run_dir", str(tmp_path),
                  "--hparams", heads])

@@ -130,7 +130,7 @@ def to_port_carry(c) -> TrainCarry:
         (t(c.dec_cell[0]), t(c.dec_cell[1])),
         (t(c.dec2_cell[0]), t(c.dec2_cell[1])),
         AttentionState(t(c.attention.weights), t(c.attention.weights_cum),
-                       t(c.attention.position)),
+                       t(c.attention.position), t(c.attention.mu)),
         t(c.context), t(c.prev_output), t(c.finished)), t(c.prev_teacher))
 
 
