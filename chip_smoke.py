@@ -21,7 +21,11 @@ non-zero:
    kernel at batch 1, 4 and 32 for the three decoder cells (two calls must
    give the same bits; timed beside nn.LSTMCell), the two WN kernels of the
    flow vocoders at batch 1 and 4, at a request's length, at 1500 and at
-   the main path's (each with the tiles wn_layer_plan picks).
+   the main path's (each with the tiles wn_layer_plan picks), and at the
+   widths C = 512 (the reference WaveFlow's), 384, 96, 48 and 50 (past C
+   the kernels stage zeros) at batch 1 and a request's length, each call
+   making the launches wn_launches predicts. Every kernel is a
+   torch.library custom op (torch.ops.cookietts_tpu_torch.*).
 4. the main path: T2S -> Tacotron2 (Tacotron2Config() defaults) -> HiFi-GAN
    (the bench-serving generator) at full width with random weights from a
    seed, answering 3 requests (one of them multi-segment); T2S decodes
@@ -144,6 +148,23 @@ non-zero:
    in the reference layout: each converted state dict equals its source bit
    for bit; the converted Tacotron2 and HiFi-GAN served through _build_t2s
    give phase 9's checkpoints' mels and audio exactly.
+11. serving exported artifacts (runtime/export_serving.py: torch.export
+   programs calling the kernels' custom ops). 11a: `python -m
+   cookietts_tpu_torch export` as a process on phase 9's seeded Tacotron2
+   (GST and EmotionNet) and HiFi-GAN (B=4, one text bucket of 64, 128 steps,
+   gate threshold 2), its wall time and bytes; then `tts --artifact` as a
+   process with phase 9a's flags: the WAV's length, the stats line, exact
+   launches, its cold wall time beside 9a's --checkpoint process. 11b: three
+   requests through _build_t2s(--artifact)'s worker, launch counters zeroed
+   just before (attention_step 1 and lstm_gates 3 a decode step, the
+   resblock its launches a vocoder call), mels and audio against the live
+   --checkpoint worker at the same seeds (phase 5's tolerance), a warm
+   request's ms of each, the artifact's chunk captures and replays. 11c:
+   phase 4b's WaveGlow (ISO 226 de-emphasis off, then on) and WaveFlow
+   exported as vocoder artifacts: each vocode against the live
+   WaveGlow.infer at the same z, exact WN launches, the copies of the ring
+   (auto_functionalized nodes) in the WaveFlow program, vocode ms against
+   the live infer's.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -807,6 +828,64 @@ def phase3_flow(hk, check):
                       lambda: time_ms(lambda: hk.waveflow_row_step_plain(
                           x_prev, queues, cond, *w), 3))
             del ring, queues, cond
+    torch.cuda.synchronize()
+
+
+def phase3_widths(hk, check, T=250):
+    """Every WN width on the card: both kernels against their plain
+    versions at C = 512 (the reference WaveFlow's), 384, 96, 48 (not a
+    multiple of 32: the last K step and channel block staged with zeros)
+    and 50 (not a multiple of 4 either: the weights staged in 4-byte
+    copies), B = 1, at a request's length, each call making the launches
+    wn_launches predicts; each timed beside its plain version."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    L, kw, kh, times = 8, 3, 3, {}
+    for C in (512, 384, 96, 48, 50):
+        log(f"    WN width C={C}: waveglow {plan_text(hk, 1, C, T, 1, kw)}; "
+            f"waveflow {plan_text(hk, 1, C, T, kh, kw)}")
+        w = wn_weights(gen, 4, C, 8, L, 1, kw)
+        x, cond = r(1, 4, T), r(1, L, 2 * C, T)
+        hk.reset_launch_counts()
+        got = hk.waveglow_wn_forward(x, cond, *w)
+        if hk.LAUNCHES["waveglow_wn_forward"] != hk.wn_launches(L):
+            raise SystemExit(f"chip_smoke: waveglow_wn_forward C={C} made "
+                             f"{hk.LAUNCHES['waveglow_wn_forward']} launches, "
+                             f"not {hk.wn_launches(L)}")
+        want = hk.waveglow_wn_forward_plain(x, cond, *w)
+        check("waveglow_wn_forward", got, want, *TOL["waveglow_wn_forward"],
+              f"B=1 C={C} T'={T}")
+        times[f"waveglow C={C}"] = (
+            time_ms(lambda: hk.waveglow_wn_forward(x, cond, *w), 3),
+            time_ms(lambda: hk.waveglow_wn_forward_plain(x, cond, *w), 3))
+        w = wn_weights(gen, 1, C, 2, L, kh, kw)
+        cond = r(1, L, 2 * C, T)
+        ring = torch.zeros(L, kh, 1, C, T, device="cuda")
+        queues = torch.zeros(L, kh - 1, 1, C, T, device="cuda")
+        x_prev = torch.zeros(1, T, device="cuda")
+        hk.reset_launch_counts()
+        for step in range(4):
+            log_s, t = hk.waveflow_row_step(x_prev, ring, step, cond, *w)
+            ls_p, t_p, queues = hk.waveflow_row_step_plain(x_prev, queues, cond, *w)
+            tag = f"B=1 C={C} W={T} row {step}"
+            check("waveflow_row_step", log_s, ls_p, *TOL["waveflow_row_step"],
+                  tag + " log_s")
+            check("waveflow_row_step", t, t_p, *TOL["waveflow_row_step"], tag + " t")
+            check("waveflow_row_step", hk.ring_queues(ring, step + 1), queues,
+                  *TOL["waveflow_row_step"], tag + " queues")
+            x_prev = r(1, T)
+        if hk.LAUNCHES["waveflow_row_step"] != 4 * hk.wn_launches(L):
+            raise SystemExit(f"chip_smoke: waveflow_row_step C={C} made "
+                             f"{hk.LAUNCHES['waveflow_row_step']} launches in 4 "
+                             f"rows, not {4 * hk.wn_launches(L)}")
+        times[f"waveflow C={C}"] = (
+            time_ms(lambda: hk.waveflow_row_step(x_prev, ring, 4, cond, *w), 3),
+            time_ms(lambda: hk.waveflow_row_step_plain(x_prev, queues, cond, *w), 3))
+        for key in (f"waveglow C={C}", f"waveflow C={C}"):
+            log(f"    {key}: kernel {times[key][0]:.4f} ms, plain "
+                f"{times[key][1]:.4f} ms")
+    hk.reset_launch_counts()
     torch.cuda.synchronize()
 
 
@@ -2380,12 +2459,13 @@ P9_ARPA = ("HELLO  HH AH0 L OW1\nWORLD  W ER1 L D\nQUICK  K W IH1 K\n"
 TORCHMOJI_VOCAB_WORDS = 5000
 
 
-def p9_files(tmp, tcfg, hcfg):
+def p9_files(tmp, tcfg, hcfg, flows=True):
     """Seeded checkpoints with their sidecars (Tacotron2 with GST and
-    EmotionNet at 80 and at 160 mels, the phase-4 HiFi-GAN, the phase-4b
-    WaveGlow, the full torchMoji as a pytorch_model.bin), a vocabulary of
-    the ten specials and some thousands of words, an ARPA dictionary and a
-    speaker_info.txt. Returns their paths."""
+    EmotionNet at 80 and, with ``flows``, at 160 mels, the phase-4
+    HiFi-GAN, with ``flows`` the phase-4b WaveGlow, the full torchMoji as a
+    pytorch_model.bin), a vocabulary of the ten specials and some thousands
+    of words, an ARPA dictionary and a speaker_info.txt. Returns their
+    paths."""
     import random
     import torch
     from cookietts_tpu_torch.models.hifigan import Generator
@@ -2400,7 +2480,7 @@ def p9_files(tmp, tcfg, hcfg):
                                        "vocabulary.json", "merged.dict",
                                        "speaker_info.txt")}
     for key, n_mel, seed in (("taco80", tcfg.n_mel_channels, 20),
-                             ("taco160", FLOW_MELS, 21)):
+                             ("taco160", FLOW_MELS, 21))[:2 if flows else 1]:
         torch.manual_seed(seed)
         cfg = dataclasses.replace(tcfg, n_mel_channels=n_mel, **heads)
         save_checkpoint(files[key],
@@ -2415,11 +2495,13 @@ def p9_files(tmp, tcfg, hcfg):
                     {"model": "hifigan", "model_config": config_json(hcfg),
                      "audio": {"sampling_rate": SR, "hop_length": HOP,
                                "n_mel_channels": hcfg.n_mel_channels}})
-    save_checkpoint(files["waveglow"],
-                    {"state_dict": make_flow_vocoder(WAVEGLOW, seed=23).state_dict()},
-                    {"model": "waveglow", "model_config": WAVEGLOW,
-                     "audio": {"sampling_rate": FLOW_SR, "hop_length": FLOW_HOP,
-                               "n_mel_channels": FLOW_MELS}})
+    if flows:
+        save_checkpoint(
+            files["waveglow"],
+            {"state_dict": make_flow_vocoder(WAVEGLOW, seed=23).state_dict()},
+            {"model": "waveglow", "model_config": WAVEGLOW,
+             "audio": {"sampling_rate": FLOW_SR, "hop_length": FLOW_HOP,
+                       "n_mel_channels": FLOW_MELS}})
     torch.manual_seed(24)
     torch.save(TorchMoji(device="cpu").state_dict(), files["pytorch_model.bin"])
     rng = random.Random(25)
@@ -2437,11 +2519,15 @@ def p9_files(tmp, tcfg, hcfg):
     return files
 
 
-def p9_tts(files, taco, vocoder, extra, out, smi):
+P9_COLD = {}          # the cold wall seconds of each tts process, by vocoder
+
+
+def p9_tts(files, taco, vocoder, extra, out, smi, source=None):
     """``python -m cookietts_tpu_torch tts`` in a process of its own, default
-    device; returns (its stats line, its kernel launches)."""
-    cmd = [sys.executable, "-m", "cookietts_tpu_torch", "tts",
-           "--checkpoint", files[taco], "--vocoder", files[vocoder],
+    device, from the checkpoints (or the flags ``source``, such as an
+    --artifact); returns (its stats line, its kernel launches)."""
+    source = source or ["--checkpoint", files[taco], "--vocoder", files[vocoder]]
+    cmd = [sys.executable, "-m", "cookietts_tpu_torch", "tts", *source,
            "--torchmoji", files["pytorch_model.bin"],
            "--torchmoji_vocab", files["vocabulary.json"],
            "--arpa_dict", files["merged.dict"],
@@ -2451,7 +2537,7 @@ def p9_tts(files, taco, vocoder, extra, out, smi):
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                           timeout=600)
-    seconds = time.perf_counter() - t0
+    seconds = P9_COLD[vocoder] = time.perf_counter() - t0
     if proc.returncode != 0:
         log(proc.stdout[-3000:])
         log(proc.stderr[-3000:])
@@ -2984,6 +3070,213 @@ def phase10(hk, check, tcfg, hcfg, smi):
     return out
 
 
+# -- phase 11: serving exported artifacts --------------------------------------
+
+P11_TEXT_BUCKET, P11_SEEDS = 64, (0, 1, 2)
+# 11b's requests: four segments, one a row of the batch of 4, so that the
+# best-of-N pick has one candidate a segment (two candidates of one
+# segment can score within rounding of each other, and the two workers
+# then pick different rows)
+P11_TEXT = ('Hello world, the port serves an artifact. "What a quick fox!" '
+            'she said. "Go!"')
+P11_SEGMENTS = 4
+P11_MEL_FRAMES = 32      # the flow vocoders' artifacts: 0.4 s of 48 kHz audio
+
+
+def p11_export(files, out, smi):
+    """The export command as a process on phase 9's seeded Tacotron2 and
+    HiFi-GAN: B = 4, one text bucket of 64, P9_STEPS decoder steps, a mel
+    bucket of P9_STEPS frames, the gate threshold 2; logs its wall time and
+    the artifact's bytes."""
+    cmd = [sys.executable, "-m", "cookietts_tpu_torch", "export",
+           "--checkpoint", files["taco80"], "--vocoder", files["hifigan"],
+           "-o", str(out), "--batch", "4", "--text_buckets", str(P11_TEXT_BUCKET),
+           "--mel_buckets", str(P9_STEPS), "--max_decoder_steps", str(P9_STEPS),
+           "--hparams", "gate_threshold=2.0",
+           *([] if DEV == "cuda" else ["--device", DEV])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-3000:])
+        raise SystemExit(f"chip_smoke: export exited {proc.returncode}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  11a export: {seconds:.2f} s wall as a process, {got['bytes']} bytes "
+        f"({Path(out).stat().st_size} on disk), functions {got['functions']} "
+        f"({smi})")
+
+
+def p11_requests(hk, t2s, seeds):
+    """Each seed's request of P11_TEXT through ``t2s.infer`` (phase 9a's
+    flags): (the results, the launches of all of them, each request's wall
+    ms)."""
+    import torch
+    hk.reset_launch_counts()
+    results, ms = [], []
+    for seed in seeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(t2s.infer(P11_TEXT, speaker="bob", use_arpabet=True,
+                                 max_attempts=1, seed=seed))
+        if len(results[-1]["segments"]) != P11_SEGMENTS:
+            raise SystemExit(f"chip_smoke: 11b split P11_TEXT into "
+                             f"{results[-1]['segments']}")
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return results, dict(hk.LAUNCHES), ms
+
+
+def phase11_serving(hk, check, files, art, smi):
+    """11b: three requests (P11_TEXT) through _build_t2s(--artifact)'s
+    worker, launch counters zeroed just before (attention_step 1 and
+    lstm_gates 3 a decode step, the resblock its launches a vocoder call),
+    against the live --checkpoint worker at the same seeds (phase 5's
+    tolerance); three warm requests of each, and the artifact's chunk
+    replays and captures."""
+    import torch
+    from cookietts_tpu_torch import cli
+    flags = ["--torchmoji", files["pytorch_model.bin"], "--torchmoji_vocab",
+             files["vocabulary.json"], "--arpa_dict", files["merged.dict"],
+             "--speaker_info", files["speaker_info.txt"], "--hparams",
+             P9_HPARAMS, "--device", DEV]
+    parse = lambda src: cli.build_parser().parse_args(["server", *src, *flags])
+    t0 = time.perf_counter()
+    served = cli._build_t2s(parse(["--artifact", str(art)]))
+    t1 = time.perf_counter()
+    live = cli._build_t2s(parse(["--checkpoint", files["taco80"], "--vocoder",
+                                 files["hifigan"]]))
+    log(f"  11b _build_t2s (torchMoji included): --artifact {t1 - t0:.2f} s, "
+        f"--checkpoint {time.perf_counter() - t1:.2f} s")
+    if served.model is not None or served.cfg.batch_size != 4:
+        raise SystemExit("chip_smoke: the artifact worker holds a model or "
+                         "the wrong batch")
+    got, launches, _ = p11_requests(hk, served, P11_SEEDS)
+    gen = cli._load_vocoder(files["hifigan"], {}, device=DEV)[0]
+    n = len(P11_SEEDS)
+    p9_expect(launches, {"attention_step": n * P9_STEPS,
+                         "lstm_gates": 3 * n * P9_STEPS,
+                         "hifigan_resblock": vocoder_launches(hk, gen, n)},
+              f"11b artifact worker x{n}")
+    want, _, _ = p11_requests(hk, live, P11_SEEDS)
+    for seed, g, w in zip(P11_SEEDS, got, want):
+        if g["mel_lengths"].tolist() != w["mel_lengths"].tolist():
+            raise SystemExit(f"chip_smoke: 11b mel lengths {g['mel_lengths']} "
+                             f"against live {w['mel_lengths']}")
+        for m_g, m_w in zip(g["mels"], w["mels"]):
+            check("slice", torch.from_numpy(m_g), torch.from_numpy(m_w), 1e-3,
+                  1e-3, f"11b artifact mel against live (seed {seed})")
+        check("slice", torch.from_numpy(g["audio"]), torch.from_numpy(w["audio"]),
+              1e-3, 1e-3, f"11b artifact audio against live (seed {seed})")
+    warm = {"artifact": [], "live": []}
+    for seed in (7, 8, 9):                  # alternating, host timings spread
+        for name, t2s in (("artifact", served), ("live", live)):
+            warm[name] += p11_requests(hk, t2s, (seed,))[2]
+    dec = served.decode_fn.__self__
+    chunks = dec.chunk_programs[0]
+    log(f"  11b warm requests ({P11_SEGMENTS} segments, B=4, {P9_STEPS} steps, "
+        f"HiFi-GAN), alternating: artifact "
+        f"{', '.join(f'{t:.1f}' for t in warm['artifact'])} ms, live "
+        f"{', '.join(f'{t:.1f}' for t in warm['live'])} ms; artifact chunk "
+        f"program: {chunks.captures} "
+        f"captures, {chunks.replays} replays, {chunks.eager_calls} eager "
+        f"chunks; live: {live.decode_chunk.captures} captures, "
+        f"{live.decode_chunk.replays} replays ({smi})")
+
+
+def p11_flow(hk, check, name, model, gen, smi):
+    """One flow vocoder as an artifact (11c), exported in this process at
+    B = 1 and P11_MEL_FRAMES frames: its vocode against the live
+    WaveGlow.infer at the same z (phase 5's tolerance), the WN kernel's
+    launches exactly one infer's, the auto_functionalized nodes (a copy of
+    the ring a row step) in the program, and the vocode's ms against the
+    live infer's."""
+    import io
+
+    import torch
+    from cookietts_tpu_torch.device import full_float32
+    from cookietts_tpu_torch.runtime import export_serving as es
+    cfg = model.cfg
+    n = P11_MEL_FRAMES * cfg.hop_length // cfg.n_group
+    z_shape = lambda B, T: ((B, cfg.n_group, n) if model.waveflow
+                            else (B, n, cfg.n_group))
+    mel = torch.randn(1, P11_MEL_FRAMES, FLOW_MELS, device="cuda", generator=gen)
+    z = 0.6 * torch.randn(z_shape(1, P11_MEL_FRAMES), device="cuda",
+                          generator=gen)
+    t0 = time.perf_counter()
+    blob = es.export_vocoder_serving(lambda m, z_: model.infer(m, z=z_),
+                                     FLOW_MELS, [(1, P11_MEL_FRAMES)],
+                                     needs_key=True, z_shape=z_shape)
+    seconds = time.perf_counter() - t0
+    key = f"vocoder_b1_t{P11_MEL_FRAMES}"
+    program = torch.export.load(io.BytesIO(blob[key]))
+    copies = sum("auto_functionalized" in str(node.target)
+                 for node in program.graph.nodes)
+    fn = program.module()
+    kernel = "waveflow_row_step" if model.waveflow else "waveglow_wn_forward"
+    per_infer = cfg.n_flows * hk.wn_launches(cfg.n_layers) * (
+        cfg.n_group if model.waveflow else 1)
+    hk.reset_launch_counts()
+    with full_float32():
+        got = fn(mel, z)
+    if hk.LAUNCHES[kernel] != per_infer:
+        raise SystemExit(f"chip_smoke: 11c {name} artifact launched {kernel} "
+                         f"{hk.LAUNCHES[kernel]} times, not {per_infer}")
+    check("slice", got, model.infer(mel, z=z), 1e-3, 1e-3,
+          f"11c {name} artifact against live infer, same z")
+    with full_float32():
+        art_ms = wall_ms(lambda: fn(mel, z), reps=3)
+    live_ms = wall_ms(lambda: model.infer(mel, z=z), reps=3)
+    log(f"  11c {name}: export {seconds:.2f} s, {len(blob[key])} bytes; "
+        f"{per_infer} {kernel} launches; {copies} auto_functionalized nodes; "
+        f"vocode {art_ms:.2f} ms artifact, {live_ms:.2f} ms live ({smi})")
+
+
+def phase11(hk, check, tcfg, hcfg, smi):
+    """11a: the export command, then tts --artifact, each as a process at
+    the default device on phase 9's seeded checkpoints and phase 9a's flags
+    (the WAV's length, the stats line, launches, cold wall time beside 9a's
+    --checkpoint process); 11b and 11c above."""
+    import tempfile
+    import wave
+
+    import torch
+    from cookietts_tpu_torch import cli
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        files = p9_files(tmp, tcfg, hcfg, flows=False)
+        art = tmp / "serving.npz"
+        p11_export(files, art, smi)
+        stats, got = p9_tts(files, None, "artifact", [], tmp / "a.wav", smi,
+                            source=["--artifact", str(art)])
+        with wave.open(str(tmp / "a.wav")) as w:
+            rate, n = w.getframerate(), w.getnframes()
+        if (rate, n, stats["segments"]) != (SR, P9_SEGMENTS * P9_STEPS * HOP,
+                                            P9_SEGMENTS):
+            raise SystemExit(f"chip_smoke: 11a wrote {n} samples at {rate} Hz "
+                             f"in {stats['segments']} segments")
+        gen = cli._load_vocoder(files["hifigan"], {}, device=DEV)[0]
+        p9_expect(got, {"attention_step": P9_STEPS, "lstm_gates": 3 * P9_STEPS,
+                        "hifigan_resblock": vocoder_launches(hk, gen, 1)},
+                  "11a tts --artifact")
+        del gen
+        log(f"  11a cold tts process: --artifact {P9_COLD['artifact']:.2f} s, "
+            f"--checkpoint (9a) {P9_COLD.get('hifigan', float('nan')):.2f} s "
+            f"({smi})")
+        phase11_serving(hk, check, files, art, smi)
+    # 11c: phase 4b's WaveGlow with ISO 226 de-emphasis off, then on, and
+    # its WaveFlow
+    gen = torch.Generator(device="cuda").manual_seed(111)
+    glow = make_flow_vocoder(WAVEGLOW, seed=3)
+    p11_flow(hk, check, "WaveGlow", glow, gen, smi)
+    glow.cfg = dataclasses.replace(glow.cfg, iso226_deemphasis=True)
+    p11_flow(hk, check, "WaveGlow+ISO226", glow, gen, smi)
+    del glow
+    p11_flow(hk, check, "WaveFlow", make_flow_vocoder(WAVEFLOW, seed=3), gen, smi)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3025,6 +3318,7 @@ def main() -> int:
     log("phase 3: kernels against their plain versions (full width)")
     phase3(hk, check)
     phase3_flow(hk, check)
+    phase3_widths(hk, check)
 
     log("phase 4: main path, full width, 3 requests")
     tcfg = Tacotron2Config(n_symbols=N_SYMBOLS)
@@ -3075,6 +3369,11 @@ def main() -> int:
 
     log("phase 10: GMM and DCA attention, training with the heads, convert")
     phase10(hk, check, tcfg, hcfg, smi)
+
+    log("phase 11: serving exported artifacts (torch.export)")
+    t11 = time.perf_counter()
+    phase11(hk, check, tcfg, hcfg, smi)
+    log(f"  phase 11 in {time.perf_counter() - t11:.1f} s; {smi}")
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

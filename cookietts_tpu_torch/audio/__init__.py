@@ -1,2 +1,2 @@
-"""Audio frontends of the port (cookietts_tpu/audio): the STFT pair and the
-Tacotron mel frontend."""
+"""Audio frontends of the port (cookietts_tpu/audio): the STFT pair, the
+Tacotron mel frontend and the ISO 226 equal-loudness (de-)emphasis."""

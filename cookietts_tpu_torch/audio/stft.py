@@ -10,6 +10,7 @@ ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -43,6 +44,7 @@ def window_sumsquare(window_name: str, n_frames: int, hop_length: int,
     return x
 
 
+@functools.lru_cache(maxsize=2)
 def _dft_bases(filter_length: int, win_length: int, window: Optional[str],
                inverse: bool = True):
     """(forward, inverse) windowed DFT bases, each [2 * cutoff, filter_length]

@@ -40,14 +40,25 @@ The checkpoints are the port's own (``torch.save`` trees with a
 ``state_dict`` and the JSON sidecar the train command writes). Without
 ``--vocoder``, ``tts`` writes the mel as ``.npy``.
 
+Serving artifacts (runtime/export_serving.py): ``export`` bakes the
+checkpoints into ``torch.export`` programs at fixed buckets, and ``tts`` /
+``server`` serve them with ``--artifact`` in place of ``--checkpoint``, with
+no model code on the serving side; an explicit ``--vocoder`` overrides the
+artifact's vocoder:
+
+    python -m cookietts_tpu_torch export --checkpoint taco.pt \
+        [--vocoder voc.pt [--vocoder_model hifigan|waveglow]] [-o serving.npz] \
+        [--batch B] [--text_buckets 64 128] [--mel_buckets 256 512] \
+        [--max_decoder_steps N] [--hparams "..."] [--device cuda|cpu]
+    python -m cookietts_tpu_torch tts --artifact serving.npz --text "Hi." [...]
+
 Reference CookieTTS checkpoints become the port's (convert/reference.py):
 
     python -m cookietts_tpu_torch convert --model tacotron2|waveglow|hifigan|\
         torchmoji|gst|emotionnet|auxemotionnet --torch_ckpt X.pt|X.npz -o Y
 
 The other models' trainers, multi-host runs and ``--tp`` / ``--sp`` above 1
-(which raise) and serving an exported artifact (``--artifact`` exits) are not
-ported yet.
+(which raise) are not ported yet.
 """
 from __future__ import annotations
 
@@ -592,13 +603,11 @@ VOCODER_TRAINERS = {"waveglow": _train_waveglow, "hifigan": _train_hifigan}
 
 # -- serving: tts and server ---------------------------------------------------
 
-def _load_vocoder(path, overrides, vocoder_model=None, device="cuda"):
-    """(vocoder_fn, infer_with_generator, audio_info) from a port vocoder
-    checkpoint (cookietts_tpu/cli.py:_load_vocoder). HiFi-GAN or
+def _vocoder_model(path, overrides, vocoder_model=None, device="cuda"):
+    """(kind, model, audio_info) from a port vocoder checkpoint: HiFi-GAN or
     WaveGlow/WaveFlow from the sidecar's ``model``, else from the state
     dict's layout. A HiFi-GAN checkpoint's weight-norm pairs are folded on
-    load; a flow vocoder draws each call's z from a generator seeded from a
-    counter and is marked ``stochastic`` (make_flow_vocoder_fn)."""
+    load."""
     import numpy as np
     from .runtime.checkpoint import load_checkpoint
 
@@ -630,27 +639,54 @@ def _load_vocoder(path, overrides, vocoder_model=None, device="cuda"):
         gen.to(device)
         audio_info.setdefault("hop_length", int(np.prod(cfg.upsample_rates)))
         audio_info.setdefault("n_mel_channels", cfg.n_mel_channels)
-        return gen, lambda mel, generator: gen(mel, infer=True), audio_info
+        return kind, gen, audio_info
 
     from .models.waveglow import WaveGlow, WaveGlowConfig
-    from .pipeline.text2speech import make_flow_vocoder_fn
     cfg = WaveGlowConfig(**_dataclass_kwargs(WaveGlowConfig, mc))
     model = WaveGlow(cfg, device="cpu")
     model.load_state_dict(sd)
     model.to(device)
-    vocoder_fn, infer = make_flow_vocoder_fn(
-        model, sigma=float(overrides.get("sigma", cfg.sigma)))
     audio_info.setdefault("hop_length", cfg.hop_length)
     audio_info.setdefault("sampling_rate", cfg.sampling_rate)
     audio_info.setdefault("n_mel_channels", cfg.n_mel_channels)
+    return kind, model, audio_info
+
+
+def _load_vocoder(path, overrides, vocoder_model=None, device="cuda"):
+    """(vocoder_fn, infer_with_generator, audio_info) from a port vocoder
+    checkpoint (cookietts_tpu/cli.py:_load_vocoder). A flow vocoder draws
+    each call's z from a generator seeded from a counter and is marked
+    ``stochastic`` (make_flow_vocoder_fn)."""
+    kind, model, audio_info = _vocoder_model(path, overrides, vocoder_model,
+                                             device)
+    if kind == "hifigan":
+        return model, lambda mel, generator: model(mel, infer=True), audio_info
+    from .pipeline.text2speech import make_flow_vocoder_fn
+    vocoder_fn, infer = make_flow_vocoder_fn(
+        model, sigma=float(overrides.get("sigma", model.cfg.sigma)))
     return vocoder_fn, infer, audio_info
 
 
+def _load_tacotron2(path, overrides, device):
+    """(model on ``device``, sidecar meta) from a port Tacotron2 checkpoint;
+    the sidecar's model config under the overrides."""
+    from .models.tacotron2 import Tacotron2
+    from .runtime.checkpoint import load_checkpoint
+    tree, meta = load_checkpoint(path)
+    meta = meta or {}
+    model = Tacotron2(_tacotron2_config({**meta.get("model_config", {}),
+                                         **overrides}), device="cpu")
+    model.load_state_dict(tree["state_dict"])
+    return model.to(device), meta
+
+
 def _build_t2s(args):
-    """A serving T2S worker from the port's checkpoints and the flags
-    (cookietts_tpu/cli.py:_build_t2s): the Tacotron2 checkpoint's sidecar
-    gives the model config, the speaker map and the audio front end; the
-    vocoder, denoiser, ARPAbet dictionary and torchMoji are optional. On
+    """A serving T2S worker from the port's checkpoints or an exported
+    artifact, and the flags (cookietts_tpu/cli.py:_build_t2s). With
+    ``--checkpoint`` its sidecar gives the model config, the speaker map and
+    the audio front end; with ``--artifact`` its meta does, its buckets fix
+    the batch, and its vocoder serves unless ``--vocoder`` gives a live one.
+    The vocoder, denoiser, ARPAbet dictionary and torchMoji are optional. On
     ``args.device``, the card unless ``--device cpu``."""
     import json
 
@@ -658,15 +694,11 @@ def _build_t2s(args):
 
     from .config import parse_override_string
     from .device import resolve_device
-    from .models.tacotron2 import Tacotron2
     from .pipeline.text2speech import T2S, T2SConfig
-    from .runtime.checkpoint import load_checkpoint
 
-    if args.artifact:
-        raise SystemExit("--artifact: serving an exported artifact is not "
-                         "ported yet; serve a --checkpoint")
-    if not args.checkpoint:
-        raise SystemExit("pass --checkpoint (a Tacotron2 checkpoint)")
+    if not (args.checkpoint or args.artifact):
+        raise SystemExit("pass --checkpoint (a Tacotron2 checkpoint) or "
+                         "--artifact (an exported serving artifact)")
     device = resolve_device(args.device)
     overrides = parse_override_string(args.hparams) if args.hparams else {}
     cfg_kw = {}
@@ -675,21 +707,27 @@ def _build_t2s(args):
             cfg_kw = _dataclass_kwargs(T2SConfig, json.load(f))
     cfg_kw.update(_dataclass_kwargs(T2SConfig, overrides))
 
-    tree, meta = load_checkpoint(args.checkpoint)
-    meta = meta or {}
-    model = Tacotron2(_tacotron2_config({**meta.get("model_config", {}),
-                                         **overrides}), device="cpu")
-    model.load_state_dict(tree["state_dict"])
-    model.to(device)
+    model = artifact = None
+    if args.artifact:
+        # exported programs only: no model classes, checkpoints or
+        # converters for the decode
+        from .runtime.export_serving import ArtifactT2SDecoder
+        artifact = ArtifactT2SDecoder(args.artifact, device)
+        cfg_kw["batch_size"] = artifact.batch
+        cfg_kw.setdefault("max_text_len", artifact.text_buckets[-1])
+        speaker_ids = artifact.speaker_ids
+        audio_info = dict(artifact.audio)
+    else:
+        model, meta = _load_tacotron2(args.checkpoint, overrides, device)
+        speaker_ids = meta.get("speaker_ids") or {"default": 0}
+        audio_info = dict(meta.get("audio", {}))
     if args.speaker_info:
         from .data.filelist import load_speaker_info
         speaker_ids = load_speaker_info(args.speaker_info)
-    else:
-        speaker_ids = meta.get("speaker_ids") or {"default": 0}
 
-    audio_info = dict(meta.get("audio", {}))
     vocoder_fn = denoiser_fn = None
     if args.vocoder:
+        # an explicit live vocoder overrides (or supplies) the artifact's
         vocoder_fn, infer, v_audio = _load_vocoder(
             args.vocoder, overrides, args.vocoder_model, device)
         audio_info.update(v_audio)
@@ -700,7 +738,12 @@ def _build_t2s(args):
                 n_mel_channels=int(audio_info.get("n_mel_channels", 80)),
                 device=device)
     elif args.denoiser:
-        raise SystemExit("--denoiser needs a --vocoder")
+        raise SystemExit(
+            "--denoiser needs a live --vocoder checkpoint" + (
+                " (the artifact's exported vocoder cannot expose the "
+                "generator-driven bias-extraction call)" if artifact else ""))
+    elif artifact is not None and artifact.has_vocoder:
+        vocoder_fn = artifact.make_vocoder_fn()
 
     arpa_fn = None
     if args.arpa_dict:
@@ -721,7 +764,9 @@ def _build_t2s(args):
     hop = int(overrides.get("hop_length", audio_info.get("hop_length", 512)))
     return T2S(T2SConfig(**cfg_kw), model, speaker_ids, vocoder_fn=vocoder_fn,
                denoiser_fn=denoiser_fn, torchmoji_fn=torchmoji_fn,
-               arpa_fn=arpa_fn, sample_rate=sr, hop_length=hop, device=device)
+               arpa_fn=arpa_fn, sample_rate=sr, hop_length=hop, device=device,
+               decode_fn=None if artifact is None else artifact.decode,
+               torchmoji_dim=None if artifact is None else artifact.torchmoji_dim)
 
 
 def cmd_tts(args):
@@ -775,6 +820,68 @@ def cmd_server(args):
         serve(t2s, port=args.port)
 
 
+def cmd_export(args):
+    """Export serving programs (cookietts_tpu/cli.py:cmd_export): the
+    Tacotron2 checkpoint's encode, decode step and postnet at each (batch,
+    text) bucket and the vocoder at each (batch, mel frames) bucket, as
+    ``torch.export`` programs with the weights baked in, on ``--device``;
+    one ``.npz`` (runtime/export_serving.py). Prints one JSON line: the
+    artifact, its functions and their bytes."""
+    import json
+
+    import torch
+
+    from .config import parse_override_string
+    from .device import resolve_device
+    from .runtime.export_serving import (export_tacotron2_serving,
+                                         export_vocoder_serving,
+                                         save_artifact, tacotron2_meta)
+
+    device = resolve_device(args.device)
+    overrides = parse_override_string(args.hparams) if args.hparams else {}
+    entries, meta = {}, {"device": device.type, "torch": torch.__version__}
+    steps = args.max_decoder_steps or None
+    if args.checkpoint:
+        model, ck_meta = _load_tacotron2(args.checkpoint, overrides, device)
+        buckets = [(int(args.batch), int(t)) for t in args.text_buckets]
+        entries.update(export_tacotron2_serving(model, buckets, steps))
+        meta["t2s"] = tacotron2_meta(model, buckets, steps,
+                                     speaker_ids=ck_meta.get("speaker_ids"),
+                                     audio=ck_meta.get("audio", {}))
+    if args.vocoder:
+        kind, voc, v_audio = _vocoder_model(args.vocoder, overrides,
+                                            args.vocoder_model, device)
+        n_mel = int(overrides.get("n_mel_channels", v_audio["n_mel_channels"]))
+        vb = [(int(args.batch), int(t)) for t in args.mel_buckets]
+        voc_meta = {"buckets": [list(b) for b in vb], "n_mel_channels": n_mel,
+                    "audio": v_audio, "needs_key": kind == "waveglow"}
+        if kind == "hifigan":
+            entries.update(export_vocoder_serving(
+                lambda mel: voc(mel, infer=True), n_mel, vb, device=device))
+        else:
+            cfg = voc.cfg
+
+            def z_shape(B, T):
+                n = T * cfg.hop_length // cfg.n_group
+                return (B, cfg.n_group, n) if voc.waveflow else (B, n, cfg.n_group)
+
+            entries.update(export_vocoder_serving(
+                lambda mel, z: voc.infer(mel, z=z), n_mel, vb, needs_key=True,
+                z_shape=z_shape, device=device))
+            voc_meta.update(sigma=float(overrides.get("sigma", cfg.sigma)),
+                            z_shapes={f"b{b}_t{t}": list(z_shape(b, t))
+                                      for b, t in vb})
+        meta["vocoder"] = voc_meta
+    if not entries:
+        raise SystemExit("export: pass --checkpoint and/or --vocoder")
+    save_artifact(args.out, entries, meta)
+    out = {"out": args.out, "functions": sorted(entries),
+           "bytes": sum(len(v) for v in entries.values()),
+           "device": device.type}
+    print(json.dumps(out))
+    return out
+
+
 def cmd_convert(args):
     """A reference torch checkpoint -> a port checkpoint with its sidecar
     (cookietts_tpu/cli.py:cmd_convert)."""
@@ -786,8 +893,8 @@ def cmd_convert(args):
 
 def _add_t2s_args(sp):
     sp.add_argument("--artifact", default=None,
-                    help="an exported serving artifact (not ported yet: "
-                         "exits with a message)")
+                    help="a serving artifact from the export command (in "
+                         "place of --checkpoint: no model code needed)")
     sp.add_argument("--checkpoint", default=None,
                     help="Tacotron2 checkpoint of the port (its JSON sidecar "
                          "gives the model config, speakers and audio)")
@@ -868,6 +975,28 @@ def build_parser() -> argparse.ArgumentParser:
     tt.add_argument("--cat_silence_s", type=float, default=0.0)
     tt.add_argument("--seed", type=int, default=0)
     tt.set_defaults(fn=cmd_tts)
+
+    ex = sub.add_parser(
+        "export", help="export serving programs (torch.export, weights "
+                       "baked in, fixed buckets) into one artifact that "
+                       "tts/server --artifact serve without model code")
+    ex.add_argument("--checkpoint", default=None,
+                    help="Tacotron2 checkpoint of the port")
+    ex.add_argument("--vocoder", default=None,
+                    help="HiFi-GAN, WaveGlow or WaveFlow checkpoint of the port")
+    ex.add_argument("--vocoder_model", default=None,
+                    choices=("hifigan", "waveglow"))
+    ex.add_argument("-o", "--out", default="serving.npz")
+    ex.add_argument("--batch", type=int, default=16)
+    ex.add_argument("--text_buckets", type=int, nargs="+", default=[64, 128])
+    ex.add_argument("--mel_buckets", type=int, nargs="+", default=[256, 512])
+    ex.add_argument("--max_decoder_steps", type=int, default=0,
+                    help="decoder steps of the artifact (0: the config's)")
+    ex.add_argument("--hparams", default="")
+    ex.add_argument("--device", default="cuda",
+                    help="the device type the programs run on: cuda (the "
+                         "default; raises without a card) or cpu")
+    ex.set_defaults(fn=cmd_export)
 
     from .convert.reference import MODELS
     c = sub.add_parser("convert", help="convert a reference torch checkpoint "

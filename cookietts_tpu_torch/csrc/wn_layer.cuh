@@ -52,6 +52,15 @@
 //   so that fragment loads do not conflict on banks.
 // - Each step is summed into a fresh accumulator and added in f32 (the
 //   tensor core's accumulation truncates, tf32x3.cuh).
+// - Widths. Any C: where m does not divide C the last channel block, and
+//   where 32 does not divide it the last K step, stage the weight columns
+//   and rows and the window rows past C as zeros (cp.async's zero fill), so
+//   they add nothing, and the epilogue writes channels below C only. The
+//   weight slabs go in 16-byte copies where C % 4 == 0 (a 4-column group
+//   is then all inside C or all past it, and every row starts on 16 bytes),
+//   else in 4-byte copies. These checks are a variant of their own (kPad):
+//   a C that m and 32 divide runs the kernel without them (in every
+//   launch they cost a full-width WN call 7-19% on an H100, PERF.md).
 // - Rows. The conv reads its kh input rows from a ring of slots, slot_stride
 //   floats apart: kernel row r reads slot (rot + 1 + r) % kh (kh = 1: a plain
 //   buffer). The res/skip launch reads and writes only its own (channel,
@@ -82,7 +91,7 @@ constexpr int kCo = 8;         // channels per thread of the start and end kerne
 constexpr int kSmemMax = 232448;
 
 // h[b][c][t] = sum_ci w[ci][c] * x[b][ci][t] + bias[c].
-// grid (ceil(T / kSmall), C / kCo, B).
+// grid (ceil(T / kSmall), ceil(C / kCo), B).
 __global__ void __launch_bounds__(kSmall)
 wn_start_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, int Cin, int C, int T,
@@ -90,17 +99,19 @@ wn_start_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int t = blockIdx.x * kSmall + threadIdx.x;
   if (t >= T) return;
   const int b = blockIdx.z, c0 = blockIdx.y * kCo;
+  const int n = min(kCo, C - c0);
   float acc[kCo];
 #pragma unroll
-  for (int i = 0; i < kCo; ++i) acc[i] = bias[c0 + i];
+  for (int i = 0; i < kCo; ++i) acc[i] = i < n ? bias[c0 + i] : 0.f;
   for (int ci = 0; ci < Cin; ++ci) {
     const float xv = x[((size_t)b * Cin + ci) * T + t];
 #pragma unroll
     for (int i = 0; i < kCo; ++i)
-      acc[i] = fmaf(w[(size_t)ci * C + c0 + i], xv, acc[i]);
+      if (i < n) acc[i] = fmaf(w[(size_t)ci * C + c0 + i], xv, acc[i]);
   }
 #pragma unroll
-  for (int i = 0; i < kCo; ++i) h[((size_t)b * C + c0 + i) * T + t] = acc[i];
+  for (int i = 0; i < kCo; ++i)
+    if (i < n) h[((size_t)b * C + c0 + i) * T + t] = acc[i];
 }
 
 // st[b][o][t] = sum_c w[c][o] * skip[b][c][t] + bias[o].
@@ -170,9 +181,10 @@ inline long long gemm_smem(int WM, int kw, int win_stride) {
                       (kw >= 2 ? 2 : 3) * win_stride);
 }
 
-// grid (ceil(T / N), C / m, B) with m = 16 WM, N = 8 WN NJ; WM x WN warps,
-// gemm_smem(WM, kw, win_stride) bytes of shared memory.
-template <int WM, int WN, int NJ, bool kRs>
+// grid (ceil(T / N), ceil(C / m), B) with m = 16 WM, N = 8 WN NJ; WM x WN warps,
+// gemm_smem(WM, kw, win_stride) bytes of shared memory. kPad: C is not a
+// multiple of m and 32, and the channels past it are staged as zeros.
+template <int WM, int WN, int NJ, bool kRs, bool kPad>
 __global__ void __launch_bounds__(WM * WN * 32, 16 / (WM * WN))
 wn_gemm(const LayerArgs a) {
   constexpr int NT = WM * WN * 32;
@@ -187,7 +199,7 @@ wn_gemm(const LayerArgs a) {
   const int C = a.C, T = a.T, C2 = 2 * C, kw = a.kw, dil = a.dil;
   const int t0 = blockIdx.x * NB, c0 = blockIdx.y * (16 * WM), b = blockIdx.z;
   const size_t bct = (size_t)b * C * T;
-  const int chunks = C / kKc;
+  const int chunks = kPad ? (C + kKc - 1) / kKc : C / kKc;
   const int n_steps = a.kh * chunks * kw;         // (kernel row, chunk, tap)
   const int half = kw / 2;
   // The staged window of a chunk: kw segments of NB samples (seg), or one
@@ -203,12 +215,26 @@ wn_gemm(const LayerArgs a) {
     const int r = win / chunks, ci0 = (win - r * chunks) * kKc;
     // weights: rows (r, tap, ci0 ..) of w; warp w's 32 columns are the
     // first half's c0 + 16 w .. + 16, then the second half's
+    // (zeros past C: rows ci0 + k >= C, columns of channel >= C)
     const float* wsrc = a.w + ((size_t)(r * kw + tap) * C + ci0) * C2;
     float* wdst = wbuf + (s % kStages) * kKc * WST;
     for (int i = threadIdx.x; i < kKc * MB / 4; i += NT) {
       const int k = i / (MB / 4), j = (i - k * (MB / 4)) * 4;
-      const int col = c0 + 16 * (j >> 5) + (j & 15) + ((j >> 4) & 1) * C;
-      copy_async16(wdst + k * WST + j, wsrc + (size_t)k * C2 + col);
+      const int ch = c0 + 16 * (j >> 5) + (j & 15);
+      const int col = ch + ((j >> 4) & 1) * C;
+      const float* src = wsrc + (size_t)k * C2 + col;
+      if constexpr (!kPad) {
+        copy_async16(wdst + k * WST + j, src);
+      } else if ((C & 3) == 0) {
+        const bool ok = ci0 + k < C && ch < C;
+        copy_async16z(wdst + k * WST + j, ok ? src : a.w, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = ci0 + k < C && ch + e < C;
+          copy_async4(wdst + k * WST + j + e, ok ? src + e : a.w, ok);
+        }
+      }
     }
     if (tap == 0) {
       const float* row = a.src + (size_t)((a.rot + 1 + r) % a.kh) * a.slot_stride +
@@ -224,14 +250,14 @@ wn_gemm(const LayerArgs a) {
         for (int i = threadIdx.x; i < kKc * n4; i += NT) {
           const int k = i / n4, j = (i - k * n4) * 4;
           const int p = sample(j);
-          const bool ok = p >= 0 && p < T;
+          const bool ok = p >= 0 && p < T && (!kPad || ci0 + k < C);
           copy_async16z(xdst + k * sst + j, ok ? row + (size_t)k * T + p : row, ok);
         }
       } else {
         for (int i = threadIdx.x; i < kKc * span; i += NT) {
           const int k = i / span, j = i - k * span;
           const int p = sample(j);
-          const bool ok = p >= 0 && p < T;
+          const bool ok = p >= 0 && p < T && (!kPad || ci0 + k < C);
           copy_async4(xdst + k * sst + j, ok ? row + (size_t)k * T + p : row, ok);
         }
       }
@@ -268,7 +294,7 @@ wn_gemm(const LayerArgs a) {
     for (int e = 0; e < 4; ++e) {
       const int c = c0 + 16 * wm + g + (e >= 2 ? 8 : 0);
       const int p = t0 + n0 + 8 * j + 2 * t + (e & 1);
-      if (p >= T) continue;
+      if (p >= T || (kPad && c >= C)) continue;
       const size_t o = bct + (size_t)c * T + p;
       if (!kRs) {
         const float va = acc[0][j][e] + cb[(size_t)c * T + p];
@@ -286,14 +312,15 @@ template <int WM, int WN, int NJ, bool kRs>
 cudaError_t launch_gemm(const LayerArgs& a, int B, long long smem,
                         cudaStream_t stream) {
   constexpr int NB = tile_samples(WN, NJ);
-  if (a.C % (16 * WM) || a.C % kKc || a.win_stride < a.kw * NB ||
+  if (a.C < 1 || a.win_stride < a.kw * NB ||
       smem < gemm_smem(WM, a.kw, a.win_stride) || smem > kSmemMax)
     return cudaErrorInvalidValue;
-  auto kernel = wn_gemm<WM, WN, NJ, kRs>;
+  const bool pad = a.C % (16 * WM) || a.C % kKc;
+  auto kernel = pad ? wn_gemm<WM, WN, NJ, kRs, true> : wn_gemm<WM, WN, NJ, kRs, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + NB - 1) / NB, a.C / (16 * WM), B);
+  const dim3 grid((a.T + NB - 1) / NB, (a.C + 16 * WM - 1) / (16 * WM), B);
   kernel<<<grid, WM * WN * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -325,7 +352,7 @@ struct Plan {
 inline cudaError_t launch_start(const float* x, const float* w, const float* bias,
                                 int B, int Cin, int C, int T, float* h,
                                 cudaStream_t stream) {
-  const dim3 grid((T + kSmall - 1) / kSmall, C / kCo, B);
+  const dim3 grid((T + kSmall - 1) / kSmall, (C + kCo - 1) / kCo, B);
   wn_start_kernel<<<grid, kSmall, 0, stream>>>(x, w, bias, Cin, C, T, h);
   return cudaGetLastError();
 }

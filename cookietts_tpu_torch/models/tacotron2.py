@@ -21,6 +21,12 @@ chunk run stay zero (gates -1e4). ``Tacotron2.inference_prepare`` /
 ``decode_chunk`` / ``postnet_refine`` expose the same pieces for streaming
 (``pipeline/streaming.py``).
 
+For ``torch.export`` (runtime/export_serving.py) the decode draws nothing:
+``decode_chunk`` takes the prenet's keep masks as an input. The encoder's
+BiLSTM runs on the padded rows, its reverse direction over each row's
+reversed prefix (``bilstm_unpacked``): no packed sequence, whose lengths
+would go to the host.
+
 ``Tacotron2.forward`` is the teacher-forced pass of training
 (``Decoder.forward``: frames-per-step grouping, the GO frame, teacher forcing
 drawn per step, the per-lane TBPTT carry), with drop-frame and the postnet.
@@ -203,6 +209,37 @@ class Postnet(nn.Module):
         return x_orig.transpose(1, 2)
 
 
+def bilstm_unpacked(lstm: nn.LSTM, x: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """What the one-layer bidirectional ``lstm`` gives over x [B, T, In]
+    packed by ``lengths`` [B], without packing: the forward direction over
+    the padded rows, the reverse one over each row's first ``length`` steps
+    reversed in place (one gather, which also puts the outputs back), its
+    outputs past the length zero. Past a length the forward half holds its
+    running state where packing gives zeros (the encoder masks them). No
+    value goes to the host (packing sends the lengths there), so
+    ``torch.export`` can trace it and a CUDA graph could capture it; each
+    direction is one ``torch.lstm`` call (cuDNN's on the card), in training
+    form when the module is in training."""
+    B, T, _ = x.shape
+    t = torch.arange(T, device=x.device)[None, :]
+    valid = t < lengths[:, None]
+    # an involution: row b's step t <-> length_b - 1 - t inside the length
+    rev = torch.where(valid, lengths[:, None] - 1 - t, t)[:, :, None]
+    halves = []
+    for suffix in ("_l0", "_l0_reverse"):
+        params = [getattr(lstm, f"{n}{suffix}") for n in
+                  ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+        h0 = x.new_zeros(1, B, lstm.hidden_size)
+        inp = x if suffix == "_l0" else x.gather(1, rev.expand_as(x))
+        out = torch.lstm(inp, (h0, h0), params, True, 1, 0.0, lstm.training,
+                         False, True)[0]
+        if suffix != "_l0":
+            out = out.gather(1, rev.expand_as(out)) * valid[:, :, None]
+        halves.append(out)
+    return torch.cat(halves, -1)
+
+
 class Encoder(nn.Module):
     """Conv stack + BiLSTM with the speaker-embed concat and sylps head."""
 
@@ -257,12 +294,7 @@ class Encoder(nn.Module):
 
         # the reverse direction runs inside each row's length, like flax's
         # nn.RNN(reverse=True, keep_order=True, seq_lengths=...)
-        lengths = text_lengths.clamp_min(1).cpu()
-        packed = nn.utils.rnn.pack_padded_sequence(
-            x, lengths, batch_first=True, enforce_sorted=False)
-        out, _ = self.lstm(packed)
-        out, _ = nn.utils.rnn.pad_packed_sequence(
-            out, batch_first=True, total_length=T)
+        out = bilstm_unpacked(self.lstm, x, text_lengths.clamp_min(1))
         half = cfg.encoder_lstm_dim // 2
         idx = (text_lengths - 1).clamp_min(0)
         h_fwd = out[torch.arange(B, device=out.device), idx, :half]
@@ -364,15 +396,17 @@ class Decoder(nn.Module):
     def step(self, s: DecoderState, memory: torch.Tensor,
              const: Dict[str, Any], generator: Optional[torch.Generator] = None,
              dec_input: Optional[torch.Tensor] = None,
-             fused: Optional[Dict[str, Any]] = None):
+             fused: Optional[Dict[str, Any]] = None, masks=None):
         """One AR decode step -> (state, mel_frame [B, rM], gate [B, r],
         weights [B, T_enc]). The prenet takes ``dec_input`` (by default the
-        previous output); ``fused`` holds each cell's ``fused()`` weights,
-        built once per decode in training."""
+        previous output) and its keep ``masks`` when given (else it draws
+        them from ``generator``); ``fused`` holds each cell's ``fused()``
+        weights, built once per decode in training."""
         cfg = self.cfg
         fused = fused or {}
         prev = s.prev_output if dec_input is None else dec_input
-        attn_in = [self.prenet(prev, generator), s.context]
+        attn_in = [self.prenet(prev, generator) if masks is None
+                   else self.prenet(prev, generator, masks), s.context]
         if cfg.attrnn_extra_decoder_input:
             attn_in.append(s.dec[1])
         attn = self.attention_rnn(torch.cat(attn_in, dim=-1), s.attn,
@@ -472,17 +506,22 @@ class Decoder(nn.Module):
 
     def decode_chunk(self, memory: torch.Tensor, const: Dict[str, Any],
                      state: DecoderState, steps: int,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     masks: Optional[torch.Tensor] = None):
         """Free-running decode of ``steps`` steps from ``state`` ->
         (mel_raw [B, S*r, M], gate [B, S*r], weights [B, S, T_enc], state).
         The prenet draws from ``generator`` step by step, so chunks of any
-        size draw what one whole decode draws."""
+        size draw what one whole decode draws; or step t takes the keep
+        masks ``masks[t]`` ([steps, prenet layers, B, prenet_dim] bool: the
+        draws, in that order, that ``generator`` would make)."""
         cfg = self.cfg
         B = memory.shape[0]
         r = cfg.n_frames_per_step
         mels, gates, weights = [], [], []
-        for _ in range(steps):
-            state, mel, gate, w = self.step(state, memory, const, generator)
+        for t in range(steps):
+            state, mel, gate, w = self.step(
+                state, memory, const, generator,
+                masks=None if masks is None else masks[t])
             mels.append(mel)
             gates.append(gate)
             weights.append(w)

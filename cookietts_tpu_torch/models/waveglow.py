@@ -45,7 +45,8 @@ the 1x1 conv and its log-determinant are taken in float32 and both
 directions run with TF32 off, or forward and inverse stop being inverses at
 the 1e-2 level.
 
-Not ported yet: ISO-226 de-emphasis (``iso226_deemphasis=True`` raises).
+With ``iso226_deemphasis``, ``infer`` removes the ISO 226 equal-loudness
+emphasis from its audio (audio/iso226.py), as the JAX model does.
 """
 from __future__ import annotations
 
@@ -569,6 +570,18 @@ class WaveGlow(nn.Module):
                 x = x.transpose(1, 2)                            # [B, T', G]
         return x.reshape(x.shape[0], -1)
 
+    def iso226(self):
+        """The ISO 226 de-emphasis at the model's sampling rate, built once
+        per device (its STFT's pseudo-inverse takes seconds at filter length
+        2400) and kept out of the state dict."""
+        cached = self.__dict__.get("_iso226")
+        if cached is None or cached.stft.device != self.device:
+            from ..audio.iso226 import ISO226
+            cached = ISO226(sampling_rate=self.cfg.sampling_rate,
+                            device=self.device)
+            self.__dict__["_iso226"] = cached
+        return cached
+
     @torch.no_grad()
     def infer(self, mel: torch.Tensor,
               generator: Optional[torch.Generator] = None,
@@ -576,10 +589,10 @@ class WaveGlow(nn.Module):
               speaker_ids: Optional[torch.Tensor] = None,
               z: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Sample z ~ N(0, sigma) from ``generator`` (a generator on the
-        model's device) and invert; a given ``z`` is used as it is."""
+        model's device) and invert; a given ``z`` is used as it is. With
+        ``iso226_deemphasis`` the audio then loses the equal-loudness
+        emphasis (JAX ``WaveGlow.infer``)."""
         cfg = self.cfg
-        if cfg.iso226_deemphasis:
-            raise NotImplementedError("ISO-226 de-emphasis is not ported yet")
         if z is None:
             sigma = cfg.sigma if sigma is None else sigma
             B, T_mel = mel.shape[:2]
@@ -587,7 +600,11 @@ class WaveGlow(nn.Module):
             shape = (B, cfg.n_group, n) if self.waveflow else (B, n, cfg.n_group)
             z = sigma * torch.randn(shape, generator=generator,
                                     device=self.device, dtype=torch.float32)
-        return self.inverse(z, mel, speaker_ids)
+        audio = self.inverse(z, mel, speaker_ids)
+        if cfg.iso226_deemphasis:
+            with full_float32():
+                audio = self.iso226().inverse(audio)
+        return audio
 
 
 def waveglow_loss(out: Dict[str, Any], sigma: float = 1.0

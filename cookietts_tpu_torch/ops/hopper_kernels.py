@@ -4,18 +4,24 @@ Each kernel has three parts here:
 
 - ``<name>_plain``: the same function in plain PyTorch. The CPU tests run
   it, and ``chip_smoke.py`` holds the kernel against it on the card.
-- a ``torch.autograd.Function`` that launches the CUDA kernel (sources in
-  ``csrc/``, built by ``_build.py``). ``attention_step`` and ``lstm_gates``
-  run in training too: as the JAX package's ``custom_vjp`` does
-  (cookietts_tpu/ops/pallas_kernels.py:146-169, 285-303), the forward
-  launches the kernel and saves its inputs, and the backward is autograd
-  of the plain version recomputed from them (``<name>_vjp``). The other
-  three kernels are inference-only, in the JAX package too, and their
-  ``backward`` raises.
-- ``<name>``: the entry the models call. A CPU tensor takes the plain
-  version; a CUDA tensor launches the kernel (and counts the launch in
-  ``LAUNCHES``) or raises. There is no fallback from the card to the plain
-  version.
+- a ``torch.library`` custom op, ``torch.ops.cookietts_tpu_torch.<name>``
+  (``NAMESPACE``), so that ``torch.export`` can trace the kernels into a
+  serving artifact (runtime/export_serving.py). Its CPU implementation is
+  the plain version; its CUDA implementation launches the kernel (sources
+  in ``csrc/``, built by ``_build.py``, called through ctypes), counts the
+  launch in ``LAUNCHES`` and raises when the build or the launch fails;
+  its fake implementation gives shapes and dtypes only. No other device
+  has an implementation. ``attention_step`` and ``lstm_gates`` run in
+  training too: as the JAX package's ``custom_vjp`` does
+  (cookietts_tpu/ops/pallas_kernels.py:146-169, 285-303), their autograd
+  formula (``register_autograd``) saves the inputs and takes autograd of
+  the plain version recomputed from them (``<name>_vjp``). The other three
+  kernels are inference-only, in the JAX package too, and their backward
+  raises. ``waveflow_row_step`` updates its ring in place
+  (``mutates_args``).
+- ``<name>``: the entry the models call, with the op's arguments in the
+  models' types (plans as dataclasses, tuples of dilations). There is no
+  fallback from the card to the plain version.
 
 The TPU kernel each one replaces, and what bounds it on the H100, is noted
 at the head of its ``.cu`` source.
@@ -34,6 +40,7 @@ from torch import nn
 from . import _build
 
 NEG = -1e30
+NAMESPACE = "cookietts_tpu_torch"
 LAUNCHES: Dict[str, int] = {"attention_step": 0, "lstm_gates": 0,
                             "hifigan_resblock": 0, "waveglow_wn_forward": 0,
                             "waveflow_row_step": 0}
@@ -70,21 +77,25 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
 
 
-def _dispatch(t: torch.Tensor, kernel: str) -> bool:
-    """True for the card (launch the kernel), False for the CPU (plain)."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"{kernel}: unsupported device {t.device}")
+def _refuse_other_devices(t: torch.Tensor, kernel: str) -> None:
+    """The ops have a CPU (plain) and a CUDA (kernel) implementation only."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: unsupported device {t.device}")
 
 
-class _NoBackward(torch.autograd.Function):
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "inference-only kernel: it has no backward, as its Pallas "
-            "counterpart in the JAX package has none")
+def _custom_op(name: str, schema: str, plain: Callable,
+               mutates_args: Tuple[str, ...] = ()):
+    """The op ``NAMESPACE::name`` with ``plain`` as its CPU implementation;
+    the caller registers the CUDA and fake implementations."""
+    return torch.library.custom_op(f"{NAMESPACE}::{name}", plain,
+                                   mutates_args=mutates_args,
+                                   device_types="cpu", schema=schema)
+
+
+def _no_backward(ctx, *grads):
+    raise NotImplementedError(
+        "inference-only kernel: it has no backward, as its Pallas "
+        "counterpart in the JAX package has none")
 
 
 def _plain_vjp(plain, diff, grads, needs):
@@ -107,14 +118,25 @@ def derived(module: nn.Module, name: str, sources: Sequence[torch.Tensor],
             build: Callable[[], object]):
     """A value computed from ``sources`` and cached on ``module``; rebuilt
     when any source gets new storage (``.to``, ``load_state_dict`` into a
-    new tensor) or is updated in place (its version counter moves)."""
-    key = tuple((t.data_ptr(), t._version) for t in sources)
+    new tensor) or is updated in place (its version counter moves).
+
+    Under ``torch.export`` (or ``torch.compile``) nothing is stored: a value
+    cached for these very sources (an eager call before the export, as
+    runtime/export_serving.py makes) is returned, and the program bakes it
+    in as a constant; else (sources without storage, traced as a module's
+    parameters) the value is built in the traced program."""
+    try:
+        key = tuple((t.data_ptr(), t._version) for t in sources)
+    except RuntimeError:            # a traced tensor has no storage
+        key = None
     hit = module.__dict__.get(name)
-    if hit is None or hit[0] != key:
-        with torch.no_grad():
-            hit = (key, build())
-        module.__dict__[name] = hit
-    return hit[1]
+    if hit is not None and key is not None and hit[0] == key:
+        return hit[1]
+    with torch.no_grad():
+        value = build()
+    if key is not None and not torch.compiler.is_compiling():
+        module.__dict__[name] = (key, value)
+    return value
 
 
 # -- attention_step ------------------------------------------------------------
@@ -237,38 +259,57 @@ def attention_step_vjp(qp, lp, mp, v, memory, mask, scale, grad_ctx,
         (qp, lp, mp, v, memory, scale), (grad_ctx, grad_w), needs)
 
 
-class _AttentionStep(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qp, lp, mp, v, memory, mask, scale, plan):
-        B, T, A = lp.shape
-        D = memory.shape[-1]
-        for name, t, shape in (("qp", qp, (B, A)), ("lp", lp, (B, T, A)),
-                               ("mp", mp, (B, T, A)), ("v", v, (A,)),
-                               ("memory", memory, (B, T, D))):
-            _check(f"attention_step {name}", t, shape)
-        _check("attention_step mask", mask, (B, T), torch.bool)
-        if scale is not None:
-            _check("attention_step scale", scale, (1,))
-        plan = plan or attention_step_plan(B, T, A, D)
-        lib = _build.library("attention_step")
-        out_ctx = torch.empty((B, D), device=qp.device, dtype=torch.float32)
-        out_w = torch.empty((B, T), device=qp.device, dtype=torch.float32)
-        err = lib.attention_step(
-            _ptr(qp), _ptr(lp), _ptr(mp), _ptr(v), _ptr(memory), _ptr(mask),
-            _ptr(scale), B, T, A, D, *plan.ints(), _ptr(out_ctx), _ptr(out_w),
-            _stream())
-        _raise_on(err, "attention_step")
-        LAUNCHES["attention_step"] += 1
-        ctx.save_for_backward(qp, lp, mp, v, memory, mask, scale)
-        return out_ctx, out_w
+def _attention_step_cuda(qp, lp, mp, v, memory, mask, scale, plan):
+    B, T, A = lp.shape
+    D = memory.shape[-1]
+    for name, t, shape in (("qp", qp, (B, A)), ("lp", lp, (B, T, A)),
+                           ("mp", mp, (B, T, A)), ("v", v, (A,)),
+                           ("memory", memory, (B, T, D))):
+        _check(f"attention_step {name}", t, shape)
+    _check("attention_step mask", mask, (B, T), torch.bool)
+    if scale is not None:
+        _check("attention_step scale", scale, (1,))
+    ints = tuple(plan) or attention_step_plan(B, T, A, D).ints()
+    lib = _build.library("attention_step")
+    out_ctx = torch.empty((B, D), device=qp.device, dtype=torch.float32)
+    out_w = torch.empty((B, T), device=qp.device, dtype=torch.float32)
+    err = lib.attention_step(
+        _ptr(qp), _ptr(lp), _ptr(mp), _ptr(v), _ptr(memory), _ptr(mask),
+        _ptr(scale), B, T, A, D, *ints, _ptr(out_ctx), _ptr(out_w), _stream())
+    _raise_on(err, "attention_step")
+    LAUNCHES["attention_step"] += 1
+    return out_ctx, out_w
 
-    @staticmethod
-    def backward(ctx, grad_ctx, grad_w):
-        qp, lp, mp, v, memory, mask, scale = ctx.saved_tensors
-        n = ctx.needs_input_grad
-        g = attention_step_vjp(qp, lp, mp, v, memory, mask, scale, grad_ctx,
-                               grad_w, n[:5] + n[6:7])
-        return (*g[:5], None, g[5], None)
+
+_attention_step_op = _custom_op(
+    "attention_step",
+    "(Tensor qp, Tensor lp, Tensor mp, Tensor v, Tensor memory, Tensor mask, "
+    "Tensor? scale, int[] plan) -> (Tensor, Tensor)",
+    lambda qp, lp, mp, v, memory, mask, scale, plan: tuple(
+        attention_step_plain(qp, lp, mp, v, memory, mask, scale)))
+_attention_step_op.register_kernel("cuda")(_attention_step_cuda)
+
+
+@_attention_step_op.register_fake
+def _(qp, lp, mp, v, memory, mask, scale, plan):
+    return (memory.new_empty((memory.shape[0], memory.shape[2])),
+            memory.new_empty(memory.shape[:2]))
+
+
+def _attention_step_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:7])
+
+
+def _attention_step_backward(ctx, grad_ctx, grad_w):
+    qp, lp, mp, v, memory, mask, scale = ctx.saved_tensors
+    n = ctx.needs_input_grad
+    g = attention_step_vjp(qp, lp, mp, v, memory, mask, scale, grad_ctx,
+                           grad_w, n[:5] + n[6:7])
+    return (*g[:5], None, g[5], None)
+
+
+_attention_step_op.register_autograd(_attention_step_backward,
+                                     setup_context=_attention_step_setup)
 
 
 def attention_step(qp, lp, mp, v, memory, mask, scale=None,
@@ -277,9 +318,9 @@ def attention_step(qp, lp, mp, v, memory, mask, scale=None,
     """Fused location-sensitive attention step (see attention_step_plain);
     on the card one launch, split over T by ``plan`` (by default
     attention_step_plan's), reading only the rows the mask admits."""
-    if not _dispatch(qp, "attention_step"):
-        return attention_step_plain(qp, lp, mp, v, memory, mask, scale)
-    return _AttentionStep.apply(qp, lp, mp, v, memory, mask, scale, plan)
+    _refuse_other_devices(qp, "attention_step")
+    return _attention_step_op(qp, lp, mp, v, memory, mask, scale,
+                              list(plan.ints()) if plan else [])
 
 
 # -- lstm_gates ----------------------------------------------------------------
@@ -381,40 +422,57 @@ def lstm_gates_vjp(xh, weight, bias, c_prev, grad_c, grad_h,
                       (grad_c, grad_h), needs)
 
 
-class _LstmGates(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, xh, weight, bias, c_prev):
-        B, F_ = xh.shape
-        H = c_prev.shape[-1]
-        for name, t, shape in (("xh", xh, (B, F_)), ("weight", weight, (F_, 4 * H)),
-                               ("bias", bias, (4 * H,)), ("c_prev", c_prev, (B, H))):
-            _check(f"lstm_gates {name}", t, shape)
-        lib = _build.library("lstm_gates")
-        plan = lstm_gates_plan(B, F_, H)
-        partial = torch.empty(plan.partial, device=xh.device, dtype=torch.float32)
-        tickets = _tickets(xh.device, plan.tickets)
-        c_new = torch.empty((B, H), device=xh.device, dtype=torch.float32)
-        h_new = torch.empty_like(c_new)
-        err = lib.lstm_gates(_ptr(xh), _ptr(weight), _ptr(bias), _ptr(c_prev),
-                             B, F_, H, plan.grid[0], plan.slices,
-                             plan.f_per_slice, _ptr(partial), _ptr(tickets),
-                             _ptr(c_new), _ptr(h_new), _stream())
-        _raise_on(err, "lstm_gates")
-        LAUNCHES["lstm_gates"] += 1
-        ctx.save_for_backward(xh, weight, bias, c_prev)
-        return c_new, h_new
+def _lstm_gates_cuda(xh, weight, bias, c_prev):
+    B, F_ = xh.shape
+    H = c_prev.shape[-1]
+    for name, t, shape in (("xh", xh, (B, F_)), ("weight", weight, (F_, 4 * H)),
+                           ("bias", bias, (4 * H,)), ("c_prev", c_prev, (B, H))):
+        _check(f"lstm_gates {name}", t, shape)
+    lib = _build.library("lstm_gates")
+    plan = lstm_gates_plan(B, F_, H)
+    partial = torch.empty(plan.partial, device=xh.device, dtype=torch.float32)
+    tickets = _tickets(xh.device, plan.tickets)
+    c_new = torch.empty((B, H), device=xh.device, dtype=torch.float32)
+    h_new = torch.empty_like(c_new)
+    err = lib.lstm_gates(_ptr(xh), _ptr(weight), _ptr(bias), _ptr(c_prev),
+                         B, F_, H, plan.grid[0], plan.slices,
+                         plan.f_per_slice, _ptr(partial), _ptr(tickets),
+                         _ptr(c_new), _ptr(h_new), _stream())
+    _raise_on(err, "lstm_gates")
+    LAUNCHES["lstm_gates"] += 1
+    return c_new, h_new
 
-    @staticmethod
-    def backward(ctx, grad_c, grad_h):
-        return lstm_gates_vjp(*ctx.saved_tensors, grad_c, grad_h,
-                              ctx.needs_input_grad)
+
+_lstm_gates_op = _custom_op(
+    "lstm_gates",
+    "(Tensor xh, Tensor weight, Tensor bias, Tensor c_prev) -> (Tensor, Tensor)",
+    lambda xh, weight, bias, c_prev: tuple(
+        lstm_gates_plain(xh, weight, bias, c_prev)))
+_lstm_gates_op.register_kernel("cuda")(_lstm_gates_cuda)
+
+
+@_lstm_gates_op.register_fake
+def _(xh, weight, bias, c_prev):
+    return c_prev.new_empty(c_prev.shape), c_prev.new_empty(c_prev.shape)
+
+
+def _lstm_gates_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _lstm_gates_backward(ctx, grad_c, grad_h):
+    return lstm_gates_vjp(*ctx.saved_tensors, grad_c, grad_h,
+                          ctx.needs_input_grad)
+
+
+_lstm_gates_op.register_autograd(_lstm_gates_backward,
+                                 setup_context=_lstm_gates_setup)
 
 
 def lstm_gates(xh, weight, bias, c_prev) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused LSTM gate step (see lstm_gates_plain)."""
-    if not _dispatch(xh, "lstm_gates"):
-        return lstm_gates_plain(xh, weight, bias, c_prev)
-    return _LstmGates.apply(xh, weight, bias, c_prev)
+    _refuse_other_devices(xh, "lstm_gates")
+    return _lstm_gates_op(xh, weight, bias, c_prev)
 
 
 # -- hifigan_resblock ----------------------------------------------------------
@@ -485,34 +543,41 @@ def hifigan_resblock_launches(C: int, n_pairs: int) -> int:
     return n_pairs * (1 if C in RESBLOCK_FUSED else 2)
 
 
-class _HifiganResblock(_NoBackward):
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, dilations, slope):
-        B, C, T = x.shape
-        P, k = w1.shape[:2]
-        if len(dilations) != P:
-            raise ValueError(f"hifigan_resblock: {P} weight pairs, "
-                             f"{len(dilations)} dilations")
-        for name, t, shape in (("x", x, (B, C, T)), ("w1", w1, (P, k, C, C)),
-                               ("b1", b1, (P, C)), ("w2", w2, (P, k, C, C)),
-                               ("b2", b2, (P, C))):
-            _check(f"hifigan_resblock {name}", t, shape)
-        plans = [hifigan_resblock_plan(B, C, T, k, int(d)) for d in dilations]
-        lib = _build.library("hifigan_resblock")
-        h = (torch.empty_like(x) if plans[0][3] == "split" else None)
-        stream = _stream()
-        for p, (d, (tile, _, smem, variant)) in enumerate(zip(dilations, plans)):
-            y = torch.empty_like(x)
-            err = lib.hifigan_resblock_pair(
-                _ptr(x), _ptr(w1[p]), _ptr(b1[p]), _ptr(w2[p]), _ptr(b2[p]),
-                B, C, T, k, int(d), ctypes.c_float(slope),
-                0 if variant == "fused" else 1, tile, resblock_split_rows(C),
-                ctypes.c_longlong(smem),
-                _ptr(h), _ptr(y), stream)
-            _raise_on(err, "hifigan_resblock")
-            LAUNCHES["hifigan_resblock"] += hifigan_resblock_launches(C, 1)
-            x = y
-        return x
+def _hifigan_resblock_cuda(x, w1, b1, w2, b2, dilations, slope):
+    B, C, T = x.shape
+    P, k = w1.shape[:2]
+    if len(dilations) != P:
+        raise ValueError(f"hifigan_resblock: {P} weight pairs, "
+                         f"{len(dilations)} dilations")
+    for name, t, shape in (("x", x, (B, C, T)), ("w1", w1, (P, k, C, C)),
+                           ("b1", b1, (P, C)), ("w2", w2, (P, k, C, C)),
+                           ("b2", b2, (P, C))):
+        _check(f"hifigan_resblock {name}", t, shape)
+    plans = [hifigan_resblock_plan(B, C, T, k, d) for d in dilations]
+    lib = _build.library("hifigan_resblock")
+    h = (torch.empty_like(x) if plans[0][3] == "split" else None)
+    stream = _stream()
+    for p, (d, (tile, _, smem, variant)) in enumerate(zip(dilations, plans)):
+        y = torch.empty_like(x)
+        err = lib.hifigan_resblock_pair(
+            _ptr(x), _ptr(w1[p]), _ptr(b1[p]), _ptr(w2[p]), _ptr(b2[p]),
+            B, C, T, k, d, ctypes.c_float(slope),
+            0 if variant == "fused" else 1, tile, resblock_split_rows(C),
+            ctypes.c_longlong(smem), _ptr(h), _ptr(y), stream)
+        _raise_on(err, "hifigan_resblock")
+        LAUNCHES["hifigan_resblock"] += hifigan_resblock_launches(C, 1)
+        x = y
+    return x
+
+
+_hifigan_resblock_op = _custom_op(
+    "hifigan_resblock",
+    "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, int[] dilations, "
+    "float slope) -> Tensor", hifigan_resblock_plain)
+_hifigan_resblock_op.register_kernel("cuda")(_hifigan_resblock_cuda)
+_hifigan_resblock_op.register_fake(
+    lambda x, w1, b1, w2, b2, dilations, slope: torch.empty_like(x))
+_hifigan_resblock_op.register_autograd(_no_backward)
 
 
 def hifigan_resblock(x, w1, b1, w2, b2, dilations: Sequence[int],
@@ -520,10 +585,9 @@ def hifigan_resblock(x, w1, b1, w2, b2, dilations: Sequence[int],
     """Fused MRF resblock (see hifigan_resblock_plain); on the card one
     launch per dilation pair at C of 8, 16, 32 or 64, two at every other C
     (hifigan_resblock_plan)."""
-    if not _dispatch(x, "hifigan_resblock"):
-        return hifigan_resblock_plain(x, w1, b1, w2, b2, dilations, slope)
-    return _HifiganResblock.apply(x, w1, b1, w2, b2, tuple(dilations),
-                                  float(slope))
+    _refuse_other_devices(x, "hifigan_resblock")
+    return _hifigan_resblock_op(x, w1, b1, w2, b2, [int(d) for d in dilations],
+                                float(slope))
 
 
 # -- waveglow_wn_forward and waveflow_row_step -----------------------------------
@@ -612,36 +676,38 @@ class WnPlan:
     conv: WnLaunch
     rs: WnLaunch
 
-    def ints(self):
+    def ints(self) -> Tuple[int, ...]:
         """The plan as the C side takes it (csrc/wn_layer.cuh: wn::Plan)."""
-        return (ctypes.c_int * 6)(self.conv.tile, self.conv.win_stride,
-                                  self.conv.smem, self.rs.tile,
-                                  self.rs.win_stride, self.rs.smem)
+        return (self.conv.tile, self.conv.win_stride, self.conv.smem,
+                self.rs.tile, self.rs.win_stride, self.rs.smem)
 
 
 def wn_launch(tile: int, B: int, C: int, T: int, kw: int) -> WnLaunch:
     """The launch of tile shape ``tile`` over B rows of T samples, C channel
-    pairs, kw taps (1: the res/skip product). Raises where it does not fit."""
+    pairs, kw taps (1: the res/skip product). Where m does not divide C the
+    last channel block, and where 32 does not divide C the last K step,
+    stage the channels past C as zeros (csrc/wn_layer.cuh). Raises where it
+    does not fit."""
     wm, wn, nj = WN_TILES[tile]
     m, n, threads = 16 * wm, 8 * wn * nj, 32 * wm * wn
-    if C % m or C % WN_KC:
-        raise ValueError(f"WN tile {tile}: C={C} is not a multiple of {m}")
     win_stride = _pad_stride(kw * n)
     smem = 4 * WN_KC * (WN_STAGES * _pad_stride(2 * m)
                         + (2 if kw >= 2 else 3) * win_stride)
     if smem > SMEM_MAX:
         raise ValueError(f"WN tile {tile}: kw={kw} needs {smem} B of shared "
                          f"memory (max {SMEM_MAX})")
-    return WnLaunch(tile, m, n, threads, (-(-T // n), C // m, B), win_stride,
-                    smem)
+    return WnLaunch(tile, m, n, threads, (-(-T // n), -(-C // m), B),
+                    win_stride, smem)
 
 
 def _wn_pick(B: int, C: int, T: int, kw: int) -> WnLaunch:
     """The largest block (channel pairs x samples; at equal size the fewer
     pairs) that still gives every SM a block, or half of them below
-    WN_FILL_FROM samples; where none does, the tile with the most blocks."""
+    WN_FILL_FROM samples; where none does, the tile with the most blocks.
+    Only the tiles whose channel block pads C least are candidates."""
+    pad = min(-(-C // (16 * wm)) * 16 * wm for wm, _, _ in WN_TILES)
     fits = [wn_launch(i, B, C, T, kw) for i, (wm, _, _) in enumerate(WN_TILES)
-            if C % (16 * wm) == 0]
+            if -(-C // (16 * wm)) * 16 * wm == pad]
     need = N_SM if B * T >= WN_FILL_FROM else N_SM // 2
     ok = [f for f in fits if f.blocks >= need] or [max(fits, key=lambda f: f.blocks)]
     return max(ok, key=lambda f: (f.m * f.n, -f.m))
@@ -650,14 +716,12 @@ def _wn_pick(B: int, C: int, T: int, kw: int) -> WnLaunch:
 def wn_layer_plan(B: int, C: int, T: int, rows: int, kw: int) -> WnPlan:
     """Launch plan of every layer of a WN over B rows of T samples at C
     channels with a (rows x kw)-tap conv: the tile of each of its two
-    launches, picked by the blocks it gives and the SMs they fill. Raises
+    launches, picked by the blocks it gives and the SMs they fill. Every
+    width C takes it (a tile's shared memory does not depend on C). Raises
     for what the kernels do not take."""
-    if C not in (32, 64, 128, 256):
-        raise ValueError(f"WN: n_channels={C} unsupported (32, 64, 128 or "
-                         "256: a layer's tiles must fit shared memory)")
-    if kw % 2 == 0 or rows < 1 or B < 1 or T < 1:
-        raise ValueError(f"WN: B={B}, T={T}, rows={rows}, kw={kw} unsupported "
-                         "(kw odd, the rest positive)")
+    if kw % 2 == 0 or min(rows, B, C, T) < 1:
+        raise ValueError(f"WN: B={B}, C={C}, T={T}, rows={rows}, kw={kw} "
+                         "unsupported (kw odd, the rest positive)")
     return WnPlan(_wn_pick(B, C, T, kw), _wn_pick(B, C, T, 1))
 
 
@@ -673,30 +737,46 @@ def _launch_wn(kernel: str, fn, *args) -> None:
     LAUNCHES[kernel] += launches.value
 
 
-class _WaveglowWnForward(_NoBackward):
-    @staticmethod
-    def forward(ctx, x, cond_bc, start_w, start_b, k_all, rs_w, rs_b, end_w,
-                end_b, plan):
-        B, Cin, T = x.shape
-        L, KC, C2 = k_all.shape
-        C, Cout = C2 // 2, end_w.shape[1]
-        kw = KC // C
-        for name, t, shape in (
-                ("x", x, (B, Cin, T)), ("cond_bc", cond_bc, (B, L, C2, T)),
-                ("start_w", start_w, (Cin, C)), ("start_b", start_b, (C,)),
-                ("k_all", k_all, (L, kw * C, C2)), ("rs_w", rs_w, (L, C, C2)),
-                ("rs_b", rs_b, (L, C2)), ("end_w", end_w, (C, Cout)),
-                ("end_b", end_b, (Cout,))):
-            _check(f"waveglow_wn_forward {name}", t, shape)
-        plan = plan or wn_layer_plan(B, C, T, 1, kw)
-        lib = _build.library("waveglow_wn")
-        scratch = torch.empty((3, B, C, T), device=x.device, dtype=torch.float32)
-        st = torch.empty((B, Cout, T), device=x.device, dtype=torch.float32)
-        _launch_wn("waveglow_wn_forward", lib.waveglow_wn_forward,
-                   _ptr(x), _ptr(cond_bc), _ptr(start_w), _ptr(start_b),
-                   _ptr(k_all), _ptr(rs_w), _ptr(rs_b), _ptr(end_w), _ptr(end_b),
-                   B, Cin, C, Cout, T, L, kw, plan.ints(), _ptr(scratch), _ptr(st))
-        return st
+def _plan_ints(plan: Sequence[int], make: Callable[[], WnPlan]):
+    return (ctypes.c_int * 6)(*(tuple(plan) or make().ints()))
+
+
+def _waveglow_wn_forward_cuda(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
+                              end_w, end_b, plan):
+    B, Cin, T = x.shape
+    L, KC, C2 = k_all.shape
+    C, Cout = C2 // 2, end_w.shape[1]
+    kw = KC // C
+    for name, t, shape in (
+            ("x", x, (B, Cin, T)), ("cond_bc", cond_bc, (B, L, C2, T)),
+            ("start_w", start_w, (Cin, C)), ("start_b", start_b, (C,)),
+            ("k_all", k_all, (L, kw * C, C2)), ("rs_w", rs_w, (L, C, C2)),
+            ("rs_b", rs_b, (L, C2)), ("end_w", end_w, (C, Cout)),
+            ("end_b", end_b, (Cout,))):
+        _check(f"waveglow_wn_forward {name}", t, shape)
+    ints = _plan_ints(plan, lambda: wn_layer_plan(B, C, T, 1, kw))
+    lib = _build.library("waveglow_wn")
+    scratch = torch.empty((3, B, C, T), device=x.device, dtype=torch.float32)
+    st = torch.empty((B, Cout, T), device=x.device, dtype=torch.float32)
+    _launch_wn("waveglow_wn_forward", lib.waveglow_wn_forward,
+               _ptr(x), _ptr(cond_bc), _ptr(start_w), _ptr(start_b),
+               _ptr(k_all), _ptr(rs_w), _ptr(rs_b), _ptr(end_w), _ptr(end_b),
+               B, Cin, C, Cout, T, L, kw, ints, _ptr(scratch), _ptr(st))
+    return st
+
+
+_waveglow_wn_forward_op = _custom_op(
+    "waveglow_wn_forward",
+    "(Tensor x, Tensor cond_bc, Tensor start_w, Tensor start_b, Tensor k_all, "
+    "Tensor rs_w, Tensor rs_b, Tensor end_w, Tensor end_b, int[] plan) -> Tensor",
+    lambda x, cond_bc, start_w, start_b, k_all, rs_w, rs_b, end_w, end_b, plan:
+    waveglow_wn_forward_plain(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
+                              end_w, end_b))
+_waveglow_wn_forward_op.register_kernel("cuda")(_waveglow_wn_forward_cuda)
+_waveglow_wn_forward_op.register_fake(
+    lambda x, cond_bc, start_w, start_b, k_all, rs_w, rs_b, end_w, end_b, plan:
+    x.new_empty((x.shape[0], end_w.shape[1], x.shape[2])))
+_waveglow_wn_forward_op.register_autograd(_no_backward)
 
 
 def waveglow_wn_forward(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
@@ -704,11 +784,12 @@ def waveglow_wn_forward(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
                         ) -> torch.Tensor:
     """WN of one WaveGlow flow, GTU only (see waveglow_wn_forward_plain); on
     the card two launches per layer (the conv, then res/skip, tiled by
-    ``plan``, by default wn_layer_plan's) plus the start and end products."""
-    args = (x, cond_bc, start_w, start_b, k_all, rs_w, rs_b, end_w, end_b)
-    if not _dispatch(x, "waveglow_wn_forward"):
-        return waveglow_wn_forward_plain(*args)
-    return _WaveglowWnForward.apply(*args, plan)
+    ``plan``, by default wn_layer_plan's) plus the start and end products,
+    at every width."""
+    _refuse_other_devices(x, "waveglow_wn_forward")
+    return _waveglow_wn_forward_op(x, cond_bc, start_w, start_b, k_all, rs_w,
+                                   rs_b, end_w, end_b,
+                                   list(plan.ints()) if plan else [])
 
 
 def waveflow_row_step_plain(x_prev, queues, cond_bc, start_w, start_b, k_all,
@@ -755,32 +836,51 @@ def waveflow_row_step_ring_plain(x_prev, ring, step: int, cond_bc, *weights,
     return log_s, t
 
 
-class _WaveflowRowStep(_NoBackward):
-    @staticmethod
-    def forward(ctx, x_prev, ring, step, cond_bc, start_w, start_b, k_all,
-                rs_w, rs_b, end_w, end_b, plan):
-        B, W = x_prev.shape
-        L, kh, _, C, _ = ring.shape
-        C2 = 2 * C
-        kw = k_all.shape[1] // (kh * C)
-        for name, t, shape in (
-                ("x_prev", x_prev, (B, W)), ("ring", ring, (L, kh, B, C, W)),
-                ("cond_bc", cond_bc, (B, L, C2, W)),
-                ("start_w", start_w, (1, C)), ("start_b", start_b, (C,)),
-                ("k_all", k_all, (L, kh * kw * C, C2)),
-                ("rs_w", rs_w, (L, C, C2)), ("rs_b", rs_b, (L, C2)),
-                ("end_w", end_w, (C, 2)), ("end_b", end_b, (2,))):
-            _check(f"waveflow_row_step {name}", t, shape)
-        plan = plan or wn_layer_plan(B, C, W, kh, kw)
-        lib = _build.library("waveflow_row")
-        scratch = torch.empty((2, B, C, W), device=ring.device, dtype=torch.float32)
-        st = torch.empty((B, 2, W), device=ring.device, dtype=torch.float32)
-        _launch_wn("waveflow_row_step", lib.waveflow_row_step,
-                   _ptr(x_prev), _ptr(ring), int(step), _ptr(cond_bc),
-                   _ptr(start_w), _ptr(start_b), _ptr(k_all), _ptr(rs_w),
-                   _ptr(rs_b), _ptr(end_w), _ptr(end_b), B, C, W, L, kh, kw,
-                   plan.ints(), _ptr(scratch), _ptr(st))
-        return st[:, 0], st[:, 1]
+def _waveflow_row_step_cuda(x_prev, ring, step, cond_bc, start_w, start_b,
+                            k_all, rs_w, rs_b, end_w, end_b, plan):
+    B, W = x_prev.shape
+    L, kh, _, C, _ = ring.shape
+    C2 = 2 * C
+    kw = k_all.shape[1] // (kh * C)
+    for name, t, shape in (
+            ("x_prev", x_prev, (B, W)), ("ring", ring, (L, kh, B, C, W)),
+            ("cond_bc", cond_bc, (B, L, C2, W)),
+            ("start_w", start_w, (1, C)), ("start_b", start_b, (C,)),
+            ("k_all", k_all, (L, kh * kw * C, C2)),
+            ("rs_w", rs_w, (L, C, C2)), ("rs_b", rs_b, (L, C2)),
+            ("end_w", end_w, (C, 2)), ("end_b", end_b, (2,))):
+        _check(f"waveflow_row_step {name}", t, shape)
+    ints = _plan_ints(plan, lambda: wn_layer_plan(B, C, W, kh, kw))
+    lib = _build.library("waveflow_row")
+    scratch = torch.empty((2, B, C, W), device=ring.device, dtype=torch.float32)
+    st = torch.empty((B, 2, W), device=ring.device, dtype=torch.float32)
+    _launch_wn("waveflow_row_step", lib.waveflow_row_step,
+               _ptr(x_prev), _ptr(ring), step, _ptr(cond_bc),
+               _ptr(start_w), _ptr(start_b), _ptr(k_all), _ptr(rs_w),
+               _ptr(rs_b), _ptr(end_w), _ptr(end_b), B, C, W, L, kh, kw,
+               ints, _ptr(scratch), _ptr(st))
+    return st
+
+
+def _waveflow_row_step_cpu(x_prev, ring, step, cond_bc, start_w, start_b,
+                           k_all, rs_w, rs_b, end_w, end_b, plan):
+    return torch.stack(waveflow_row_step_ring_plain(
+        x_prev, ring, step, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
+        end_w, end_b), 1)
+
+
+# The op returns st [B, 2, W] = (log_s, t), which the entry splits: an op's
+# outputs may not be views of one another.
+_waveflow_row_step_op = _custom_op(
+    "waveflow_row_step",
+    "(Tensor x_prev, Tensor(a!) ring, int step, Tensor cond_bc, "
+    "Tensor start_w, Tensor start_b, Tensor k_all, Tensor rs_w, Tensor rs_b, "
+    "Tensor end_w, Tensor end_b, int[] plan) -> Tensor",
+    _waveflow_row_step_cpu, mutates_args=("ring",))
+_waveflow_row_step_op.register_kernel("cuda")(_waveflow_row_step_cuda)
+_waveflow_row_step_op.register_fake(
+    lambda x_prev, ring, step, cond_bc, *weights_and_plan:
+    x_prev.new_empty((x_prev.shape[0], 2, x_prev.shape[1])))
 
 
 def waveflow_row_step(x_prev, ring, step: int, cond_bc, start_w, start_b,
@@ -797,9 +897,10 @@ def waveflow_row_step(x_prev, ring, step: int, cond_bc, start_w, start_b,
     Returns (log_s [B, W], t [B, W]); ``ring_queues(ring, step + 1)`` are
     then the new queues of waveflow_row_step_plain. On the card: two
     launches per layer, tiled by ``plan`` (by default wn_layer_plan's), plus
-    the start and end products."""
-    args = (x_prev, ring, step, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
-            end_w, end_b)
-    if not _dispatch(x_prev, "waveflow_row_step"):
-        return waveflow_row_step_ring_plain(*args)
-    return _WaveflowRowStep.apply(*args, plan)
+    the start and end products, at every width. The op has no autograd
+    formula (a backward raises), as an op that mutates an input may not."""
+    _refuse_other_devices(x_prev, "waveflow_row_step")
+    st = _waveflow_row_step_op(x_prev, ring, int(step), cond_bc, start_w,
+                               start_b, k_all, rs_w, rs_b, end_w, end_b,
+                               list(plan.ints()) if plan else [])
+    return st[:, 0], st[:, 1]

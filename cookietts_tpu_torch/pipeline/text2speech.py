@@ -18,7 +18,10 @@ Decoding and vocoding run on the model's device; the host loop only does
 control flow. The early-exit decode runs its chunks through a
 ``DecodeChunkGraphs`` (``pipeline/chunk_graph.py``: on the card, each chunk
 shape captured once as a CUDA graph and replayed). Prenet dropout draws from
-a ``torch.Generator`` seeded from the request's ``seed``.
+a ``torch.Generator`` seeded from the request's ``seed``. Without a live
+model, ``decode_fn`` decodes (an exported artifact's
+``ArtifactT2SDecoder.decode``, runtime/export_serving.py) and the candidates
+are scored from the alignments it returns.
 """
 from __future__ import annotations
 
@@ -205,23 +208,40 @@ class T2S:
     strength) -> audio [1, T]`` (a ``Denoiser``) runs when a request asks for
     ``denoise_strength > 0``; ``torchmoji_fn(text) -> [torchmoji_dim]`` and
     ``arpa_fn(text) -> text`` are optional host callables.
+
+    ``decode_fn`` replaces the live model (``tts_model=None``) for serving
+    an exported artifact (runtime/export_serving.ArtifactT2SDecoder.decode):
+    ``decode_fn(text, text_lengths, speaker_id, torchmoji, seed,
+    gate_threshold=, gate_delay=, max_steps=) -> (mels, mel_lengths,
+    alignments)``; construction then needs ``torchmoji_dim``. A request's
+    candidate rounds take the seeds ``seed``, then ``seed + 2**32``, ...
+    (the live decode draws every round from one generator of ``seed``, so
+    the first round of both decodes draws the same masks).
     """
 
-    def __init__(self, cfg: T2SConfig, tts_model: Tacotron2,
+    def __init__(self, cfg: T2SConfig, tts_model: Optional[Tacotron2],
                  speaker_ids: Dict[str, int],
                  vocoder_fn: Optional[Callable] = None,
                  denoiser_fn: Optional[Callable] = None,
                  torchmoji_fn: Optional[Callable[[str], np.ndarray]] = None,
                  arpa_fn: Optional[Callable[[str], str]] = None,
                  sample_rate: int = 44100, hop_length: int = 512,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 decode_fn: Optional[Callable] = None,
+                 torchmoji_dim: Optional[int] = None):
         self.device = resolve_device(device)
-        if tts_model.device.type != self.device.type:
+        if tts_model is None:
+            if decode_fn is None or torchmoji_dim is None:
+                raise ValueError("without a model, T2S needs decode_fn and "
+                                 "torchmoji_dim (ArtifactT2SDecoder's)")
+        elif tts_model.device.type != self.device.type:
             raise ValueError(f"model is on {tts_model.device}, T2S on "
                              f"{self.device}")
         self.cfg = cfg
         self.model = tts_model
-        self.torchmoji_dim = tts_model.cfg.torchmoji_dim
+        self.decode_fn = decode_fn
+        self.torchmoji_dim = (tts_model.cfg.torchmoji_dim if torchmoji_dim is None
+                              else torchmoji_dim)
         self.speaker_ids = dict(speaker_ids)
         self.vocoder_fn = serving_vocoder(vocoder_fn)
         self.denoiser_fn = denoiser_fn
@@ -229,22 +249,33 @@ class T2S:
         self.arpa_fn = arpa_fn
         self.sample_rate = sample_rate
         self.hop_length = hop_length
-        self.decode_chunk = DecodeChunkGraphs(tts_model.decoder)
+        self.decode_chunk = (None if tts_model is None
+                             else DecodeChunkGraphs(tts_model.decoder))
 
     def _generate(self, text, text_lengths, speaker_id, torchmoji, generator,
-                  max_steps, gate_threshold, gate_delay):
-        """Early-exit decode of one candidate batch + its scores; the
-        chunks run through the captured chunk program."""
-        out = self.model.inference(
-            text, text_lengths, speaker_id, torchmoji, generator=generator,
-            max_decoder_steps=max_steps, early_exit=True,
-            chunk_size=max(64, self.model.cfg.gate_delay),
-            gate_threshold=gate_threshold, gate_delay=gate_delay,
-            chunk_fn=self.decode_chunk)
+                  max_steps, gate_threshold, gate_delay, seed):
+        """Early-exit decode of one candidate batch + its scores: the live
+        model's, its chunks through the captured chunk program, or
+        ``decode_fn``'s with this round's ``seed``."""
+        if self.decode_fn is not None:
+            mels, mel_lengths, align = self.decode_fn(
+                text, text_lengths, speaker_id, torchmoji, seed,
+                gate_threshold=gate_threshold, gate_delay=gate_delay,
+                max_steps=max_steps)
+        else:
+            out = self.model.inference(
+                text, text_lengths, speaker_id, torchmoji, generator=generator,
+                max_decoder_steps=max_steps, early_exit=True,
+                chunk_size=max(64, self.model.cfg.gate_delay),
+                gate_threshold=gate_threshold, gate_delay=gate_delay,
+                chunk_fn=self.decode_chunk)
+            mels, mel_lengths, align = (out["mel_outputs_postnet"],
+                                        out["mel_lengths"], out["alignments"])
         lengths = torch.as_tensor(text_lengths, device=self.device)
-        atd = alignment_metric(out["alignments"], lengths, out["mel_lengths"])
-        scores = weighted_score(atd, lengths, out["mel_lengths"])
-        return out["mel_outputs_postnet"], out["mel_lengths"], scores
+        mel_lengths = mel_lengths.to(self.device)
+        atd = alignment_metric(align, lengths, mel_lengths)
+        scores = weighted_score(atd, lengths, mel_lengths)
+        return mels, mel_lengths, scores
 
     def _round_steps(self, n: int) -> int:
         """Round max decoder steps up to a small set of bucket sizes."""
@@ -288,16 +319,18 @@ class T2S:
         delay = cfg.gate_delay if gate_delay is None else gate_delay
         # the early-exit decode stops one chunk after the model's own gate
         # threshold fires and generates only that chunk past it: a larger
-        # delay or threshold would count never-generated frames
-        chunk_limit = max(64, self.model.cfg.gate_delay)
-        if delay > chunk_limit:
-            print(f"[t2s] gate_delay {delay} clamped to {chunk_limit} "
-                  "(early-exit chunk size)")
-            delay = chunk_limit
-        if thr > self.model.cfg.gate_threshold:
-            print(f"[t2s] gate_threshold {thr} clamped to the model's "
-                  f"{self.model.cfg.gate_threshold}")
-            thr = self.model.cfg.gate_threshold
+        # delay or threshold would count never-generated frames (decode_fn
+        # caps them itself)
+        if self.model is not None:
+            chunk_limit = max(64, self.model.cfg.gate_delay)
+            if delay > chunk_limit:
+                print(f"[t2s] gate_delay {delay} clamped to {chunk_limit} "
+                      "(early-exit chunk size)")
+                delay = chunk_limit
+            if thr > self.model.cfg.gate_threshold:
+                print(f"[t2s] gate_threshold {thr} clamped to the model's "
+                      f"{self.model.cfg.gate_threshold}")
+                thr = self.model.cfg.gate_threshold
         steps_cap = (cfg.max_decoder_steps if max_decoder_steps is None
                      else max_decoder_steps)
         if max_duration_s:
@@ -357,7 +390,9 @@ class T2S:
         generator = torch.Generator(device=self.device).manual_seed(seed)
 
         pending = list(range(len(segments)))
-        while pending:
+        for round_ in itertools.count():
+            if not pending:
+                break
             # fill one candidate batch: spread attempts across pending segs
             batch_idx = (pending * ((bsz // len(pending)) + 1))[:bsz]
             t_max = max(len(seqs[i]) for i in batch_idx)
@@ -383,7 +418,8 @@ class T2S:
                 int(t_max * fpc) + int(delay), steps_cap))
 
             mels, mel_lengths, scores = self._generate(
-                text_arr, lens, spk, tm_arr, generator, max_steps, thr, delay)
+                text_arr, lens, spk, tm_arr, generator, max_steps, thr, delay,
+                seed + round_ * 2 ** 32)
             mels = mels.cpu().numpy()
             mel_lengths = np.minimum(mel_lengths.cpu().numpy(), cap_here)
             scores = scores.cpu().numpy()

@@ -9,7 +9,8 @@ torchMoji with a small vocabulary) is saved as a JAX checkpoint and, through
 T2S worker's torchMoji path (one feature per segment, zeros for
 ``style_mode="none"``) is held to JAX's the same way. The vocoder loader's
 HiFi-GAN and WaveFlow branches, ``--speaker_info``, ``--denoiser``, the
-server wiring and the refused ``--artifact`` run on the port alone.
+server wiring and ``--artifact`` refusing a JAX artifact run on the port
+alone (tests/test_torch_export.py serves the port's own artifacts).
 """
 import json
 import os
@@ -283,9 +284,12 @@ def test_server_wiring_and_artifact_refused(ckpts, monkeypatch):
               "--device", "cpu"])
     assert served["port"] == 5123 and isinstance(served["t2s"], T2S)
     assert served["t2s"].torchmoji_fn is not None
+    from cookietts_tpu.runtime.export_serving import save_artifact as jsave_art
+    jax_art = str(p["dir"] / "jax_serving.npz")
+    jsave_art(jax_art, {"t2s_b2_t64": b"stablehlo"}, {"platforms": ["cpu"]})
     for cmd in (["server"], ["tts", "--text", "x"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            cli.main(cmd + ["--artifact", "a.npz", "--device", "cpu"])
+        with pytest.raises(ValueError, match="not a torch.export artifact"):
+            cli.main(cmd + ["--artifact", jax_art, "--device", "cpu"])
     with pytest.raises(SystemExit, match="--torchmoji_vocab"):
         cli.main(["server", "--checkpoint", p["port"], "--torchmoji",
                   p["tm_port"], "--device", "cpu"])

@@ -34,6 +34,9 @@ for mod in pkgutil.walk_packages(cookietts_tpu_torch.__path__,
     importlib.import_module(mod.name)
 leaked = sorted(m for m in sys.modules if forbidden(m))
 assert not leaked, leaked
+for name in ("cookietts_tpu_torch.runtime.export_serving",
+             "cookietts_tpu_torch.audio.iso226"):
+    assert name in sys.modules, name
 print("imported", len([m for m in sys.modules
                        if m.startswith("cookietts_tpu_torch")]))
 """
@@ -90,8 +93,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     Generator(hcfg, device="cpu")
 
 
-@pytest.mark.parametrize("entry", ["waveglow", "waveflow", "stft", "denoiser"])
+@pytest.mark.parametrize("entry", ["waveglow", "waveflow", "stft", "denoiser",
+                                   "iso226"])
 def test_flow_vocoder_entry_points_raise_without_cuda(monkeypatch, entry):
+    from cookietts_tpu_torch.audio.iso226 import ISO226
     from cookietts_tpu_torch.audio.stft import STFT
     from cookietts_tpu_torch.models.denoiser import Denoiser
     from cookietts_tpu_torch.models.waveglow import WaveGlow, WaveGlowConfig
@@ -105,7 +110,8 @@ def test_flow_vocoder_entry_points_raise_without_cuda(monkeypatch, entry):
             "waveflow": lambda **kw: WaveGlow(cfg, **kw),
             "stft": lambda **kw: STFT(64, 16, 64, **kw),
             "denoiser": lambda **kw: Denoiser(silent, sampling_rate=4000,
-                                              n_mel_channels=4, **kw)}[entry]
+                                              n_mel_channels=4, **kw),
+            "iso226": lambda **kw: ISO226(8000, 64, 16, 64, **kw).stft}[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
     assert make(device="cpu").device.type == "cpu"
@@ -259,3 +265,58 @@ def test_convert_command_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[-1] == "16"
     assert (tmp_path / "tm.pt").exists() and (tmp_path / "tm.pt.json").exists()
+
+
+@pytest.mark.parametrize("cmd", ["export", "tts", "server"])
+def test_artifact_commands_raise_without_cuda(monkeypatch, tmp_path, cmd):
+    """``export``, ``tts --artifact`` and ``server --artifact`` run on the
+    card unless given ``--device cpu`` (then they go on to read their
+    files, missing here)."""
+    from cookietts_tpu_torch.cli import main as cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    argv = {"export": ["export", "--checkpoint", missing],
+            "tts": ["tts", "--artifact", missing, "--text", "x"],
+            "server": ["server", "--artifact", missing]}[cmd]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli(argv)
+    with pytest.raises(FileNotFoundError):
+        cli(argv + ["--device", "cpu"])
+
+
+_LOAD_ARTIFACT = """
+import sys
+sys.meta_path.insert(0, type("Block", (), {{"find_spec": staticmethod(
+    lambda name, path=None, target=None: (_ for _ in ()).throw(ImportError(name))
+    if name.split(".")[0] in {forbidden!r} else None)}})())
+from cookietts_tpu_torch.runtime.export_serving import load_artifact
+import torch
+fns, meta = load_artifact({path!r}, "cpu")
+audio = fns["vocoder_b1_t4"](torch.zeros(1, 4, 8))
+models = sorted(m for m in sys.modules
+                if m.startswith("cookietts_tpu_torch.models"))
+print(tuple(audio.shape), models)
+"""
+
+
+def test_load_artifact_imports_no_model_module(tmp_path):
+    """An artifact loads and runs in a process that imports nothing under
+    cookietts_tpu_torch.models (nor jax): only the kernels' ops and the
+    loader."""
+    from cookietts_tpu_torch.models.hifigan import Generator, HiFiGANConfig
+    from cookietts_tpu_torch.runtime.export_serving import (
+        export_vocoder_serving, save_artifact)
+    gen = Generator(HiFiGANConfig(
+        n_mel_channels=8, resblock_kernel_sizes=(3,), resblock_dilations=((1,),),
+        upsample_rates=(2,), upsample_kernel_sizes=(4,),
+        upsample_initial_channel=8), device="cpu")
+    path = str(tmp_path / "voc.npz")
+    save_artifact(path, export_vocoder_serving(
+        lambda mel: gen(mel, infer=True), 8, [(1, 4)], device="cpu"),
+        {"device": "cpu"})
+    proc = subprocess.run(
+        [sys.executable, "-c", _LOAD_ARTIFACT.format(forbidden=FORBIDDEN,
+                                                     path=path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[-2] == "(1, 8) []"

@@ -196,11 +196,31 @@ def test_wn_layer_plan_fits_and_covers(C, rows, T):
 
 
 def test_wn_layer_plan_refuses_what_the_kernels_do_not_take():
-    for C, kw in ((48, 3), (512, 3), (64, 4)):
+    for C, kw in ((0, 3), (64, 4), (64, 0)):
         with pytest.raises(ValueError):
             hk.wn_layer_plan(1, C, 100, 1, kw)
     with pytest.raises(ValueError):
-        hk.wn_launch(0, 1, 32, 100, 3)       # 64 channel pairs a block > C
+        hk.wn_launch(0, 1, 32, 100, 401)     # a window past shared memory
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("C", [24, 48, 96, 384, 512])
+def test_wn_layer_plan_takes_every_width(C, rows):
+    """Widths past 256 and widths that are not a multiple of 32 (or of a
+    block's channel pairs) plan too: the last channel block and K step are
+    staged with zeros past C, so a launch's blocks cover C rounded up to
+    its channel block exactly once, the block that pads C least is taken,
+    and the tiles fit shared memory whatever C (C = 512 is WaveFlow's
+    reference width)."""
+    for B, T in ((1, 250), (4, 1500)):
+        plan = hk.wn_layer_plan(B, C, T, rows, 3)
+        for launch, kw in ((plan.conv, 3), (plan.rs, 1)):
+            m = launch.m
+            pad = min(-(-C // (16 * wm)) * 16 * wm for wm, _, _ in hk.WN_TILES)
+            assert launch.grid[1] * m == pad and launch.grid[1] * m >= C
+            assert launch.grid[0] * launch.n >= T and launch.grid[2] == B
+            assert launch.smem <= hk.SMEM_MAX and launch.win_stride >= kw * launch.n
+        assert len(plan.ints()) == 6
 
 
 def test_wn_launches_follow_the_plan():
@@ -474,7 +494,7 @@ def test_wrappers_refuse_other_devices():
 
 def test_kernels_have_no_backward_yet():
     with pytest.raises(NotImplementedError):
-        hk._NoBackward.backward(None, torch.zeros(1))
+        hk._no_backward(None, torch.zeros(1))
 
 
 def test_build_without_nvcc_raises(monkeypatch):

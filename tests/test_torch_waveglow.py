@@ -247,13 +247,50 @@ def test_infer_draws_z_from_the_generator(mixing):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ISO-226"):
-        WaveGlow(WaveGlowConfig(**GLOW, iso226_deemphasis=True),
-                 device="cpu").infer(torch.zeros(1, 2, 8))
     with pytest.raises(NotImplementedError, match="float32"):
         WaveGlow(WaveGlowConfig(**GLOW, dtype=torch.bfloat16), device="cpu")
     with pytest.raises(ValueError, match="hop_length"):
         WaveGlow(WaveGlowConfig(**dict(GLOW, hop_length=25)), device="cpu")
+
+
+def test_iso226_deemphasis_matches_jax(monkeypatch):
+    """ISO226.inverse, and WaveGlow.infer with iso226_deemphasis at a given
+    z, against JAX's ISO226 and its infer (the inverse, then the
+    de-emphasis) at the STFT tests' tolerances. Both sides build the
+    same float64 pseudo-inverse of the 2400-point DFT basis; it is computed
+    once here."""
+    from cookietts_tpu.audio.iso226 import ISO226 as JISO226
+    from cookietts_tpu_torch.audio.iso226 import ISO226
+    pinv, memo = np.linalg.pinv, {}
+
+    def cached_pinv(a, *args, **kwargs):
+        key = (a.shape, hash(a.tobytes()))
+        if key not in memo:
+            memo[key] = pinv(a, *args, **kwargs)
+        return memo[key]
+
+    monkeypatch.setattr(np.linalg, "pinv", cached_pinv)
+    rng = np.random.default_rng(3)
+    audio = (0.3 * rng.standard_normal((2, 3000))).astype(np.float32)
+    for kw in ({"filter_length": 256, "hop_length": 64, "win_length": 256},
+               {}):
+        ref = np.asarray(JISO226(sampling_rate=22050, **kw).inverse(
+            jnp.asarray(audio)))
+        got = ISO226(sampling_rate=22050, device="cpu", **kw).inverse(
+            torch.from_numpy(audio)).numpy()
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, atol=2e-5, rtol=0)
+
+    kw = dict(GLOW, iso226_deemphasis=True)
+    jm, params, port, audio, mel, spk, z = build(kw, 3000)
+    ref = JISO226(sampling_rate=jm.cfg.sampling_rate).inverse(
+        jm.apply({"params": params}, jnp.asarray(z), jnp.asarray(mel),
+                 method=JWaveGlow.inverse))
+    got = port.infer(torch.from_numpy(mel), z=torch.from_numpy(z)).numpy()
+    assert got.shape == (2, 3000)
+    # the de-emphasis lifts this flow's audio to |20|: the STFT round trip's
+    # tolerance (test_stft_round_trip_reconstructs_audio)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=1e-4, rtol=0)
 
 
 def test_tpu_knobs_are_accepted_and_ignored():

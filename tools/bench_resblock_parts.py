@@ -147,7 +147,8 @@ def main() -> int:
         err = lib.waveglow_wn_forward(
             *(hk._ptr(t) for t in (x, cond, start_w, start_b, k_all, rs_w, rs_b,
                                    end_w, end_b)),
-            B, Cin, C, Cout, T, L, K // C, plan.ints(), hk._ptr(scratch),
+            B, Cin, C, Cout, T, L, K // C, (ctypes.c_int * 6)(*plan.ints()),
+            hk._ptr(scratch),
             hk._ptr(st), ctypes.byref(launches), hk._stream())
         if err:
             raise RuntimeError(f"CUDA error {err}")
