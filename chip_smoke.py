@@ -165,6 +165,30 @@ non-zero:
    WaveGlow.infer at the same z, exact WN launches, the copies of the ring
    (auto_functionalized nodes) in the WaveFlow program, vocode ms against
    the live infer's.
+12. the GTA stage and its two adversarial trainers, at full width. 12a: a
+   seeded Tacotron2Config() checkpoint; `python -m cookietts_tpu_torch gta`
+   as a process on a 12-utterance evidence corpus (22050 Hz, 80 mels, the
+   data config's buckets) at batch 8, so the last batch is short: one map
+   line an utterance, finite [T, 80] mels whose letter durations sum to T,
+   attention_step once and lstm_gates 3 times a decoder step (the steps
+   from the written mels' lengths and the buckets); one batch of 8 through
+   GTAGenerator with the kernels against the plain versions (1e-4), and
+   with prenet dropout off the card against the CPU (1e-3); --extremeGTA 128
+   on two utterances; seconds per utterance and per second of audio, and
+   the device-busy share. 12b: `train --model gan_postnet` over 12a's map
+   at GANPostnetConfig() with the checkpoint's speaker table, 4 iterations;
+   the D and G steps timed; one D+G step on unit-variance mels card
+   against CPU by phase 8's rule (`step_parity`: losses rel 1e-4,
+   gradients and their norms 1e-3 or 10 times what a 1e-6 nudge of the
+   inputs moves them on the CPU), and the parameters after the step
+   within 1e-4 (2 lr where the gradient is within rounding of zero).
+   12c: `train --model hifigan_denoiser` at HiFiGANDenoiserConfig() on 48
+   kHz clean wavs with a noise folder, batch 4: stage 0 at 8400-sample
+   segments for 3 iterations, then --resume at stage=2 (fresh critics) at
+   76800 (DS takes at least 73800) to 5; each stage's step timed; one
+   stage-2 step at B=1 on broadband audio card against CPU as in 12b.
+   Training launches no
+   kernel.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -2125,7 +2149,7 @@ def gan_step_times(trainer, batch, smi, reps=3):
     iteration split into the D and the G step (host clock, synchronised),
     peak memory, and the device-busy share of one more iteration."""
     import torch
-    from cookietts_tpu_torch.runtime.trainer import batch_to_device
+    from cookietts_tpu_torch.device import batch_to_device
     step, state = trainer.train_step, trainer.state
     ctrl = trainer.ctrl(int(state.step))
     dev = batch_to_device(batch, DEV)
@@ -2159,8 +2183,8 @@ def flow_step_times(trainer, batch, name, smi):
     from cookietts_tpu_torch.models.waveglow import WaveGlow
     from cookietts_tpu_torch.runtime.optim import adam
     from cookietts_tpu_torch.runtime.train_state import TrainState
-    from cookietts_tpu_torch.runtime.trainer import (batch_to_device,
-                                                     make_waveglow_train_step)
+    from cookietts_tpu_torch.device import batch_to_device
+    from cookietts_tpu_torch.runtime.trainer import make_waveglow_train_step
     src = trainer.state.model
     dev = batch_to_device(batch, DEV)
     ctrl = trainer.ctrl(int(trainer.state.step))
@@ -2197,8 +2221,8 @@ def flow_validation_parity(hk, check, trainer, name, key):
     """Validation through the inverse from the trained weights and one z:
     the kernels against their plain versions (the launches counted)."""
     import torch
-    from cookietts_tpu_torch.runtime.trainer import (batch_to_device,
-                                                     make_waveglow_val_step)
+    from cookietts_tpu_torch.device import batch_to_device
+    from cookietts_tpu_torch.runtime.trainer import make_waveglow_val_step
     model = trainer.state.model
     cfg = model.cfg
     batch = batch_to_device(trainer.val_batches[0], DEV)
@@ -2230,62 +2254,122 @@ def moments_grads(side):
     return {k: v / 0.1 for k, v in side.opt_state.mu.items()}
 
 
-def step_parity(name, build, step_of, batch, ctrl):
+def parity_run(build, step_of, batch, ctrl, device):
+    """One train step from ``build()``'s modules (built on the CPU under
+    seed 0, moved to ``device``) -> (metrics, gradients from Adam's first
+    moments, the parameters after the step, all on the CPU, seconds)."""
+    import torch
+    from cookietts_tpu_torch.device import batch_to_device
+    torch.manual_seed(0)
+    modules = [m.to(device) for m in build()]
+    step, state = step_of(modules, device)
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch_to_device(batch, device), None, ctrl)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    sides = [state.g, state.d] if hasattr(state, "d") else [state]
+    return ({k: float(v) for k, v in metrics.items()},
+            {f"{i}.{k}": g.cpu() for i, side in enumerate(sides)
+             for k, g in moments_grads(side).items()},
+            {f"{i}.{k}": p.detach().cpu() for i, side in enumerate(sides)
+             for k, p in side.params.items()},
+            time.perf_counter() - t0)
+
+
+def step_parity(name, build, step_of, batch, ctrl, check_params=False):
     """One train step on the card against the same step on the CPU, from
     the same weights (``build()`` on the CPU, copied) and batch: every
-    reported loss within 1e-4 of itself or of the loss (a log-determinant
-    of a near-rotation is rounding noise about 0), every gradient within
-    relative L2 1e-3 (a zero gradient zero on both). A gradient can be
-    ill-conditioned in its input: leaky ReLU kinks that rounding flips,
-    sums that cancel (the MSD's first scale: moving the audio by a relative
-    1e-6 moves its first conv's weight gradient by 8e-4 on the CPU, H100
-    run). So where a gradient's card difference exceeds 1e-3, the CPU runs
-    the step once more with the batch's audio moved by a relative 1e-6
-    (about 16 ulp a sample), and that gradient is held to 10 times what the
-    nudge moves it (rounding acts at each of some 30 layers, not once at the
-    input)."""
+    reported metric within 1e-4 of itself or of the loss (a log-determinant
+    of a near-rotation is rounding noise about 0), every gradient (from
+    Adam's first moments) within relative L2 1e-3 (a zero gradient zero on
+    both). A gradient can be ill-conditioned in its input: leaky ReLU kinks
+    that rounding flips, sums that cancel (the MSD's first scale: moving the
+    audio by a relative 1e-6 moves its first conv's weight gradient by 8e-4
+    on the CPU, H100 run), the log of a spectrum's smallest bins (the
+    denoiser's critics). So where a gradient or a gradient's norm is over
+    its limit, the CPU runs the step once more with every float input of
+    the batch moved by a relative 1e-6 (about 16 ulp a value), and that
+    number is held to 10 times what the nudge moves it (rounding acts at
+    each of some 30 layers, not once at the input). A loss has no such
+    escape.
+
+    ``check_params``: every parameter after the step within 1e-4, but where
+    the CPU's gradient is within rounding of zero, which Adam's normalised
+    first step moves by up to lr either way: there within 2 lr. Within
+    rounding: an element that the nudge (which then always runs) or the
+    card moves by more than a tenth of its value, or every element of a
+    gradient the nudge moves by more than a tenth in L2 (a conv bias ahead
+    of a training-form BatchNorm, the weight_v of a one-element weight-norm
+    group). The card's own difference counts because the nudge cannot see
+    rounding in a sum that cancels (the flax BatchNorm's variance,
+    E[x^2] - E[x]^2, of a channel whose mean dwarfs its spread), and it
+    cannot hide a wrong gradient: the gradient check above holds each
+    gradient whole."""
     import numpy as np
     import torch
-    from cookietts_tpu_torch.runtime.trainer import batch_to_device
 
     def run(device, b):
-        """(metrics, gradients on the CPU, seconds) of one step."""
-        torch.manual_seed(0)
-        modules = [m.to(device) for m in build()]
-        step, state = step_of(modules, device)
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch_to_device(b, device), None, ctrl)
-        if device != "cpu":
-            torch.cuda.synchronize()
-        sides = [state.g, state.d] if hasattr(state, "d") else [state]
-        return ({k: float(v) for k, v in metrics.items()},
-                {f"{i}.{k}": g.cpu() for i, side in enumerate(sides)
-                 for k, g in moments_grads(side).items()},
-                time.perf_counter() - t0)
+        return parity_run(build, step_of, b, ctrl, device)
 
-    (mc, gc, tc), (mg, gg, tg) = run("cpu", batch), run(DEV, batch)
-    loss_rel = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), abs(mc["loss"]))
-                   for k in mc)
+    (mc, gc, pc, tc), (mg, gg, pg, tg) = run("cpu", batch), run(DEV, batch)
+    rel_m = lambda m, k: abs(m[k] - mc[k]) / max(abs(mc[k]), abs(mc["loss"]))  # noqa: E731
     rel = lambda g, k: float((g[k] - gc[k]).norm()) / float(gc[k].norm())  # noqa: E731
     nonzero = [k for k in gc if float(gc[k].norm()) > 0.0]
     bad = [k for k in gc if k not in nonzero and float(gg[k].norm()) != 0.0]
     rows = sorted(((rel(gg, k), k) for k in nonzero), reverse=True)
     over = [(r, k) for r, k in rows if r > 1e-3]
-    text = "none"
-    if over:                    # the CPU's own difference at a nudged input
-        noise = np.random.default_rng(0).standard_normal(batch["audio"].shape)
-        gn = run("cpu", dict(batch, audio=(batch["audio"] * (
-            1 + 1e-6 * noise)).astype(np.float32)))[1]
+    over_m = [k for k in sorted(mc) if rel_m(mg, k) > 1e-4]
+    text, params = "none", ""
+    if over or over_m or check_params:  # the CPU at a nudged input
+        rng = np.random.default_rng(0)
+        mn, gn = run("cpu", {k: (v * (1 + 1e-6 * rng.standard_normal(
+            v.shape))).astype(np.float32) if v.dtype.kind == "f" else v
+            for k, v in ((k, np.asarray(v)) for k, v in batch.items())})[:2]
         bad += [k for r, k in over if r > 10 * rel(gn, k)]
-        text = ", ".join(f"{k} {r:.2e} (nudged {rel(gn, k):.2e})"
-                         for r, k in over)
+        bad += [k for k in over_m if not k.endswith("grad_norm")
+                or rel_m(mg, k) > 10 * rel_m(mn, k)]
+        text = (", ".join(f"{k} {rel_m(mg, k):.2e} (nudged {rel_m(mn, k):.2e})"
+                          for k in over_m)
+                + "; " * bool(over_m and over)
+                + ", ".join(f"{k} {r:.2e} (nudged {rel(gn, k):.2e})"
+                            for r, k in over[:12])
+                + (f" and {len(over) - 12} more" if len(over) > 12 else "")
+                ) or "none"
+    if check_params:
+        worst, n_round, n_card = (0.0, ""), 0, 0
+        for k in pc:
+            diff = (pg[k] - pc[k]).abs()
+            nudged = gc[k].abs() <= 10 * (gn[k] - gc[k]).abs()
+            if k in nonzero and rel(gn, k) > 0.1:
+                nudged = torch.ones_like(nudged)
+            rounding = nudged | (gc[k].abs() <= 10 * (gg[k] - gc[k]).abs())
+            n_round += int(rounding.sum())
+            n_card += int((rounding & ~nudged).sum())
+            fail = torch.where(rounding, diff > 2 * ctrl["lr"] + 1e-6,
+                               diff > 1e-4)
+            if bool(fail.any()):
+                i = int(torch.argmax(torch.where(fail, diff, 0.0)))
+                bad.append(f"{k}: {int(fail.sum())} elements, the largest "
+                           f"{float(diff.flatten()[i]):.2e} (gradient "
+                           f"{float(gc[k].flatten()[i]):.3e} on the CPU, "
+                           f"{float(gn[k].flatten()[i]):.3e} nudged, "
+                           f"{float(gg[k].flatten()[i]):.3e} on the card)")
+            worst = max(worst, (float(torch.where(rounding, 0.0, diff).max()),
+                                k))
+        params = (f"; parameters after the step, largest difference "
+                  f"{worst[0]:.2e} ({worst[1]}; limit 1e-4), {n_round} of "
+                  f"{sum(v.numel() for v in pc.values())} elements with a "
+                  f"gradient within rounding of zero, {n_card} of them by the "
+                  f"card's difference alone (limit 2 lr)")
     log(f"  {name} step on the card ({tg:.2f} s) against the CPU ({tc:.2f} s): "
         f"losses {', '.join(f'{k} {mg[k]:.6g}' for k in sorted(mg))}; largest "
-        f"difference over the value or the loss {loss_rel:.2e} (limit 1e-4); "
-        f"{len(gc)} gradients, largest relative L2 "
+        f"difference over the value or the loss "
+        f"{max(rel_m(mg, k) for k in mc):.2e} (limit 1e-4); {len(gc)} "
+        f"gradients, largest relative L2 "
         f"{', '.join(f'{k} {r:.2e}' for r, k in rows[:3])} (limit 1e-3); "
-        f"over 1e-3, with what the nudged audio moves it on the CPU: {text}")
-    if loss_rel > 1e-4 or bad:
+        f"over their limits, with what the nudged inputs move them on the "
+        f"CPU: {text}{params}")
+    if bad:
         raise SystemExit(f"chip_smoke: the {name} train step on the card "
                          f"disagrees with the CPU's ({bad})")
 
@@ -3277,6 +3361,412 @@ def phase11(hk, check, tcfg, hcfg, smi):
     p11_flow(hk, check, "WaveFlow", make_flow_vocoder(WAVEFLOW, seed=3), gen, smi)
 
 
+# -- phase 12: the GTA stage and its two adversarial trainers -----------------
+
+# the evidence corpus's front end (22050 Hz, hop 256) at the model's 80 mels,
+# the data config's own text and mel buckets
+GTA_HPARAMS = ("sampling_rate=22050,filter_length=1024,hop_length=256,"
+               "win_length=1024,mel_fmax=8000.0,trim_enable=False,"
+               "n_mel_channels=80,p_arpabet=0.0")
+GTA_UTTERANCES, GTA_BATCH = 12, 8
+# the GAN postnet at GANPostnetConfig() on 12a's map (the speaker width from
+# the checkpoint's table); the denoiser at HiFiGANDenoiserConfig() on 48 kHz
+# clean wavs, batch 4: stage 0 at DenoiserDataConfig()'s 8400-sample
+# segments, stage 2 at 76800 (DS's four VALID blocks and crush conv take at
+# least 123 frames of the 600-hop bank, 73800 samples; at 8400 JAX's DS
+# returns NaN and the port's refuses)
+POSTNET = {}            # GANPostnetConfig() (a CPU rehearsal shrinks these)
+POSTNET_HPARAMS = (GTA_HPARAMS.replace(",trim_enable=False", "")
+                   .replace(",p_arpabet=0.0", "")
+                   + ",batch_size=8,validation_interval=2,"
+                     "checkpoint_interval=2,log_every=1")
+DENOISER = {}           # HiFiGANDenoiserConfig()
+DENOISER_HPARAMS = ("batch_size=4,validation_interval=2,checkpoint_interval=2,"
+                    "log_every=1")
+DENOISER_STAGE2_SEGMENT = 76800
+
+
+def gta_steps(map_lines, dcfg, batch):
+    """Decoder steps the gta command must run: each batch of ``batch``
+    lines in map order padded to the data config's mel bucket (or past the
+    last bucket in 64-frame steps), from the written mels' lengths."""
+    import numpy as np
+    from cookietts_tpu_torch.data.dataset import bucket_size
+    lengths = [np.load(ln.split("|")[1], mmap_mode="r").shape[0]
+               for ln in map_lines]
+    steps = 0
+    for i in range(0, len(lengths), batch):
+        m = max(lengths[i:i + batch])
+        pad = bucket_size(m, dcfg.mel_buckets)
+        steps += pad if pad >= m else -(-m // 64) * 64
+    return steps
+
+
+def p12_gta_files(map_lines, n_mel):
+    """Every map line's mel is finite [T, n_mel] and its letter durations
+    sum to T."""
+    import numpy as np
+    for ln in map_lines:
+        wav, mel_path, _ = ln.split("|")
+        mel = np.load(mel_path)
+        dur = np.load(mel_path.replace(".mel", ".gdur"))
+        if (mel.ndim != 2 or mel.shape[1] != n_mel
+                or not np.isfinite(mel).all() or int(dur.sum()) != mel.shape[0]
+                or not mel_path.startswith(wav + ".mel")):
+            raise SystemExit(f"chip_smoke: GTA output of {wav}: mel "
+                             f"{mel.shape}, durations sum {dur.sum()}")
+
+
+def phase12a(hk, check, tcfg, smi, tmp):
+    """12a: a seeded full-width Tacotron2 checkpoint; the gta command as a
+    process on the card over a 12-utterance evidence corpus at batch 8 (a
+    short last batch): one map line an utterance, finite [T, 80] mels whose
+    letter durations sum to T, attention_step once and lstm_gates 3 times a
+    decoder step; one batch through GTAGenerator with the kernels against
+    the plain versions (1e-4) and, prenet dropout off, the card against the
+    CPU (1e-3); --extremeGTA on two utterances; seconds per utterance and
+    per second of audio, and the device-busy share. Returns the checkpoint
+    and the map."""
+    import numpy as np
+    import torch
+    from cookietts_tpu_torch.cli import _load_tacotron2
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.config import parse_override_string
+    from cookietts_tpu_torch.data.dataset import DataConfig, TTSDataset, collate
+    from cookietts_tpu_torch.data.evidence_corpus import make_corpus
+    from cookietts_tpu_torch.data.filelist import load_filelist
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2
+    from cookietts_tpu_torch.pipeline.gta import GTAGenerator
+    from cookietts_tpu_torch.runtime.checkpoint import save_checkpoint
+    train_fl, _ = make_corpus(str(tmp / "corpus"), seed=12,
+                              n_train=GTA_UTTERANCES, n_val=0)
+    ckpt = tmp / "taco.pt"
+    torch.manual_seed(30)
+    save_checkpoint(str(ckpt), {"state_dict": Tacotron2(
+        tcfg, device="cpu").state_dict()}, {
+            "model": "tacotron2", "model_config": {
+                k: v for k, v in dataclasses.asdict(tcfg).items()
+                if k != "dtype"}, "speaker_ids": {"narrator": 0}})
+    overrides = parse_override_string(GTA_HPARAMS)
+    dcfg = DataConfig(**{k: v for k, v in overrides.items()
+                         if k in DataConfig.__dataclass_fields__})
+    out = tmp / "gta"
+    cmd = [sys.executable, "-m", "cookietts_tpu_torch", "gta", "--checkpoint",
+           str(ckpt), "--filelist", train_fl, "-o", str(out), "--batch_size",
+           str(GTA_BATCH), "--hparams", GTA_HPARAMS,
+           *([] if DEV == "cuda" else ["--device", DEV])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    cold = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-3000:])
+        raise SystemExit(f"chip_smoke: gta exited {proc.returncode}")
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    map_path = out / "map_train_0.txt"
+    lines = map_path.read_text().splitlines()
+    if len(lines) != GTA_UTTERANCES or stats["utterances"] != len(lines):
+        raise SystemExit(f"chip_smoke: gta wrote {len(lines)} map lines for "
+                         f"{GTA_UTTERANCES} utterances")
+    p12_gta_files(lines, tcfg.n_mel_channels)
+    steps = gta_steps(lines, dcfg, GTA_BATCH)
+    got = stats["kernel_launches"]
+    log(f"  12a gta process: {len(lines)} utterances in batches of "
+        f"{GTA_BATCH}, {stats['decoder_steps']} decoder steps (want {steps}); "
+        f"launches {got}")
+    if (stats["decoder_steps"], got["attention_step"], got["lstm_gates"]) != (
+            steps, steps, 3 * steps) or any(
+                got[k] for k in got if k not in ("attention_step", "lstm_gates")):
+        raise SystemExit("chip_smoke: the gta command's launches are not one "
+                         "attention_step and three lstm_gates a decoder step")
+    log(f"  12a gta: {stats['seconds']:.3f} s for {stats['audio_seconds']:.2f} "
+        f"s of audio in the process (model load left out; loading and "
+        f"collating the data {stats['data_seconds']:.3f} s of it; by batch "
+        f"{[round(t, 3) for t in stats['batch_seconds']]}): "
+        f"{stats['seconds'] / len(lines):.4f} s per utterance, "
+        f"{stats['seconds'] / stats['audio_seconds']:.4f} s per second of "
+        f"audio; the cold process {cold:.2f} s wall ({smi})")
+
+    # one batch in-process: kernels against plain, then card against CPU
+    model, _ = _load_tacotron2(str(ckpt), overrides, DEV)
+    ds = TTSDataset(load_filelist(train_fl), dcfg)
+    batch = collate([ds[i] for i in range(GTA_BATCH)], dcfg)
+    gen = GTAGenerator(model, str(tmp / "gta_in"))
+    hk.reset_launch_counts()
+    mel_k, al_k = gen.forward(batch)
+    torch.cuda.synchronize()
+    n = dict(hk.LAUNCHES)
+    T = batch["mels"].shape[1]
+    if (n["attention_step"], n["lstm_gates"]) != (T, 3 * T):
+        raise SystemExit(f"chip_smoke: GTAGenerator launches {n} for {T} "
+                         "steps")
+    with plain_kernels(hk):
+        mel_p, al_p = gen.forward(batch)
+    check("slice", mel_k, mel_p, 1e-4, 1e-4,
+          f"GTA B={GTA_BATCH} T={T} mels, kernel vs plain")
+    check("slice", al_k, al_p, 1e-4, 1e-4, "GTA alignments, kernel vs plain")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        gen.forward(batch)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+    wall, busy = busy_share(lambda: gen.forward(batch))
+    audio_s = float(batch["mel_lengths"].sum()) * dcfg.hop_length / \
+        dcfg.sampling_rate
+    log(f"  12a one warm batch B={GTA_BATCH} x {T} steps: {warm:.3f} s, "
+        f"{warm / audio_s:.4f} s per second of its {audio_s:.2f} s of audio; "
+        f"device busy {busy:.1f} ms of a profiled batch's {wall:.1f} ms = "
+        f"{busy / wall:.3f} ({smi})")
+    model.decoder.prenet.p = 0.0            # nothing drawn: card against CPU
+    cpu, _ = _load_tacotron2(str(ckpt), overrides, "cpu")
+    cpu.decoder.prenet.p = 0.0
+    mel_g, al_g = gen.forward(batch)
+    mel_c, al_c = GTAGenerator(cpu, str(tmp / "gta_cpu")).forward(batch)
+    check("slice", mel_g.cpu(), mel_c, 1e-3, 1e-3,
+          "GTA mels, card vs CPU (prenet dropout off)")
+    check("slice", al_g.cpu(), al_c, 1e-3, 1e-3, "GTA alignments, card vs CPU")
+    del cpu, model
+
+    # --extremeGTA on two utterances, in-process
+    two = tmp / "two.txt"
+    two.write_text("\n".join(Path(train_fl).read_text().splitlines()[:2]))
+    hk.reset_launch_counts()
+    ex = cli(["gta", "--checkpoint", str(ckpt), "--filelist", str(two), "-o",
+              str(tmp / "gta_x"), "--extremeGTA", "128", "--hparams",
+              GTA_HPARAMS, "--device", DEV])
+    xlines = (tmp / "gta_x" / "map_train_0.txt").read_text().splitlines()
+    p12_gta_files(xlines, tcfg.n_mel_channels)
+    suffixes = sorted(ln.split("|")[1].rsplit(".wav", 1)[1] for ln in xlines)
+    log(f"  12a --extremeGTA 128 on 2 utterances: {len(xlines)} map lines "
+        f"{suffixes}, {ex['decoder_steps']} steps, launches "
+        f"{ex['kernel_launches']}")
+    if (suffixes != [".mel.npy"] * 2 + [".mel128.npy"] * 2
+            or ex["kernel_launches"]["attention_step"] != ex["decoder_steps"]):
+        raise SystemExit("chip_smoke: --extremeGTA output")
+    return ckpt, map_path
+
+
+def p12_train(hk, args, what):
+    """The train command in-process on the card: no kernel launched
+    (training runs cuDNN), every logged loss finite. Returns the trainer
+    and its train records [(step, loss, s)]."""
+    import torch
+    from cookietts_tpu_torch.cli import main as cli
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = cli(args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = dict(hk.LAUNCHES)
+    run = Path(args[args.index("--run_dir") + 1])
+    train, val = [], []
+    for line in (run / "events.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if rec["prefix"] == "train":
+            train.append((rec["step"], rec["loss"], rec["iter_s"]))
+        elif rec["prefix"] == "validation":
+            val.append((rec["step"], rec["val_loss"]))
+    log(f"  {what}: {dt:.1f} s (data, validation and set-up included); "
+        f"losses {[(k, round(v, 4)) for k, v, _ in train]}, validation "
+        f"{[(k, round(v, 4)) for k, v in val]}; launches {got}")
+    if any(got.values()) or not all(
+            math.isfinite(v) for v in [v for _, v, _ in train]
+            + [v for _, v in val]):
+        raise SystemExit(f"chip_smoke: {what}: a kernel launched or a loss is "
+                         "not finite")
+    return trainer, train
+
+
+def p12_step_times(trainer, batch, name, smi, reps=3):
+    """s per iteration of the trained state's step at the run's batch,
+    split into the D and the G step (host clock, synchronised; best of
+    ``reps``), peak memory, and the device-busy share of one iteration."""
+    import torch
+    from cookietts_tpu_torch.device import batch_to_device
+    step, state = trainer.train_step, trainer.state
+    ctrl = trainer.ctrl(int(state.step))
+    dev = batch_to_device(batch, DEV)
+    gen = torch.Generator(DEV).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        b = dict(dev, noise=torch.randn(*dev["decoder_mel"].shape[:2], state.g
+                                        .model.cfg.noise_dim, device=DEV,
+                                        generator=gen)) \
+            if "decoder_mel" in dev else dev
+        t0 = time.perf_counter()
+        step.d_step(state.d, state.g, b, ctrl)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step.g_step(state.g, state.d, b, ctrl)
+        torch.cuda.synchronize()
+        times.append((t1 - t0, time.perf_counter() - t1))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall, busy = busy_share(lambda: step(state, dev, gen, ctrl))
+    d, g = (min(t[i] for t in times) for i in (0, 1))
+    shape = "x".join(str(s) for s in next(iter(dev.values())).shape)
+    log(f"  {name} step at {shape}: {d + g:.4f} s/iter (D step {d:.4f} s, "
+        f"G step {g:.4f} s; best of {reps}), peak {peak:.2f} GiB; device "
+        f"busy {busy:.1f} ms of a profiled iteration's {wall:.1f} ms = "
+        f"{busy / wall:.3f} ({smi})")
+
+
+def phase12b(hk, ckpt, map_path, tmp, smi):
+    """12b: train --model gan_postnet over 12a's map at GANPostnetConfig()
+    with the checkpoint's speaker table, 4 iterations (validation and a
+    checkpoint every 2); its D and G steps timed; one D+G step card against
+    CPU."""
+    import numpy as np
+    import torch
+    from cookietts_tpu_torch.models.gan_postnet import (GANDiscriminator,
+                                                        GANPostnet,
+                                                        GANPostnetConfig)
+    from cookietts_tpu_torch.runtime.optim import adam
+    from cookietts_tpu_torch.runtime.train_state import GANTrainState, TrainState
+    from cookietts_tpu_torch.runtime.trainer import (
+        gan_postnet_noise, make_gan_postnet_train_steps, make_gan_trainer_step)
+    run = tmp / "postnet"
+    trainer, _ = p12_train(hk, [
+        "train", "--model", "gan_postnet", "--filelist", str(map_path),
+        "--run_dir", str(run), "--iters", "4", "--seed", "0", "--device", DEV,
+        "--hparams", POSTNET_HPARAMS + f",tacotron2_checkpoint={ckpt}"
+        + ("," + hparams_of(POSTNET) if POSTNET else "")],
+        "12b train --model gan_postnet to 4")
+    tree = torch.load(run / "checkpoint_4", map_location="cpu")
+    table = torch.load(ckpt, map_location="cpu")["state_dict"][
+        "speaker_embedding.weight"]
+    cfg = trainer.state.g.model.cfg
+    if (cfg.speaker_embedding_dim != table.shape[1]
+            or "d_state_dict" not in tree or cfg != GANPostnetConfig(**{
+                **POSTNET, "speaker_embedding_dim": table.shape[1]})):
+        raise SystemExit(f"chip_smoke: the GAN postnet's config {cfg} or "
+                         "checkpoint")
+    batch = trainer.val_batches[0]
+    p12_step_times(trainer, batch, "12b GAN postnet", smi)
+    del trainer
+    # unit-variance mels, as the CPU tests': a random Tacotron2's GTA mels
+    # are near constant in time, and BatchNorm's batch statistics over them
+    # magnify rounding into the gradients
+    rng = np.random.default_rng(0)
+    shape = batch["decoder_mel"].shape
+    batch = dict(batch, **{k: rng.standard_normal(shape).astype(np.float32)
+                           for k in ("decoder_mel", "gt_mel")},
+                 noise=rng.standard_normal(shape[:2] + (cfg.noise_dim,))
+                 .astype(np.float32))
+
+    def build():
+        return GANPostnet(cfg, "cpu"), GANDiscriminator(cfg, "cpu")
+
+    def step_of(modules, device):
+        post, disc = modules
+        return (make_gan_trainer_step(*make_gan_postnet_train_steps(post, disc),
+                                      prepare=gan_postnet_noise(cfg.noise_dim)),
+                GANTrainState(TrainState.create(post, adam()),
+                              TrainState.create(disc, adam())))
+
+    step_parity("12b GAN postnet", build, step_of, batch,
+                {"lr": 2e-4, "grad_clip": 10.0}, check_params=True)
+
+
+def phase12c(hk, tmp, smi):
+    """12c: train --model hifigan_denoiser at HiFiGANDenoiserConfig() on 48
+    kHz clean wavs with a noise folder, batch 4: stage 0 for 3 iterations,
+    then --resume at stage=2 to 5 (fresh critics); each stage's step timed;
+    one stage-2 step card against CPU."""
+    import numpy as np
+    import torch
+    from cookietts_tpu_torch.data import audio_io
+    from cookietts_tpu_torch.models.hifigan_denoiser import (
+        DenoiserWN, HiFiGANDenoiserConfig, MultiResSpect, SpectDiscriminator,
+        WaveDiscriminator)
+    from cookietts_tpu_torch.runtime.optim import adam
+    from cookietts_tpu_torch.runtime.train_state import GANTrainState, TrainState
+    from cookietts_tpu_torch.runtime.trainer import (
+        make_gan_trainer_step, make_hifigan_denoiser_train_steps)
+    rng = np.random.default_rng(13)
+    sr, n = 48000, int(1.8 * DENOISER_STAGE2_SEGMENT)
+    clean = []
+    for i in range(8):
+        t = np.arange(n) / sr
+        f0 = rng.uniform(90, 300)
+        audio = sum(0.25 / h * np.sin(2 * np.pi * h * f0 * t) for h in range(1, 6))
+        audio = audio + 0.01 * rng.standard_normal(n)
+        path = tmp / f"clean{i}.wav"
+        audio_io.save_wav(str(path), audio.astype(np.float32), sr)
+        clean.append(str(path))
+    (tmp / "noise").mkdir()
+    audio_io.save_wav(str(tmp / "noise" / "hiss.wav"),
+                      (0.1 * rng.standard_normal(sr)).astype(np.float32), sr)
+    filelist = tmp / "clean.txt"
+    filelist.write_text("\n".join(clean) + "\n")
+    run = tmp / "denoiser"
+    base = ["train", "--model", "hifigan_denoiser", "--filelist",
+            str(filelist), "--run_dir", str(run), "--seed", "0", "--device",
+            DEV]
+    hp = (DENOISER_HPARAMS + f",noise_dir={tmp / 'noise'}"
+          + ("," + hparams_of(DENOISER) if DENOISER else ""))
+    trainer, _ = p12_train(hk, base + ["--iters", "3", "--hparams", hp],
+                           "12c train --model hifigan_denoiser stage 0 to 3")
+    p12_step_times(trainer, trainer.val_batches[0], "12c denoiser stage 0", smi)
+    del trainer
+    hp2 = hp + f",stage=2,segment_length={DENOISER_STAGE2_SEGMENT}"
+    trainer, train = p12_train(
+        hk, base + ["--iters", "5", "--resume", "--hparams", hp2],
+        "12c --resume at stage=2 to 5")
+    if [k for k, _, _ in train] != [0, 1, 2, 3, 4] or trainer.state.step != 5:
+        raise SystemExit("chip_smoke: the stage promotion did not resume at "
+                         "step 3")
+    tree = torch.load(run / "checkpoint_4", map_location="cpu")
+    if not any(k.startswith("ds.end_conv") for k in tree["d_state_dict"]):
+        raise SystemExit("chip_smoke: the stage-2 checkpoint holds no critics")
+    batch = trainer.val_batches[0]
+    p12_step_times(trainer, batch, "12c denoiser stage 2", smi)
+    del trainer
+    cfg = HiFiGANDenoiserConfig(stage=2, **DENOISER)
+    # broadband audio, as the CPU tests': the log of the near-empty STFT
+    # bins of a harmonic clean wav magnifies rounding into the gradients
+    t = np.arange(DENOISER_STAGE2_SEGMENT) / sr
+    clean = (0.3 * np.sin(2 * np.pi * 97.0 * t)
+             + 0.2 * rng.standard_normal(t.shape))[None].astype(np.float32)
+    one = {"noisy": (clean + 0.05 * rng.standard_normal(clean.shape)
+                     ).astype(np.float32), "clean": clean}
+
+    def build():
+        return (DenoiserWN(cfg, "cpu"), WaveDiscriminator(cfg, "cpu"),
+                SpectDiscriminator(cfg, "cpu"))
+
+    def step_of(modules, device):
+        gen, dw, ds = modules
+        mrs = MultiResSpect(cfg.window_lengths, cfg.hop_lengths, device)
+        critics = torch.nn.ModuleDict({"dw": dw, "ds": ds})
+        return (make_gan_trainer_step(*make_hifigan_denoiser_train_steps(
+                    gen, dw, ds, mrs, stage=2), loss_key="loss"),
+                GANTrainState(TrainState.create(gen, adam()),
+                              TrainState.create(critics, adam())))
+
+    step_parity("12c denoiser stage 2 (B=1)", build, step_of, one,
+                {"lr": 2e-4, "grad_clip": 100.0}, check_params=True)
+
+
+def phase12(hk, check, tcfg, smi):
+    """12a GTA, 12b the GAN postnet, 12c the HiFi-GAN denoiser."""
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        ckpt, map_path = phase12a(hk, check, tcfg, smi, tmp)
+        log(f"  phase 12a in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase12b(hk, ckpt, map_path, tmp, smi)
+        log(f"  phase 12b in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase12c(hk, tmp, smi)
+        log(f"  phase 12c in {time.perf_counter() - t0:.1f} s; {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3374,6 +3864,11 @@ def main() -> int:
     t11 = time.perf_counter()
     phase11(hk, check, tcfg, hcfg, smi)
     log(f"  phase 11 in {time.perf_counter() - t11:.1f} s; {smi}")
+
+    log("phase 12: the GTA stage, the GAN postnet and the HiFi-GAN denoiser")
+    t12 = time.perf_counter()
+    phase12(hk, check, tcfg, smi)
+    log(f"  phase 12 in {time.perf_counter() - t12:.1f} s; {smi}")
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -1,8 +1,9 @@
 """Command-line interface of the port (cookietts_tpu/cli.py:193-486,
-979-1300, 1454-1697).
+701-977, 979-1339, 1454-1697).
 
-    python -m cookietts_tpu_torch train --model tacotron2|hifigan|waveglow \
-        --filelist f.txt [--val_filelist v.txt] [--hparams "a=1,b=[2,3]"] \
+    python -m cookietts_tpu_torch train --model tacotron2|hifigan|waveglow|\
+        gan_postnet|hifigan_denoiser --filelist f.txt [--val_filelist v.txt] \
+        [--hparams "a=1,b=[2,3]"] \
         [--run_dir runs/x] [--iters N] [--resume [ckpt]] [--warm_start ckpt] \
         [--live_config f.py] [--device cuda|cpu] [--seed S]
 
@@ -24,6 +25,20 @@ reference's ``k=v,k2=[..]`` grammar (config.parse_override_string).
   ``max_val_batches`` and ``log_every``. Batch i
   draws its segments' files from ``numpy.random.default_rng(i)``, so a
   resumed run goes on with the data sequence.
+- ``gan_postnet``: the adversarial postnet on a GTA map (the ``gta``
+  command's), speaker codes from ``tacotron2_checkpoint=`` (or
+  ``--warm_start``); keys of GANPostnetConfig and the audio front end apply,
+  and ``postnet_segment_frames``, ``mel_weight`` and the cadence keys above.
+- ``hifigan_denoiser``: the staged denoiser on a list of clean wavs
+  (``noise_dir=`` for real noise); ``stage=2`` with ``--resume`` of a stage-0
+  run promotes it (fresh critics); keys of HiFiGANDenoiserConfig and
+  DenoiserDataConfig apply.
+
+Stage 3 of the pipeline, GTA mels for the vocoders and the postnet:
+
+    python -m cookietts_tpu_torch gta --checkpoint taco.pt --filelist f.txt \
+        [-o gta_out] [--batch_size 8] [--extremeGTA N] [--hparams "..."] \
+        [--device cuda|cpu]
 
 Serving, on the card unless ``--device cpu`` is given:
 
@@ -57,12 +72,13 @@ Reference CookieTTS checkpoints become the port's (convert/reference.py):
     python -m cookietts_tpu_torch convert --model tacotron2|waveglow|hifigan|\
         torchmoji|gst|emotionnet|auxemotionnet --torch_ckpt X.pt|X.npz -o Y
 
-The other models' trainers, multi-host runs and ``--tp`` / ``--sp`` above 1
-(which raise) are not ported yet.
+GAN-TTS's and UnTTS's trainers, multi-host runs and ``--tp`` / ``--sp`` above
+1 (which raise) are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -222,7 +238,8 @@ def cmd_train(args):
         return VOCODER_TRAINERS[args.model](args)
     if args.model != "tacotron2":
         raise SystemExit(f"training CLI for {args.model!r} not wired yet in "
-                         "the port; --model tacotron2, hifigan or waveglow")
+                         "the port; --model tacotron2, hifigan, waveglow, "
+                         "gan_postnet or hifigan_denoiser")
     return _train_tacotron2(args)
 
 
@@ -543,14 +560,12 @@ def _train_hifigan(args):
     from .runtime.checkpoint import load_checkpoint, warm_start
     from .runtime.optim import adam
     from .runtime.train_state import GANTrainState, TrainState
-    from .runtime.trainer import (make_gan_trainer_step,
-                                  make_hifigan_eval_step,
+    from .runtime.trainer import (make_hifigan_eval_step,
                                   make_hifigan_train_steps)
 
     device = resolve_device(args.device)
     overrides = parse_override_string(args.hparams) if args.hparams else {}
     batch_size = int(overrides.get("batch_size", 4))
-    n_iters = int(overrides.get("n_iters", args.iters))
     dcfg, dataset, val_items, desc = _vocoder_data(args, overrides)
     h_keys = set(HiFiGANConfig.__dataclass_fields__)
     hcfg = HiFiGANConfig(
@@ -584,21 +599,260 @@ def _train_hifigan(args):
         dataset, val_items, batch_size, overrides, desc, ("audio", "mels"))
     state = GANTrainState(g=TrainState.create(gen, adam(weight_decay=0.01)),
                           d=TrainState.create(disc, adam(weight_decay=0.01)))
+    return _gan_trainer(
+        args, overrides, state, d_step, g_step, device,
+        make_hifigan_eval_step(gen, stft.mel_spectrogram), val_batches,
+        "hifigan", base_lr=2e-4, grad_clip=1000.0, batches=make_batch,
+        metadata=_vocoder_metadata("hifigan", dcfg, overrides, h_keys, {
+            "n_mel_channels": dcfg.n_mel_channels}))
+
+
+def _gan_trainer(args, overrides, state, d_step, g_step, device, eval_step,
+                 val_batches, name, base_lr, grad_clip, batches, prepare=None,
+                 metadata=None, loss_key="g_loss"):
+    """The Trainer of an adversarial model over ``state`` (a GANTrainState)
+    with its metadata, run on ``batches(it)`` to ``--iters`` (after a full
+    --resume). Returns the trainer."""
+    from .runtime.trainer import make_gan_trainer_step
     trainer = _make_trainer(
-        args, overrides, state, make_gan_trainer_step(d_step, g_step), device,
-        eval_step=make_hifigan_eval_step(gen, stft.mel_spectrogram),
-        val_batches=val_batches, base_lr=2e-4, grad_clip=1000.0)
-    trainer.default_metadata = _vocoder_metadata(
-        "hifigan", dcfg, overrides, h_keys,
-        {"n_mel_channels": dcfg.n_mel_channels})
+        args, overrides, state,
+        make_gan_trainer_step(d_step, g_step, loss_key, prepare=prepare),
+        device,
+        eval_step=eval_step, val_batches=val_batches, base_lr=base_lr,
+        grad_clip=grad_clip)
+    trainer.default_metadata = {"model": name, **(metadata or {})}
     if args.resume:
-        print(f"[hifigan] resuming G+D from "
+        print(f"[{name}] resuming G+D from "
               f"{trainer.ckpt.latest() if args.resume == 'auto' else args.resume}")
-    return _trainer_loop(trainer, make_batch, n_iters, args.run_dir,
-                         resume=args.resume, loss_name="g_loss")
+    return _trainer_loop(trainer, batches,
+                         int(overrides.get("n_iters", args.iters)),
+                         args.run_dir, resume=args.resume, loss_name=loss_key)
 
 
-VOCODER_TRAINERS = {"waveglow": _train_waveglow, "hifigan": _train_hifigan}
+def _train_gan_postnet(args):
+    """Adversarial mel-refinement postnet training from a GTA map
+    (cookietts_tpu/cli.py:_train_gan_postnet): the postnet pulls the
+    teacher-forced decoder mels toward the ground truth while fooling a
+    speaker-conditioned fakeness discriminator.
+
+    ``--filelist`` is a ``wav|mel|speaker`` GTA map; decoder mels come from
+    the ``.mel*.npy`` files, ground-truth mels from the audio through the
+    port's TacotronSTFT. Speaker codes are the ``speaker_embedding.weight``
+    table of the Tacotron2 checkpoint that made the map
+    (``tacotron2_checkpoint=<path>`` or ``--warm_start``), else seeded
+    per-speaker codes (smoke training only). Batch i crops
+    ``postnet_segment_frames`` at random from files drawn by
+    ``numpy.random.default_rng(i)``; validation crops at frame 0."""
+    import numpy as np
+
+    from .audio.stft import TacotronSTFT
+    from .config import parse_override_string
+    from .data.audio_io import load_wav
+    from .data.mel2samp import load_map_file
+    from .device import resolve_device
+    from .models.gan_postnet import (GANDiscriminator, GANPostnet,
+                                     GANPostnetConfig)
+    from .runtime.checkpoint import load_checkpoint
+    from .runtime.optim import adam
+    from .runtime.train_state import GANTrainState, TrainState
+    from .runtime.trainer import (gan_postnet_noise, make_gan_postnet_eval_step,
+                                  make_gan_postnet_train_steps)
+
+    device = resolve_device(args.device)
+    overrides = parse_override_string(args.hparams) if args.hparams else {}
+    batch_size = int(overrides.get("batch_size", 8))
+    seg = int(overrides.get("postnet_segment_frames", 64))
+    sr = int(overrides.get("sampling_rate", 44100))
+    stft = TacotronSTFT(
+        filter_length=int(overrides.get("filter_length", 2048)),
+        hop_length=int(overrides.get("hop_length", 512)),
+        win_length=int(overrides.get("win_length", 2048)),
+        n_mel_channels=int(overrides.get("n_mel_channels", 80)),
+        sampling_rate=sr, mel_fmax=float(overrides.get("mel_fmax", 11025.0)),
+        device="cpu")
+
+    # the learned speaker table of the Tacotron2 checkpoint behind the map
+    embed_table = None
+    t2_ckpt = overrides.get("tacotron2_checkpoint") or args.warm_start
+    if t2_ckpt:
+        tree, _ = load_checkpoint(str(t2_ckpt))
+        table = tree.get("state_dict", {}).get("speaker_embedding.weight")
+        if table is None:
+            raise SystemExit(f"{t2_ckpt} has no speaker_embedding table; pass "
+                             "a Tacotron2 checkpoint of the port")
+        embed_table = table.float().numpy()
+        overrides = dict(overrides,
+                         speaker_embedding_dim=int(embed_table.shape[1]))
+        print(f"[gan_postnet] speaker embeddings from {t2_ckpt}: "
+              f"{embed_table.shape[0]} speakers x {embed_table.shape[1]}")
+
+    def load_map(path):
+        return [(w, m, s) for w, m, s, _ in load_map_file(path)
+                if m is not None]
+
+    entries = load_map(args.filelist)
+    if not entries:
+        raise SystemExit("map file has no mel sidecars; run gta first")
+    entries, val_entries, val_desc = _heldout_split(args, entries, load_map)
+
+    pcfg = GANPostnetConfig(n_mel_channels=stft.n_mel_channels, **{
+        k: v for k, v in _dataclass_kwargs(GANPostnetConfig, overrides).items()
+        if k != "n_mel_channels"})
+    post = _build_seeded(args.seed, device, lambda: GANPostnet(pcfg, "cpu"))
+    disc = _build_seeded(args.seed + 1, device,
+                         lambda: GANDiscriminator(pcfg, "cpu"))
+
+    def speaker_code(sid: int) -> np.ndarray:
+        if embed_table is not None:
+            if not 0 <= sid < embed_table.shape[0]:
+                raise SystemExit(
+                    f"map file speaker id {sid} out of range for the "
+                    f"checkpoint's {embed_table.shape[0]}-speaker embedding "
+                    "table: mismatched map/checkpoint pair")
+            return embed_table[sid]
+        return np.random.default_rng(1000 + sid).standard_normal(
+            pcfg.speaker_embedding_dim).astype(np.float32)
+
+    def item(entry, rng=None):
+        """(decoder mel segment, ground-truth mel segment, speaker code);
+        with no ``rng`` (validation) the crop starts at frame 0."""
+        wav_path, mel_path, sid = entry
+        dmel = np.load(mel_path).astype(np.float32)            # [T, M]
+        audio, _ = load_wav(wav_path, target_sr=sr)
+        gmel = stft.mel_spectrogram_np(audio).astype(np.float32)
+        n = min(dmel.shape[0], gmel.shape[0])
+        if n >= seg:
+            s = int(rng.integers(0, n - seg + 1)) if rng is not None else 0
+            d, g = dmel[s:s + seg], gmel[s:s + seg]
+        else:
+            pad = ((0, seg - n), (0, 0))
+            d, g = np.pad(dmel[:n], pad), np.pad(gmel[:n], pad)
+        return d, g, speaker_code(sid)
+
+    def stack(items):
+        dec, gt, spk = zip(*items)
+        return {"decoder_mel": np.stack(dec), "gt_mel": np.stack(gt),
+                "speaker_embed": np.stack(spk)}
+
+    def make_batch(it):
+        rng = np.random.default_rng(it)
+        return stack([item(entries[int(i)], rng)
+                      for i in rng.integers(0, len(entries), batch_size)])
+
+    cap = int(overrides.get("max_val_batches", 0) or 0)
+    val_batches = [stack([item(val_entries[i]) for i in chunk])
+                   for chunk in _cycle_chunks(len(val_entries), batch_size, cap)]
+    print(f"[val] {val_desc}: {len(val_entries)} rows in {len(val_batches)} "
+          f"batch(es)")
+    d_step, g_step = make_gan_postnet_train_steps(
+        post, disc, mel_weight=float(overrides.get("mel_weight", 1.0)))
+    state = GANTrainState(g=TrainState.create(post, adam()),
+                          d=TrainState.create(disc, adam()))
+    return _gan_trainer(
+        args, overrides, state, d_step, g_step, device,
+        make_gan_postnet_eval_step(post), val_batches, "gan_postnet",
+        base_lr=2e-4, grad_clip=10.0, batches=make_batch,
+        prepare=gan_postnet_noise(pcfg.noise_dim),
+        metadata={"model_config": dataclasses.asdict(pcfg)})
+
+
+def _train_hifigan_denoiser(args):
+    """Staged HiFi-GAN denoiser training
+    (cookietts_tpu/cli.py:_train_hifigan_denoiser): stage < 2 trains the WN
+    generator on the multi-res spectral L1 plus the audio L1 over synthetic
+    noisy/clean pairs; stage >= 2 adds the wave and spectrogram critics
+    (built only then: ``--resume`` of a stage-0 checkpoint at ``stage=2``
+    resumes the generator and starts fresh critics). ``--filelist`` lists
+    CLEAN wavs (a pipe-separated filelist's first field); ``noise_dir=``
+    mixes in every ``*.wav`` below it. Batch i draws its files from
+    ``numpy.random.default_rng(i)``; validation, spectral only at every
+    stage, scores noisy mixes made once."""
+    import glob as globlib
+
+    import numpy as np
+    import torch
+    from torch import nn
+
+    from .config import parse_override_string
+    from .data.denoiser_data import (DenoiserDataConfig, DenoiserDataset,
+                                     collate_denoiser)
+    from .device import resolve_device
+    from .models.hifigan_denoiser import (DenoiserWN, HiFiGANDenoiserConfig,
+                                          MultiResSpect, SpectDiscriminator,
+                                          WaveDiscriminator)
+    from .runtime.optim import adam
+    from .runtime.train_state import GANTrainState, TrainState
+    from .runtime.trainer import (make_hifigan_denoiser_eval_step,
+                                  make_hifigan_denoiser_train_steps)
+
+    device = resolve_device(args.device)
+    overrides = parse_override_string(args.hparams) if args.hparams else {}
+    batch_size = int(overrides.get("batch_size", 4))
+    stage = int(overrides.get("stage", 0))
+
+    def load_clean(path):
+        with open(path) as f:
+            return [ln.split("|")[0].strip() for ln in f
+                    if ln.strip() and not ln.startswith("#")]
+
+    clean_files, val_files, val_desc = _heldout_split(
+        args, load_clean(args.filelist), load_clean)
+    noise_files = []
+    if overrides.get("noise_dir"):
+        noise_files = sorted(globlib.glob(os.path.join(
+            str(overrides["noise_dir"]), "**", "*.wav"), recursive=True))
+    dcfg = DenoiserDataConfig(**_dataclass_kwargs(DenoiserDataConfig,
+                                                  overrides))
+    dataset = DenoiserDataset(clean_files, dcfg, noise_files=noise_files)
+    mcfg = HiFiGANDenoiserConfig(stage=stage, **{
+        k: v for k, v in _dataclass_kwargs(HiFiGANDenoiserConfig,
+                                           overrides).items() if k != "stage"})
+    gen = _build_seeded(args.seed, device, lambda: DenoiserWN(mcfg, "cpu"))
+    mrs = MultiResSpect(mcfg.window_lengths, mcfg.hop_lengths, device=device)
+    # the critics exist only once the adversarial stage turns on
+    dw = ds = None
+    critics = nn.ModuleDict()
+    if stage >= 2:
+        dw = _build_seeded(args.seed + 1, device,
+                           lambda: WaveDiscriminator(mcfg, "cpu"))
+        ds = _build_seeded(args.seed + 2, device,
+                           lambda: SpectDiscriminator(mcfg, "cpu"))
+        critics.update({"dw": dw, "ds": ds})
+        frames = mrs(torch.zeros(1, dcfg.segment_length, device=device)).shape[2]
+        if frames < ds.min_frames():
+            raise SystemExit(
+                f"segment_length={dcfg.segment_length} gives DS {frames} "
+                f"spectrogram frames; it takes at least {ds.min_frames()}")
+
+    def make_batch(it):
+        rng = np.random.default_rng(it)
+        return collate_denoiser([dataset[int(i)] for i in
+                                 rng.integers(0, len(dataset), batch_size)])
+
+    # noisy mixes of the held-out clean wavs, made once: every validation
+    # scores the same pairs
+    val_dataset = DenoiserDataset(val_files, dcfg, noise_files=noise_files)
+    cap = int(overrides.get("max_val_batches", 0) or 0)
+    val_batches = [collate_denoiser([val_dataset[int(i)] for i in chunk])
+                   for chunk in _cycle_chunks(len(val_dataset), batch_size, cap)]
+    print(f"[val] {val_desc}: {len(val_dataset)} wavs in {len(val_batches)} "
+          f"batch(es)")
+    d_step, g_step = make_hifigan_denoiser_train_steps(gen, dw, ds, mrs,
+                                                       stage=stage)
+    state = GANTrainState(g=TrainState.create(gen, adam()),
+                          d=TrainState.create(critics, adam()))
+    return _gan_trainer(
+        args, overrides, state, d_step, g_step, device,
+        make_hifigan_denoiser_eval_step(gen, mrs, stage), val_batches,
+        "hifigan_denoiser", base_lr=2e-4, grad_clip=100.0, batches=make_batch,
+        metadata={"stage": stage, "model_config": dataclasses.asdict(mcfg),
+                  "audio": {"sampling_rate": dcfg.sampling_rate}},
+        loss_key="loss")
+
+
+VOCODER_TRAINERS = {"waveglow": _train_waveglow, "hifigan": _train_hifigan,
+                    "gan_postnet": _train_gan_postnet,
+                    "hifigan_denoiser": _train_hifigan_denoiser}
 
 
 # -- serving: tts and server ---------------------------------------------------
@@ -882,6 +1136,67 @@ def cmd_export(args):
     return out
 
 
+def cmd_gta(args):
+    """Teacher-forced GTA mels of a port Tacotron2 checkpoint over a filelist
+    (cookietts_tpu/cli.py:cmd_gta): ``<audio>.mel.npy`` and
+    ``<audio>.gdur.npy`` beside each file and ``map_train_0.txt`` in
+    ``--outdir``; ``--extremeGTA N`` again from the audio offset by each
+    multiple of N below the hop (``.mel{offset}.npy``). Batches of
+    ``--batch_size`` in filelist order (the last one short), padded to the
+    data config's buckets. Prints the map's path, then one JSON line: the
+    utterances, the decoder steps, the audio seconds, the generation's
+    seconds (model loading left out), the part of them spent loading and
+    collating the data, each batch's seconds (the data, the forward and
+    the files; a card's first batch pays its cold start), and the kernels'
+    launches (none on the CPU)."""
+    import json
+
+    import torch
+
+    from .config import parse_override_string
+    from .data.dataset import DataConfig, TTSDataset, collate
+    from .data.filelist import load_filelist
+    from .device import resolve_device
+    from .ops import hopper_kernels as hk
+    from .pipeline.gta import (GTAGenerator, extreme_gta_offsets,
+                               offset_item_mels)
+
+    device = resolve_device(args.device)
+    overrides = parse_override_string(args.hparams) if args.hparams else {}
+    dcfg = DataConfig(**_dataclass_kwargs(DataConfig, overrides))
+    dataset = TTSDataset(load_filelist(args.filelist), dcfg)
+    model, _ = _load_tacotron2(args.checkpoint, overrides, device)
+    gen = GTAGenerator(model, args.outdir)
+    offsets = (extreme_gta_offsets(dcfg.hop_length, args.extreme_gta)
+               if args.extreme_gta else [0])
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    lines, frames, B, data_s, batch_s = [], 0, args.batch_size, 0.0, []
+    for offset in offsets:
+        for i0 in range(0, len(dataset), B):
+            t_data = time.perf_counter()
+            items = [dataset[i] for i in range(i0, min(i0 + B, len(dataset)))]
+            # extremeGTA: the mels again from the offset audio, so every
+            # offset is a shifted teacher-forcing target
+            batch = collate(offset_item_mels(dataset, items, offset), dcfg)
+            data_s += time.perf_counter() - t_data
+            frames += int(batch["mel_lengths"].sum())
+            lines += gen.process_batch(batch, batch.pop("audiopath"),
+                                       offset=offset)
+            batch_s.append(time.perf_counter() - t_data)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    print(gen.write_map(lines))
+    stats = {"utterances": len(lines), "decoder_steps": gen.decoder_steps,
+             "audio_seconds": frames * dcfg.hop_length / dcfg.sampling_rate,
+             "seconds": seconds, "data_seconds": data_s,
+             "batch_seconds": batch_s,
+             "kernel_launches": dict(hk.LAUNCHES)}
+    print(json.dumps(stats))
+    return stats
+
+
 def cmd_convert(args):
     """A reference torch checkpoint -> a port checkpoint with its sidecar
     (cookietts_tpu/cli.py:cmd_convert)."""
@@ -975,6 +1290,23 @@ def build_parser() -> argparse.ArgumentParser:
     tt.add_argument("--cat_silence_s", type=float, default=0.0)
     tt.add_argument("--seed", type=int, default=0)
     tt.set_defaults(fn=cmd_tts)
+
+    g = sub.add_parser("gta", help="teacher-forced GTA mels and the "
+                       "vocoder map from a Tacotron2 checkpoint")
+    g.add_argument("--checkpoint", required=True,
+                   help="Tacotron2 checkpoint of the port (its JSON sidecar "
+                        "gives the model config)")
+    g.add_argument("--filelist", required=True)
+    g.add_argument("-o", "--outdir", default="gta_out")
+    g.add_argument("--batch_size", type=int, default=8)
+    g.add_argument("--extremeGTA", dest="extreme_gta", type=int, default=0,
+                   help="also synthesise from the audio offset by each "
+                        "multiple of N samples below the hop")
+    g.add_argument("--hparams", default="",
+                   help="DataConfig and Tacotron2Config overrides")
+    g.add_argument("--device", default="cuda",
+                   help="cuda (the default; raises without a card) or cpu")
+    g.set_defaults(fn=cmd_gta)
 
     ex = sub.add_parser(
         "export", help="export serving programs (torch.export, weights "

@@ -17,6 +17,8 @@ cookietts_tpu/convert/*_torch.py):
   (serving), or the pair itself as ``weight_v`` / ``weight_g`` with g [out]
   on the output axis (the HiFi-GAN training form and discriminators)
 - flax Conv2d kernel [kh, kw, in, out] -> Conv2d weight [out, in, kh, kw]
+- the GAN postnet and its discriminator, and the HiFi-GAN denoiser (its
+  generator, DW and DS), keep JAX's module names
 - flax GRUCell ir/iz/in/hr/hz/hn       -> nn.GRU *_l0 (r, z, n stacked); flax
   has no hidden-side r/z bias, so those are zero and the input-side ones
   carry it, while n keeps its two (r multiplies W_hn h + b_hn)
@@ -421,3 +423,80 @@ def waveglow_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]
     if "speaker_embed" in params:
         sd["speaker_embed.weight"] = _t(params["speaker_embed"]["embedding"])
     return sd
+
+
+def gan_postnet_state_dict_from_jax(params: Mapping[str, Any],
+                                    batch_stats: Mapping[str, Any]
+                                    ) -> Dict[str, torch.Tensor]:
+    """State dict for models/gan_postnet.py:GANPostnet or GANDiscriminator
+    (JAX's names: ``post_conv{i}`` / ``post_bn{i}``, ``dis_conv{i}`` /
+    ``dis_bn{i}``), the BatchNorm statistics included."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if "conv" in name:
+            _conv(sd, name, p)
+        else:
+            _bn(sd, name, p, batch_stats[name])
+    return sd
+
+
+def _conv2d(sd, key, p):
+    sd[f"{key}.weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _wn_named(sd, key, tree, wrapper: str):
+    """A flax WeightNorm conv whose conv is the wrapper's one scale key's
+    module (``Conv_j`` beside the wrapper)."""
+    (scale_key,) = tree[wrapper]
+    _wn_pair(sd, key, tree, wrapper, scale_key.split("/")[0])
+
+
+def hifigan_denoiser_from_jax(gen: Mapping[str, Any],
+                              dw: Mapping[str, Any] = None,
+                              ds: Mapping[str, Any] = None):
+    """(generator, DW, DS) state dicts for models/hifigan_denoiser.py from
+    the JAX DenoiserWN, WaveDiscriminator and SpectDiscriminator param trees
+    (DW and DS None when not given): the weight-normed convs as weight_v /
+    weight_g pairs, the 2-D convs [kh, kw, in, out] -> [out, in, kh, kw].
+    Linear in each leaf, so it maps JAX gradients too."""
+    g: Dict[str, torch.Tensor] = {}
+    wn = gen["wn"]
+    _wn_named(g, "wn.start", wn, "start")
+    i = 0
+    while f"in_layer{i}" in wn:
+        _wn_named(g, f"wn.in_layer{i}", wn, f"in_layer{i}")
+        _wn_named(g, f"wn.res_skip{i}", wn, f"res_skip{i}")
+        i += 1
+    _wn_named(g, "wn.end", wn, "end")
+    _conv(g, "wn_end", gen["wn_end"])
+    post = gen["postnet"]
+    g["postnet.res_weights"] = _t(post["res_weights"])
+    i = 0
+    while f"conv{i}" in post:
+        _conv(g, f"postnet.conv{i}", post[f"conv{i}"])
+        i += 1
+    _conv(g, "postnet_end", gen["postnet_end"])
+
+    w = None
+    if dw is not None:
+        w = {}
+        for name, tree in dw.items():
+            w[f"{name}.res_weights"] = _t(tree["res_weights"])
+            w[f"{name}.layr_weights"] = _t(tree["layr_weights"])
+            j = 0
+            while f"conv{j}" in tree:
+                _wn_named(w, f"{name}.conv{j}", tree, f"conv{j}")
+                j += 1
+    s = None
+    if ds is not None:
+        s = {}
+        for name, tree in ds.items():
+            if name == "end_conv":
+                _conv2d(s, name, tree)
+                continue
+            _conv2d(s, f"{name}.conv", tree["conv"])
+            _conv2d(s, f"{name}.glu", tree["glu"])
+            s[f"{name}.bn_scale"] = _t(tree["bn_scale"])
+            s[f"{name}.bn_bias"] = _t(tree["bn_bias"])
+    return g, w, s

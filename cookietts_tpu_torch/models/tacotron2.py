@@ -602,6 +602,18 @@ def _eval_form(method):
     return run
 
 
+def batch_inputs(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """A collated batch's tensors as ``Tacotron2.forward``'s inputs; the
+    emotion labels (when the batch has them) reach EmotionNet, whose known
+    rows take their one-hot."""
+    return dict(text=batch["text"], text_lengths=batch["text_lengths"],
+                mels=batch["mels"], mel_lengths=batch["mel_lengths"],
+                speaker_id=batch["speaker_id"], sylps=batch["sylps"],
+                torchmoji_hidden=batch.get("torchmoji"),
+                emotion_id=batch.get("emotion_id"),
+                emotion_onehot=batch.get("emotion_onehot"))
+
+
 class Tacotron2(nn.Module):
     def __init__(self, cfg: Tacotron2Config, device: str | torch.device = "cuda"):
         super().__init__()
@@ -754,6 +766,19 @@ class Tacotron2(nn.Module):
         mask = get_mask_from_lengths(mel_lengths, mels.shape[1])[:, :, None]
         return {**out, "mel_outputs": mel * mask,
                 "mel_outputs_postnet": post * mask, **heads}, carry
+
+    @_eval_form
+    def eval_forward(self, batch: Dict[str, Any],
+                     generator: Optional[torch.Generator] = None
+                     ) -> Dict[str, Any]:
+        """The teacher-forced forward of a collated batch on the model's
+        device in eval form (JAX's ``deterministic=True``: no zoneout,
+        dropout or BatchNorm update; the prenet's dropout stays on, its
+        masks from ``generator``) at full teacher forcing: validation's pass
+        and the GTA stage's."""
+        out, _ = self(**batch_inputs(batch), generator=generator,
+                      p_teacher_forcing=1.0, teacher_force_till=9999)
+        return out
 
     # -- chunked inference for streaming (JAX models/tacotron2.py:815-868) --
 

@@ -64,7 +64,14 @@ def restore_train_state(state, path: str,
             raise SystemExit(f"{path} has no discriminator state; use "
                              "--warm_start for a generator-only load")
         _restore(state.g, tree["state_dict"], tree.get("opt_state"), path)
-        _restore(state.d, tree["d_state_dict"], tree.get("d_opt_state"), path)
+        if not tree["d_state_dict"] and state.d.params:
+            # a stage promotion (the HiFi-GAN denoiser): a pre-adversarial
+            # checkpoint has no critics yet; they start fresh
+            print("[resume] checkpoint has no critic state (pre-adversarial "
+                  "stage); discriminators start fresh")
+        else:
+            _restore(state.d, tree["d_state_dict"], tree.get("d_opt_state"),
+                     path)
         state.g.step = state.d.step = int(tree.get("step", state.step))
         return state, meta
     _restore(state, tree["state_dict"], tree.get("opt_state"), path)

@@ -1,6 +1,7 @@
 """The training loop (cookietts_tpu/runtime/trainer.py) and the steps it
-drives: Tacotron2's, HiFi-GAN's (a discriminator then a generator step
-each iteration, ``make_gan_trainer_step``) and the flow vocoders' (the
+drives: Tacotron2's, the adversarial ones (a discriminator then a generator
+step each iteration, ``make_gan_trainer_step``: HiFi-GAN's, the GAN
+postnet's and the staged HiFi-GAN denoiser's) and the flow vocoders' (the
 flow NLL; validation through the inverse).
 
 A step is ``step(state, batch, generator, ctrl) -> (state, metrics)``; a
@@ -31,6 +32,7 @@ trainer wait for the parallel runtime. Validation images are not logged.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -39,12 +41,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.utils._pytree as pytree
+from torch import nn
 
 from ..audio.stft import STFT
-from ..device import full_float32
+from ..device import batch_to_device, full_float32
 from ..losses import DEFAULT_LOSS_SCALARS, tacotron2_loss
 from ..models.hifigan import (discriminator_loss, feature_loss, generator_loss,
                               mel_l1_loss)
+from ..models.tacotron2 import batch_inputs
 from ..models.waveglow import waveglow_loss
 from ..ops.metrics import alignment_metric, weighted_score
 from .checkpoint import Checkpointer, restore_train_state
@@ -52,32 +56,6 @@ from .live_config import LiveConfig, LossExplosion
 from .logging_util import FileLossDB, MetricsLogger
 from .optim import AdamState, ReduceLROnPlateau, clip_by_global_norm
 from .train_state import GANTrainState, TrainState
-
-_INT_KEYS = ("text", "text_lengths", "mel_lengths", "speaker_id", "emotion_id")
-
-
-def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    """A collated numpy batch as tensors on ``device``: ids and lengths as
-    int64, the rest as float32; the audio paths are left out."""
-    out = {}
-    for k, v in batch.items():
-        if k == "audiopath":
-            continue
-        t = torch.as_tensor(np.asarray(v))
-        t = t.long() if k in _INT_KEYS else t.float()
-        out[k] = t.to(device, non_blocking=True)
-    return out
-
-
-def _model_inputs(batch):
-    """The model's inputs; the emotion labels (when the batch has them)
-    reach EmotionNet, whose known rows take their one-hot."""
-    return dict(text=batch["text"], text_lengths=batch["text_lengths"],
-                mels=batch["mels"], mel_lengths=batch["mel_lengths"],
-                speaker_id=batch["speaker_id"], sylps=batch["sylps"],
-                torchmoji_hidden=batch.get("torchmoji"),
-                emotion_id=batch.get("emotion_id"),
-                emotion_onehot=batch.get("emotion_onehot"))
 
 
 def _targets(batch):
@@ -99,7 +77,7 @@ def make_tacotron2_train_step(model, gate_positive_weight: float = 10.0,
     def step(state: TrainState, batch, generator, ctrl, carry=None):
         model.train()
         out, new_carry = model(
-            **_model_inputs(batch), generator=generator,
+            **batch_inputs(batch), generator=generator,
             p_teacher_forcing=ctrl["p_teacher_forcing"],
             teacher_force_till=ctrl["teacher_force_till"],
             drop_frame_rate=ctrl["drop_frame_rate"],
@@ -128,6 +106,7 @@ def make_tacotron2_train_step(model, gate_positive_weight: float = 10.0,
     return step
 
 
+@torch.no_grad()
 def make_tacotron2_eval_step(model, gate_positive_weight: float = 10.0
                              ) -> Callable:
     """Teacher-forced validation step in eval form, at full teacher
@@ -137,8 +116,7 @@ def make_tacotron2_eval_step(model, gate_positive_weight: float = 10.0
     @torch.no_grad()
     def step(state: TrainState, batch, generator, ctrl):
         del ctrl
-        model.eval()
-        out, _ = model(**_model_inputs(batch), generator=generator)
+        out = model.eval_forward(batch, generator)
         _, loss_dict, file_losses = tacotron2_loss(
             out, _targets(batch), gate_positive_weight=gate_positive_weight)
         images = {k: out[k] for k in ("alignments", "mel_outputs_postnet",
@@ -491,15 +469,20 @@ class Trainer:
 
 def make_gan_trainer_step(d_step: Callable, g_step: Callable,
                           loss_key: str = "g_loss",
-                          d_lr_scale: float = 1.0) -> Callable:
+                          d_lr_scale: float = 1.0,
+                          prepare: Optional[Callable] = None) -> Callable:
     """One Trainer step over a GANTrainState from a (d_step, g_step) pair:
     the discriminator step, then the generator step against the updated
     discriminators. ``metrics['loss']`` is ``metrics[loss_key]`` (explosion
-    detection and logging read it); ``d_lr_scale`` scales D's LR. The two
-    steps stay reachable as ``step.d_step`` and ``step.g_step``."""
+    detection and logging read it); ``d_lr_scale`` scales D's LR.
+    ``prepare(batch, generator)``, when given, returns the batch both steps
+    see (the GAN postnet's draws its noise there, once an iteration, as
+    JAX's two steps share one key). The two steps stay reachable as
+    ``step.d_step`` and ``step.g_step``."""
 
     def step(state: GANTrainState, batch, generator, ctrl):
-        del generator
+        if prepare is not None:
+            batch = prepare(batch, generator)
         d_ctrl = dict(ctrl, lr=ctrl["lr"] * d_lr_scale)
         _, d_m = d_step(state.d, state.g, batch, d_ctrl)
         _, g_m = g_step(state.g, state.d, batch, ctrl)
@@ -578,6 +561,175 @@ def make_hifigan_eval_step(gen, mel_fn: Callable) -> Callable:
             real, fake = _real_fake(gen(batch["mels"]), batch["audio"])
             l1 = mel_l1_loss(mel_fn(real), mel_fn(fake))
         return {"loss": l1, "mel_l1": l1}, {}, None
+
+    return step
+
+
+# -- the GAN postnet ------------------------------------------------------------
+
+@contextlib.contextmanager
+def _stats_kept(module: nn.Module):
+    """Run ``module`` in training form with its buffers (the BatchNorm
+    running statistics) put back afterwards: JAX's D step runs the postnet
+    with ``mutable=["batch_stats"]`` and drops what it returns."""
+    saved = {k: v.clone() for k, v in module.named_buffers()}
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for k, v in module.named_buffers():
+                v.copy_(saved[k])
+
+
+def gan_postnet_noise(noise_dim: int) -> Callable:
+    """``prepare`` for make_gan_trainer_step: the postnet's per-frame noise
+    [B, T, noise_dim], standard normal from the trainer's generator, added
+    to the batch unless it holds one."""
+
+    def prepare(batch, generator):
+        if "noise" in batch:
+            return batch
+        B, T, _ = batch["decoder_mel"].shape
+        return dict(batch, noise=torch.randn(
+            B, T, noise_dim, generator=generator,
+            device=batch["decoder_mel"].device))
+
+    return prepare
+
+
+def make_gan_postnet_train_steps(postnet, disc, mel_weight: float = 1.0
+                                 ) -> Tuple[Callable, Callable]:
+    """(d_step, g_step) of the adversarial postnet
+    (cookietts_tpu/runtime/trainer.py:make_gan_postnet_train_steps): the
+    postnet refines the decoder mel toward the ground truth while fooling a
+    speaker-conditioned fakeness discriminator (real label 0, fake 1, BCE).
+
+    batch = {decoder_mel [B,T,M], gt_mel [B,T,M], speaker_embed [B,S],
+    noise [B,T,N], mel_mask [B,T] (optional)} on the device. The D step
+    scores the real mel and a detached fake (the postnet in training form,
+    its statistics left as they were), moving the discriminator's running
+    statistics with both; the G step runs the postnet in training form (its
+    statistics move) against the discriminator's running averages, and adds
+    ``mel_weight`` times the masked mel MSE to the adversarial loss. Each
+    updates its own side in place and returns (state, metrics)."""
+    from ..models.gan_postnet import gan_postnet_losses
+
+    def fake_of(batch):
+        postnet.train()
+        return postnet(batch["decoder_mel"], batch["speaker_embed"],
+                       noise=batch["noise"])
+
+    def d_step(d_state, g_state, batch, ctrl):
+        with full_float32():
+            with torch.no_grad(), _stats_kept(postnet):
+                fake = fake_of(batch)
+            disc.train()
+            d_real = disc(batch["gt_mel"], batch["speaker_embed"])
+            d_fake = disc(fake, batch["speaker_embed"])
+            _, d_loss = gan_postnet_losses(d_real, d_fake)
+            norm = _apply_clipped(d_state, d_loss, ctrl)
+        return d_state, {"d_loss": d_loss.detach(),
+                         "d_real": d_real.detach().mean(),
+                         "d_fake": d_fake.detach().mean(),
+                         "d_grad_norm": norm}
+
+    def g_step(g_state, d_state, batch, ctrl):
+        with full_float32():
+            fake = fake_of(batch)
+            disc.eval()
+            d_fake = disc(fake, batch["speaker_embed"])
+            g_adv, _ = gan_postnet_losses(d_fake, d_fake)
+            m = batch.get("mel_mask")
+            m = (torch.ones_like(fake[..., :1]) if m is None
+                 else m[:, :, None].float())
+            mel_mse = (((fake - batch["gt_mel"]) ** 2) * m).sum() / torch.clamp(
+                m.sum() * fake.shape[-1], min=1.0)
+            total = g_adv + mel_weight * mel_mse
+            norm = _apply_clipped(g_state, total, ctrl)
+        return g_state, {"g_adv": g_adv.detach(), "g_mel_MSE": mel_mse.detach(),
+                         "g_loss": total.detach(), "g_grad_norm": norm}
+
+    return d_step, g_step
+
+
+def make_gan_postnet_eval_step(postnet) -> Callable:
+    """Validation: the mel MSE of the postnet in eval form (running
+    averages) against the ground truth, its noise drawn from the
+    validation batch's generator. Returns ({loss, mel_MSE}, {}, None)."""
+
+    @torch.no_grad()
+    def step(state, batch, generator, ctrl):
+        del state, ctrl
+        postnet.eval()
+        with full_float32():
+            fake = postnet(batch["decoder_mel"], batch["speaker_embed"],
+                           generator=generator)
+            mse = ((fake - batch["gt_mel"]) ** 2).mean()
+        return {"loss": mse, "mel_MSE": mse}, {}, None
+
+    return step
+
+
+# -- the HiFi-GAN denoiser -------------------------------------------------------
+
+def make_hifigan_denoiser_train_steps(gen, dw, ds, mrs, stage: int = 0
+                                      ) -> Tuple[Callable, Callable]:
+    """(d_step, g_step) of the staged denoiser
+    (cookietts_tpu/runtime/trainer.py:make_hifigan_denoiser_train_steps).
+    Stage 0 and 1: the log multi-res spectral L1 plus the audio L1, and the
+    D step is a no-op that returns the state it was given. Stage >= 2: the
+    fakeness logits of the wave (DW) and spectrogram (DS) critics are summed
+    into one BCE (real label 0, fake 1); the D loss averages its real and
+    fake halves. batch = {noisy [B,T], clean [B,T]} on the device."""
+    from ..models.hifigan_denoiser import (denoiser_loss, fakeness_bce,
+                                           log_compress)
+
+    def fakeness(audio):
+        return dw(audio) + ds(log_compress(mrs(audio)))
+
+    def g_step(g_state, d_state, batch, ctrl):
+        with full_float32():
+            pred = gen(batch["noisy"])
+            dw_fake = ds_fake = None
+            if stage >= 2:
+                dw_fake = dw(pred)
+                ds_fake = ds(log_compress(mrs(pred)))
+            total, parts = denoiser_loss(mrs, pred, batch["clean"], stage=stage,
+                                         dw_fake=dw_fake, ds_fake=ds_fake)
+            norm = _apply_clipped(g_state, total, ctrl)
+        metrics = {k: v.detach() for k, v in parts.items()}
+        metrics["g_grad_norm"] = norm
+        return g_state, metrics
+
+    if stage < 2:
+        def d_step(d_state, g_state, batch, ctrl):    # pre-adversarial
+            return d_state, {"d_loss": 0.0}
+        return d_step, g_step
+
+    def d_step(d_state, g_state, batch, ctrl):
+        with full_float32():
+            with torch.no_grad():
+                pred = gen(batch["noisy"])
+            loss = (fakeness_bce(fakeness(batch["clean"]), fake_label=0.0)
+                    + fakeness_bce(fakeness(pred), fake_label=1.0)) / 2.0
+            norm = _apply_clipped(d_state, loss, ctrl)
+        return d_state, {"d_loss": loss.detach(), "d_grad_norm": norm}
+
+    return d_step, g_step
+
+
+def make_hifigan_denoiser_eval_step(gen, mrs, stage: int) -> Callable:
+    """Validation at every stage is spectral only (critic terms would make
+    it incomparable across stages). Returns ({loss, spectral}, {}, None)."""
+    from ..models.hifigan_denoiser import denoiser_loss
+
+    @torch.no_grad()
+    def step(state, batch, generator, ctrl):
+        del state, generator, ctrl
+        with full_float32():
+            total, _ = denoiser_loss(mrs, gen(batch["noisy"]), batch["clean"],
+                                     stage=min(stage, 1))
+        return {"loss": total, "spectral": total}, {}, None
 
     return step
 

@@ -20,6 +20,8 @@ import pytest
 from cookietts_tpu.ops.pallas_kernels import attention_step as j_attention_step
 
 from cookietts_tpu_torch.ops import hopper_kernels as hk
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 F32 = np.float32
 PHASE3 = [(B, T, 192, 512) for B in (1, 4, 32) for T in (64, 128, 384)]

@@ -29,6 +29,8 @@ from cookietts_tpu_torch.ops import attention as patt
 from tests.test_torch_train_tacotron2 import (KEY, TINY as TRAIN_TINY,
                                               grads_as_state_dict, make_batch,
                                               sylps_eps)
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 TYPES = dict(num_att_mixtures=2, dynamic_filter_num=4, dynamic_filter_len=7)
 B, T, Q, A, D = 2, 11, 16, 8, 12

@@ -38,6 +38,8 @@ from cookietts_tpu_torch.models.torchmoji import TorchMojiEncoder
 from cookietts_tpu_torch.pipeline.text2speech import T2S, T2SConfig
 from cookietts_tpu_torch.runtime.checkpoint import save_checkpoint
 from cookietts_tpu_torch.text.cmudict import ARPADict
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 TACO = dict(
     n_symbols=N_SYMBOLS, symbols_embedding_dim=16, n_speakers=4,

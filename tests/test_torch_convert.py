@@ -27,6 +27,8 @@ from cookietts_tpu_torch.models.torchmoji import TorchMoji
 from cookietts_tpu_torch.models.waveglow import WaveGlow, WaveGlowConfig
 from cookietts_tpu_torch.runtime.checkpoint import load_checkpoint
 from tests.test_torch_tacotron2_heads import HEADS
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 WAVEGLOW = dict(n_mel_channels=4, n_flows=4, n_group=4, n_early_every=2,
                 n_early_size=2, n_layers=2, n_channels=8, kernel_size=3,

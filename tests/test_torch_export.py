@@ -41,6 +41,7 @@ from cookietts_tpu_torch.models.waveglow import WaveGlow, WaveGlowConfig
 from cookietts_tpu_torch.ops import hopper_kernels as hk
 from cookietts_tpu_torch.runtime import export_serving as es
 from cookietts_tpu_torch.runtime.checkpoint import save_checkpoint
+from test_torch_threads import _one_thread  # noqa: F401
 
 TINY = dict(
     n_symbols=N_SYMBOLS, symbols_embedding_dim=16, n_speakers=4,
@@ -54,16 +55,6 @@ TINY = dict(
     p_prenet_dropout=0.0, max_decoder_steps=20)
 B, T_TXT, STEPS = 2, 12, 20
 HOP, M = 8, 80
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Tiny shapes gain nothing from torch's intra-op threads, which only
-    contend with the other test processes for the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _r(rng, *shape, scale=1.0):

@@ -29,6 +29,8 @@ from cookietts_tpu_torch.convert.from_jax import (
 from cookietts_tpu_torch.models.emotionnet import (AuxEmotionNet, EmotionNet,
                                                    EmotionNetConfig)
 from cookietts_tpu_torch.models.gst import GST, GSTConfig
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 B, T_MEL, M, TM = 3, 20, 12, 6
 GST_TINY = dict(n_mel_channels=M, token_embedding_size=8, token_num=4,

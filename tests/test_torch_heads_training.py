@@ -34,6 +34,8 @@ from cookietts_tpu_torch.losses import tacotron2_loss
 from cookietts_tpu_torch.models import emotionnet as pem
 from cookietts_tpu_torch.models import gst as pgst
 from tests.test_torch_trainer import _hparams
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 B, C, Z, T_MEL, T_TXT, M = 4, 3, 2, 24, 9, 16
 IDS = np.array([0, C, 2, C])              # rows 1 and 3 unlabelled

@@ -15,6 +15,8 @@ from cookietts_tpu.models.hifigan import (Generator as JGenerator,
 
 from cookietts_tpu_torch.convert.from_jax import hifigan_state_dict_from_jax
 from cookietts_tpu_torch.models.hifigan import Generator, HiFiGANConfig
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 # the bench-serving generator's upsampling (hop 512), narrow and with two
 # MRF kernel sizes so the MRF mean is exercised

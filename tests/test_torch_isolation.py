@@ -7,6 +7,8 @@ from pathlib import Path
 
 import pytest
 import torch
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "cookietts_tpu_torch"
@@ -35,7 +37,11 @@ for mod in pkgutil.walk_packages(cookietts_tpu_torch.__path__,
 leaked = sorted(m for m in sys.modules if forbidden(m))
 assert not leaked, leaked
 for name in ("cookietts_tpu_torch.runtime.export_serving",
-             "cookietts_tpu_torch.audio.iso226"):
+             "cookietts_tpu_torch.audio.iso226",
+             "cookietts_tpu_torch.pipeline.gta",
+             "cookietts_tpu_torch.models.gan_postnet",
+             "cookietts_tpu_torch.models.hifigan_denoiser",
+             "cookietts_tpu_torch.data.denoiser_data"):
     assert name in sys.modules, name
 print("imported", len([m for m in sys.modules
                        if m.startswith("cookietts_tpu_torch")]))
@@ -320,3 +326,50 @@ def test_load_artifact_imports_no_model_module(tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split("\n")[-2] == "(1, 8) []"
+
+
+@pytest.mark.parametrize("entry", ["gta", "train-gan_postnet",
+                                   "train-hifigan_denoiser", "postnet",
+                                   "denoiser", "critics"])
+def test_gta_and_adversarial_trainers_raise_without_cuda(monkeypatch,
+                                                         tmp_path, entry):
+    """The gta command, the two new train commands and their models run on
+    the card unless asked for the CPU (then the commands go on to read
+    their missing files)."""
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.models.gan_postnet import (GANDiscriminator,
+                                                        GANPostnet,
+                                                        GANPostnetConfig)
+    from cookietts_tpu_torch.models.hifigan_denoiser import (
+        DenoiserWN, HiFiGANDenoiserConfig, MultiResSpect, SpectDiscriminator,
+        WaveDiscriminator)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing.txt")
+    if entry == "gta" or entry.startswith("train"):
+        argv = (["gta", "--checkpoint", missing, "--filelist", missing]
+                if entry == "gta" else
+                ["train", "--model", entry.split("-")[1], "--filelist",
+                 missing, "--run_dir", str(tmp_path / "run")])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli(argv)
+        with pytest.raises(FileNotFoundError):      # past the device
+            cli(argv + ["--device", "cpu"])
+        return
+    pcfg = GANPostnetConfig(n_mel_channels=4, speaker_embedding_dim=2,
+                            noise_dim=2, n_convolutions=2, embedding_dim=4)
+    dcfg = HiFiGANDenoiserConfig(
+        wn_layers=1, wn_channels=4, wn_dilations=None, postnet_layers=1,
+        postnet_channels=4, postnet_kernel_size=4, window_lengths=(32,),
+        hop_lengths=(8,), dw_n_discriminators=1, dw_kernel_sizes=(3,),
+        dw_strides=(1,), dw_channels=(1,), dw_group_sizes=(1,),
+        ds_block_confs=((2, 3, 1, 1, 2),))
+    make = {"postnet": [lambda *a: GANPostnet(pcfg, *a),
+                        lambda *a: GANDiscriminator(pcfg, *a)],
+            "denoiser": [lambda *a: DenoiserWN(dcfg, *a),
+                         lambda *a: MultiResSpect((32,), (8,), *a)],
+            "critics": [lambda *a: WaveDiscriminator(dcfg, *a),
+                        lambda *a: SpectDiscriminator(dcfg, *a)]}[entry]
+    for build in make:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+        build("cpu")

@@ -24,6 +24,7 @@ from cookietts_tpu_torch.convert.from_jax import hifigan_state_dict_from_jax
 from cookietts_tpu_torch.models.hifigan import Generator, HiFiGANConfig
 from cookietts_tpu_torch.ops import _build
 from cookietts_tpu_torch.ops import hopper_kernels as hk
+from test_torch_threads import _one_thread  # noqa: F401
 
 
 def _attention_inputs(B=3, T=37, A=48, D=56, seed=0):

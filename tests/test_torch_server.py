@@ -17,6 +17,8 @@ from cookietts_tpu_torch.pipeline.server import (ModelRegistry, _wav_bytes,
                                                  handle_tts, make_app)
 from cookietts_tpu_torch.pipeline.text2speech import T2S, T2SConfig
 from cookietts_tpu_torch.text import N_SYMBOLS
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 TACO = dict(
     n_symbols=N_SYMBOLS, symbols_embedding_dim=16, n_speakers=4,

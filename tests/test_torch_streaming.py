@@ -32,6 +32,8 @@ from cookietts_tpu_torch.pipeline.streaming import (make_streaming_fns,
                                                     streaming_tts,
                                                     streaming_vocode,
                                                     vocode_streamed)
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 TACO = dict(
     n_symbols=40, symbols_embedding_dim=16, n_speakers=4,

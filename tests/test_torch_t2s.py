@@ -23,6 +23,8 @@ from cookietts_tpu_torch.pipeline.text2speech import (T2S, T2SConfig,
                                                       interleave_speakers,
                                                       make_flow_vocoder_fn,
                                                       parse_text_into_segments)
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 TACO = dict(
     n_symbols=N_SYMBOLS, symbols_embedding_dim=16, n_speakers=4,

@@ -24,6 +24,8 @@ from cookietts_tpu_torch.convert.from_jax import tacotron2_state_dict_from_jax
 from cookietts_tpu_torch.models.tacotron2 import (Prenet, Tacotron2,
                                                   Tacotron2Config)
 from cookietts_tpu_torch.ops.attention import AttentionState
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 TINY = dict(
     n_symbols=N_SYMBOLS, symbols_embedding_dim=16, n_speakers=4,

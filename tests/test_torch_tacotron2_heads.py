@@ -21,6 +21,8 @@ from cookietts_tpu.text import N_SYMBOLS
 from cookietts_tpu_torch.convert.from_jax import tacotron2_state_dict_from_jax
 from cookietts_tpu_torch.models.tacotron2 import Tacotron2, Tacotron2Config
 from tests.test_torch_tacotron2 import TINY, _perturb
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 HEADS = dict(TINY, use_gst=True, gst_token_num=4, gst_token_embedding_size=8,
              gst_num_heads=2, gst_att_dim=8, gst_ref_enc_filters=(4, 4),

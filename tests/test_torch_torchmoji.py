@@ -19,6 +19,8 @@ from cookietts_tpu.models import torchmoji as jmoji
 
 from cookietts_tpu_torch.convert.from_jax import torchmoji_state_dict_from_jax
 from cookietts_tpu_torch.models import torchmoji as moji
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 NB = 64
 WORDS = ["i", "love", "this", "\U0001F604", "check", "out", "now", "hello",

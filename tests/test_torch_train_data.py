@@ -17,19 +17,7 @@ from cookietts_tpu_torch.audio.stft import TacotronSTFT
 from cookietts_tpu_torch.data import dataset as pds
 from cookietts_tpu_torch.data import evidence_corpus as pcorpus
 from cookietts_tpu_torch.data.filelist import load_filelist
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One thread for torch's and for BLAS's pools: as fast here at these
-    sizes, and the suite's parallel workers share the machine's cores (a
-    BLAS pool spinning on busy cores makes one SVD take seconds)."""
-    from threadpoolctl import threadpool_limits
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
+from test_torch_threads import _one_thread  # noqa: F401
 
 
 # the evidence corpus' front end, as chip_smoke.py phase 7 trains with it

@@ -36,18 +36,7 @@ from cookietts_tpu_torch.runtime.train_state import GANTrainState, TrainState
 from cookietts_tpu_torch.runtime.trainer import (
     Trainer, TrainerConfig, make_gan_trainer_step, make_hifigan_eval_step,
     make_hifigan_train_steps)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One thread for torch's and for BLAS's pools: as fast here at these
-    sizes, and the suite's parallel workers share the machine's cores."""
-    from threadpoolctl import threadpool_limits
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
+from test_torch_threads import _one_thread  # noqa: F401
 
 
 TINY = dict(n_mel_channels=16, resblock_kernel_sizes=(3,),

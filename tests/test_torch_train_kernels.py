@@ -20,21 +20,9 @@ import torch
 from cookietts_tpu.ops.pallas_kernels import (NEG, fused_attention,
                                               fused_lstm_gates)
 from cookietts_tpu_torch.ops import hopper_kernels as hk
+from test_torch_threads import _one_thread  # noqa: F401
 
 ATOL, RTOL = 1e-5, 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One thread for torch's and for BLAS's pools: as fast here at these
-    sizes, and the suite's parallel workers share the machine's cores (a
-    BLAS pool spinning on busy cores makes one SVD take seconds)."""
-    from threadpoolctl import threadpool_limits
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
 
 
 def _close(got, want):

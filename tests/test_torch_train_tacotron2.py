@@ -36,6 +36,7 @@ from cookietts_tpu_torch.ops.attention import AttentionState
 from cookietts_tpu_torch.runtime.optim import adam, clip_by_global_norm
 from cookietts_tpu_torch.runtime.train_state import TrainState
 from cookietts_tpu_torch.runtime.trainer import adapt_carry
+from test_torch_threads import _one_thread  # noqa: F401
 
 TINY = dict(
     n_symbols=N_SYMBOLS, symbols_embedding_dim=16, n_speakers=4,
@@ -55,19 +56,6 @@ ZONEOUT = dict(TINY, attrnn_zoneout=1.0, decrnn_zoneout=1.0)
 # reached only through the rounded window position: zero gradient in JAX too
 NO_GRADIENT = ("decoder.exp_smoothing_factor",
                "decoder.attention_layer.windowed_att_pos_offset")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One thread for torch's and for BLAS's pools: as fast here at these
-    sizes, and the suite's parallel workers share the machine's cores (a
-    BLAS pool spinning on busy cores makes one SVD take seconds)."""
-    from threadpoolctl import threadpool_limits
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
 
 
 def make_batch(rng, pres=(0.0, 0.0, 0.0)):

@@ -18,18 +18,7 @@ from cookietts_tpu_torch.data import audio_io
 from cookietts_tpu_torch.data import mel2samp as pm2s
 from cookietts_tpu_torch.ops.dtw import dtw_align
 from cookietts_tpu_torch.runtime import optim as poptim
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One thread for torch's and for BLAS's pools: as fast here at these
-    sizes, and the suite's parallel workers share the machine's cores."""
-    from threadpoolctl import threadpool_limits
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
+from test_torch_threads import _one_thread  # noqa: F401
 
 
 FRONT = dict(sampling_rate=16000, filter_length=512, hop_length=128,

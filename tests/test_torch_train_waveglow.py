@@ -32,18 +32,7 @@ from cookietts_tpu_torch.runtime.train_state import TrainState
 from cookietts_tpu_torch.runtime.trainer import (Trainer, TrainerConfig,
                                                  make_waveglow_train_step,
                                                  make_waveglow_val_step)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One thread for torch's and for BLAS's pools: as fast here at these
-    sizes, and the suite's parallel workers share the machine's cores."""
-    from threadpoolctl import threadpool_limits
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
+from test_torch_threads import _one_thread  # noqa: F401
 
 
 BASE = dict(n_mel_channels=8, n_layers=2, n_channels=16, upsample_channels=8)

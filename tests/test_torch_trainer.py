@@ -20,6 +20,7 @@ from cookietts_tpu_torch.runtime.trainer import (
     Trainer, TrainerConfig, make_tacotron2_eval_step,
     make_tacotron2_inference_eval_step, make_tacotron2_train_step)
 from cookietts_tpu_torch.text import N_SYMBOLS
+from test_torch_threads import _one_thread  # noqa: F401
 
 TINY = dict(
     symbols_embedding_dim=16, n_speakers=4, speaker_embedding_dim=8,
@@ -29,19 +30,6 @@ TINY = dict(
     attention_rnn_dim=16, decoder_rnn_dim=16, second_decoder_rnn_dim=16,
     attention_dim=8, windowed_attention_range=2, postnet_embedding_dim=16,
     postnet_n_convolutions=3, postnet_residual_connections=2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One thread for torch's and for BLAS's pools: as fast here at these
-    sizes, and the suite's parallel workers share the machine's cores (a
-    BLAS pool spinning on busy cores makes one SVD take seconds)."""
-    from threadpoolctl import threadpool_limits
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
 
 
 FRONT = ("sampling_rate=22050,filter_length=1024,hop_length=256,"

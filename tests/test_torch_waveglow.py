@@ -31,6 +31,8 @@ from cookietts_tpu_torch.models.denoiser import Denoiser
 from cookietts_tpu_torch.models.waveglow import (GATED_UNITS, UpsampleNet,
                                                  WaveGlow, WaveGlowConfig,
                                                  permute_height_order)
+from test_torch_threads import _one_thread  # noqa: F401
+
 
 BASE = dict(n_mel_channels=8, n_layers=3, n_channels=16, upsample_channels=8)
 GLOW = dict(BASE, n_flows=4, n_group=8, n_early_every=2, n_early_size=2,
