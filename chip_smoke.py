@@ -189,6 +189,26 @@ non-zero:
    stage-2 step at B=1 on broadband audio card against CPU as in 12b.
    Training launches no
    kernel.
+13. the non-autoregressive TTS family on phase 12's corpus, whose wavs now
+   carry 12a's .gdur.npy letter durations. 13a: `train --model untts` at
+   UnTTSConfig() (embedding 384, 4 FFT blocks x 2 heads x 1024, predictors
+   256, decoder 6 flows x 3 layers x 192, 80 mels), batch 8, DIO f0, 3
+   iterations with a validation and a checkpoint, then --resume to 5 (no
+   kernel launched: training and its validation run the WNs' training
+   form); the step's s/iter, peak memory and busy share; one step at B=4
+   card against CPU by 12b's rule (`step_parity`, dropout 0). 13b:
+   UnTTS.inference at full width with VarGlow, B=4, 100-70 chars, up to
+   1024 frames, every WN end layer drawn nonzero (N(0, 0.02^2)): exactly
+   6 x wn_launches(3) waveglow_wn_forward launches a call, 4 x
+   wn_launches(2) more with VarGlow's sampled prosody, 6 x wn_launches(3)
+   with positional attention; the kernel path against the plain path at
+   the same z (1e-3), the card against the CPU at sigma 0 (1e-4), the same
+   durations; ms a call and per second of mel; the decoder's WN (C=192,
+   T'=1024) and VarGlow's (C=64, T'=25, cond 2048) against their plain
+   versions, timed beside their bounds. 13c: `train --model gantts` at
+   GANTTSConfig(), batch 8, 3 iterations, then --resume to 5; the D and G
+   steps timed; one D+G step card against CPU with z and the window starts
+   given (dropout 0).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -3425,8 +3445,9 @@ def phase12a(hk, check, tcfg, smi, tmp):
     decoder step; one batch through GTAGenerator with the kernels against
     the plain versions (1e-4) and, prenet dropout off, the card against the
     CPU (1e-3); --extremeGTA on two utterances; seconds per utterance and
-    per second of audio, and the device-busy share. Returns the checkpoint
-    and the map."""
+    per second of audio, and the device-busy share. Returns the checkpoint,
+    the map and the corpus's filelist (whose wavs now have .gdur.npy
+    letter durations beside them)."""
     import numpy as np
     import torch
     from cookietts_tpu_torch.cli import _load_tacotron2
@@ -3544,7 +3565,7 @@ def phase12a(hk, check, tcfg, smi, tmp):
     if (suffixes != [".mel.npy"] * 2 + [".mel128.npy"] * 2
             or ex["kernel_launches"]["attention_step"] != ex["decoder_steps"]):
         raise SystemExit("chip_smoke: --extremeGTA output")
-    return ckpt, map_path
+    return ckpt, map_path, train_fl
 
 
 def p12_train(hk, args, what):
@@ -3578,6 +3599,16 @@ def p12_train(hk, args, what):
     return trainer, train
 
 
+def peak_text(base):
+    """The peak allocated since the last reset of the peak, and its part
+    above ``base``, the bytes resident before the timed steps (the earlier
+    phases' leftovers, the models and their optimizer state)."""
+    import torch
+    peak = torch.cuda.max_memory_allocated()
+    return (f"peak {peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB "
+            f"above the {base / 2 ** 30:.2f} GiB resident before the step)")
+
+
 def p12_step_times(trainer, batch, name, smi, reps=3):
     """s per iteration of the trained state's step at the run's batch,
     split into the D and the G step (host clock, synchronised; best of
@@ -3589,13 +3620,12 @@ def p12_step_times(trainer, batch, name, smi, reps=3):
     dev = batch_to_device(batch, DEV)
     gen = torch.Generator(DEV).manual_seed(0)
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(reps):
-        b = dict(dev, noise=torch.randn(*dev["decoder_mel"].shape[:2], state.g
-                                        .model.cfg.noise_dim, device=DEV,
-                                        generator=gen)) \
-            if "decoder_mel" in dev else dev
+        # the iteration's draws (the postnet's noise; GAN-TTS's z, windows)
+        b = step.prepare(dev, gen) if step.prepare else dev
         t0 = time.perf_counter()
         step.d_step(state.d, state.g, b, ctrl)
         torch.cuda.synchronize()
@@ -3603,12 +3633,12 @@ def p12_step_times(trainer, batch, name, smi, reps=3):
         step.g_step(state.g, state.d, b, ctrl)
         torch.cuda.synchronize()
         times.append((t1 - t0, time.perf_counter() - t1))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = peak_text(base)
     wall, busy = busy_share(lambda: step(state, dev, gen, ctrl))
     d, g = (min(t[i] for t in times) for i in (0, 1))
     shape = "x".join(str(s) for s in next(iter(dev.values())).shape)
     log(f"  {name} step at {shape}: {d + g:.4f} s/iter (D step {d:.4f} s, "
-        f"G step {g:.4f} s; best of {reps}), peak {peak:.2f} GiB; device "
+        f"G step {g:.4f} s; best of {reps}), {peak}; device "
         f"busy {busy:.1f} ms of a profiled iteration's {wall:.1f} ms = "
         f"{busy / wall:.3f} ({smi})")
 
@@ -3750,21 +3780,320 @@ def phase12c(hk, tmp, smi):
                 {"lr": 2e-4, "grad_clip": 100.0}, check_params=True)
 
 
-def phase12(hk, check, tcfg, smi):
-    """12a GTA, 12b the GAN postnet, 12c the HiFi-GAN denoiser."""
-    import tempfile
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        tmp = Path(tmp)
+def phase12(hk, check, tcfg, smi, tmp):
+    """12a GTA, 12b the GAN postnet, 12c the HiFi-GAN denoiser. Returns 12a's
+    corpus filelist (its wavs with .gdur.npy sidecars) for phase 13."""
+    t0 = time.perf_counter()
+    ckpt, map_path, train_fl = phase12a(hk, check, tcfg, smi, tmp)
+    log(f"  phase 12a in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase12b(hk, ckpt, map_path, tmp, smi)
+    log(f"  phase 12b in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase12c(hk, tmp, smi)
+    log(f"  phase 12c in {time.perf_counter() - t0:.1f} s; {smi}")
+    return train_fl
+
+
+# -- phase 13: the non-autoregressive TTS family ---------------------------------
+
+# UnTTS at UnTTSConfig() and GAN-TTS at GANTTSConfig() (a CPU rehearsal
+# shrinks these) on phase 12's corpus, 22050 Hz, 80 mels, batch 8. f0 is in
+# Hz, so UnTTS's f0 MSE (weight 0.1) starts near 1e3-1e4, above the default
+# explosion threshold of 1e3, which would roll every early step back.
+UNTTS = {}
+GANTTS = {}
+NAR_HPARAMS = (GTA_HPARAMS + ",batch_size=8,validation_interval=3,"
+               "checkpoint_interval=3,log_every=1")
+UNTTS_HPARAMS = NAR_HPARAMS + ",f0_method=dio,loss_explosion_threshold=1e6"
+# 13b: UnTTS inference at B = 4, up to 1024 frames, with durations scaled to
+# a few frames a char (a random predictor gives about one)
+INFER_B, INFER_FRAMES, INFER_CHARS, INFER_DUR_SCALE = 4, 1024, 100, 8.0
+NAR_HOP, NAR_SR = 256, 22050
+
+
+def p13_step_times(trainer, batch, name, smi, reps=3):
+    """s per iteration of UnTTS's trained step at the run's batch (host
+    clock, synchronised; best of ``reps``), peak memory (see peak_text) and
+    the device-busy share of one more iteration."""
+    import torch
+    from cookietts_tpu_torch.device import batch_to_device
+    step, state = trainer.train_step, trainer.state
+    ctrl = trainer.ctrl(int(state.step))
+    dev = batch_to_device(batch, DEV)
+    gen = torch.Generator(DEV).manual_seed(0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
         t0 = time.perf_counter()
-        ckpt, map_path = phase12a(hk, check, tcfg, smi, tmp)
-        log(f"  phase 12a in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        phase12b(hk, ckpt, map_path, tmp, smi)
-        log(f"  phase 12b in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        phase12c(hk, tmp, smi)
-        log(f"  phase 12c in {time.perf_counter() - t0:.1f} s; {smi}")
+        step(state, dev, gen, ctrl)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = peak_text(base)
+    wall, busy = busy_share(lambda: step(state, dev, gen, ctrl))
+    shape = "x".join(str(s) for s in dev["mels"].shape)
+    log(f"  {name} step at mels {shape}: {min(times):.4f} s/iter (best of "
+        f"{reps}; {[round(t, 4) for t in times]}), {peak}; "
+        f"device busy {busy:.1f} ms of a profiled iteration's {wall:.1f} ms = "
+        f"{busy / wall:.3f} ({smi})")
+
+
+def p13_batch(trainer, keys, rows):
+    """The first validation batch's ``keys``, its first ``rows`` rows."""
+    batch = next(iter(trainer.val_batches))
+    return {k: batch[k][:rows] for k in keys if k in batch}
+
+
+def phase13a(hk, corpus, tmp, smi):
+    """13a: train --model untts at UnTTSConfig() on phase 12's corpus (its
+    .gdur.npy durations), batch 8, DIO f0, 3 iterations with a validation,
+    then --resume to 5; the step timed; one step card against CPU."""
+    import torch
+    from cookietts_tpu_torch.cli import UNTTS_KEYS
+    from cookietts_tpu_torch.models.untts import UnTTS
+    from cookietts_tpu_torch.runtime.optim import adam
+    from cookietts_tpu_torch.runtime.train_state import TrainState
+    from cookietts_tpu_torch.runtime.trainer import make_untts_train_step
+    run = tmp / "untts"
+    base = ["train", "--model", "untts", "--filelist", corpus, "--run_dir",
+            str(run), "--seed", "0", "--device", DEV, "--hparams",
+            UNTTS_HPARAMS + ("," + hparams_of(UNTTS) if UNTTS else "")]
+    trainer, _ = p12_train(hk, base + ["--iters", "3"],
+                           "13a train --model untts to 3")
+    del trainer
+    trainer, train = p12_train(hk, base + ["--iters", "5", "--resume"],
+                               "13a --resume to 5")
+    meta = json.loads((run / "checkpoint_3.json").read_text())
+    if ([k for k, _, _ in train] != [0, 1, 2, 3, 4] or trainer.state.step != 5
+            or meta["model"] != "untts" or not (run / "checkpoint_5").exists()):
+        raise SystemExit("chip_smoke: the UnTTS run did not resume at step 3 "
+                         "or its checkpoints are missing")
+    cfg = trainer.state.model.cfg
+    p13_step_times(trainer, next(iter(trainer.val_batches)), "13a UnTTS", smi)
+    batch = p13_batch(trainer, UNTTS_KEYS, 4)
+    del trainer
+    torch.cuda.empty_cache()
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+
+    def build():
+        return (UnTTS(cfg0, device="cpu"),)
+
+    def step_of(modules, device):
+        return (make_untts_train_step(modules[0]),
+                TrainState.create(modules[0], adam()))
+
+    step_parity("13a UnTTS (B=4, dropout 0)", build, step_of, batch,
+                {"lr": 1e-4, "grad_clip": 10.0})
+
+
+def seeded_untts(cfg, seed, device):
+    """An UnTTS from ``seed`` with every WN end layer drawn N(0, 0.02^2) (a
+    fresh end is zero, and the inverse the identity whatever the kernel
+    does)."""
+    import torch
+    from cookietts_tpu_torch.models.untts import UnTTS
+    torch.manual_seed(seed)
+    model = UnTTS(cfg, device="cpu")
+    with torch.no_grad():
+        for wn in [*model.decoder.wn] + (
+                [*model.varglow.wn] if cfg.use_varglow else []):
+            wn.end.weight.normal_(0.0, 0.02)
+            wn.end.bias.normal_(0.0, 0.02)
+    return model.to(device)
+
+
+def untts_inputs(cfg, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.tensor([INFER_CHARS - 10 * i for i in range(INFER_B)])
+    text = torch.randint(1, cfg.n_symbols, (INFER_B, INFER_CHARS), generator=g)
+    text = text * (torch.arange(INFER_CHARS)[None] < lengths[:, None])
+    return (text.to(DEV), lengths.to(DEV),
+            torch.arange(INFER_B).to(DEV))
+
+
+def p13_infer(hk, model, args, what, want_launches, **kw):
+    """One inference with the launch counters zeroed before and read after;
+    the mels finite and nonzero, the lengths within max_frames."""
+    import torch
+    hk.reset_launch_counts()
+    out = model.inference(*args, max_frames=INFER_FRAMES,
+                          duration_scale=INFER_DUR_SCALE, **kw)
+    torch.cuda.synchronize()
+    n = dict(hk.LAUNCHES)
+    mel, lengths = out["mel_outputs"], out["mel_lengths"]
+    log(f"  13b {what}: mel lengths {lengths.tolist()} of {INFER_FRAMES}; "
+        f"launches {n} (want waveglow_wn_forward {want_launches})")
+    if (n["waveglow_wn_forward"] != want_launches
+            or any(v for k, v in n.items() if k != "waveglow_wn_forward")):
+        raise SystemExit(f"chip_smoke: UnTTS inference ({what}) launches")
+    if not (bool(torch.isfinite(mel).all()) and float(mel.abs().max()) > 0
+            and int(lengths.min()) > 0 and int(lengths.max()) <= INFER_FRAMES):
+        raise SystemExit(f"chip_smoke: UnTTS inference ({what}) output")
+    return out
+
+
+def phase13b(hk, check, smi):
+    """13b: UnTTS.inference at full width, B = 4, up to 1024 frames, end
+    layers drawn nonzero: exactly 6 x wn_launches(3) waveglow_wn_forward
+    launches a call (4 x wn_launches(2) more with VarGlow's sampled
+    prosody; positional attention too), the kernel path against the plain
+    path at the same z (1e-3) and the card against the CPU at sigma = 0
+    (1e-4); ms a call and per second of mel; the decoder's and VarGlow's WN
+    calls timed against their plain versions beside their bounds."""
+    import copy
+
+    import torch
+    from cookietts_tpu_torch.models.untts import UnTTSConfig
+    from cookietts_tpu_torch.text import N_SYMBOLS
+    cfg = UnTTSConfig(n_symbols=N_SYMBOLS, use_varglow=True, **UNTTS)
+    model = seeded_untts(cfg, 40, DEV)
+    args = untts_inputs(cfg, 41)
+    dec = cfg.dec_n_flows * hk.wn_launches(cfg.dec_n_layers)
+    var = cfg.varglow_n_flows * hk.wn_launches(2)
+    gen = lambda: torch.Generator(DEV).manual_seed(7)  # noqa: E731
+    out = p13_infer(hk, model, args, "predicted durations, sigma 1", dec,
+                    generator=gen())
+    with plain_kernels(hk):
+        plain = model.inference(*args, max_frames=INFER_FRAMES,
+                                duration_scale=INFER_DUR_SCALE,
+                                generator=gen())
+    if not torch.equal(out["durations"], plain["durations"]):
+        raise SystemExit("chip_smoke: UnTTS durations, kernel vs plain")
+    check("slice", out["mel_outputs"], plain["mel_outputs"], 1e-3, 1e-3,
+          "UnTTS inference mels, kernel vs plain (same z)")
+    samp = p13_infer(hk, model, args, "VarGlow sample_prosody", dec + var,
+                     generator=gen(), sample_prosody=True)
+    with plain_kernels(hk):
+        samp_p = model.inference(*args, max_frames=INFER_FRAMES,
+                                 duration_scale=INFER_DUR_SCALE,
+                                 generator=gen(), sample_prosody=True)
+    if not torch.equal(samp["durations"], samp_p["durations"]):
+        raise SystemExit("chip_smoke: UnTTS sampled durations, kernel vs plain")
+    check("slice", samp["mel_outputs"], samp_p["mel_outputs"], 1e-3, 1e-3,
+          "UnTTS sampled prosody, kernel vs plain")
+    # the card against the CPU, nothing drawn
+    zero = p13_infer(hk, model, args, "sigma 0", dec, sigma=0.0)
+    cpu = copy.deepcopy(model).to("cpu")
+    want = cpu.inference(*[a.cpu() for a in args], max_frames=INFER_FRAMES,
+                         duration_scale=INFER_DUR_SCALE, sigma=0.0)
+    if not torch.equal(zero["durations"].cpu(), want["durations"]):
+        raise SystemExit("chip_smoke: UnTTS durations, card vs CPU")
+    check("slice", zero["mel_outputs"].cpu(), want["mel_outputs"], 1e-4, 1e-4,
+          "UnTTS inference at sigma 0, card vs CPU")
+    del cpu
+    # timing: one call, and per second of mel
+    call = lambda: model.inference(  # noqa: E731
+        *args, max_frames=INFER_FRAMES, duration_scale=INFER_DUR_SCALE,
+        generator=gen())
+    ms = eager_ms(call, 5)
+    with plain_kernels(hk):
+        ms_plain = eager_ms(call, 5)
+    mel_s = float(out["mel_lengths"].sum()) * NAR_HOP / NAR_SR
+    log(f"  13b UnTTS.inference B={INFER_B} x {INFER_FRAMES} frames "
+        f"({mel_s:.2f} s of mel in all): {ms:.3f} ms a call with the kernel, "
+        f"{ms_plain:.3f} ms plain; {ms / mel_s:.3f} ms per second of mel "
+        f"({smi})")
+    # the WN calls alone at the inference's shapes
+    for name, wn, Cin, T, n_cond in (
+            ("decoder", model.decoder.wn[0], cfg.n_mel_channels // 2,
+             INFER_FRAMES, cfg.dec_n_channels),
+            ("VarGlow", model.varglow.wn[0], 4, -(-INFER_CHARS // 4),
+             4 * (cfg.symbols_embedding_dim + cfg.speaker_embedding_dim))):
+        g = torch.Generator(DEV).manual_seed(9)
+        x = torch.randn(INFER_B, Cin, T, device=DEV, generator=g)
+        cond = wn.cond_bc(torch.randn(INFER_B, n_cond, T, device=DEV,
+                                      generator=g))
+        w = wn.kernel_weights()
+        got = hk.waveglow_wn_forward(x, cond, *w)
+        check("waveglow_wn_forward", got,
+              hk.waveglow_wn_forward_plain(x, cond, *w),
+              *TOL["waveglow_wn_forward"], f"UnTTS {name} B={INFER_B} T'={T}")
+        L, C = wn.n_layers, wn.n_channels
+        bound = bound_of([wn_bound(INFER_B, T, Cin, C, 2 * Cin, L, 1, 3)])
+        k_ms = time_ms(lambda: hk.waveglow_wn_forward(x, cond, *w), 20)
+        p_ms = time_ms(lambda: hk.waveglow_wn_forward_plain(x, cond, *w), 20)
+        log(f"    waveglow_wn_forward UnTTS {name} (C={C}, L={L}, Cin={Cin}, "
+            f"B={INFER_B}, T'={T}; {plan_text(hk, INFER_B, C, T, 1, 3)}): "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}) ({smi})")
+    # positional attention: the total length from the durations
+    pcfg = dataclasses.replace(cfg, use_varglow=False,
+                               use_positional_attention=True)
+    pos = seeded_untts(pcfg, 42, DEV)
+    pos_k = p13_infer(hk, pos, args, "positional attention", dec,
+                      generator=gen())
+    with plain_kernels(hk):
+        pos_p = pos.inference(*args, max_frames=INFER_FRAMES,
+                              duration_scale=INFER_DUR_SCALE, generator=gen())
+    check("slice", pos_k["mel_outputs"], pos_p["mel_outputs"], 1e-3, 1e-3,
+          "UnTTS positional attention, kernel vs plain")
+
+
+def phase13c(hk, corpus, tmp, smi):
+    """13c: train --model gantts at GANTTSConfig() on phase 12's corpus,
+    batch 8, 3 iterations, then --resume to 5; the D and G steps timed; one
+    D+G step card against CPU with z and the window starts passed in."""
+    import numpy as np
+    from cookietts_tpu_torch.cli import GANTTS_KEYS
+    from cookietts_tpu_torch.models.gantts import (GANTTSDiscriminator,
+                                                   GANTTSGenerator)
+    from cookietts_tpu_torch.runtime.optim import adam
+    from cookietts_tpu_torch.runtime.train_state import GANTrainState, TrainState
+    from cookietts_tpu_torch.runtime.trainer import (gantts_draws,
+                                                     make_gan_trainer_step,
+                                                     make_gantts_train_steps)
+    run = tmp / "gantts"
+    base = ["train", "--model", "gantts", "--filelist", corpus, "--run_dir",
+            str(run), "--seed", "0", "--device", DEV, "--hparams",
+            NAR_HPARAMS + ("," + hparams_of(GANTTS) if GANTTS else "")]
+    trainer, _ = p12_train(hk, base + ["--iters", "3"],
+                           "13c train --model gantts to 3")
+    del trainer
+    trainer, train = p12_train(hk, base + ["--iters", "5", "--resume"],
+                               "13c --resume to 5")
+    if [k for k, _, _ in train] != [0, 1, 2, 3, 4] or trainer.state.step != 5:
+        raise SystemExit("chip_smoke: the GAN-TTS run did not resume at step 3")
+    cfg = trainer.state.g.model.cfg
+    batch = p13_batch(trainer, GANTTS_KEYS, 8)
+    p12_step_times(trainer, batch, "13c GAN-TTS", smi)
+    del trainer
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    rng = np.random.default_rng(0)
+    T = batch["mels"].shape[1]
+    batch = dict(batch, z=rng.standard_normal(
+        (batch["mels"].shape[0], cfg0.z_dim)).astype(np.float32),
+        window_starts=np.array([rng.integers(0, T - w) if T > w else 0
+                                for w in cfg0.d_windows]))
+
+    def build():
+        return GANTTSGenerator(cfg0, "cpu"), GANTTSDiscriminator(cfg0, "cpu")
+
+    def step_of(modules, device):
+        gen, disc = modules
+        return (make_gan_trainer_step(
+                    *make_gantts_train_steps(gen, disc),
+                    prepare=gantts_draws(cfg0.z_dim, cfg0.d_windows)),
+                GANTrainState(TrainState.create(gen, adam()),
+                              TrainState.create(disc, adam())))
+
+    step_parity("13c GAN-TTS (dropout 0, z and windows given)", build, step_of,
+                batch, {"lr": 1e-4, "grad_clip": 10.0}, check_params=True)
+
+
+def phase13(hk, check, corpus, tmp, smi):
+    """13a UnTTS training, 13b UnTTS inference, 13c GAN-TTS training."""
+    t0 = time.perf_counter()
+    phase13a(hk, corpus, tmp, smi)
+    log(f"  phase 13a in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase13b(hk, check, smi)
+    log(f"  phase 13b in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase13c(hk, corpus, tmp, smi)
+    log(f"  phase 13c in {time.perf_counter() - t0:.1f} s; {smi}")
 
 
 def main() -> int:
@@ -3865,10 +4194,19 @@ def main() -> int:
     phase11(hk, check, tcfg, hcfg, smi)
     log(f"  phase 11 in {time.perf_counter() - t11:.1f} s; {smi}")
 
-    log("phase 12: the GTA stage, the GAN postnet and the HiFi-GAN denoiser")
-    t12 = time.perf_counter()
-    phase12(hk, check, tcfg, smi)
-    log(f"  phase 12 in {time.perf_counter() - t12:.1f} s; {smi}")
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        log("phase 12: the GTA stage, the GAN postnet and the HiFi-GAN "
+            "denoiser")
+        t12 = time.perf_counter()
+        corpus = phase12(hk, check, tcfg, smi, Path(tmp))
+        log(f"  phase 12 in {time.perf_counter() - t12:.1f} s; {smi}")
+
+        log("phase 13: UnTTS and GAN-TTS training, UnTTS inference")
+        t13 = time.perf_counter()
+        phase13(hk, check, corpus, Path(tmp), smi)
+        log(f"  phase 13 in {time.perf_counter() - t13:.1f} s; {smi}")
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -2,7 +2,8 @@
 701-977, 979-1339, 1454-1697).
 
     python -m cookietts_tpu_torch train --model tacotron2|hifigan|waveglow|\
-        gan_postnet|hifigan_denoiser --filelist f.txt [--val_filelist v.txt] \
+        gan_postnet|hifigan_denoiser|untts|gantts --filelist f.txt \
+        [--val_filelist v.txt] \
         [--hparams "a=1,b=[2,3]"] \
         [--run_dir runs/x] [--iters N] [--resume [ckpt]] [--warm_start ckpt] \
         [--live_config f.py] [--device cuda|cpu] [--seed S]
@@ -33,6 +34,14 @@ reference's ``k=v,k2=[..]`` grammar (config.parse_override_string).
   (``noise_dir=`` for real noise); ``stage=2`` with ``--resume`` of a stage-0
   run promotes it (fresh critics); keys of HiFiGANDenoiserConfig and
   DenoiserDataConfig apply.
+- ``untts`` and ``gantts``: the non-autoregressive TTS models on a TTS
+  filelist, with per-char durations from each audio file's ``.dur.npy``,
+  ``.gdur.npy`` (the ``gta`` command's) or TextGrid sidecar, else spread
+  evenly; UnTTS also takes DIO f0 (``f0_method``) and energy. Batch i draws
+  its files from ``numpy.random.default_rng(i)``; keys of UnTTSConfig /
+  GANTTSConfig and DataConfig apply, and the cadence keys above; UnTTS
+  takes ``--warm_start`` with ``ignore_layers``, GAN-TTS ``mel_weight`` and
+  ``d_lr_scale``.
 
 Stage 3 of the pipeline, GTA mels for the vocoders and the postnet:
 
@@ -72,8 +81,8 @@ Reference CookieTTS checkpoints become the port's (convert/reference.py):
     python -m cookietts_tpu_torch convert --model tacotron2|waveglow|hifigan|\
         torchmoji|gst|emotionnet|auxemotionnet --torch_ckpt X.pt|X.npz -o Y
 
-GAN-TTS's and UnTTS's trainers, multi-host runs and ``--tp`` / ``--sp`` above
-1 (which raise) are not ported yet.
+Multi-host runs and ``--tp`` / ``--sp`` above 1 (which raise) are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -234,12 +243,8 @@ def cmd_train(args):
         if int(getattr(args, flag, 1) or 1) > 1:
             raise SystemExit(f"--{flag} > 1 needs the parallel runtime, which "
                              "the port does not have yet; run without it")
-    if args.model in VOCODER_TRAINERS:
-        return VOCODER_TRAINERS[args.model](args)
-    if args.model != "tacotron2":
-        raise SystemExit(f"training CLI for {args.model!r} not wired yet in "
-                         "the port; --model tacotron2, hifigan, waveglow, "
-                         "gan_postnet or hifigan_denoiser")
+    if args.model in OTHER_TRAINERS:
+        return OTHER_TRAINERS[args.model](args)
     return _train_tacotron2(args)
 
 
@@ -609,14 +614,16 @@ def _train_hifigan(args):
 
 def _gan_trainer(args, overrides, state, d_step, g_step, device, eval_step,
                  val_batches, name, base_lr, grad_clip, batches, prepare=None,
-                 metadata=None, loss_key="g_loss"):
+                 metadata=None, loss_key="g_loss", d_lr_scale=1.0):
     """The Trainer of an adversarial model over ``state`` (a GANTrainState)
     with its metadata, run on ``batches(it)`` to ``--iters`` (after a full
-    --resume). Returns the trainer."""
+    --resume); D's LR is the live LR times ``d_lr_scale``. Returns the
+    trainer."""
     from .runtime.trainer import make_gan_trainer_step
     trainer = _make_trainer(
         args, overrides, state,
-        make_gan_trainer_step(d_step, g_step, loss_key, prepare=prepare),
+        make_gan_trainer_step(d_step, g_step, loss_key, d_lr_scale=d_lr_scale,
+                              prepare=prepare),
         device,
         eval_step=eval_step, val_batches=val_batches, base_lr=base_lr,
         grad_clip=grad_clip)
@@ -850,9 +857,142 @@ def _train_hifigan_denoiser(args):
         loss_key="loss")
 
 
-VOCODER_TRAINERS = {"waveglow": _train_waveglow, "hifigan": _train_hifigan,
-                    "gan_postnet": _train_gan_postnet,
-                    "hifigan_denoiser": _train_hifigan_denoiser}
+# -- the non-autoregressive TTS trainers ------------------------------------------
+
+# the batch keys the NAR trainers read
+UNTTS_KEYS = ("text", "text_lengths", "mels", "mel_lengths", "speaker_id",
+              "durations", "f0", "energy", "frame_f0", "frame_energy",
+              "frame_voiced")
+GANTTS_KEYS = UNTTS_KEYS[:6]
+
+
+def _nar_data(args, overrides, features, keys):
+    """(DataConfig, train entries, make_batch(it), validation batches) of a
+    NAR trainer: batch ``it`` collates files drawn from
+    ``numpy.random.default_rng(it)``, validation streams the held-out set."""
+    import numpy as np
+
+    from .data.dataset import DataConfig, TTSDataset, collate
+    from .data.filelist import load_filelist
+    dcfg = DataConfig(**_dataclass_kwargs(DataConfig, overrides))
+    batch_size = int(overrides.get("batch_size", 8))
+    entries, val_entries, val_desc = _heldout_split(
+        args, load_filelist(args.filelist))
+    dataset = TTSDataset(entries, dcfg, features=features)
+
+    def make_batch(it):
+        idx = np.random.default_rng(it).integers(0, len(dataset), batch_size)
+        b = collate([dataset[int(i)] for i in idx], dcfg)
+        return {k: b[k] for k in keys if k in b}
+
+    val_batches = _tts_val_batches(val_entries, dcfg, features, batch_size,
+                                   overrides, val_desc)
+    return dcfg, entries, make_batch, val_batches
+
+
+def _nar_config(cls, dcfg, overrides):
+    """The model's config from the overrides (n_symbols from the text front
+    end, n_mel_channels from the data config)."""
+    from .text import N_SYMBOLS
+    return cls(n_symbols=N_SYMBOLS, n_mel_channels=dcfg.n_mel_channels, **{
+        k: v for k, v in _dataclass_kwargs(cls, overrides).items()
+        if k not in ("n_symbols", "n_mel_channels", "dtype")})
+
+
+def _nar_metadata(name, cfg, dcfg, speakers):
+    return {"model": name,
+            "model_config": {k: v for k, v in dataclasses.asdict(cfg).items()
+                             if k != "dtype"},
+            "speaker_ids": speakers,
+            "audio": {"sampling_rate": dcfg.sampling_rate,
+                      "hop_length": dcfg.hop_length,
+                      "n_mel_channels": dcfg.n_mel_channels}}
+
+
+def _train_untts(args):
+    """UnTTS training (cookietts_tpu/cli.py:_train_untts): the decoder flow
+    NLL and the predictors' MSEs (and VarGlow's NLL with ``use_varglow``)
+    with Adam, clipping at 10; validation by the same loss without dropout
+    on the held-out set."""
+    from .config import parse_override_string
+    from .device import resolve_device
+    from .models.untts import UnTTS, UnTTSConfig
+    from .runtime.checkpoint import load_checkpoint, warm_start
+    from .runtime.optim import adam
+    from .runtime.train_state import TrainState
+    from .runtime.trainer import make_untts_eval_step, make_untts_train_step
+
+    device = resolve_device(args.device)
+    overrides = parse_override_string(args.hparams) if args.hparams else {}
+    dcfg, entries, make_batch, val_batches = _nar_data(
+        args, overrides,
+        ("text", "mel", "speaker_id", "f0", "energy", "durations"), UNTTS_KEYS)
+    ucfg = _nar_config(UnTTSConfig, dcfg, overrides)
+    model = _build_seeded(args.seed, device, lambda: UnTTS(ucfg, device="cpu"))
+    if args.warm_start:
+        tree, _ = load_checkpoint(args.warm_start)
+        ig = tuple(overrides.get("ignore_layers", ()) or ())
+        sd, n_l, n_s = warm_start(model.state_dict(), tree["state_dict"],
+                                  ignore_layers=ig)
+        model.load_state_dict(sd)
+        print(f"[untts] warm start: {n_l} loaded, {n_s} skipped"
+              + (f" (ignore_layers={list(ig)})" if ig else ""))
+    trainer = _make_trainer(args, overrides, TrainState.create(model, adam()),
+                            make_untts_train_step(model), device,
+                            eval_step=make_untts_eval_step(model),
+                            val_batches=val_batches, grad_clip=10.0)
+    trainer.default_metadata = _nar_metadata("untts", ucfg, dcfg,
+                                             _speaker_map(args, entries))
+    return _trainer_loop(trainer, make_batch,
+                         int(overrides.get("n_iters", args.iters)),
+                         args.run_dir, resume=args.resume)
+
+
+def _train_gantts(args):
+    """GAN-TTS adversarial training (cookietts_tpu/cli.py:_train_gantts): a
+    discriminator then a generator step each iteration (BCE on the window
+    logits, the generator's plus ``mel_weight`` times the masked mel L1),
+    Adam both sides, D's LR scaled by ``d_lr_scale``; validation by the
+    generator's mel L1 over the whole held-out set. Each iteration's z,
+    window starts and dropout masks come from the trainer's generator;
+    checkpoints hold G and D."""
+    from .config import parse_override_string
+    from .device import resolve_device
+    from .models.gantts import (GANTTSConfig, GANTTSDiscriminator,
+                                GANTTSGenerator)
+    from .runtime.optim import adam
+    from .runtime.train_state import GANTrainState, TrainState
+    from .runtime.trainer import (gantts_draws, make_gantts_eval_step,
+                                  make_gantts_train_steps)
+
+    device = resolve_device(args.device)
+    overrides = parse_override_string(args.hparams) if args.hparams else {}
+    dcfg, entries, make_batch, val_batches = _nar_data(
+        args, overrides, ("text", "mel", "speaker_id", "durations"),
+        GANTTS_KEYS)
+    gcfg = _nar_config(GANTTSConfig, dcfg, overrides)
+    gen = _build_seeded(args.seed, device,
+                        lambda: GANTTSGenerator(gcfg, device="cpu"))
+    disc = _build_seeded(args.seed + 1, device,
+                         lambda: GANTTSDiscriminator(gcfg, device="cpu"))
+    d_step, g_step = make_gantts_train_steps(
+        gen, disc, mel_weight=float(overrides.get("mel_weight", 1.0)))
+    state = GANTrainState(g=TrainState.create(gen, adam()),
+                          d=TrainState.create(disc, adam()))
+    return _gan_trainer(
+        args, overrides, state, d_step, g_step, device,
+        make_gantts_eval_step(gen), val_batches, "gantts", base_lr=1e-4,
+        grad_clip=10.0, batches=make_batch,
+        prepare=gantts_draws(gcfg.z_dim, gcfg.d_windows),
+        metadata=_nar_metadata("gantts", gcfg, dcfg,
+                               _speaker_map(args, entries)),
+        d_lr_scale=float(overrides.get("d_lr_scale", 1.0)))
+
+
+OTHER_TRAINERS = {"waveglow": _train_waveglow, "hifigan": _train_hifigan,
+                  "gan_postnet": _train_gan_postnet,
+                  "hifigan_denoiser": _train_hifigan_denoiser,
+                  "untts": _train_untts, "gantts": _train_gantts}
 
 
 # -- serving: tts and server ---------------------------------------------------

@@ -17,8 +17,11 @@ cookietts_tpu/convert/*_torch.py):
   (serving), or the pair itself as ``weight_v`` / ``weight_g`` with g [out]
   on the output axis (the HiFi-GAN training form and discriminators)
 - flax Conv2d kernel [kh, kw, in, out] -> Conv2d weight [out, in, kh, kw]
-- the GAN postnet and its discriminator, and the HiFi-GAN denoiser (its
-  generator, DW and DS), keep JAX's module names
+- the GAN postnet and its discriminator, the HiFi-GAN denoiser (its
+  generator, DW and DS), UnTTS and GAN-TTS keep JAX's module names
+- flax MultiHeadDotProductAttention query/key/value [D, heads, head_dim]
+  -> Linear [heads * head_dim, D]; out [heads, head_dim, D] -> Linear
+  [D, heads * head_dim]; LayerNorm scale -> weight
 - flax GRUCell ir/iz/in/hr/hz/hn       -> nn.GRU *_l0 (r, z, n stacked); flax
   has no hidden-side r/z bias, so those are zero and the input-side ones
   carry it, while n keeps its two (r multiplies W_hn h + b_hn)
@@ -31,7 +34,7 @@ cookietts_tpu/convert/*_torch.py):
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -383,6 +386,31 @@ def _nd_conv(kernel, ndim: int) -> torch.Tensor:
     return _t(k.reshape(*k.shape, *[1] * (ndim - k.ndim)))
 
 
+def _flow_wn(sd, key, wn, nd: int = 3):
+    """One flax WN (models/waveglow.py: WN or WN2D) -> the port's WN keys
+    under ``key``: 1x1 Dense / Conv layers as conv weights of ``nd`` dims,
+    the end layer's output halves swapped from JAX's (log_s, t) to the
+    reference checkpoints' (t, log_s)."""
+    n_layers = sum(1 for name in wn if name.startswith("in_layer"))
+    for name, tree, dims in (
+            [("start", wn["start"], nd), ("cond_layer", wn["cond_layer"], 3)]
+            + [(f"in_layers.{i}", wn[f"in_layer{i}"], nd)
+               for i in range(n_layers)]
+            + [(f"res_skip_layers.{i}", wn[f"res_skip{i}"], nd)
+               for i in range(n_layers)]):
+        sd[f"{key}.{name}.weight"] = _nd_conv(tree["kernel"], dims)
+        sd[f"{key}.{name}.bias"] = _t(tree["bias"])
+    end_w, end_b = _nd_conv(wn["end"]["kernel"], nd), _t(wn["end"]["bias"])
+    half = end_b.shape[0] // 2
+    sd[f"{key}.end.weight"] = torch.cat([end_w[half:], end_w[:half]])
+    sd[f"{key}.end.bias"] = torch.cat([end_b[half:], end_b[:half]])
+
+
+def _convinv(sd, key, p):
+    """The 1x1 mixing weight: y = x @ w -> conv weight w.T."""
+    sd[f"{key}.conv.weight"] = _t(np.asarray(p["weight"]).T[:, :, None])
+
+
 def waveglow_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """State dict for models/waveglow.py:WaveGlow from a cookietts_tpu
     WaveGlow param tree, for both ``channel_mixing`` modes. ``cfg`` is the
@@ -393,22 +421,9 @@ def waveglow_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]
     sd: Dict[str, torch.Tensor] = {}
     nd = 4 if cfg.channel_mixing == "permuteheight" else 3
     for k in range(cfg.n_flows):
-        wn, key = params[f"wn{k}"], f"WN.{k}"
-        for name, tree, dims in (
-                [("start", wn["start"], nd), ("cond_layer", wn["cond_layer"], 3)]
-                + [(f"in_layers.{i}", wn[f"in_layer{i}"], nd)
-                   for i in range(cfg.n_layers)]
-                + [(f"res_skip_layers.{i}", wn[f"res_skip{i}"], nd)
-                   for i in range(cfg.n_layers)]):
-            sd[f"{key}.{name}.weight"] = _nd_conv(tree["kernel"], dims)
-            sd[f"{key}.{name}.bias"] = _t(tree["bias"])
-        end_w, end_b = _nd_conv(wn["end"]["kernel"], nd), _t(wn["end"]["bias"])
-        half = end_b.shape[0] // 2
-        sd[f"{key}.end.weight"] = torch.cat([end_w[half:], end_w[:half]])
-        sd[f"{key}.end.bias"] = torch.cat([end_b[half:], end_b[:half]])
+        _flow_wn(sd, f"WN.{k}", params[f"wn{k}"], nd)
         if f"convinv{k}" in params:
-            sd[f"convinv.{k}.conv.weight"] = _t(
-                np.asarray(params[f"convinv{k}"]["weight"]).T[:, :, None])
+            _convinv(sd, f"convinv.{k}", params[f"convinv{k}"])
 
     def up(key, tree):
         sd[f"{key}.weight"] = _t(np.transpose(
@@ -500,3 +515,125 @@ def hifigan_denoiser_from_jax(gen: Mapping[str, Any],
             s[f"{name}.bn_scale"] = _t(tree["bn_scale"])
             s[f"{name}.bn_bias"] = _t(tree["bn_bias"])
     return g, w, s
+
+
+# -- UnTTS and GAN-TTS ------------------------------------------------------------
+
+def _mha(sd, key, p):
+    """flax MultiHeadDotProductAttention: query/key/value DenseGeneral
+    kernels [D, heads, head_dim] -> Linear [heads * head_dim, D]; out
+    [heads, head_dim, D] -> Linear [D, heads * head_dim]."""
+    for name in ("query", "key", "value"):
+        k = np.asarray(p[name]["kernel"])
+        sd[f"{key}.{name}.weight"] = _t(k.reshape(k.shape[0], -1).T)
+        sd[f"{key}.{name}.bias"] = _t(np.asarray(p[name]["bias"]).reshape(-1))
+    k = np.asarray(p["out"]["kernel"])
+    sd[f"{key}.out.weight"] = _t(k.reshape(-1, k.shape[-1]).T)
+    sd[f"{key}.out.bias"] = _t(p["out"]["bias"])
+
+
+def _ln(sd, key, p):
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _fft_block(sd, key, p):
+    _mha(sd, f"{key}.mha", p["mha"])
+    _ln(sd, f"{key}.ln1", p["ln1"])
+    _ln(sd, f"{key}.ln2", p["ln2"])
+    _conv(sd, f"{key}.ffn1", p["ffn1"])
+    _conv(sd, f"{key}.ffn2", p["ffn2"])
+
+
+def _text_encoder(sd, params):
+    """Embeddings, pos_scale and the FFT blocks ``enc{i}`` (UnTTS's and the
+    GAN-TTS generator's)."""
+    sd["embedding.weight"] = _t(params["embedding"]["embedding"])
+    sd["speaker_embedding.weight"] = _t(params["speaker_embedding"]["embedding"])
+    sd["pos_scale"] = _t(params["pos_scale"])
+    i = 0
+    while f"enc{i}" in params:
+        _fft_block(sd, f"enc{i}", params[f"enc{i}"])
+        i += 1
+
+
+def _flows(sd, key, p):
+    """A MelFlowDecoder's or VarGlow's ``convinv{k}`` / ``wn{k}``."""
+    k = 0
+    while f"wn{k}" in p:
+        _flow_wn(sd, f"{key}.wn.{k}", p[f"wn{k}"])
+        _convinv(sd, f"{key}.convinv.{k}", p[f"convinv{k}"])
+        k += 1
+
+
+def untts_params_from_jax(params: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """State dict for models/untts.py:UnTTS from a cookietts_tpu UnTTS
+    param tree (every option: the predictors, VarGlow, positional
+    attention). Linear in each leaf, so it maps JAX gradients too."""
+    sd: Dict[str, torch.Tensor] = {}
+    _text_encoder(sd, params)
+    for name in ("duration_predictor", "f0_predictor", "energy_predictor"):
+        if name not in params:
+            continue
+        p, i = params[name], 0
+        while f"conv{i}" in p:
+            _conv(sd, f"{name}.conv{i}", p[f"conv{i}"])
+            _ln(sd, f"{name}.ln{i}", p[f"ln{i}"])
+            i += 1
+        _lin(sd, f"{name}.fc", p["fc"])
+    for name in ("cond_proj", "prosody_proj"):
+        if name in params:
+            _lin(sd, name, params[name])
+    if "pos_attention" in params:
+        p = params["pos_attention"]
+        _mha(sd, "pos_attention.mha", p["mha"])
+        _ln(sd, "pos_attention.ln", p["ln"])
+        _lin(sd, "pos_attention.proj", p["proj"])
+    for name in ("decoder", "varglow"):
+        if name in params:
+            _flows(sd, name, params[name])
+    return sd
+
+
+def _gantts_generator(gen):
+    g: Dict[str, torch.Tensor] = {}
+    _text_encoder(g, gen)
+    i = 0
+    while f"gblock{i}" in gen:
+        p, key = gen[f"gblock{i}"], f"gblock{i}"
+        _lin(g, f"{key}.res_proj", p["res_proj"])
+        j = 0
+        while f"conv{j}" in p:
+            _conv(g, f"{key}.conv{j}", p[f"conv{j}"])
+            _lin(g, f"{key}.cbn{j}.scale", p[f"cbn{j}"]["scale"])
+            _lin(g, f"{key}.cbn{j}.shift", p[f"cbn{j}"]["shift"])
+            j += 1
+        i += 1
+    _lin(g, "mel_proj", gen["mel_proj"])
+    return g
+
+
+def gantts_params_from_jax(gen: Optional[Mapping[str, Any]],
+                           disc: Optional[Mapping[str, Any]] = None
+                           ) -> Tuple[Optional[Dict[str, torch.Tensor]],
+                                      Optional[Dict[str, torch.Tensor]]]:
+    """(generator, discriminator) state dicts for models/gantts.py from
+    the JAX GANTTSGenerator and GANTTSDiscriminator param trees (either None
+    when its tree is not given). Linear in each leaf."""
+    g: Optional[Dict[str, torch.Tensor]] = None
+    if gen is not None:
+        g = _gantts_generator(gen)
+    d = None
+    if disc is not None:
+        d = {}
+        for name, p in disc.items():
+            if name.endswith("_out"):
+                _lin(d, name, p)
+                continue
+            _lin(d, f"{name}.res_proj", p["res_proj"])
+            j = 0
+            while f"conv{j}" in p:
+                _conv(d, f"{name}.conv{j}", p[f"conv{j}"])
+                j += 1
+    return g, d

@@ -12,8 +12,10 @@ soundfile/librosa/pyloudnorm/pyworld:
   (reference's 5-pass librosa.effects.trim loop, data_utils.py:542-569).
 - :func:`bs1770_loudness` / :func:`loudness_normalize` — ITU-R BS.1770-4
   K-weighted gated loudness (reference uses pyln, data_utils.py:786-803).
-- :func:`estimate_f0_autocorr` — frame-wise autocorrelation f0 +
-  voicedness (stand-in for pyworld DIO, data_utils.py:815-838).
+- :func:`estimate_f0_dio` — the DIO f0 track (data/dio.py) with the
+  reference's post-processing (data_utils.py:815-838);
+  :func:`estimate_f0_autocorr` — frame-wise autocorrelation f0 +
+  voicedness, the cheaper stand-in.
 - :func:`count_syllables` — heuristic vowel-group counter (stand-in for
   the ``syllables`` package, data_utils.py:856-859).
 """
@@ -182,6 +184,25 @@ def loudness_normalize(audio: np.ndarray, sr: int,
 
 
 # -- f0 / voicedness ----------------------------------------------------------
+
+def estimate_f0_dio(audio: np.ndarray, sr: int, hop_length: int = 512,
+                    f0_floor: float = 71.0, f0_ceil: float = 800.0
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """DIO pitch track with the reference's post-processing
+    (data_utils.py:815-838): pyworld-default limits 71-800 Hz, frame
+    period = one mel hop, clamp to [0, 800], voiced = f0 > 3 Hz, and
+    unvoiced frames FILLED with the voiced mean (so the f0 feature is
+    smooth for the predictors). Returns (f0[n], voiced[n])."""
+    from .dio import dio
+    f0, _ = dio(np.asarray(audio, np.float64), sr,
+                f0_floor=f0_floor, f0_ceil=f0_ceil,
+                frame_period_ms=hop_length / sr * 1000.0)
+    f0 = np.clip(f0, 0.0, 800.0)
+    voiced = f0 > 3.0
+    if voiced.any():
+        f0 = np.where(voiced, f0, f0[voiced].mean())
+    return f0.astype(np.float32), voiced
+
 
 def estimate_f0_autocorr(audio: np.ndarray, sr: int,
                          hop_length: int = 512, frame_length: int = 2048,

@@ -6,11 +6,20 @@ Rebuild of the reference's TTSDataset
 (CookieTTS/utils/dataset/data_utils.py:329-905):
 
 - features are selected by NAME: text, mel, speaker_id, sylps, gate,
-  torchmoji, emotion_id (the NAR models' durations, f0 and energy are not
-  ported yet). ``emotion_id`` is the filelist's (-1 when it has none);
-  collate maps every id outside [0, n_emotion_classes) to the "unknown"
-  class n_emotion_classes and adds the ``emotion_onehot`` rows (zero for
-  unknown ids).
+  torchmoji, emotion_id, and the NAR models' f0, energy and durations.
+  ``emotion_id`` is the filelist's (-1 when it has none); collate maps
+  every id outside [0, n_emotion_classes) to the "unknown" class
+  n_emotion_classes and adds the ``emotion_onehot`` rows (zero for unknown
+  ids).
+- f0 (``f0_method``: DIO, data/dio.py, or frame autocorrelation) with its
+  voiced flags, energy (the mean of exp(mel) over the channels) and
+  per-char durations from, in order, a ``.dur.npy`` sidecar (forced
+  alignment), a ``.gdur.npy`` sidecar (the ``gta`` command's attention
+  durations), a ``.TextGrid`` / ``.textgrid`` (data/mfa.py), else spread
+  evenly; the char averages of f0 and energy over those durations. Collate
+  refits the durations to the bucketed text width and the collated mel
+  length and adds the frame-rate ``frame_f0`` / ``frame_energy`` /
+  ``frame_voiced`` rows; durations of TBPTT segments are refused.
 - batches are padded to BUCKETED static shapes (text and mel lengths are
   rounded up to bucket boundaries), so a run sees a handful of shapes
   instead of one per batch — replaces the reference's sort-by-length
@@ -74,6 +83,10 @@ class DataConfig:
     # text
     text_cleaners: Sequence[str] = ("english_cleaners",)
     p_arpabet: float = 0.5
+    # f0 extraction: "dio" = the port of pyworld's DIO (the reference's
+    # extractor, data_utils.py:815-838); "autocorr" = the cheaper
+    # frame-autocorrelation stand-in
+    f0_method: str = "dio"
     # TBPTT (hparams.py:53-54: max 800 frames/segment)
     max_segment_frames: int = 800
     # static-shape bucketing
@@ -111,7 +124,49 @@ def bucket_size(n: int, buckets: Sequence[int]) -> int:
 
 
 FEATURES = ("text", "mel", "speaker_id", "sylps", "gate", "torchmoji",
-            "emotion_id")
+            "emotion_id", "f0", "energy", "durations")
+
+
+def fit_durations(dur: np.ndarray, n_text: int, t_mel: int) -> np.ndarray:
+    """Fit per-char frame durations to exactly ``n_text`` chars summing to
+    exactly ``t_mel`` frames (alignment lengths rarely match the mel hop
+    grid; the reference re-derives durations from the alignment matrix,
+    data_utils.py:779-813)."""
+    dur = np.asarray(dur, np.int64)
+    if len(dur) >= n_text:
+        dur = dur[:n_text].copy()
+    else:
+        dur = np.concatenate(
+            [dur, np.zeros(n_text - len(dur), np.int64)])
+    ends = np.minimum(np.cumsum(dur), t_mel)     # clamp overflow
+    starts = np.concatenate([[0], ends[:-1]])
+    dur = ends - starts
+    short = t_mel - int(dur.sum())
+    if short > 0 and n_text > 0:
+        last = int(np.max(np.nonzero(dur)[0])) if dur.any() else n_text - 1
+        dur[last] += short                        # absorb rounding remainder
+    return dur.astype(np.int32)
+
+
+def uniform_durations(n_text: int, t_mel: int) -> np.ndarray:
+    """Fallback when no alignment exists: spread frames evenly."""
+    base = t_mel // max(n_text, 1)
+    dur = np.full(n_text, base, np.int64)
+    dur[: t_mel - base * n_text] += 1
+    return dur.astype(np.int32)
+
+
+def char_average(frame_values: np.ndarray, durations: np.ndarray
+                 ) -> np.ndarray:
+    """Average frame-level values (f0, energy) over each char's frames —
+    the reference's per-char alignment matmul (data_utils.py:805-813)."""
+    T = len(frame_values)
+    ends = np.clip(np.cumsum(durations.astype(np.int64)), 0, T)
+    starts = np.concatenate([[0], ends[:-1]])
+    cs = np.concatenate([[0.0], np.cumsum(frame_values, dtype=np.float64)])
+    sums = cs[ends] - cs[starts]
+    n = np.maximum(ends - starts, 1)
+    return (sums / n).astype(np.float32)
 
 
 class TTSDataset:
@@ -363,9 +418,10 @@ class TTSDataset:
         out: Dict[str, Any] = {"audiopath": e["path"], "index": index}
 
         audio = None
-        if "mel" in self.features or "sylps" in self.features:
-            if not (cfg.cache_mels
-                    and os.path.exists(self._cache_path(e["path"]))):
+        prosody = "f0" in self.features or "energy" in self.features
+        if "mel" in self.features or "sylps" in self.features or prosody:
+            if prosody or not (cfg.cache_mels and os.path.exists(
+                    self._cache_path(e["path"]))):
                 audio = self.load_audio(e["path"])
                 out["audio"] = audio
         if "mel" in self.features:
@@ -389,6 +445,19 @@ class TTSDataset:
             n_frames = out.get("mel_length") or self.mel_frame_length(index)
             dur = n_frames * cfg.hop_length / cfg.sampling_rate
             out["sylps"] = np.float32(n_syl / max(dur, 1e-2))
+        if "f0" in self.features:
+            if cfg.f0_method == "dio":
+                f0, voiced = audio_io.estimate_f0_dio(
+                    audio, cfg.sampling_rate, hop_length=cfg.hop_length)
+            else:
+                f0, voiced = audio_io.estimate_f0_autocorr(
+                    audio, cfg.sampling_rate, hop_length=cfg.hop_length,
+                    frame_length=cfg.filter_length)
+            out["f0"], out["voiced"] = f0, voiced
+        if "energy" in self.features:
+            if "mel" not in out:
+                raise ValueError("the energy feature needs the mel feature")
+            out["energy"] = np.exp(out["mel"]).mean(axis=1).astype(np.float32)
         if "torchmoji" in self.features:
             if self.torchmoji_fn is not None:
                 # per-file embedding cache, keyed by the transcript
@@ -412,7 +481,46 @@ class TTSDataset:
                         _atomic_save(tm_cache, out["torchmoji"])
             else:
                 out["torchmoji"] = np.zeros(cfg.torchmoji_dim, np.float32)
+        if "durations" in self.features:
+            # per-char durations (reference data_utils.py:779-784 loads
+            # cached alignments; the char f0/energy averages follow the
+            # alignment matmul, :805-813)
+            if "mel" not in out or "text" not in out:
+                raise ValueError("the durations feature needs mel and text")
+            dur = self._get_durations(e["path"], out["mel_length"],
+                                      out["text_length"])
+            out["durations"] = dur
+            if "f0" in out:
+                out["char_f0"] = char_average(out["f0"], dur)
+            if "energy" in out:
+                out["char_energy"] = char_average(out["energy"], dur)
         return out
+
+    def _get_durations(self, audiopath: str, t_mel: int,
+                       n_text: int) -> np.ndarray:
+        """Durations fitted to (n_text, t_mel) from, in order: the
+        ``.dur.npy`` sidecar (forced-alignment phone durations), the
+        ``.gdur.npy`` sidecar (the gta command's attention durations), a
+        ``.TextGrid`` / ``.textgrid`` (its phones tier, else words, else
+        the first), else uniform."""
+        for sfx in (".dur.npy", ".gdur.npy"):
+            sidecar = audiopath + sfx
+            if os.path.exists(sidecar):
+                return fit_durations(np.load(sidecar), n_text, t_mel)
+        base = os.path.splitext(audiopath)[0]
+        for ext in (".TextGrid", ".textgrid"):
+            tg = base + ext
+            if os.path.exists(tg):
+                from .mfa import durations_from_textgrid, parse_textgrid
+                tiers = parse_textgrid(tg)
+                tier = "phones" if "phones" in tiers else (
+                    "words" if "words" in tiers else
+                    next(iter(tiers), None))
+                if tier is not None:
+                    hop_s = self.cfg.hop_length / self.cfg.sampling_rate
+                    dur = durations_from_textgrid(tiers, tier, hop_s)
+                    return fit_durations(np.asarray(dur), n_text, t_mel)
+        return uniform_durations(n_text, t_mel)
 
 
 # -- TBPTT segment scheduling --------------------------------------------------
@@ -563,6 +671,41 @@ def collate(items: Sequence[Dict[str, Any]],
         out["gate_target"] = gate
         out["pres_prev_state"] = pres_prev
         out["cont_next_iter"] = cont_next
+
+    if "durations" in items[0] and "text" in out:
+        if segments is not None and any(s.n_segs > 1 for s in segments):
+            raise NotImplementedError(
+                "durations + TBPTT segments: whole-utterance durations "
+                "cannot be refit to a mid-utterance segment (the NAR "
+                "models collate full utterances)")
+        # refit to the bucketed text width and the collated mel length so
+        # length_regulate sees a consistent batch
+        N = out["text"].shape[1]
+        durs = np.zeros((B, N), np.int32)
+        for i, it in enumerate(items):
+            durs[i] = fit_durations(it["durations"], N,
+                                    int(out["mel_lengths"][i]))
+        out["durations"] = durs
+        for src, dst in (("char_f0", "f0"), ("char_energy", "energy")):
+            if src in items[0]:
+                arr = np.zeros((B, N), np.float32)
+                for i, it in enumerate(items):
+                    v = np.asarray(it[src])[:N]
+                    arr[i, : len(v)] = v
+                out[dst] = arr
+        # frame-rate prosody for the decoder's conditioning (the reference
+        # conditions its decoder flow on [voiced, f0, energy] at frame
+        # rate, untts/model.py:437,538; the char averages above feed the
+        # predictors and VarGlow)
+        m_pad = out["mels"].shape[1] if "mels" in out else 0
+        for src, dst in (("f0", "frame_f0"), ("energy", "frame_energy"),
+                         ("voiced", "frame_voiced")):
+            if src in items[0] and m_pad:
+                arr = np.zeros((B, m_pad), np.float32)
+                for i, it in enumerate(items):
+                    v = np.asarray(it[src], np.float32)[:m_pad]
+                    arr[i, : len(v)] = v
+                out[dst] = arr
 
     if "speaker_id" in items[0]:
         out["speaker_id"] = np.asarray([it["speaker_id"] for it in items],

@@ -13,7 +13,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-_INT_KEYS = ("text", "text_lengths", "mel_lengths", "speaker_id", "emotion_id")
+_INT_KEYS = ("text", "text_lengths", "mel_lengths", "speaker_id", "emotion_id",
+             "durations", "window_starts")
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -1,8 +1,9 @@
 """The training loop (cookietts_tpu/runtime/trainer.py) and the steps it
-drives: Tacotron2's, the adversarial ones (a discriminator then a generator
-step each iteration, ``make_gan_trainer_step``: HiFi-GAN's, the GAN
-postnet's and the staged HiFi-GAN denoiser's) and the flow vocoders' (the
-flow NLL; validation through the inverse).
+drives: Tacotron2's, UnTTS's (the decoder flow NLL and the predictors'
+MSEs), the adversarial ones (a discriminator then a generator step each
+iteration, ``make_gan_trainer_step``: HiFi-GAN's, the GAN postnet's, the
+staged HiFi-GAN denoiser's and GAN-TTS's) and the flow vocoders' (the flow
+NLL; validation through the inverse).
 
 A step is ``step(state, batch, generator, ctrl) -> (state, metrics)``; a
 step marked ``carries_state`` (Tacotron2's) takes and returns the TBPTT
@@ -40,6 +41,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 import torch.utils._pytree as pytree
 from torch import nn
 
@@ -476,9 +478,10 @@ def make_gan_trainer_step(d_step: Callable, g_step: Callable,
     discriminators. ``metrics['loss']`` is ``metrics[loss_key]`` (explosion
     detection and logging read it); ``d_lr_scale`` scales D's LR.
     ``prepare(batch, generator)``, when given, returns the batch both steps
-    see (the GAN postnet's draws its noise there, once an iteration, as
-    JAX's two steps share one key). The two steps stay reachable as
-    ``step.d_step`` and ``step.g_step``."""
+    see (the GAN postnet's draws its noise there, GAN-TTS its z, windows
+    and dropout seed, once an iteration, as JAX's two steps share one key).
+    The two steps and ``prepare`` stay reachable as ``step.d_step``,
+    ``step.g_step`` and ``step.prepare``."""
 
     def step(state: GANTrainState, batch, generator, ctrl):
         if prepare is not None:
@@ -490,7 +493,7 @@ def make_gan_trainer_step(d_step: Callable, g_step: Callable,
         metrics["loss"] = metrics[loss_key]
         return state, metrics
 
-    step.d_step, step.g_step = d_step, g_step
+    step.d_step, step.g_step, step.prepare = d_step, g_step, prepare
     return step
 
 
@@ -777,5 +780,206 @@ def make_waveglow_val_step(model, stft_windows=((1200, 300, 1200),
                 mse = mse + torch.mean((mag_gen - mag_gt) ** 2)
                 mae = mae + torch.mean(torch.abs(mag_gen - mag_gt))
         return {"val_MSE": mse / len(banks), "val_MAE": mae / len(banks)}
+
+    return step
+
+
+# -- UnTTS -------------------------------------------------------------------
+
+def _untts_loss_fn(model, sigma, dur_weight, f0_weight, energy_weight,
+                   varglow_weight):
+    """The loss of the train and the eval steps (JAX ``_untts_loss_fn``):
+    the decoder flow NLL, the predictors' MSEs and, with VarGlow, its NLL
+    weighted by ``varglow_weight``. loss_fn(batch, generator,
+    deterministic) -> (total, loss_dict)."""
+    from ..models.untts import untts_loss, varglow_loss
+
+    def loss_fn(batch, generator, deterministic):
+        out = model(batch["text"], batch["text_lengths"], batch["mels"],
+                    batch["mel_lengths"], batch["speaker_id"],
+                    batch["durations"], f0=batch.get("f0"),
+                    energy=batch.get("energy"), frame_f0=batch.get("frame_f0"),
+                    frame_energy=batch.get("frame_energy"),
+                    frame_voiced=batch.get("frame_voiced"),
+                    deterministic=deterministic, generator=generator)
+        gt = {k: batch[k] for k in ("durations", "f0", "energy") if k in batch}
+        total, loss_dict = untts_loss(out, gt, sigma=sigma,
+                                      dur_weight=dur_weight,
+                                      f0_weight=f0_weight,
+                                      energy_weight=energy_weight)
+        if "varglow_z" in out:
+            vnll = varglow_loss(out["varglow_z"], out["varglow_log_s"],
+                                out["varglow_logdet_w"], out["varglow_n"])
+            total = total + varglow_weight * vnll
+            loss_dict = dict(loss_dict, varglow_nll=vnll, loss=total)
+        return total, loss_dict
+
+    return loss_fn
+
+
+def make_untts_train_step(model, sigma: float = 1.0, dur_weight: float = 0.1,
+                          f0_weight: float = 0.1, energy_weight: float = 0.1,
+                          varglow_weight: float = 1.0) -> Callable:
+    """The NAR flow-TTS step (cookietts_tpu/runtime/trainer.py:
+    make_untts_train_step): the training forward with dropout from the
+    trainer's generator, the loss, backward, clipping by ``ctrl``'s
+    grad_clip and an Adam step, in place. batch = {text, text_lengths,
+    mels, mel_lengths, speaker_id, durations[, f0, energy, frame_f0,
+    frame_energy, frame_voiced]} on the device (char-rate f0 / energy)."""
+    loss_fn = _untts_loss_fn(model, sigma, dur_weight, f0_weight,
+                             energy_weight, varglow_weight)
+
+    def step(state: TrainState, batch, generator, ctrl):
+        with full_float32():
+            total, loss_dict = loss_fn(batch, generator, False)
+            norm = _apply_clipped(state, total, ctrl)
+        metrics = {k: v.detach() for k, v in loss_dict.items()}
+        metrics["grad_norm"] = norm
+        return state, metrics
+
+    return step
+
+
+def make_untts_eval_step(model, sigma: float = 1.0, dur_weight: float = 0.1,
+                         f0_weight: float = 0.1, energy_weight: float = 0.1,
+                         varglow_weight: float = 1.0) -> Callable:
+    """Held-out validation: the training loss without dropout and without
+    gradients. Returns (loss_dict, {}, None)."""
+    loss_fn = _untts_loss_fn(model, sigma, dur_weight, f0_weight,
+                             energy_weight, varglow_weight)
+
+    @torch.no_grad()
+    def step(state, batch, generator, ctrl):
+        with full_float32():
+            _, loss_dict = loss_fn(batch, generator, True)
+        return loss_dict, {}, None
+
+    return step
+
+
+# -- GAN-TTS -------------------------------------------------------------------
+
+def gantts_draws(z_dim: int, windows) -> Callable:
+    """``prepare`` for make_gan_trainer_step: once an iteration, for both
+    steps (as JAX passes one key to both), the generator's z [B, z_dim], the
+    discriminator's window starts and the seed of the dropout masks, drawn
+    from the trainer's generator; what the batch holds is kept. The starts
+    and the seed come to the host here, in one read, as the steps slice and
+    seed with them."""
+    from ..models.gantts import window_starts
+
+    def prepare(batch, generator):
+        mels = batch["mels"]
+        out = dict(batch)
+        if "z" not in out:
+            out["z"] = torch.randn((mels.shape[0], z_dim), generator=generator,
+                                   device=mels.device)
+        drawn = []
+        if "window_starts" not in out:
+            drawn.append(window_starts(mels.shape[1], windows, generator,
+                                       mels.device))
+        if "dropout_seed" not in out:
+            drawn.append(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                       device=mels.device))
+        host = torch.cat(drawn).tolist() if drawn else []
+        if "window_starts" in out:
+            out["window_starts"] = _host_ints(out["window_starts"])
+        else:
+            out["window_starts"], host = host[:len(windows)], host[len(windows):]
+        if "dropout_seed" not in out:
+            out["dropout_seed"] = host[0]
+        return out
+
+    return prepare
+
+
+def _host_ints(v) -> list:
+    """Window starts as host ints, from a tensor, an array or a list."""
+    return v.tolist() if torch.is_tensor(v) else [int(x) for x in v]
+
+
+def _bce_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
+    """Mean softplus BCE on logits, target 1 = real."""
+    x = logits.float()
+    return torch.mean(F.softplus(x) - target * x)
+
+
+def make_gantts_train_steps(gen, disc, mel_weight: float = 1.0
+                            ) -> Tuple[Callable, Callable]:
+    """(d_step, g_step) of GAN-TTS (cookietts_tpu/runtime/trainer.py:
+    make_gantts_train_steps): BCE on the window logits (the generator pulls
+    its mels toward "real", the discriminator real toward real and fake
+    toward fake) plus ``mel_weight`` times the masked mel L1 for the
+    generator. batch = {text, text_lengths, speaker_id, durations, mels
+    [B,T,M], mel_lengths, z, window_starts[, dropout_seed]} on the device,
+    the starts and the seed as host ints (``gantts_draws`` adds the last
+    three): both steps generate from the
+    same z with the same dropout masks and score the same windows; the D
+    step on a detached fake. Each updates its own side in place and
+    returns (state, metrics)."""
+
+    def fake_of(batch):
+        seed = batch.get("dropout_seed")
+        g = None if seed is None else torch.Generator(
+            batch["mels"].device).manual_seed(int(seed))
+        return gen(batch["text"], batch["text_lengths"], batch["speaker_id"],
+                   batch["durations"], z=batch["z"],
+                   t_out=batch["mels"].shape[1], generator=g,
+                   deterministic=False)
+
+    def d_step(d_state, g_state, batch, ctrl):
+        starts = _host_ints(batch["window_starts"])
+        with full_float32():
+            with torch.no_grad():
+                fake, _ = fake_of(batch)
+            real_logits = disc(batch["mels"], starts)
+            fake_logits = disc(fake, starts)
+            loss = (sum(_bce_logits(lg, 1.0) for lg in real_logits)
+                    + sum(_bce_logits(lg, 0.0) for lg in fake_logits)
+                    ) / len(real_logits)
+            norm = _apply_clipped(d_state, loss, ctrl)
+        return d_state, {"d_loss": loss.detach(),
+                         "d_real_logit": real_logits[0].detach().mean(),
+                         "d_fake_logit": fake_logits[0].detach().mean(),
+                         "d_grad_norm": norm}
+
+    def g_step(g_state, d_state, batch, ctrl):
+        starts = _host_ints(batch["window_starts"])
+        with full_float32():
+            fake, frame_mask = fake_of(batch)
+            logits = disc(fake, starts)
+            g_adv = sum(_bce_logits(lg, 1.0) for lg in logits) / len(logits)
+            mel_l1 = gantts_mel_l1(fake, batch["mels"], frame_mask)
+            total = g_adv + mel_weight * mel_l1
+            norm = _apply_clipped(g_state, total, ctrl)
+        return g_state, {"g_adv": g_adv.detach(), "g_mel_l1": mel_l1.detach(),
+                         "g_loss": total.detach(), "g_grad_norm": norm}
+
+    return d_step, g_step
+
+
+def gantts_mel_l1(fake: torch.Tensor, mels: torch.Tensor,
+                  frame_mask: torch.Tensor) -> torch.Tensor:
+    """The mel L1 over the valid frames and every channel."""
+    m = frame_mask[:, :, None].float()
+    return (torch.abs(fake - mels) * m).sum() / torch.clamp(
+        m.sum() * fake.shape[-1], min=1.0)
+
+
+def make_gantts_eval_step(gen) -> Callable:
+    """Validation: the masked mel L1 of the generator without dropout, its
+    z drawn from the validation batch's generator. Returns ({loss, mel_l1},
+    {}, None)."""
+
+    @torch.no_grad()
+    def step(state, batch, generator, ctrl):
+        del state, ctrl
+        with full_float32():
+            fake, frame_mask = gen(
+                batch["text"], batch["text_lengths"], batch["speaker_id"],
+                batch["durations"], t_out=batch["mels"].shape[1],
+                generator=generator, deterministic=True)
+            l1 = gantts_mel_l1(fake, batch["mels"], frame_mask)
+        return {"loss": l1, "mel_l1": l1}, {}, None
 
     return step

@@ -41,7 +41,11 @@ for name in ("cookietts_tpu_torch.runtime.export_serving",
              "cookietts_tpu_torch.pipeline.gta",
              "cookietts_tpu_torch.models.gan_postnet",
              "cookietts_tpu_torch.models.hifigan_denoiser",
-             "cookietts_tpu_torch.data.denoiser_data"):
+             "cookietts_tpu_torch.data.denoiser_data",
+             "cookietts_tpu_torch.models.untts",
+             "cookietts_tpu_torch.models.gantts",
+             "cookietts_tpu_torch.data.dio",
+             "cookietts_tpu_torch.data.mfa"):
     assert name in sys.modules, name
 print("imported", len([m for m in sys.modules
                        if m.startswith("cookietts_tpu_torch")]))
@@ -146,6 +150,41 @@ def test_vocoder_training_entry_points_raise_without_cuda(monkeypatch,
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
     make(device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["untts", "gantts-generator",
+                                   "gantts-discriminator", "train-untts",
+                                   "train-gantts"])
+def test_nar_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
+    """UnTTS, the GAN-TTS models and their train commands run on the card
+    unless asked for the CPU."""
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.models.gantts import (GANTTSConfig,
+                                                   GANTTSDiscriminator,
+                                                   GANTTSGenerator)
+    from cookietts_tpu_torch.models.untts import UnTTS, UnTTSConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ucfg = UnTTSConfig(n_symbols=8, symbols_embedding_dim=8, n_speakers=2,
+                       speaker_embedding_dim=4, n_mel_channels=4, enc_layers=1,
+                       enc_ffn_dim=8, predictor_filter_size=4,
+                       dec_n_flows=1, dec_n_layers=1, dec_n_channels=8)
+    gcfg = GANTTSConfig(n_symbols=8, symbols_embedding_dim=8, n_speakers=2,
+                        speaker_embedding_dim=4, n_mel_channels=4, z_dim=4,
+                        enc_layers=1, enc_ffn_dim=8, g_channels=(8,),
+                        d_channels=(4,), d_windows=(8,))
+    make = {"untts": lambda **kw: UnTTS(ucfg, **kw),
+            "gantts-generator": lambda **kw: GANTTSGenerator(gcfg, **kw),
+            "gantts-discriminator": lambda **kw: GANTTSDiscriminator(gcfg,
+                                                                     **kw)
+            }.get(entry)
+    if make is None:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli(["train", "--model", entry.split("-")[1], "--filelist",
+                 str(tmp_path / "filelist.txt"), "--run_dir", str(tmp_path)])
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    assert next(make(device="cpu").parameters()).device.type == "cpu"
 
 
 @pytest.mark.parametrize("entry", ["torchmoji", "encoder", "tts", "server"])

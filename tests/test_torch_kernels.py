@@ -224,6 +224,23 @@ def test_wn_layer_plan_takes_every_width(C, rows):
         assert len(plan.ints()) == 6
 
 
+@pytest.mark.parametrize("C,L,B,T", [
+    (192, 3, 4, 1024), (192, 3, 8, 200), (192, 3, 1, 5),
+    (64, 2, 4, 8), (64, 2, 1, 2), (64, 2, 8, 30)])
+def test_wn_layer_plan_at_untts_widths(C, L, B, T):
+    """UnTTS's WNs: the mel decoder's (C = 192, a request's frames) and
+    VarGlow's (C = 64 over char groups, T' down to 2, below one block's
+    samples): each launch fits shared memory and its blocks cover every
+    (batch row, channel, sample) once; a call makes wn_launches(L)."""
+    plan = hk.wn_layer_plan(B, C, T, 1, 3)
+    for launch, kw in ((plan.conv, 3), (plan.rs, 1)):
+        gx, gy, gz = launch.grid
+        assert launch.smem <= hk.SMEM_MAX and launch.win_stride >= kw * launch.n
+        assert gy * launch.m == C and gz == B
+        assert gx * launch.n >= T > (gx - 1) * launch.n
+    assert hk.wn_launches(L) == 2 * L + 2
+
+
 def test_wn_launches_follow_the_plan():
     """Each layer makes the plan's launches (the conv, then res/skip); the
     start and end products make two more."""

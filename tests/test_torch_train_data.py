@@ -93,5 +93,5 @@ def test_dataset_sampler_collate_match_jax(corpus, monkeypatch):
 
 
 def test_unported_features_raise(corpus):
-    with pytest.raises(NotImplementedError, match="durations"):
-        pds.TTSDataset([], pds.DataConfig(**DATA), features=("durations",))
+    with pytest.raises(NotImplementedError, match="audio"):
+        pds.TTSDataset([], pds.DataConfig(**DATA), features=("audio",))

@@ -90,9 +90,9 @@ def test_train_command_needs_a_card_unless_asked(corpus, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli(["train", "--filelist", corpus, "--run_dir", str(tmp_path)])
-    with pytest.raises(SystemExit, match="not wired"):
-        cli(["train", "--model", "gantts", "--device", "cpu",
-             "--filelist", corpus, "--run_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli(["train", "--model", "gantts", "--filelist", corpus,
+             "--run_dir", str(tmp_path)])
 
 
 def _batches(n, seed=0, B=2, T_txt=9, T_dec=12):
