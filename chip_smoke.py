@@ -209,6 +209,25 @@ non-zero:
    GANTTSConfig(), batch 8, 3 iterations, then --resume to 5; the D and G
    steps timed; one D+G step card against CPU with z and the window starts
    given (dropout 0).
+14. data-parallel training across processes (cookietts_tpu_torch/parallel/).
+   14a: `python -m torch.distributed.run --standalone --nproc_per_node 2 -m
+   cookietts_tpu_torch train --dist_backend gloo` (two ranks sharing the
+   card, TF32 off) at phase 7's widths on a 48-utterance evidence corpus,
+   global batch 16, 6 iterations with a validation and a checkpoint at 4,
+   against the same command in this process: per-iteration losses,
+   gradient norms and the validation loss within rel 1e-5 before the
+   first update, 1e-4 after it and 1e-2 after more (dp_limit), the final
+   weights every element within 2 lr an iteration, one writer's files,
+   each rank's attention_step and lstm_gates launches one a decoder step,
+   each run's s/iter (not a speed-up: one card). 14b: the same for `train
+   --model hifigan` at phase 8's widths and recipe, 4 iterations (no kernel
+   launched). 14c: a world-1 NCCL group in this process (TCP store on
+   localhost): the full-width Tacotron2 train step with the kernels at
+   B=16, T_dec=200 under the group against the step with no group, loss
+   terms within rel 1e-6, every gradient (the conv biases ahead of a
+   BatchNorm, rounding noise, left out) within relative L2 1e-4, exactly
+   200 attention_step and 600 lstm_gates launches; the group destroyed
+   after.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -4096,6 +4115,283 @@ def phase13(hk, check, corpus, tmp, smi):
     log(f"  phase 13c in {time.perf_counter() - t0:.1f} s; {smi}")
 
 
+# -- phase 14: data-parallel training across processes ------------------------
+
+# phase 7's corpus and widths (one 144-frame bucket and TBPTT segment, below
+# phase 10's T_dec cap of 200), global batch 16, 6 iterations with a
+# validation and a checkpoint at 4
+DP_TACO_HPARAMS = TRAIN_HPARAMS.replace(
+    "validation_interval=3,checkpoint_interval=3",
+    "validation_interval=4,checkpoint_interval=4")
+DP_ITERS = {"tacotron2": 6, "hifigan": 4}
+
+
+def dp_limit(updates: int) -> float:
+    """The relative difference allowed between the 2-rank run's losses and
+    gradient norms and one process's after ``updates`` optimizer steps.
+    Before any (iteration 0) the two start from the same weights and only
+    the order of the global sums differs: 1e-5. After one, within phase 8's
+    step_parity, 1e-4. After more, the trajectories have separated: Adam's
+    normalised steps move every element by lr, so an element whose
+    gradient's sign is rounding noise moves by 2 lr one way or the other,
+    and training amplifies that about tenfold an iteration (H100 runs:
+    Tacotron2 1e-7 to 2.5e-4 and HiFi-GAN 5e-5 to 3.3e-4 by the third to
+    sixth iteration, the first exact): 1e-2. Each bug of the reductions
+    shows earlier: a local mean or BatchNorm moves iteration 0's loss, a
+    wrong gradient reduction its gradient norm, an unsynchronised update
+    iteration 1's loss."""
+    return 1e-5 if updates == 0 else 1e-4 if updates == 1 else 1e-2
+DP_WORLD = 2
+
+
+def dp_events(run):
+    """(train records {step: record}, validation records) of a run."""
+    train, val = {}, []
+    for line in (run / "events.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if rec["prefix"] == "train":
+            train[rec["step"]] = rec
+        elif rec["prefix"] == "validation":
+            val.append(rec)
+    return train, val
+
+
+def dp_run(hk, args, run, ranks):
+    """The train command on ``run``: in this process (one rank), or as
+    ``python -m torch.distributed.run --standalone --nproc_per_node
+    ranks`` with gloo (the ranks share the card), with TF32 off as in this
+    process (NVIDIA_TF32_OVERRIDE=0: the train command leaves torch's
+    defaults, which take cuDNN's convolutions in TF32). Returns (wall
+    seconds, each rank's kernel launches, the trainer of a run in this
+    process)."""
+    import torch
+    from cookietts_tpu_torch.cli import main as cli
+    args = args + ["--run_dir", str(run)]
+    t0 = time.perf_counter()
+    if ranks == 1:
+        hk.reset_launch_counts()
+        trainer = cli(args)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, [dict(hk.LAUNCHES)], trainer
+    import os
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(ranks), "-m", "cookietts_tpu_torch"] + args
+        + ["--dist_backend", "gloo"], cwd=ROOT, capture_output=True,
+        text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4",
+                 NVIDIA_TF32_OVERRIDE="0"))
+    dt = time.perf_counter() - t0
+    if proc.returncode:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-6000:])
+        raise SystemExit(f"chip_smoke: the {ranks}-rank train command failed "
+                         f"(exit {proc.returncode})")
+    launches = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"rank"'):
+            rec = json.loads(line)
+            launches[rec["rank"]] = rec["kernel_launches"]
+    if sorted(launches) != list(range(ranks)):
+        raise SystemExit(f"chip_smoke: launch counts of ranks "
+                         f"{sorted(launches)} of {ranks}")
+    return dt, [launches[r] for r in range(ranks)], None
+
+
+def dp_compare(name, runs, iters, lr, smi):
+    """Two runs of ``name`` (one process, then 2 ranks): the same
+    per-iteration losses and gradient norms, and validation losses, within
+    ``dp_limit`` of the updates before them; the final weights every element
+    within 2 lr an iteration: Adam's normalised step moves an element whose
+    gradient is rounding noise by lr either way (a conv bias ahead of a
+    training-form BatchNorm, a weight ahead of one whose sum cancels), and
+    the reduction order of 2 ranks is not one process's (their largest
+    relative L2 is printed); one writer's files. Prints each run's
+    s/iter."""
+    import torch
+    one, two = runs
+    (t1, v1), (t2, v2) = (dp_events(r) for r in runs)
+    if (sorted(t1) != list(range(iters)) or sorted(t2) != sorted(t1)
+            or not v1 or [v["step"] for v in v1] != [v["step"] for v in v2]):
+        raise SystemExit(f"chip_smoke: {name}: the runs logged steps "
+                         f"{sorted(t1)} / {sorted(t2)}, validations "
+                         f"{[v['step'] for v in v1]} / "
+                         f"{[v['step'] for v in v2]}")
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)  # noqa: E731
+    keys = [m for m in t1[0] if m.endswith(("loss", "grad_norm"))]
+    d2 = [max(rel(t2[k][m], t1[k][m]) for m in keys) for k in range(iters)]
+    val2 = [rel(b["val_loss"], a["val_loss"]) for a, b in zip(v1, v2)]
+    sd = [torch.load(r / f"checkpoint_{iters}") for r in runs]
+    w_abs, w_rel = (0.0, ""), (0.0, "")
+    for part in ("state_dict", "d_state_dict"):
+        for k, a in sd[0].get(part, {}).items():
+            if not a.is_floating_point():
+                continue
+            d = sd[1][part][k].float() - a.float()
+            w_abs = max(w_abs, (float(d.abs().max()), k))
+            if "weight" in k.rsplit(".", 1)[-1] and float(a.norm()) > 0:
+                w_rel = max(w_rel, (float(d.norm() / a.norm()), k))
+    files = lambda d: sorted(p.name for p in d.iterdir()  # noqa: E731
+                             if not p.name.startswith("events.out"))
+    tb = [sum(p.name.startswith("events.out") for p in d.iterdir())
+          for d in runs]
+    s_iter = [sum(t[k]["iter_s"] for k in t if k) / (iters - 1)
+              for t in (t1, t2)]
+    log(f"  {name}: losses {[round(t1[k]['loss'], 4) for k in range(iters)]}; "
+        f"2 ranks against 1 process, largest relative difference of a loss "
+        f"or gradient norm by iteration {[f'{d:.1e}' for d in d2]}, of the "
+        f"validation losses {[f'{d:.1e}' for d in val2]} (limits "
+        f"{[dp_limit(k) for k in range(iters)]} by iteration, the validations "
+        f"the iteration's they follow); final "
+        f"weights largest difference {w_abs[0]:.2e} ({w_abs[1]}; limit "
+        f"{2 * lr * iters:.1e}), largest relative L2 {w_rel[0]:.2e} "
+        f"({w_rel[1]}); files "
+        f"{'the same' if files(one) == files(two) else 'differ'}, tensorboard "
+        f"files {tb}; s/iter after the first: 1 process {s_iter[0]:.3f}, 2 "
+        f"ranks sharing the card {s_iter[1]:.3f} (not a speed-up: one card); "
+        f"{smi}")
+    limits = ([dp_limit(k) for k in range(iters)]
+              + [dp_limit(v["step"]) for v in v1])
+    if (any(d > m for d, m in zip(d2 + val2, limits))
+            or w_abs[0] > 2 * lr * iters or files(one) != files(two)
+            or tb[0] != tb[1] or tb[0] > 1
+            or len((two / "events.jsonl").read_text().splitlines())
+            != len((one / "events.jsonl").read_text().splitlines())):
+        raise SystemExit(f"chip_smoke: {name} at {DP_WORLD} ranks is not the "
+                         "one-process run, or left more than one writer's "
+                         "files")
+    return s_iter
+
+
+def phase14a(hk, tmp, smi):
+    """The Tacotron2 train command at 2 ranks (gloo, one card) against one
+    process at phase 7's widths, with the kernels."""
+    from cookietts_tpu_torch.data.evidence_corpus import make_corpus
+    train_fl, _ = make_corpus(str(tmp / "corpus14"), seed=0, n_train=32,
+                              n_val=16)
+    iters = DP_ITERS["tacotron2"]
+    args = ["train", "--model", "tacotron2", "--filelist", train_fl,
+            "--hparams", DP_TACO_HPARAMS, "--seed", "0", "--iters",
+            str(iters)]
+    runs = [tmp / "dp_taco1", tmp / "dp_taco2"]
+    (dt1, [n1], trainer), (dt2, n2, _) = (dp_run(hk, args, runs[0], 1),
+                                          dp_run(hk, args, runs[1], DP_WORLD))
+    # one launch a decoder step (lstm_gates 3) of the 144-frame bucket in
+    # every iteration and the two decodes of the validation batches in the
+    # one validation: each rank decodes its rows of every batch
+    want = expected_launches(trainer, iters, 1)
+    del trainer
+    log(f"  14a Tacotron2 (Tacotron2Config() widths, batch 16, {iters} "
+        f"iterations, validation and a checkpoint at 4): 1 process {dt1:.1f} "
+        f"s, {DP_WORLD} ranks {dt2:.1f} s (process start included); "
+        f"launches attention_step / lstm_gates: 1 process "
+        f"{n1['attention_step']} / {n1['lstm_gates']}, ranks "
+        f"{[(n['attention_step'], n['lstm_gates']) for n in n2]} (want "
+        f"{want} / {3 * want} each)")
+    for n in [n1] + n2:
+        if (n["attention_step"], n["lstm_gates"]) != (want, 3 * want):
+            raise SystemExit("chip_smoke: the data-parallel train command's "
+                             "kernel launches are not one per decoder step")
+    lr = 0.5e-3 + (1e-3 - 0.5e-3) * iters / 1000   # the live warm-up's
+    return dp_compare("14a Tacotron2", runs, iters, lr, smi), n2
+
+
+def phase14b(hk, tmp, smi):
+    """The HiFi-GAN train command at 2 ranks against one process at phase
+    8's widths and recipe."""
+    sr = HIFIGAN_DATA["sampling_rate"]
+    map_file = vocoder_corpus(tmp / "wav14", sr, 20,
+                              2.5 * HIFIGAN_DATA["segment_length"] / sr,
+                              seed=4)
+    iters = DP_ITERS["hifigan"]
+    args = ["train", "--model", "hifigan", "--filelist", map_file,
+            "--hparams", hparams_of({**HIFIGAN, **HIFIGAN_DATA, **CADENCE}),
+            "--seed", "0", "--iters", str(iters)]
+    runs = [tmp / "dp_hifigan1", tmp / "dp_hifigan2"]
+    (dt1, [n1], _), (dt2, n2, _) = (dp_run(hk, args, runs[0], 1),
+                                    dp_run(hk, args, runs[1], DP_WORLD))
+    log(f"  14b HiFi-GAN (HiFiGANConfig(), batch 16, {iters} iterations, "
+        f"validation and a checkpoint every 2): 1 process {dt1:.1f} s, "
+        f"{DP_WORLD} ranks {dt2:.1f} s; kernel launches {sum(n1.values())}, "
+        f"ranks {[sum(n.values()) for n in n2]} (training and its validation "
+        f"run the generator's training form: none)")
+    if any(any(n.values()) for n in [n1] + n2):
+        raise SystemExit("chip_smoke: HiFi-GAN training launched a kernel")
+    return dp_compare("14b HiFi-GAN", runs, iters, 2e-4, smi), n2
+
+
+def phase14c(hk, tcfg, smi):
+    """A world-1 NCCL group in this process (TCP store on localhost): the
+    full-width Tacotron2 train step with the kernels under the group against
+    the step with no group, from the same weights, batch and generator
+    seed. Returns the group step's launches."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2
+    from cookietts_tpu_torch.parallel import DataParallel
+    from cookietts_tpu_torch.runtime.optim import adam
+    from cookietts_tpu_torch.runtime.train_state import TrainState
+    from cookietts_tpu_torch.runtime.trainer import make_tacotron2_train_step
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        dp = DataParallel()
+        batch = synthetic_batch(tcfg, 14, T_dec=200)
+        ctrl = {"lr": 1e-3, "grad_clip": 1.0, "p_teacher_forcing": 1.0,
+                "teacher_force_till": 0, "drop_frame_rate": 0.0,
+                "guided_att_sigma": 0.5}
+        out = []
+        for group in (None, dp):
+            torch.manual_seed(0)
+            model = Tacotron2(tcfg, device="cuda")
+            state = TrainState.create(model, adam())
+            step = make_tacotron2_train_step(model, dp=group)
+            hk.reset_launch_counts()
+            _, ld, _, _ = step(state, batch,
+                               torch.Generator("cuda").manual_seed(3), ctrl)
+            torch.cuda.synchronize()
+            out.append(({k: float(v) for k, v in ld.items()},
+                        moments_grads(state), dict(hk.LAUNCHES)))
+    finally:
+        dist.destroy_process_group()
+    (l0, g0, _), (l1, g1, n1) = out
+    loss_rel = max((abs(l1[k] - l0[k]) / max(abs(l0[k]), abs(l0["loss"])), k)
+                   for k in l0)
+    # a conv bias ahead of a training-form BatchNorm has a gradient of
+    # rounding noise, whose relative difference means nothing
+    grad_rel = max((float((g1[k] - g0[k]).norm() / g0[k].norm()), k)
+                   for k in g0 if float(g0[k].norm()) > 0
+                   and not k.endswith(".0.conv.bias"))
+    log(f"  14c world-1 NCCL group, B=16, T_dec=200, kernels: loss "
+        f"{l1['loss']:.6f} against {l0['loss']:.6f} with no group; largest "
+        f"relative difference of a loss term {loss_rel[0]:.2e} "
+        f"({loss_rel[1]}; limit 1e-6), of a gradient (relative L2; the conv "
+        f"biases ahead of a BatchNorm left out) {grad_rel[0]:.2e} "
+        f"({grad_rel[1]}; limit 1e-4); launches {n1} (want 200 / 600); {smi}")
+    if loss_rel[0] > 1e-6 or grad_rel[0] > 1e-4 or (
+            n1["attention_step"], n1["lstm_gates"]) != (200, 600):
+        raise SystemExit("chip_smoke: the train step under a world-1 NCCL "
+                         "group is not the step with no group")
+    return n1
+
+
+def phase14(hk, tcfg, tmp, smi):
+    """14a Tacotron2 and 14b HiFi-GAN through the train command at 2 ranks
+    against one process; 14c a world-1 NCCL group in this process."""
+    t0 = time.perf_counter()
+    taco = phase14a(hk, tmp, smi)
+    log(f"  phase 14a in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hifigan = phase14b(hk, tmp, smi)
+    log(f"  phase 14b in {time.perf_counter() - t0:.1f} s")
+    phase14c(hk, tcfg, smi)
+    return taco, hifigan
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4207,6 +4503,11 @@ def main() -> int:
         t13 = time.perf_counter()
         phase13(hk, check, corpus, Path(tmp), smi)
         log(f"  phase 13 in {time.perf_counter() - t13:.1f} s; {smi}")
+
+        log("phase 14: data-parallel training across processes")
+        t14 = time.perf_counter()
+        phase14(hk, tcfg, Path(tmp), smi)
+        log(f"  phase 14 in {time.perf_counter() - t14:.1f} s; {smi}")
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -6,12 +6,28 @@
         [--val_filelist v.txt] \
         [--hparams "a=1,b=[2,3]"] \
         [--run_dir runs/x] [--iters N] [--resume [ckpt]] [--warm_start ckpt] \
-        [--live_config f.py] [--device cuda|cpu] [--seed S]
+        [--live_config f.py] [--device cuda|cpu] [--seed S] \
+        [--dist_backend nccl|gloo]
 
-Single-process training, on the card unless ``--device cpu`` is given
-(without a card the default raises); validation on held-out data,
-checkpoints and full resume in ``--run_dir``. ``--hparams`` uses the
-reference's ``k=v,k2=[..]`` grammar (config.parse_override_string).
+Training, on the card unless ``--device cpu`` is given (without a card the
+default raises); validation on held-out data, checkpoints and full resume in
+``--run_dir``. ``--hparams`` uses the reference's ``k=v,k2=[..]`` grammar
+(config.parse_override_string).
+
+Data parallel across processes, one per card (parallel/):
+
+    torchrun --nproc_per_node N -m cookietts_tpu_torch train ...
+
+(across hosts add ``--nnodes``, ``--node_rank`` and ``--master_addr`` /
+``--master_port``, with ``--run_dir`` on a shared file system). Each rank
+loads its rows of every global batch of ``batch_size`` rows (which must
+divide by the ranks), the step's losses, BatchNorm statistics and draws are
+the global batch's, the gradients are summed over the ranks, and rank 0
+alone reads the live config and writes checkpoints and logs: N ranks train
+what one process trains on the same batches. NCCL on the card, gloo on the
+CPU; ``--dist_backend gloo`` lets ranks share a card. ``tacotron2``,
+``hifigan``, ``gan_postnet``, ``hifigan_denoiser`` and ``gantts`` take a
+world above 1; ``untts`` and ``waveglow`` refuse one, as JAX's have no dp.
 
 - ``tacotron2``: TBPTT batches from the filelist through a background
   prefetcher; keys of Tacotron2Config, DataConfig and the live config
@@ -81,8 +97,8 @@ Reference CookieTTS checkpoints become the port's (convert/reference.py):
     python -m cookietts_tpu_torch convert --model tacotron2|waveglow|hifigan|\
         torchmoji|gst|emotionnet|auxemotionnet --torch_ckpt X.pt|X.npz -o Y
 
-Multi-host runs and ``--tp`` / ``--sp`` above 1 (which raise) are not ported
-yet.
+``--tp`` / ``--sp`` above 1 (tensor and sequence parallelism) raise: they
+come with the next slice of the parallel runtime.
 """
 from __future__ import annotations
 
@@ -93,6 +109,9 @@ import time
 
 TRAINERS = ("tacotron2", "waveglow", "hifigan", "untts", "gantts",
             "hifigan_denoiser", "gan_postnet")
+# the trainers that take a world above 1 (JAX's dp mesh trainers)
+DP_TRAINERS = ("tacotron2", "hifigan", "gan_postnet", "hifigan_denoiser",
+               "gantts")
 # --hparams keys that reach the live config, with their types
 LIVE_OVERRIDES = (("validation_interval", int), ("checkpoint_interval", int),
                   ("LossExplosionThreshold", float),
@@ -168,10 +187,13 @@ def _cycle_chunks(n: int, batch_size: int, cap: int = 0):
 class ValBatches:
     """Fixed-shape validation batches, collated on demand in each pass (at
     most one batch in memory; features ride the disk cache). Every batch is
-    padded to ``pad`` = (text, mel) widths of the whole validation set."""
+    padded to ``pad`` = (text, mel) widths of the whole validation set.
+    Under a group each rank collates only its rows of every batch
+    (``dp``)."""
 
-    def __init__(self, vds, dcfg, chunks, pad):
+    def __init__(self, vds, dcfg, chunks, pad, dp=None):
         self.vds, self.dcfg, self.chunks, self.pad = vds, dcfg, chunks, pad
+        self.dp = dp
 
     def __len__(self):
         return len(self.chunks)
@@ -179,14 +201,17 @@ class ValBatches:
     def __iter__(self):
         from .data.dataset import collate
         for chunk in self.chunks:
+            if self.dp is not None:
+                chunk = chunk[self.dp.rows(len(chunk))]
             yield collate([self.vds[i] for i in chunk], self.dcfg,
                           pad_to=self.pad)
 
 
 def _tts_val_batches(val_entries, dcfg, features, batch_size, overrides,
-                     desc) -> ValBatches:
+                     desc, dp=None) -> ValBatches:
     """The whole validation set in fixed-shape batches (the last one
-    cycle-fills from the head), padded to the set's text and mel buckets."""
+    cycle-fills from the head), padded to the set's text and mel buckets;
+    this rank's rows of each under ``dp``."""
     from .data.dataset import TTSDataset, bucket_size
     vds = TTSDataset(val_entries, dcfg, features=features)
     m_req = max(vds.mel_frame_lengths())
@@ -201,7 +226,7 @@ def _tts_val_batches(val_entries, dcfg, features, batch_size, overrides,
                            int(overrides.get("max_val_batches", 0) or 0))
     print(f"[val] {desc}: {len(vds)} entries streamed in {len(chunks)} "
           f"batch(es) of {batch_size} at text={t_pad} mel={m_pad}")
-    return ValBatches(vds, dcfg, chunks, (t_pad, m_pad))
+    return ValBatches(vds, dcfg, chunks, (t_pad, m_pad), dp)
 
 
 def _tuples(v):
@@ -238,14 +263,51 @@ def _build_tacotron2(overrides, device, seed: int):
 
 
 def cmd_train(args):
-    """Train; returns the Trainer."""
-    for flag in ("tp", "sp"):
+    """Train; returns the Trainer. Under torchrun's environment the rank
+    joins the group first (parallel.initialize) and trains its rows."""
+    from .parallel import initialize, process_count, rank_device
+    for flag, what in (("tp", "tensor"), ("sp", "sequence")):
         if int(getattr(args, flag, 1) or 1) > 1:
-            raise SystemExit(f"--{flag} > 1 needs the parallel runtime, which "
-                             "the port does not have yet; run without it")
-    if args.model in OTHER_TRAINERS:
-        return OTHER_TRAINERS[args.model](args)
-    return _train_tacotron2(args)
+            raise SystemExit(
+                f"--{flag} > 1 ({what} parallelism) is not ported yet: it "
+                "comes with the next slice of the parallel runtime. Train "
+                "data-parallel with torchrun (one rank per card) instead")
+    if initialize(args.device, getattr(args, "dist_backend", None)):
+        if process_count() > 1 and args.model not in DP_TRAINERS:
+            raise SystemExit(
+                f"--model {args.model} trains in one process only (JAX's "
+                f"trainer has no data parallelism); run it without torchrun "
+                f"(this run has {process_count()} ranks)")
+        args.device = str(rank_device(args.device))
+    trainer = OTHER_TRAINERS.get(args.model, _train_tacotron2)(args)
+    if process_count() > 1:
+        # each rank's kernel launches, training and validation (the
+        # counters are per process)
+        import json
+        from .ops import hopper_kernels as hk
+        from .parallel import process_index
+        print(json.dumps({"rank": process_index(),
+                          "kernel_launches": dict(hk.LAUNCHES)}))
+    return trainer
+
+
+def _data_parallel(batch_size: int):
+    """The group's DataParallel (None in one process), once the global
+    ``batch_size`` is known to divide by the ranks."""
+    import torch.distributed as dist
+    from .parallel import DataParallel
+    if not dist.is_initialized():
+        return None
+    dp = DataParallel()
+    if batch_size % dp.size:
+        raise SystemExit(f"batch_size={batch_size} must divide evenly over "
+                         f"the {dp.size} ranks (each rank trains batch_size / "
+                         f"{dp.size} rows of every global batch)")
+    if dp.primary:
+        print(f"[train] data parallel: {dp.size} ranks, "
+              f"{batch_size // dp.size} rows of each global batch of "
+              f"{batch_size} per rank")
+    return dp
 
 
 def _train_tacotron2(args):
@@ -253,7 +315,8 @@ def _train_tacotron2(args):
     import torch
 
     from .config import parse_override_string
-    from .data.dataset import DataConfig, TBPTTSampler, TTSDataset, collate
+    from .data.dataset import (DataConfig, TBPTTSampler, TTSDataset, collate,
+                               collate_local_shard)
     from .data.filelist import load_filelist
     from .data.prefetch import Prefetcher
     from .device import resolve_device
@@ -271,6 +334,8 @@ def _train_tacotron2(args):
         print("[train] detect_anomaly: autograd anomaly mode on (slow)")
     batch_size = int(overrides.get("batch_size", 8))
     n_iters = int(overrides.get("n_iters", args.iters))
+    dp = _data_parallel(batch_size)
+    primary = dp is None or dp.primary
 
     entries = load_filelist(args.filelist)
     dcfg = DataConfig(**{k: v for k, v in overrides.items()
@@ -299,7 +364,11 @@ def _train_tacotron2(args):
     def global_mean_now(live):
         if not gm["full"] and float(live.get("drop_frame_rate", 0.0)) > 0:
             t0 = time.time()
-            gm["mean"], gm["full"] = dataset.global_mel_mean(mean_sidecar), True
+            # one rank computes it (and writes the sidecar), every rank
+            # takes its value
+            mean = dataset.global_mel_mean(mean_sidecar) if primary else None
+            gm["mean"] = mean if dp is None else dp.replicate_global(mean)
+            gm["full"] = True
             print(f"[dfr] dataset-wide global mel mean over {len(dataset)} "
                   f"entries in {time.time() - t0:.1f}s")
         return gm["mean"]
@@ -315,15 +384,15 @@ def _train_tacotron2(args):
 
     state = TrainState.create(model, adam())
     val_batches = _tts_val_batches(val_entries, dcfg, features, batch_size,
-                                   overrides, val_desc)
+                                   overrides, val_desc, dp)
     trainer = Trainer(
         TrainerConfig(run_dir=args.run_dir, live_config_path=args.live_config,
                       seed=args.seed,
                       log_every=int(overrides.get("log_every", 10))),
-        state, make_tacotron2_train_step(model),
-        make_tacotron2_eval_step(model), val_batches=val_batches,
-        inference_eval_step=make_tacotron2_inference_eval_step(model),
-        device=device)
+        state, make_tacotron2_train_step(model, dp=dp),
+        make_tacotron2_eval_step(model, dp=dp), val_batches=val_batches,
+        inference_eval_step=make_tacotron2_inference_eval_step(model, dp=dp),
+        device=device, dp=dp)
     for k, cast in LIVE_OVERRIDES:
         if k in overrides:
             trainer.live.values[k] = cast(overrides[k])
@@ -348,19 +417,26 @@ def _train_tacotron2(args):
                                dcfg.max_segment_frames, seed=epoch)
 
         def load(segs):
+            if dp is not None:     # this rank's rows, at the global widths
+                return collate_local_shard(dataset, segs, dcfg, dp.rank,
+                                           dp.size)
             return collate([dataset[s.file_idx] for s in segs], dcfg,
                            segments=segs)
 
         for batch in Prefetcher(load, sampler, depth=2):
             batch["global_mean"] = global_mean_now(trainer.live)
             metrics = trainer.step(batch)
-            if it % 10 == 0:
+            if it % 10 == 0 and primary:
                 print(f"iter {it}: "
                       f"loss={metrics.get('loss', float('nan')):.4f}")
             it += 1
             if it >= n_iters:
                 break
         epoch += 1
+        if dp is not None:
+            # every rank scored its own rows: curate from every rank's
+            # statistics, so every rank rebuilds the same dataset
+            _merge_file_losses(trainer)
         # epoch-boundary curation: drop weak-attention files, resample by
         # MSE, rebuild the sampler
         if (trainer.live.get("curation_enable", True)
@@ -384,9 +460,25 @@ def _train_tacotron2(args):
                 print(f"[curation] epoch {epoch}: dataset rebuilt with "
                       f"{len(entries_cur)} entries")
     trainer.save(periodic=True)
-    trainer.file_db.to_csv(os.path.join(args.run_dir, "file_losses.csv"))
+    if dp is not None:
+        _merge_file_losses(trainer)
+    if primary:
+        trainer.file_db.to_csv(os.path.join(args.run_dir, "file_losses.csv"))
     print(f"done: {it} iters, checkpoints in {args.run_dir}")
     return trainer
+
+
+def _merge_file_losses(trainer) -> None:
+    """Every rank's per-file losses on every rank: for each file the entry
+    last updated (a rank holds a merged copy of the files it did not
+    score)."""
+    from .parallel import allgather_object
+    merged = {}
+    for db in allgather_object(trainer.file_db.db):
+        for path, entry in db.items():
+            if entry.get("time", 0.0) >= merged.get(path, {}).get("time", -1.0):
+                merged[path] = entry
+    trainer.file_db.db = dict(sorted(merged.items()))
 
 
 # -- the vocoder trainers ------------------------------------------------------
@@ -439,7 +531,7 @@ def _vocoder_batches(dataset, val_items, batch_size, overrides, desc, keys):
 
 def _make_trainer(args, overrides, state, train_step, device, eval_step=None,
                   val_batches=None, plateau=None, base_lr=1e-4,
-                  grad_clip=150.0, validation_interval=200):
+                  grad_clip=150.0, validation_interval=200, dp=None):
     """The Trainer of a vocoder: a constant live LR (``lr``), the validation
     and checkpoint cadence and the explosion threshold from the overrides,
     all under the live file (``--live_config``)."""
@@ -450,7 +542,8 @@ def _make_trainer(args, overrides, state, train_step, device, eval_step=None,
                       log_every=int(overrides.get("log_every", 10)),
                       grad_clip=float(overrides.get("grad_clip", grad_clip)),
                       plateau=plateau),
-        state, train_step, eval_step, val_batches=val_batches, device=device)
+        state, train_step, eval_step, val_batches=val_batches, device=device,
+        dp=dp)
     trainer.set_live_defaults({
         "A_": float(overrides.get("lr", base_lr)),
         "warmup_end": 0, "decay_start": 10 ** 12, "drop_frame_rate": 0.0,
@@ -478,7 +571,7 @@ def _trainer_loop(trainer, make_batch, n_iters, run_dir, resume=None,
     it = int(trainer.state.step)
     while it < n_iters:
         metrics = trainer.step(make_batch(it))
-        if it % 10 == 0:
+        if it % 10 == 0 and trainer.dp.primary:
             print(f"iter {it}: {loss_name}="
                   f"{metrics.get('loss', float('nan')):.4f}")
         it_next = int(trainer.state.step)
@@ -571,6 +664,7 @@ def _train_hifigan(args):
     device = resolve_device(args.device)
     overrides = parse_override_string(args.hparams) if args.hparams else {}
     batch_size = int(overrides.get("batch_size", 4))
+    dp = _data_parallel(batch_size)
     dcfg, dataset, val_items, desc = _vocoder_data(args, overrides)
     h_keys = set(HiFiGANConfig.__dataclass_fields__)
     hcfg = HiFiGANConfig(
@@ -599,34 +693,42 @@ def _train_hifigan(args):
                         dcfg.n_mel_channels, dcfg.sampling_rate,
                         dcfg.mel_fmin, dcfg.mel_fmax, device=device)
     d_step, g_step = make_hifigan_train_steps(
-        gen, disc["mpd"], disc["msd"], stft.mel_spectrogram)
+        gen, disc["mpd"], disc["msd"], stft.mel_spectrogram, dp=dp)
     make_batch, val_batches = _vocoder_batches(
         dataset, val_items, batch_size, overrides, desc, ("audio", "mels"))
     state = GANTrainState(g=TrainState.create(gen, adam(weight_decay=0.01)),
                           d=TrainState.create(disc, adam(weight_decay=0.01)))
     return _gan_trainer(
         args, overrides, state, d_step, g_step, device,
-        make_hifigan_eval_step(gen, stft.mel_spectrogram), val_batches,
-        "hifigan", base_lr=2e-4, grad_clip=1000.0, batches=make_batch,
+        make_hifigan_eval_step(gen, stft.mel_spectrogram, dp), val_batches,
+        "hifigan", base_lr=2e-4, grad_clip=1000.0, batches=make_batch, dp=dp,
         metadata=_vocoder_metadata("hifigan", dcfg, overrides, h_keys, {
             "n_mel_channels": dcfg.n_mel_channels}))
 
 
 def _gan_trainer(args, overrides, state, d_step, g_step, device, eval_step,
                  val_batches, name, base_lr, grad_clip, batches, prepare=None,
-                 metadata=None, loss_key="g_loss", d_lr_scale=1.0):
+                 metadata=None, loss_key="g_loss", d_lr_scale=1.0, dp=None):
     """The Trainer of an adversarial model over ``state`` (a GANTrainState)
     with its metadata, run on ``batches(it)`` to ``--iters`` (after a full
-    --resume); D's LR is the live LR times ``d_lr_scale``. Returns the
-    trainer."""
+    --resume); D's LR is the live LR times ``d_lr_scale``. Under ``dp``
+    every rank makes each global batch as one process does and keeps its
+    rows (of the validation batches too). Returns the trainer."""
     from .runtime.trainer import make_gan_trainer_step
+    if dp is not None:
+        make_batch = batches
+        batches = lambda it: dp.shard_batch(make_batch(it))  # noqa: E731
+        if isinstance(val_batches, ValBatches):
+            val_batches.dp = dp
+        else:
+            val_batches = [dp.shard_batch(b) for b in val_batches]
     trainer = _make_trainer(
         args, overrides, state,
         make_gan_trainer_step(d_step, g_step, loss_key, d_lr_scale=d_lr_scale,
-                              prepare=prepare),
+                              prepare=prepare, dp=dp),
         device,
         eval_step=eval_step, val_batches=val_batches, base_lr=base_lr,
-        grad_clip=grad_clip)
+        grad_clip=grad_clip, dp=dp)
     trainer.default_metadata = {"model": name, **(metadata or {})}
     if args.resume:
         print(f"[{name}] resuming G+D from "
@@ -668,6 +770,7 @@ def _train_gan_postnet(args):
     device = resolve_device(args.device)
     overrides = parse_override_string(args.hparams) if args.hparams else {}
     batch_size = int(overrides.get("batch_size", 8))
+    dp = _data_parallel(batch_size)
     seg = int(overrides.get("postnet_segment_frames", 64))
     sr = int(overrides.get("sampling_rate", 44100))
     stft = TacotronSTFT(
@@ -752,13 +855,13 @@ def _train_gan_postnet(args):
     print(f"[val] {val_desc}: {len(val_entries)} rows in {len(val_batches)} "
           f"batch(es)")
     d_step, g_step = make_gan_postnet_train_steps(
-        post, disc, mel_weight=float(overrides.get("mel_weight", 1.0)))
+        post, disc, mel_weight=float(overrides.get("mel_weight", 1.0)), dp=dp)
     state = GANTrainState(g=TrainState.create(post, adam()),
                           d=TrainState.create(disc, adam()))
     return _gan_trainer(
         args, overrides, state, d_step, g_step, device,
-        make_gan_postnet_eval_step(post), val_batches, "gan_postnet",
-        base_lr=2e-4, grad_clip=10.0, batches=make_batch,
+        make_gan_postnet_eval_step(post, dp), val_batches, "gan_postnet",
+        base_lr=2e-4, grad_clip=10.0, batches=make_batch, dp=dp,
         prepare=gan_postnet_noise(pcfg.noise_dim),
         metadata={"model_config": dataclasses.asdict(pcfg)})
 
@@ -795,6 +898,7 @@ def _train_hifigan_denoiser(args):
     device = resolve_device(args.device)
     overrides = parse_override_string(args.hparams) if args.hparams else {}
     batch_size = int(overrides.get("batch_size", 4))
+    dp = _data_parallel(batch_size)
     stage = int(overrides.get("stage", 0))
 
     def load_clean(path):
@@ -845,13 +949,14 @@ def _train_hifigan_denoiser(args):
     print(f"[val] {val_desc}: {len(val_dataset)} wavs in {len(val_batches)} "
           f"batch(es)")
     d_step, g_step = make_hifigan_denoiser_train_steps(gen, dw, ds, mrs,
-                                                       stage=stage)
+                                                       stage=stage, dp=dp)
     state = GANTrainState(g=TrainState.create(gen, adam()),
                           d=TrainState.create(critics, adam()))
     return _gan_trainer(
         args, overrides, state, d_step, g_step, device,
-        make_hifigan_denoiser_eval_step(gen, mrs, stage), val_batches,
+        make_hifigan_denoiser_eval_step(gen, mrs, stage, dp), val_batches,
         "hifigan_denoiser", base_lr=2e-4, grad_clip=100.0, batches=make_batch,
+        dp=dp,
         metadata={"stage": stage, "model_config": dataclasses.asdict(mcfg),
                   "audio": {"sampling_rate": dcfg.sampling_rate}},
         loss_key="loss")
@@ -967,6 +1072,7 @@ def _train_gantts(args):
 
     device = resolve_device(args.device)
     overrides = parse_override_string(args.hparams) if args.hparams else {}
+    dp = _data_parallel(int(overrides.get("batch_size", 8)))
     dcfg, entries, make_batch, val_batches = _nar_data(
         args, overrides, ("text", "mel", "speaker_id", "durations"),
         GANTTS_KEYS)
@@ -976,13 +1082,13 @@ def _train_gantts(args):
     disc = _build_seeded(args.seed + 1, device,
                          lambda: GANTTSDiscriminator(gcfg, device="cpu"))
     d_step, g_step = make_gantts_train_steps(
-        gen, disc, mel_weight=float(overrides.get("mel_weight", 1.0)))
+        gen, disc, mel_weight=float(overrides.get("mel_weight", 1.0)), dp=dp)
     state = GANTrainState(g=TrainState.create(gen, adam()),
                           d=TrainState.create(disc, adam()))
     return _gan_trainer(
         args, overrides, state, d_step, g_step, device,
-        make_gantts_eval_step(gen), val_batches, "gantts", base_lr=1e-4,
-        grad_clip=10.0, batches=make_batch,
+        make_gantts_eval_step(gen, dp), val_batches, "gantts", base_lr=1e-4,
+        grad_clip=10.0, batches=make_batch, dp=dp,
         prepare=gantts_draws(gcfg.z_dim, gcfg.d_windows),
         metadata=_nar_metadata("gantts", gcfg, dcfg,
                                _speaker_map(args, entries)),
@@ -1404,6 +1510,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (the default; raises without a card) or cpu")
     t.add_argument("--seed", type=int, default=1234,
                    help="seeds the weights and every random draw")
+    t.add_argument("--dist_backend", default=None, choices=("nccl", "gloo"),
+                   help="the process group's backend under torchrun (default "
+                        "nccl on the card, gloo on the CPU; gloo lets ranks "
+                        "share a card)")
     t.add_argument("--tp", type=int, default=1,
                    help="tensor parallelism (above 1 raises: not ported)")
     t.add_argument("--sp", type=int, default=1,

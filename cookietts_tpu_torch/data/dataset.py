@@ -1,6 +1,7 @@
 """The Tacotron2 dataset with static-shape batching
 (cookietts_tpu/data/dataset.py: DataConfig, TTSDataset, Segment,
-TBPTTSampler, collate, bucket_size), through the port's TacotronSTFT.
+TBPTTSampler, collate, bucket_size, global_bucket_shapes,
+collate_local_shard), through the port's TacotronSTFT.
 
 Rebuild of the reference's TTSDataset
 (CookieTTS/utils/dataset/data_utils.py:329-905):
@@ -34,6 +35,9 @@ Rebuild of the reference's TTSDataset
   (data_utils.py:888-902).
 - mel/feature caching to ``.npy`` sidecar files (the reference caches
   ``.pt`` tensors).
+- data parallel: :func:`collate_local_shard` loads only a rank's rows of a
+  global batch, padded to the global batch's widths, which
+  :func:`global_bucket_shapes` takes from metadata alone.
 """
 from __future__ import annotations
 
@@ -725,3 +729,41 @@ def collate(items: Sequence[Dict[str, Any]],
         out["torchmoji"] = np.stack([it["torchmoji"] for it in items])
     out["audiopath"] = [it["audiopath"] for it in items]
     return out
+
+
+def global_bucket_shapes(dataset: "TTSDataset", segs: Sequence[Segment],
+                         cfg: DataConfig) -> Tuple[int, int]:
+    """(text width, mel width) of the global batch of ``segs``, from
+    metadata only: mel lengths from the length cache, text lengths from the
+    tokenizer; no audio or mel is loaded. Every rank computes the same
+    widths for the same segments, with collate's own rules (the buckets,
+    and past the largest one 32-token and 64-frame steps)."""
+    t_req = max(dataset.text_length(s.file_idx) for s in segs)
+    m_req = max(min(dataset.mel_frame_length(s.file_idx)
+                    - s.seg_idx * cfg.max_segment_frames,
+                    cfg.max_segment_frames) for s in segs)
+    t_pad = bucket_size(t_req, cfg.text_buckets)
+    if t_pad < t_req:
+        t_pad = -(-t_req // 32) * 32
+    m_pad = bucket_size(m_req, cfg.mel_buckets)
+    if m_pad < m_req:
+        m_pad = -(-m_req // 64) * 64
+    return (t_pad, m_pad)
+
+
+def collate_local_shard(dataset: "TTSDataset", segs: Sequence[Segment],
+                        cfg: DataConfig, process_index: int,
+                        process_count: int) -> Dict[str, np.ndarray]:
+    """This rank's rows of the global batch of ``segs`` (rows ``[i * B/n,
+    (i + 1) * B/n)``), loading only them, padded to the global batch's
+    widths (:func:`global_bucket_shapes`): padded to its own widths a rank
+    would change the shape of the gate loss's plain mean."""
+    B = len(segs)
+    if B % process_count:
+        raise ValueError(f"global batch {B} is not divisible by the "
+                         f"{process_count} ranks")
+    per = B // process_count
+    pad = global_bucket_shapes(dataset, segs, cfg)
+    local = list(segs[process_index * per: (process_index + 1) * per])
+    return collate([dataset[s.file_idx] for s in local], cfg, segments=local,
+                   pad_to=pad)

@@ -26,6 +26,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.batchnorm import BatchNorm1d
+from ..parallel.mesh import draw_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,8 +111,8 @@ class GANPostnet(_ConvStack):
         given."""
         B, T, _ = mel.shape
         if noise is None:
-            noise = torch.randn(B, T, self.cfg.noise_dim, generator=generator,
-                                device=mel.device)
+            noise = draw_rows(torch.randn, (B, T, self.cfg.noise_dim),
+                              generator=generator, device=mel.device)
         x = _with_speaker(mel, speaker_embed, noise.float())
         return self._stack(x).transpose(1, 2)
 

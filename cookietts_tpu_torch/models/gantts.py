@@ -30,6 +30,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.masking import get_mask_from_lengths
+from ..parallel.mesh import draw_rows
 from .untts import FFTBlock, SameConv1d, _positions, flax_layer_norm, \
     length_regulate
 
@@ -167,7 +168,7 @@ class GANTTSGenerator(nn.Module):
         spk = self.speaker_embedding(speaker_id)
         x = torch.cat([x, spk[:, None, :].expand(-1, N, -1)], dim=-1)
         if z is None:
-            z = torch.randn((B, cfg.z_dim), generator=generator,
+            z = draw_rows(torch.randn, (B, cfg.z_dim), generator=generator,
                             device=x.device)
         h, frame_mask = length_regulate(x, durations, t_out)
         for i in range(len(cfg.g_channels)):

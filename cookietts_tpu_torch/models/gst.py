@@ -35,6 +35,7 @@ from torch import nn
 
 from ..ops.attention import LinearNorm
 from ..ops.batchnorm import BatchNorm2d
+from ..parallel.mesh import draw_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +61,8 @@ def draw_normal(like: torch.Tensor, eps: Optional[torch.Tensor],
     """``eps`` when given, else a standard normal draw from ``generator``."""
     if eps is not None:
         return eps.to(like)
-    return torch.randn(like.shape, generator=generator, device=like.device,
-                       dtype=like.dtype)
+    return draw_rows(torch.randn, like.shape, generator=generator,
+                     device=like.device, dtype=like.dtype)
 
 
 class ConvBN2d(nn.Conv2d):

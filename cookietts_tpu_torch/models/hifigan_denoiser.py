@@ -40,6 +40,7 @@ from torch import nn
 
 from ..audio.stft import STFT
 from ..device import resolve_device
+from ..parallel.mesh import batch_means
 from .hifigan import WNConv
 from .waveglow import GATED_UNITS
 
@@ -280,8 +281,9 @@ class StarGANBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x).float()
-        mean = x.mean((0, 2, 3), keepdim=True)
-        var = ((x - mean) ** 2).mean((0, 2, 3), keepdim=True)
+        # over the global batch under a data-parallel group
+        mean = batch_means(x, dims=(0, 2, 3))[0].view(1, -1, 1, 1)
+        var = batch_means((x - mean) ** 2, dims=(0, 2, 3))[0].view(1, -1, 1, 1)
         x = ((x - mean) * torch.rsqrt(var + 1e-5)
              * self.bn_scale.view(1, -1, 1, 1) + self.bn_bias.view(1, -1, 1, 1))
         a, b = self.glu(x).chunk(2, 1)

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import LinearNorm
+from ..parallel.mesh import draw_rows
 
 
 class SylpsNet(nn.Module):
@@ -41,7 +42,7 @@ class SylpsNet(nn.Module):
         zu = mu
         if self.training:
             if noise is None:
-                noise = torch.randn(mu.shape, generator=generator,
+                noise = draw_rows(torch.randn, mu.shape, generator=generator,
                                     device=mu.device)
             zu = mu + torch.exp(0.5 * logvar) * noise
         return zu[:, None], mu, logvar

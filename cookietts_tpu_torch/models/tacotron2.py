@@ -605,13 +605,15 @@ def _eval_form(method):
 def batch_inputs(batch: Dict[str, Any]) -> Dict[str, Any]:
     """A collated batch's tensors as ``Tacotron2.forward``'s inputs; the
     emotion labels (when the batch has them) reach EmotionNet, whose known
-    rows take their one-hot."""
+    rows take their one-hot. A batch may carry SylpsNet's eps
+    (``sylps_noise`` [B]; the tests pass JAX's)."""
     return dict(text=batch["text"], text_lengths=batch["text_lengths"],
                 mels=batch["mels"], mel_lengths=batch["mel_lengths"],
                 speaker_id=batch["speaker_id"], sylps=batch["sylps"],
                 torchmoji_hidden=batch.get("torchmoji"),
                 emotion_id=batch.get("emotion_id"),
-                emotion_onehot=batch.get("emotion_onehot"))
+                emotion_onehot=batch.get("emotion_onehot"),
+                sylps_noise=batch.get("sylps_noise"))
 
 
 class Tacotron2(nn.Module):

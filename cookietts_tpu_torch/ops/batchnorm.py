@@ -2,11 +2,19 @@
 the JAX package's models use): normalise by the biased batch variance
 E[x^2] - E[x]^2 over every axis but the channel one (padding included),
 and move the running averages by 1 - 0.99 with that same variance. Eval
-uses the running averages as torch's BatchNorm does."""
+uses the running averages as torch's BatchNorm does.
+
+Under a data-parallel group (parallel/mesh.py) the training statistics come
+from the sum and the sum of squares all-reduced over the group, with
+gradient, and the running averages move with those global statistics: the
+BatchNorm JAX runs over the global batch of a dp mesh. (Not
+``nn.SyncBatchNorm``, whose running variance is the unbiased one.)"""
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import batch_means
 
 
 class _FlaxStatistics:
@@ -15,8 +23,8 @@ class _FlaxStatistics:
             return super().forward(x)
         dims = [0] + list(range(2, x.dim()))
         shape = [1, -1] + [1] * (x.dim() - 2)
-        mean = x.mean(dims)
-        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        mean, sq = batch_means(x, x * x, dims=dims)
+        var = (sq - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)

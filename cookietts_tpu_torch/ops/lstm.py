@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import draw_rows
 from . import hopper_kernels as hk
 
 
@@ -73,12 +74,14 @@ class ZoneoutLSTMCell(nn.Module):
         if not self.training:
             return c_new, h_new
         if self.zoneout > 0.0:
-            zc = torch.rand(c.shape, generator=generator, device=c.device)
-            zh = torch.rand(h.shape, generator=generator, device=h.device)
+            zc = draw_rows(torch.rand, c.shape, generator=generator,
+                           device=c.device)
+            zh = draw_rows(torch.rand, h.shape, generator=generator,
+                           device=h.device)
             c_new = torch.where(zc < self.zoneout, c, c_new)
             h_new = torch.where(zh < self.zoneout, h, h_new)
         elif self.dropout > 0.0:
-            keep = torch.rand(h.shape, generator=generator,
-                              device=h.device) < 1.0 - self.dropout
+            keep = draw_rows(torch.rand, h.shape, generator=generator,
+                             device=h.device) < 1.0 - self.dropout
             h_new = torch.where(keep, h_new / (1.0 - self.dropout), 0.0)
         return c_new, h_new

@@ -6,6 +6,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import draw_rows
+
 
 def get_mask_from_lengths(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """[B] lengths -> [B, max_len] bool mask (True inside the sequence)."""
@@ -29,8 +31,8 @@ def dropout_frame(mels: torch.Tensor, global_mean: torch.Tensor,
     global mean [n_mel], each with probability ``drop_frame_rate``."""
     B, T, _ = mels.shape
     valid = get_mask_from_lengths(mel_lengths, T)
-    drop = torch.rand((B, T), generator=generator,
-                      device=mels.device) < drop_frame_rate
+    drop = draw_rows(torch.rand, (B, T), generator=generator,
+                     device=mels.device) < drop_frame_rate
     return torch.where((drop & valid)[:, :, None],
                        global_mean.to(mels.dtype)[None, None, :], mels)
 
@@ -38,5 +40,6 @@ def dropout_frame(mels: torch.Tensor, global_mean: torch.Tensor,
 def dropout(x: torch.Tensor, p: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout with a keep mask drawn from ``generator``."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    keep = draw_rows(torch.rand, x.shape, generator=generator,
+                     device=x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), 0.0)

@@ -8,6 +8,10 @@
   shape-filtered, with ``ignore_layers``);
 - a manual save trigger: a file named ``save`` in the run directory.
 
+Under a data-parallel group one rank writes (``Checkpointer(writer=...)``,
+rank 0): the parameters are the same on every rank, and writers of one run
+directory would race on the same temporary file.
+
 Format: ``torch.save`` of {"step", "state_dict", "opt_state"} (and the
 trainer's generator state in periodic checkpoints; a GAN's discriminators
 under "d_state_dict" and "d_opt_state"). The state
@@ -117,19 +121,26 @@ def warm_start(target: Dict[str, torch.Tensor],
 
 class Checkpointer:
     """Run-directory checkpoint manager with best-model tracking; writes
-    are synchronous."""
+    are synchronous. A Checkpointer that is not the ``writer`` tracks the
+    best losses and writes nothing (its trees may be None)."""
 
-    def __init__(self, run_dir: str, keep_last: int = 3):
+    def __init__(self, run_dir: str, keep_last: int = 3, writer: bool = True):
         self.run_dir = run_dir
         self.keep_last = keep_last
+        self.writer = writer
         os.makedirs(run_dir, exist_ok=True)
         self.best_val_loss = float("inf")
         self.best_inf_attsc = float("-inf")
 
+    def _save(self, path: str, tree, metadata) -> None:
+        if self.writer:
+            save_checkpoint(path, tree, metadata)
+
     def save_periodic(self, step: int, tree, metadata=None) -> str:
         path = os.path.join(self.run_dir, f"checkpoint_{step}")
-        save_checkpoint(path, tree, metadata)
-        self._gc()
+        self._save(path, tree, metadata)
+        if self.writer:
+            self._gc()
         return path
 
     def _periodic(self):
@@ -148,8 +159,8 @@ class Checkpointer:
         if val_loss < self.best_val_loss:
             self.best_val_loss = val_loss
             metadata = {**(metadata or {}), "best_val_loss": val_loss}
-            save_checkpoint(os.path.join(self.run_dir, "best_val_model"),
-                            tree, metadata)
+            self._save(os.path.join(self.run_dir, "best_val_model"), tree,
+                       metadata)
             return True
         return False
 
@@ -158,12 +169,14 @@ class Checkpointer:
         if att_score > self.best_inf_attsc:
             self.best_inf_attsc = att_score
             metadata = {**(metadata or {}), "best_inf_attsc": att_score}
-            save_checkpoint(os.path.join(self.run_dir, "best_inf_attsc"),
-                            tree, metadata)
+            self._save(os.path.join(self.run_dir, "best_inf_attsc"), tree,
+                       metadata)
             return True
         return False
 
     def manual_save_requested(self) -> bool:
+        if not self.writer:
+            return False
         trigger = os.path.join(self.run_dir, "save")
         if os.path.exists(trigger):
             try:

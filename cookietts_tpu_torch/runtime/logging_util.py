@@ -1,5 +1,7 @@
 """Metrics logging + per-file loss database
-(cookietts_tpu/runtime/logging_util.py; one process writes).
+(cookietts_tpu/runtime/logging_util.py; one process writes: under a
+data-parallel group the logger of rank 0, ``MetricsLogger(writer=True)``;
+the others keep their smoothing state and write nothing).
 
 Rebuild of the reference logger (CookieTTS/_2_ttm/tacotron2_tm/logger.py)
 and the ``file_losses`` curation DB (train.py:282-321,371-383):
@@ -38,15 +40,16 @@ class MetricsLogger:
     events.jsonl."""
 
     def __init__(self, log_dir: str, smoothing: float = 0.95,
-                 use_tensorboard: bool = True):
+                 use_tensorboard: bool = True, writer: bool = True):
         os.makedirs(log_dir, exist_ok=True)
         self.log_dir = log_dir
         self.smoothing = smoothing
         self._smoothed: Dict[str, float] = {}
         self._best: Dict[str, float] = {}
-        self._jsonl = open(os.path.join(log_dir, "events.jsonl"), "a")
+        self._jsonl = (open(os.path.join(log_dir, "events.jsonl"), "a")
+                       if writer else None)
         self.tb = (SummaryWriter(log_dir)
-                   if use_tensorboard and SummaryWriter else None)
+                   if writer and use_tensorboard and SummaryWriter else None)
 
     def log_scalars(self, step: int, scalars: Dict[str, Any],
                     prefix: str = "train") -> None:

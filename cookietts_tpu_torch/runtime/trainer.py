@@ -28,8 +28,19 @@ For every model: loss explosion recovery restores every side of the state
 the vocoders') stepped with each validation's loss scales the live LR, and
 its scale rides the checkpoints' metadata.
 
-Single process; the multi-host and tensor-parallel branches of the JAX
-trainer wait for the parallel runtime. Validation images are not logged.
+Data parallel across processes (parallel/): each step factory takes a
+``dp`` (a :class:`~cookietts_tpu_torch.parallel.DataParallel`), runs its
+forwards in the group's scope (BatchNorm statistics and row draws over the
+global batch), makes its loss terms this rank's parts of the global batch's
+terms and sums the gradients over the group before clipping; the metrics
+are the global values, equal on every rank, so every rank takes the same
+branch of the explosion test. The Trainer's rank 0 reads the live config
+and the manual-save trigger and broadcasts them, and alone writes
+checkpoints and logs (the others wait at a barrier after each save); every
+rank's generator has one state, from the seed, since every draw is made at
+the global batch's shape (parallel/mesh.py: draw_rows). Without a group
+every path is the one-process one. Tensor and sequence parallelism are not
+ported; validation images are not logged.
 """
 from __future__ import annotations
 
@@ -53,6 +64,7 @@ from ..models.hifigan import (discriminator_loss, feature_loss, generator_loss,
 from ..models.tacotron2 import batch_inputs
 from ..models.waveglow import waveglow_loss
 from ..ops.metrics import alignment_metric, weighted_score
+from ..parallel.mesh import SINGLE, DataParallel, data_parallel, draw_rows
 from .checkpoint import Checkpointer, restore_train_state
 from .live_config import LiveConfig, LossExplosion
 from .logging_util import FileLossDB, MetricsLogger
@@ -69,35 +81,39 @@ def _targets(batch):
 
 
 def make_tacotron2_train_step(model, gate_positive_weight: float = 10.0,
-                              guided_att_sigma: float = 0.5) -> Callable:
+                              guided_att_sigma: float = 0.5,
+                              dp: Optional[DataParallel] = None) -> Callable:
     """step(state, batch, generator, ctrl, carry=None) ->
     (state, metrics, file_losses, carry). ``batch`` holds tensors on the
-    model's device; ``ctrl`` the live values: lr, grad_clip,
-    p_teacher_forcing, teacher_force_till, drop_frame_rate,
-    guided_att_sigma and the loss weights. The state is updated in place."""
+    model's device (this rank's rows under ``dp``); ``ctrl`` the live
+    values: lr, grad_clip, p_teacher_forcing, teacher_force_till,
+    drop_frame_rate, guided_att_sigma and the loss weights. The state is
+    updated in place."""
+    dp = data_parallel(dp)
 
     def step(state: TrainState, batch, generator, ctrl, carry=None):
         model.train()
-        out, new_carry = model(
-            **batch_inputs(batch), generator=generator,
-            p_teacher_forcing=ctrl["p_teacher_forcing"],
-            teacher_force_till=ctrl["teacher_force_till"],
-            drop_frame_rate=ctrl["drop_frame_rate"],
-            global_mean=batch.get("global_mean"), init_carry=carry,
-            pres_prev_state=(batch.get("pres_prev_state")
-                             if carry is not None else None))
+        with dp.scope():
+            out, new_carry = model(
+                **batch_inputs(batch), generator=generator,
+                p_teacher_forcing=ctrl["p_teacher_forcing"],
+                teacher_force_till=ctrl["teacher_force_till"],
+                drop_frame_rate=ctrl["drop_frame_rate"],
+                global_mean=batch.get("global_mean"), init_carry=carry,
+                pres_prev_state=(batch.get("pres_prev_state")
+                                 if carry is not None else None))
         gt = _targets(batch)
         gt["pres_prev_state"] = batch.get(
             "pres_prev_state", torch.zeros_like(batch["sylps"]))
         weights = {k: ctrl[k] for k in DEFAULT_LOSS_SCALARS if k in ctrl}
         total, loss_dict, file_losses = tacotron2_loss(
             out, gt, weights, gate_positive_weight,
-            ctrl.get("guided_att_sigma", guided_att_sigma))
+            ctrl.get("guided_att_sigma", guided_att_sigma), dp=dp)
         params = state.params
         grads = torch.autograd.grad(total, list(params.values()),
                                     allow_unused=True)
-        grads, grad_norm = clip_by_global_norm(dict(zip(params, grads)),
-                                               ctrl["grad_clip"])
+        grads, grad_norm = clip_by_global_norm(
+            dp.reduce_gradients(dict(zip(params, grads))), ctrl["grad_clip"])
         state.apply_gradients(grads, ctrl["lr"])
         loss_dict = {k: v.detach() for k, v in loss_dict.items()}
         loss_dict["grad_norm"] = grad_norm
@@ -109,18 +125,22 @@ def make_tacotron2_train_step(model, gate_positive_weight: float = 10.0,
 
 
 @torch.no_grad()
-def make_tacotron2_eval_step(model, gate_positive_weight: float = 10.0
-                             ) -> Callable:
+def make_tacotron2_eval_step(model, gate_positive_weight: float = 10.0,
+                             dp: Optional[DataParallel] = None) -> Callable:
     """Teacher-forced validation step in eval form, at full teacher
     forcing whatever the live schedule says (so val_loss stays comparable
-    across the run). Returns (loss_dict, file_losses, outputs)."""
+    across the run). Returns (loss_dict, file_losses, outputs); under
+    ``dp`` the losses are the global batch's."""
+    dp = data_parallel(dp)
 
     @torch.no_grad()
     def step(state: TrainState, batch, generator, ctrl):
         del ctrl
-        out = model.eval_forward(batch, generator)
+        with dp.scope():
+            out = model.eval_forward(batch, generator)
         _, loss_dict, file_losses = tacotron2_loss(
-            out, _targets(batch), gate_positive_weight=gate_positive_weight)
+            out, _targets(batch), gate_positive_weight=gate_positive_weight,
+            dp=dp)
         images = {k: out[k] for k in ("alignments", "mel_outputs_postnet",
                                       "gate_outputs")}
         return loss_dict, file_losses, images
@@ -128,25 +148,30 @@ def make_tacotron2_eval_step(model, gate_positive_weight: float = 10.0
     return step
 
 
-def make_tacotron2_inference_eval_step(model) -> Callable:
+def make_tacotron2_inference_eval_step(model, dp: Optional[DataParallel] = None
+                                       ) -> Callable:
     """Free-running validation step: decodes ``batch['mels'].shape[1]``
     steps and scores the alignments with the gate-derived lengths.
     Returns (loss_dict{inf_weighted_score, inf_diagonality,
     inf_avg_max_attention, inf_gate_fired, inf_len_abs_err},
-    file_losses{inf_att_score}, outputs)."""
+    file_losses{inf_att_score}, outputs); under ``dp`` the means are the
+    global batch's."""
+    dp = data_parallel(dp)
 
     def step(state: TrainState, batch, generator, ctrl):
         del ctrl
-        out = model.inference(
-            batch["text"], batch["text_lengths"], batch["speaker_id"],
-            batch.get("torchmoji"), sylps=batch["sylps"], generator=generator,
-            max_decoder_steps=int(batch["mels"].shape[1]))
+        with dp.scope():
+            out = model.inference(
+                batch["text"], batch["text_lengths"], batch["speaker_id"],
+                batch.get("torchmoji"), sylps=batch["sylps"],
+                generator=generator,
+                max_decoder_steps=int(batch["mels"].shape[1]))
         lengths = out["mel_lengths"]
         atd = alignment_metric(out["alignments"], batch["text_lengths"],
                                lengths)
         scores = weighted_score(atd, batch["text_lengths"], lengths)
         T_dec = out["alignments"].shape[1]
-        loss_dict = {
+        loss_dict = dp.report({k: dp.share(v) for k, v in {
             "inf_weighted_score": scores.mean(),
             "inf_diagonality": atd["diagonalitys"].mean(),
             "inf_avg_max_attention": atd["avg_prob"].mean(),
@@ -155,7 +180,7 @@ def make_tacotron2_inference_eval_step(model) -> Callable:
             # |predicted - ground-truth| length, in frames
             "inf_len_abs_err": (lengths.float()
                                 - batch["mel_lengths"].float()).abs().mean(),
-        }
+        }.items()})
         images = {k: out[k] for k in ("alignments", "mel_outputs_postnet",
                                       "gate_outputs")}
         return loss_dict, {"inf_att_score": scores}, images
@@ -195,8 +220,8 @@ def adapt_carry(carry, t_enc: int, batch_size: int):
 
 
 def align_file_losses(paths, file_losses) -> Dict[str, np.ndarray]:
-    """Per-file loss rows as numpy, paired with ``paths`` (one process: the
-    batch's rows are all this process's)."""
+    """Per-file loss rows as numpy, paired with ``paths``: this rank's rows
+    (under a group each rank loads, and scores, only its own rows)."""
     out = {k: v.detach().cpu().numpy() for k, v in file_losses.items()}
     rows = len(next(iter(out.values())))
     if rows != len(paths):
@@ -224,12 +249,15 @@ class TrainerConfig:
 
 class Trainer:
     """Iteration orchestration: live config, explosion recovery, validation
-    cadence, checkpoints, curation statistics."""
+    cadence, checkpoints, curation statistics. Under ``dp`` every rank runs
+    one Trainer over its rows of each batch (the steps made with the same
+    ``dp``); rank 0 reads the live config and writes."""
 
     def __init__(self, cfg: TrainerConfig, state: TrainState,
                  train_step: Callable, eval_step: Optional[Callable] = None,
                  val_batches=None, inference_eval_step: Optional[Callable] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 dp: Optional[DataParallel] = None):
         self.cfg = cfg
         self.state = state
         self.train_step = train_step
@@ -237,16 +265,19 @@ class Trainer:
         self.inference_eval_step = inference_eval_step
         self.val_batches = val_batches
         self.device = torch.device(device)
+        self.dp = data_parallel(dp)
         self.live = LiveConfig(cfg.live_config_path)
         if cfg.grad_clip is not None:
             self.set_live_defaults({"grad_clip_thresh": float(cfg.grad_clip)})
         self.plateau = cfg.plateau
-        self.ckpt = Checkpointer(cfg.run_dir)
-        self.logger = MetricsLogger(cfg.run_dir)
+        self.ckpt = Checkpointer(cfg.run_dir, writer=self.dp.primary)
+        self.logger = MetricsLogger(cfg.run_dir, writer=self.dp.primary)
         self.file_db = FileLossDB()
         self.n_restarts = 0
         self.default_metadata: Dict[str, Any] = {}   # stamped on every ckpt
+        # one state on every rank: draws are made at the global batch's shape
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
+        self._live_synced = False
         # the explosion fallback when no best_val_model exists yet
         self._init_params = [{k: v.detach().cpu().clone()
                               for k, v in side.params.items()}
@@ -260,6 +291,19 @@ class Trainer:
         if isinstance(self.state, GANTrainState):
             return [self.state.g, self.state.d]
         return [self.state]
+
+    def _poll_live(self, it: int) -> None:
+        """Re-read the live file; under a group rank 0 reads it and every
+        rank takes its values, so ``ctrl`` is the same on every rank."""
+        if self.dp.primary:
+            self.live.poll({"iteration": it})
+        self.live.values = self.dp.replicate_global(self.live.values)
+        self._live_synced = True
+
+    def _manual_save_requested(self) -> bool:
+        """The run directory's ``save`` trigger, taken by rank 0 for every
+        rank."""
+        return self.dp.replicate_global(self.ckpt.manual_save_requested())
 
     def set_live_defaults(self, values: Dict[str, Any]) -> None:
         """Set live-config values, then lay the live file over them again
@@ -311,7 +355,7 @@ class Trainer:
         """Start / stop a torch.profiler trace around the configured
         iteration window (run_dir/profile/trace.json, Chrome format)."""
         cfg = self.cfg
-        if cfg.profile_start is None:
+        if cfg.profile_start is None or not self.dp.primary:
             return
         if self._profiler is None and it == cfg.profile_start:
             from torch.profiler import ProfilerActivity, profile
@@ -331,8 +375,8 @@ class Trainer:
         t_start = time.perf_counter()
         it = int(self.state.step)
         self._maybe_profile(it)
-        if it % 5 == 0:
-            self.live.poll({"iteration": it})
+        if it % 5 == 0 or (self.dp.distributed and not self._live_synced):
+            self._poll_live(it)
         ctrl = self.ctrl(it)
         paths = batch.get("audiopath")
         dev = batch_to_device(batch, self.device)
@@ -372,7 +416,7 @@ class Trainer:
                 int(self.state.step),
                 {k: v.detach().cpu().numpy()
                  for k, v in self.state.params.items()})
-        if self.ckpt.manual_save_requested():
+        if self._manual_save_requested():
             self.save(periodic=True)
 
         it_now = int(self.state.step)
@@ -426,7 +470,9 @@ class Trainer:
 
     def save(self, periodic=True, val_loss: Optional[float] = None,
              att_score: Optional[float] = None, metadata=None) -> None:
-        tree = self.state.to_host_tree()
+        """Rank 0 writes (every rank tracks the best losses, which are
+        global); under a group every rank then waits for the files."""
+        tree = self.state.to_host_tree() if self.dp.primary else None
         metadata = {**self.default_metadata, **(metadata or {})}
         metadata.setdefault("best_val_loss", self.ckpt.best_val_loss)
         metadata.setdefault("best_inf_attsc", self.ckpt.best_inf_attsc)
@@ -435,19 +481,21 @@ class Trainer:
             metadata.setdefault("plateau_scale", self.plateau.scale)
         if periodic:
             # with the generator, so a resume draws what the run would have
-            self.ckpt.save_periodic(int(self.state.step), {
+            self.ckpt.save_periodic(int(self.state.step), tree and {
                 **tree, "generator": self.generator.get_state()}, metadata)
         if val_loss is not None:
             self.ckpt.maybe_save_best_val(val_loss, tree, metadata)
         if att_score is not None:
             self.ckpt.maybe_save_best_attsc(att_score, tree, metadata)
+        self.dp.barrier()
 
     def validate(self, batches, iteration: Optional[int] = None,
                  step_fn: Optional[Callable] = None,
                  prefix: str = "validation") -> Dict[str, float]:
-        """Seeded, reproducible validation over an iterable of batches:
-        batch i draws from a generator seeded with ``seed + i``.
-        ``step_fn`` defaults to the teacher-forced eval step."""
+        """Seeded, reproducible validation over an iterable of batches
+        (this rank's rows of each under a group): batch i draws from a
+        generator seeded with ``seed + i``. ``step_fn`` defaults to the
+        teacher-forced eval step."""
         step_fn = step_fn or self.eval_step
         it = iteration if iteration is not None else int(self.state.step)
         ctrl = self.ctrl(it)
@@ -472,7 +520,8 @@ class Trainer:
 def make_gan_trainer_step(d_step: Callable, g_step: Callable,
                           loss_key: str = "g_loss",
                           d_lr_scale: float = 1.0,
-                          prepare: Optional[Callable] = None) -> Callable:
+                          prepare: Optional[Callable] = None,
+                          dp: Optional[DataParallel] = None) -> Callable:
     """One Trainer step over a GANTrainState from a (d_step, g_step) pair:
     the discriminator step, then the generator step against the updated
     discriminators. ``metrics['loss']`` is ``metrics[loss_key]`` (explosion
@@ -481,11 +530,14 @@ def make_gan_trainer_step(d_step: Callable, g_step: Callable,
     see (the GAN postnet's draws its noise there, GAN-TTS its z, windows
     and dropout seed, once an iteration, as JAX's two steps share one key).
     The two steps and ``prepare`` stay reachable as ``step.d_step``,
-    ``step.g_step`` and ``step.prepare``."""
+    ``step.g_step`` and ``step.prepare``. Under ``dp`` ``prepare`` draws in
+    the group's scope (each rank its rows of the global batch's draws)."""
+    dp = data_parallel(dp)
 
     def step(state: GANTrainState, batch, generator, ctrl):
         if prepare is not None:
-            batch = prepare(batch, generator)
+            with dp.scope():
+                batch = prepare(batch, generator)
         d_ctrl = dict(ctrl, lr=ctrl["lr"] * d_lr_scale)
         _, d_m = d_step(state.d, state.g, batch, d_ctrl)
         _, g_m = g_step(state.g, state.d, batch, ctrl)
@@ -497,13 +549,15 @@ def make_gan_trainer_step(d_step: Callable, g_step: Callable,
     return step
 
 
-def _apply_clipped(state: TrainState, loss: torch.Tensor, ctrl):
-    """Gradients of ``loss`` for the state's parameters, clipped by their
-    global norm, and one optimizer step. Returns the pre-clip norm."""
+def _apply_clipped(state: TrainState, loss: torch.Tensor, ctrl,
+                   dp: DataParallel = SINGLE):
+    """Gradients of ``loss`` (this rank's part of the global loss under a
+    group) for the state's parameters, summed over the group, clipped by
+    their global norm, and one optimizer step. Returns the pre-clip norm."""
     params = state.params
     grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    grads, norm = clip_by_global_norm(dict(zip(params, grads)),
-                                      ctrl["grad_clip"])
+    grads, norm = clip_by_global_norm(
+        dp.reduce_gradients(dict(zip(params, grads))), ctrl["grad_clip"])
     state.apply_gradients(grads, ctrl["lr"])
     return norm
 
@@ -514,7 +568,8 @@ def _real_fake(fake: torch.Tensor, audio: torch.Tensor):
 
 
 def make_hifigan_train_steps(gen, mpd, msd, mel_fn: Callable,
-                             mel_weight: float = 45.0, fm_weight: float = 2.0
+                             mel_weight: float = 45.0, fm_weight: float = 2.0,
+                             dp: Optional[DataParallel] = None
                              ) -> Tuple[Callable, Callable]:
     """(d_step, g_step) of HiFi-GAN (cookietts_tpu/runtime/trainer.py:
     make_hifigan_train_steps): LSGAN losses over the MPD and the MSD,
@@ -523,7 +578,9 @@ def make_hifigan_train_steps(gen, mpd, msd, mel_fn: Callable,
     ctrl)`` and ``g_step(g_state, d_state, batch, ctrl)`` take batch =
     {mels, audio} on the device, update their own side in place and return
     (state, metrics). The generator runs its training form (``infer=False``)
-    in both; everything in float32 with TF32 off."""
+    in both; everything in float32 with TF32 off. Every term is a plain
+    mean over shapes equal on every rank, so under ``dp`` each is shared."""
+    dp = data_parallel(dp)
 
     def d_step(d_state, g_state, batch, ctrl):
         with full_float32():
@@ -532,38 +589,42 @@ def make_hifigan_train_steps(gen, mpd, msd, mel_fn: Callable,
             real, fake = _real_fake(fake, batch["audio"])
             rl, fl, _, _ = mpd(real, fake)
             rl2, fl2, _, _ = msd(real, fake)
-            loss = discriminator_loss(rl + rl2, fl + fl2)
-            norm = _apply_clipped(d_state, loss, ctrl)
-        return d_state, {"d_loss": loss.detach(), "d_grad_norm": norm}
+            loss = dp.share(discriminator_loss(rl + rl2, fl + fl2))
+            norm = _apply_clipped(d_state, loss, ctrl, dp)
+        return d_state, {**dp.report({"d_loss": loss.detach()}),
+                         "d_grad_norm": norm}
 
     def g_step(g_state, d_state, batch, ctrl):
         with full_float32():
             real, fake = _real_fake(gen(batch["mels"]), batch["audio"])
             _, fl, rf, ff = mpd(real, fake)
             _, fl2, rf2, ff2 = msd(real, fake)
-            adv = generator_loss(fl + fl2)
-            fm = feature_loss(rf + rf2, ff + ff2)
-            mel_rec = mel_l1_loss(mel_fn(real), mel_fn(fake))
+            adv = dp.share(generator_loss(fl + fl2))
+            fm = dp.share(feature_loss(rf + rf2, ff + ff2))
+            mel_rec = dp.share(mel_l1_loss(mel_fn(real), mel_fn(fake)))
             loss = adv + fm_weight * fm + mel_weight * mel_rec
-            norm = _apply_clipped(g_state, loss, ctrl)
-        return g_state, {"g_adv": adv.detach(), "g_fm": fm.detach(),
-                         "g_mel_l1": mel_rec.detach(), "g_loss": loss.detach(),
-                         "g_grad_norm": norm}
+            norm = _apply_clipped(g_state, loss, ctrl, dp)
+        return g_state, {**dp.report({
+            "g_adv": adv.detach(), "g_fm": fm.detach(),
+            "g_mel_l1": mel_rec.detach(), "g_loss": loss.detach()}),
+            "g_grad_norm": norm}
 
     return d_step, g_step
 
 
-def make_hifigan_eval_step(gen, mel_fn: Callable) -> Callable:
+def make_hifigan_eval_step(gen, mel_fn: Callable,
+                           dp: Optional[DataParallel] = None) -> Callable:
     """Validation: the mel L1 of the generator's audio (training form, as
     JAX validates) against the batch's. Returns ({loss, mel_l1}, {}, None)."""
+    dp = data_parallel(dp)
 
     @torch.no_grad()
     def step(state, batch, generator, ctrl):
         del state, generator, ctrl
         with full_float32():
             real, fake = _real_fake(gen(batch["mels"]), batch["audio"])
-            l1 = mel_l1_loss(mel_fn(real), mel_fn(fake))
-        return {"loss": l1, "mel_l1": l1}, {}, None
+            l1 = dp.share(mel_l1_loss(mel_fn(real), mel_fn(fake)))
+        return dp.report({"loss": l1, "mel_l1": l1}), {}, None
 
     return step
 
@@ -593,14 +654,15 @@ def gan_postnet_noise(noise_dim: int) -> Callable:
         if "noise" in batch:
             return batch
         B, T, _ = batch["decoder_mel"].shape
-        return dict(batch, noise=torch.randn(
-            B, T, noise_dim, generator=generator,
+        return dict(batch, noise=draw_rows(
+            torch.randn, (B, T, noise_dim), generator=generator,
             device=batch["decoder_mel"].device))
 
     return prepare
 
 
-def make_gan_postnet_train_steps(postnet, disc, mel_weight: float = 1.0
+def make_gan_postnet_train_steps(postnet, disc, mel_weight: float = 1.0,
+                                 dp: Optional[DataParallel] = None
                                  ) -> Tuple[Callable, Callable]:
     """(d_step, g_step) of the adversarial postnet
     (cookietts_tpu/runtime/trainer.py:make_gan_postnet_train_steps): the
@@ -614,8 +676,12 @@ def make_gan_postnet_train_steps(postnet, disc, mel_weight: float = 1.0
     statistics with both; the G step runs the postnet in training form (its
     statistics move) against the discriminator's running averages, and adds
     ``mel_weight`` times the masked mel MSE to the adversarial loss. Each
-    updates its own side in place and returns (state, metrics)."""
+    updates its own side in place and returns (state, metrics). Under
+    ``dp`` the BatchNorms take the global batch's statistics, the mel MSE's
+    frame count is the global batch's and the BCE terms (plain means) are
+    shared."""
     from ..models.gan_postnet import gan_postnet_losses
+    dp = data_parallel(dp)
 
     def fake_of(batch):
         postnet.train()
@@ -623,59 +689,67 @@ def make_gan_postnet_train_steps(postnet, disc, mel_weight: float = 1.0
                        noise=batch["noise"])
 
     def d_step(d_state, g_state, batch, ctrl):
-        with full_float32():
+        with full_float32(), dp.scope():
             with torch.no_grad(), _stats_kept(postnet):
                 fake = fake_of(batch)
             disc.train()
             d_real = disc(batch["gt_mel"], batch["speaker_embed"])
             d_fake = disc(fake, batch["speaker_embed"])
             _, d_loss = gan_postnet_losses(d_real, d_fake)
-            norm = _apply_clipped(d_state, d_loss, ctrl)
-        return d_state, {"d_loss": d_loss.detach(),
-                         "d_real": d_real.detach().mean(),
-                         "d_fake": d_fake.detach().mean(),
-                         "d_grad_norm": norm}
+            d_loss = dp.share(d_loss)
+            norm = _apply_clipped(d_state, d_loss, ctrl, dp)
+        return d_state, {**dp.report({
+            "d_loss": d_loss.detach(),
+            "d_real": dp.share(d_real.detach().mean()),
+            "d_fake": dp.share(d_fake.detach().mean())}),
+            "d_grad_norm": norm}
 
     def g_step(g_state, d_state, batch, ctrl):
-        with full_float32():
+        with full_float32(), dp.scope():
             fake = fake_of(batch)
             disc.eval()
             d_fake = disc(fake, batch["speaker_embed"])
             g_adv, _ = gan_postnet_losses(d_fake, d_fake)
+            g_adv = dp.share(g_adv)
             m = batch.get("mel_mask")
             m = (torch.ones_like(fake[..., :1]) if m is None
                  else m[:, :, None].float())
-            mel_mse = (((fake - batch["gt_mel"]) ** 2) * m).sum() / torch.clamp(
-                m.sum() * fake.shape[-1], min=1.0)
+            mel_mse = dp.masked_mean(
+                (((fake - batch["gt_mel"]) ** 2) * m).sum(),
+                m.sum() * fake.shape[-1])
             total = g_adv + mel_weight * mel_mse
-            norm = _apply_clipped(g_state, total, ctrl)
-        return g_state, {"g_adv": g_adv.detach(), "g_mel_MSE": mel_mse.detach(),
-                         "g_loss": total.detach(), "g_grad_norm": norm}
+            norm = _apply_clipped(g_state, total, ctrl, dp)
+        return g_state, {**dp.report({
+            "g_adv": g_adv.detach(), "g_mel_MSE": mel_mse.detach(),
+            "g_loss": total.detach()}), "g_grad_norm": norm}
 
     return d_step, g_step
 
 
-def make_gan_postnet_eval_step(postnet) -> Callable:
+def make_gan_postnet_eval_step(postnet, dp: Optional[DataParallel] = None
+                               ) -> Callable:
     """Validation: the mel MSE of the postnet in eval form (running
     averages) against the ground truth, its noise drawn from the
     validation batch's generator. Returns ({loss, mel_MSE}, {}, None)."""
+    dp = data_parallel(dp)
 
     @torch.no_grad()
     def step(state, batch, generator, ctrl):
         del state, ctrl
         postnet.eval()
-        with full_float32():
+        with full_float32(), dp.scope():
             fake = postnet(batch["decoder_mel"], batch["speaker_embed"],
                            generator=generator)
-            mse = ((fake - batch["gt_mel"]) ** 2).mean()
-        return {"loss": mse, "mel_MSE": mse}, {}, None
+            mse = dp.share(((fake - batch["gt_mel"]) ** 2).mean())
+        return dp.report({"loss": mse, "mel_MSE": mse}), {}, None
 
     return step
 
 
 # -- the HiFi-GAN denoiser -------------------------------------------------------
 
-def make_hifigan_denoiser_train_steps(gen, dw, ds, mrs, stage: int = 0
+def make_hifigan_denoiser_train_steps(gen, dw, ds, mrs, stage: int = 0,
+                                      dp: Optional[DataParallel] = None
                                       ) -> Tuple[Callable, Callable]:
     """(d_step, g_step) of the staged denoiser
     (cookietts_tpu/runtime/trainer.py:make_hifigan_denoiser_train_steps).
@@ -683,15 +757,18 @@ def make_hifigan_denoiser_train_steps(gen, dw, ds, mrs, stage: int = 0
     D step is a no-op that returns the state it was given. Stage >= 2: the
     fakeness logits of the wave (DW) and spectrogram (DS) critics are summed
     into one BCE (real label 0, fake 1); the D loss averages its real and
-    fake halves. batch = {noisy [B,T], clean [B,T]} on the device."""
+    fake halves. batch = {noisy [B,T], clean [B,T]} on the device. Every
+    term is a plain mean over equal shapes, shared under ``dp``; DS's
+    BatchNorms take the global batch's statistics."""
     from ..models.hifigan_denoiser import (denoiser_loss, fakeness_bce,
                                            log_compress)
+    dp = data_parallel(dp)
 
     def fakeness(audio):
         return dw(audio) + ds(log_compress(mrs(audio)))
 
     def g_step(g_state, d_state, batch, ctrl):
-        with full_float32():
+        with full_float32(), dp.scope():
             pred = gen(batch["noisy"])
             dw_fake = ds_fake = None
             if stage >= 2:
@@ -699,8 +776,9 @@ def make_hifigan_denoiser_train_steps(gen, dw, ds, mrs, stage: int = 0
                 ds_fake = ds(log_compress(mrs(pred)))
             total, parts = denoiser_loss(mrs, pred, batch["clean"], stage=stage,
                                          dw_fake=dw_fake, ds_fake=ds_fake)
-            norm = _apply_clipped(g_state, total, ctrl)
-        metrics = {k: v.detach() for k, v in parts.items()}
+            norm = _apply_clipped(g_state, dp.share(total), ctrl, dp)
+        metrics = dp.report({k: dp.share(v.detach())
+                             for k, v in parts.items()})
         metrics["g_grad_norm"] = norm
         return g_state, metrics
 
@@ -710,21 +788,26 @@ def make_hifigan_denoiser_train_steps(gen, dw, ds, mrs, stage: int = 0
         return d_step, g_step
 
     def d_step(d_state, g_state, batch, ctrl):
-        with full_float32():
+        with full_float32(), dp.scope():
             with torch.no_grad():
                 pred = gen(batch["noisy"])
-            loss = (fakeness_bce(fakeness(batch["clean"]), fake_label=0.0)
-                    + fakeness_bce(fakeness(pred), fake_label=1.0)) / 2.0
-            norm = _apply_clipped(d_state, loss, ctrl)
-        return d_state, {"d_loss": loss.detach(), "d_grad_norm": norm}
+            loss = dp.share(
+                (fakeness_bce(fakeness(batch["clean"]), fake_label=0.0)
+                 + fakeness_bce(fakeness(pred), fake_label=1.0)) / 2.0)
+            norm = _apply_clipped(d_state, loss, ctrl, dp)
+        return d_state, {**dp.report({"d_loss": loss.detach()}),
+                         "d_grad_norm": norm}
 
     return d_step, g_step
 
 
-def make_hifigan_denoiser_eval_step(gen, mrs, stage: int) -> Callable:
+def make_hifigan_denoiser_eval_step(gen, mrs, stage: int,
+                                    dp: Optional[DataParallel] = None
+                                    ) -> Callable:
     """Validation at every stage is spectral only (critic terms would make
     it incomparable across stages). Returns ({loss, spectral}, {}, None)."""
     from ..models.hifigan_denoiser import denoiser_loss
+    dp = data_parallel(dp)
 
     @torch.no_grad()
     def step(state, batch, generator, ctrl):
@@ -732,7 +815,8 @@ def make_hifigan_denoiser_eval_step(gen, mrs, stage: int) -> Callable:
         with full_float32():
             total, _ = denoiser_loss(mrs, gen(batch["noisy"]), batch["clean"],
                                      stage=min(stage, 1))
-        return {"loss": total, "spectral": total}, {}, None
+            total = dp.share(total)
+        return dp.report({"loss": total, "spectral": total}), {}, None
 
     return step
 
@@ -872,8 +956,8 @@ def gantts_draws(z_dim: int, windows) -> Callable:
         mels = batch["mels"]
         out = dict(batch)
         if "z" not in out:
-            out["z"] = torch.randn((mels.shape[0], z_dim), generator=generator,
-                                   device=mels.device)
+            out["z"] = draw_rows(torch.randn, (mels.shape[0], z_dim),
+                                 generator=generator, device=mels.device)
         drawn = []
         if "window_starts" not in out:
             drawn.append(window_starts(mels.shape[1], windows, generator,
@@ -904,7 +988,8 @@ def _bce_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
     return torch.mean(F.softplus(x) - target * x)
 
 
-def make_gantts_train_steps(gen, disc, mel_weight: float = 1.0
+def make_gantts_train_steps(gen, disc, mel_weight: float = 1.0,
+                            dp: Optional[DataParallel] = None
                             ) -> Tuple[Callable, Callable]:
     """(d_step, g_step) of GAN-TTS (cookietts_tpu/runtime/trainer.py:
     make_gantts_train_steps): BCE on the window logits (the generator pulls
@@ -916,7 +1001,11 @@ def make_gantts_train_steps(gen, disc, mel_weight: float = 1.0
     three): both steps generate from the
     same z with the same dropout masks and score the same windows; the D
     step on a detached fake. Each updates its own side in place and
-    returns (state, metrics)."""
+    returns (state, metrics). Under ``dp`` the mel L1's frame count is the
+    global batch's, the BCE terms (plain means over the windows) are
+    shared, and the dropout masks are this rank's rows of the global
+    batch's."""
+    dp = data_parallel(dp)
 
     def fake_of(batch):
         seed = batch.get("dropout_seed")
@@ -929,57 +1018,63 @@ def make_gantts_train_steps(gen, disc, mel_weight: float = 1.0
 
     def d_step(d_state, g_state, batch, ctrl):
         starts = _host_ints(batch["window_starts"])
-        with full_float32():
+        with full_float32(), dp.scope():
             with torch.no_grad():
                 fake, _ = fake_of(batch)
             real_logits = disc(batch["mels"], starts)
             fake_logits = disc(fake, starts)
-            loss = (sum(_bce_logits(lg, 1.0) for lg in real_logits)
-                    + sum(_bce_logits(lg, 0.0) for lg in fake_logits)
-                    ) / len(real_logits)
-            norm = _apply_clipped(d_state, loss, ctrl)
-        return d_state, {"d_loss": loss.detach(),
-                         "d_real_logit": real_logits[0].detach().mean(),
-                         "d_fake_logit": fake_logits[0].detach().mean(),
-                         "d_grad_norm": norm}
+            loss = dp.share((sum(_bce_logits(lg, 1.0) for lg in real_logits)
+                             + sum(_bce_logits(lg, 0.0) for lg in fake_logits)
+                             ) / len(real_logits))
+            norm = _apply_clipped(d_state, loss, ctrl, dp)
+        return d_state, {**dp.report({
+            "d_loss": loss.detach(),
+            "d_real_logit": dp.share(real_logits[0].detach().mean()),
+            "d_fake_logit": dp.share(fake_logits[0].detach().mean())}),
+            "d_grad_norm": norm}
 
     def g_step(g_state, d_state, batch, ctrl):
         starts = _host_ints(batch["window_starts"])
-        with full_float32():
+        with full_float32(), dp.scope():
             fake, frame_mask = fake_of(batch)
             logits = disc(fake, starts)
-            g_adv = sum(_bce_logits(lg, 1.0) for lg in logits) / len(logits)
-            mel_l1 = gantts_mel_l1(fake, batch["mels"], frame_mask)
+            g_adv = dp.share(sum(_bce_logits(lg, 1.0) for lg in logits)
+                             / len(logits))
+            mel_l1 = gantts_mel_l1(fake, batch["mels"], frame_mask, dp)
             total = g_adv + mel_weight * mel_l1
-            norm = _apply_clipped(g_state, total, ctrl)
-        return g_state, {"g_adv": g_adv.detach(), "g_mel_l1": mel_l1.detach(),
-                         "g_loss": total.detach(), "g_grad_norm": norm}
+            norm = _apply_clipped(g_state, total, ctrl, dp)
+        return g_state, {**dp.report({
+            "g_adv": g_adv.detach(), "g_mel_l1": mel_l1.detach(),
+            "g_loss": total.detach()}), "g_grad_norm": norm}
 
     return d_step, g_step
 
 
 def gantts_mel_l1(fake: torch.Tensor, mels: torch.Tensor,
-                  frame_mask: torch.Tensor) -> torch.Tensor:
-    """The mel L1 over the valid frames and every channel."""
+                  frame_mask: torch.Tensor,
+                  dp: DataParallel = SINGLE) -> torch.Tensor:
+    """The mel L1 over the valid frames and every channel (of the global
+    batch under ``dp``: this rank's part)."""
     m = frame_mask[:, :, None].float()
-    return (torch.abs(fake - mels) * m).sum() / torch.clamp(
-        m.sum() * fake.shape[-1], min=1.0)
+    return dp.masked_mean((torch.abs(fake - mels) * m).sum(),
+                          m.sum() * fake.shape[-1])
 
 
-def make_gantts_eval_step(gen) -> Callable:
+def make_gantts_eval_step(gen, dp: Optional[DataParallel] = None) -> Callable:
     """Validation: the masked mel L1 of the generator without dropout, its
     z drawn from the validation batch's generator. Returns ({loss, mel_l1},
     {}, None)."""
+    dp = data_parallel(dp)
 
     @torch.no_grad()
     def step(state, batch, generator, ctrl):
         del state, ctrl
-        with full_float32():
+        with full_float32(), dp.scope():
             fake, frame_mask = gen(
                 batch["text"], batch["text_lengths"], batch["speaker_id"],
                 batch["durations"], t_out=batch["mels"].shape[1],
                 generator=generator, deterministic=True)
-            l1 = gantts_mel_l1(fake, batch["mels"], frame_mask)
-        return {"loss": l1, "mel_l1": l1}, {}, None
+            l1 = gantts_mel_l1(fake, batch["mels"], frame_mask, dp)
+        return dp.report({"loss": l1, "mel_l1": l1}), {}, None
 
     return step
