@@ -228,6 +228,28 @@ non-zero:
    BatchNorm, rounding noise, left out) within relative L2 1e-4, exactly
    200 attention_step and 600 lstm_gates launches; the group destroyed
    after.
+15. pipeline stages 0 and 1 (pipeline/preprocess.py, no kernel of the
+   port on the path). 15a: 96 seeded speech-like clips (1.5-10 s with
+   0.2-0.6 s of low noise at each end, mono 16-bit at 22050 Hz; an LJSpeech
+   layout and a four-speaker Clipper layout), then `python -m
+   cookietts_tpu_torch preprocess` as a process at configs/preprocess.json's
+   values (44.1 kHz, high-pass 150 and 40 Hz, 3 trim passes at 45 dB, -27
+   LUFS, 0.9 s minimum) with 4 spawned workers and the feature dump on the
+   card (filter 2048, hop 512, 80 mels, 20-11025 Hz, batches of 16): the
+   whole output inventory, one mel/len cache and .gt.f0/.gt.energy pair per
+   kept clip, the native audio path taken; the process's wall time split
+   into the audio step and the dump, device ms a batch, seconds of audio
+   per second, peak memory and the dump's device-busy share. 15b: the
+   card's frontend against the port's CPU frontend on one full batch (16
+   clips, bucket 2^19; mel 1e-3, loudness 1e-3 LU, energy rel 1e-4, f0 and
+   voicing equal on 99% of frames) and against the host anchors
+   (mel_spectrogram_np on the unpadded clips with their tail frames, 2e-3;
+   estimate_f0_autocorr, 99%; dsp.measure_loudness_lufs, 0.1 LU), the
+   anchor's s per clip on 8 clips. 15c: the port's TTSDataset over the
+   written filelist serves every mel from the cache (the mel computation
+   stubbed to raise) and collates a batch. 15d: Griffin-Lim (B=1, 200
+   frames, 30 iterations) on the card against the CPU from the same angles
+   (1e-3 of the peak). No kernel is launched.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -4392,6 +4414,371 @@ def phase14(hk, tcfg, tmp, smi):
     return taco, hifigan
 
 
+# -- phase 15: pipeline stages 0 and 1 (the preprocess command) ---------------
+
+P15_CLIPS = 96        # the phase's one cut: a real corpus has thousands
+P15_SR_IN = 22050     # the corpus's rate: preprocess resamples to 44.1 kHz
+
+
+def p15_corpus(root, n, seed=0):
+    """``n`` seeded speech-like clips (harmonics with vibrato, breath noise,
+    0.2-0.6 s of low noise before and after; 1.5-10 s a clip), mono 16-bit
+    at 22050 Hz, half in an LJSpeech layout (one speaker, metadata.csv),
+    half in a Clipper layout (four speakers, a .txt beside each clip).
+    Returns (the dataset directories, the seconds of audio)."""
+    import numpy as np
+    from cookietts_tpu_torch.data import audio_io
+    rng = np.random.default_rng(seed)
+    lj, clip = root / "LJSpeech", root / "Clipper_MLP"
+    (lj / "wavs").mkdir(parents=True)
+    clip.mkdir()
+    words = ("hello there friend please call stella the quick brown fox "
+             "jumps over lazy dog a pony named twilight reads every book "
+             "in the library").split()
+    lines, seconds = [], 0.0
+    for i in range(n):
+        speech = rng.uniform(1.1, 8.8)
+        t = np.arange(int(P15_SR_IN * speech)) / P15_SR_IN
+        f0 = rng.uniform(90, 300) * (1 + 0.04 * np.sin(2 * np.pi * 5 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / P15_SR_IN
+        x = sum(np.sin(h * phase) / h for h in range(1, 7))
+        x *= 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(1, 3) * t) ** 2
+        x = 0.3 * x / np.abs(x).max() + 0.01 * rng.standard_normal(len(t))
+        x *= np.clip(np.minimum(t, t[-1] - t) / 0.05, 0, 1)
+        sil = [1e-4 * rng.standard_normal(int(P15_SR_IN * rng.uniform(0.2, 0.6)))
+               for _ in range(2)]
+        audio = np.concatenate([sil[0], x, sil[1]]).astype(np.float32)
+        seconds += len(audio) / P15_SR_IN
+        quote = " ".join(rng.choice(words, size=int(rng.integers(4, 12))))
+        quote = quote.capitalize() + "."
+        if i % 2 == 0:
+            name = f"LJ{i // 2 // 100 + 1:03d}-{i // 2 % 100:04d}"
+            audio_io.save_wav(str(lj / "wavs" / f"{name}.wav"), audio,
+                              P15_SR_IN)
+            lines.append(f"{name}|{quote}|{quote}")
+        else:
+            speaker = ("Twilight", "Rarity", "Applejack", "Fluttershy")[
+                (i // 2) % 4]
+            stem = (f"00_{i // 60:02d}_{i % 60:02d}_{speaker}_Neutral__"
+                    f"{quote[:-1]}")
+            audio_io.save_wav(str(clip / f"{stem}.wav"), audio, P15_SR_IN)
+            (clip / f"{stem}.txt").write_text(quote)
+    (lj / "metadata.csv").write_text("\n".join(lines) + "\n")
+    return [str(lj), str(clip)], seconds
+
+
+def p15_preprocess(tmp, smi):
+    """The preprocess command as a process on the corpus at
+    configs/preprocess.json's values (44.1 kHz, high-pass 150 and 40 Hz, 3
+    trim passes at 45 dB, -27 LUFS, 0.9 s minimum) with 4 worker processes
+    and the feature dump on the card (PreprocessConfig's frontend: filter
+    2048, hop 512, 80 mels, 20-11025 Hz; batches of 16). Returns (the
+    config, its stats line, the kept entries)."""
+    import os
+    from cookietts_tpu_torch.data.filelist import load_filelist
+    from cookietts_tpu_torch.pipeline.preprocess import (PreprocessConfig,
+                                                         feature_cache_hash)
+    t0 = time.perf_counter()
+    dirs, seconds = p15_corpus(tmp / "corpus15", P15_CLIPS)
+    t_corpus = time.perf_counter() - t0
+    conf = json.loads((ROOT / "configs" / "preprocess.json").read_text())
+    conf.update(dataset_dirs=dirs, threads=4, on_device_features=True,
+                feature_batch=16, out_dir=str(tmp / "pre15"))
+    cfg_path = tmp / "preprocess15.json"
+    cfg_path.write_text(json.dumps(conf))
+    cfg = PreprocessConfig(**conf)
+    args = [sys.executable, "-m", "cookietts_tpu_torch", "preprocess", "-c",
+            str(cfg_path), *([] if DEV == "cuda" else ["--device", DEV])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ,
+                                                PYTHONPATH=str(ROOT)))
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-6000:])
+        raise SystemExit(f"chip_smoke: preprocess failed (exit "
+                         f"{proc.returncode})")
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])[
+        "preprocess_stats"]
+    feats = stats["features"]
+    path_line = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("[preprocess] audio path:")]
+    out = Path(conf["out_dir"])
+    missing = [name for name in (
+        "filelist_train.txt", "filelist_validation.txt", "speaker_info.txt",
+        "emotion_info.txt", "meta_dump.json", "preprocess_config.json",
+        "LJSpeech/filelist_train.txt", "Clipper_MLP/filelist_train.txt")
+        if not (out / name).is_file()]
+    entries = (load_filelist(str(out / "filelist_train.txt"))
+               + load_filelist(str(out / "filelist_validation.txt")))
+    h = feature_cache_hash(cfg)
+    for e in entries:
+        for sfx in (f".{h}.mel.npy", f".{h}.len.npy", ".gt.f0.npy",
+                    ".gt.energy.npy"):
+            if not os.path.isfile(e["path"] + sfx):
+                missing.append(os.path.basename(e["path"]) + sfx)
+    speakers = [ln.split("|")[1] for ln in
+                (out / "speaker_info.txt").read_text().splitlines()[1:]]
+    batch_ms = feats["batch_ms"]
+    peak = feats["peak_bytes"] or 0
+    log(f"  15a corpus: {P15_CLIPS} clips, {seconds:.1f} s of audio at "
+        f"{P15_SR_IN} Hz, written in {t_corpus:.1f} s; the preprocess process "
+        f"{wall:.1f} s wall: the audio step (resample to {cfg.target_sr}, "
+        f"high-pass, trim, loudness; {cfg.threads} spawned workers) "
+        f"{stats['audio_step_s']:.2f} s on the {stats['audio_path']} path, "
+        f"the feature dump {feats['wall_s']:.2f} s ({feats['load_s']:.2f} s "
+        f"reading the wavs), {stats['total_s']:.2f} s in run_preprocess, the "
+        f"rest process start; {smi}")
+    log(f"  15a the process's feature dump on {feats['device']}: "
+        f"{feats['batches']} batches of up to {cfg.feature_batch} (sorted by "
+        f"length, buckets {feats['buckets']}), wall ms a batch "
+        f"{[round(x, 2) for x in batch_ms]} (CUDA events around each call: "
+        f"the pageable copy to the card and the host's launch gaps included; "
+        f"the first batch pays CUDA's and the libraries' start-up, each new "
+        f"bucket its FFT plans), {feats['audio_s'] / feats['wall_s']:.0f} s "
+        f"of audio per second of the dump; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB; {smi}")
+    if DEV == "cuda":
+        # the dump again in this process, warm, then traced: its device time
+        # from torch.profiler's CUDA records (rewrites the same files)
+        from cookietts_tpu_torch.pipeline.preprocess import (
+            dump_features_on_device)
+        paths = [e["path"] for e in entries]
+        dump_features_on_device(paths, cfg, DEV)
+        warm = {}
+        dump_wall, busy = busy_share(lambda: warm.update(
+            dump_features_on_device(paths, cfg, DEV)))
+        log(f"  15a a warm dump in-process, traced: {dump_wall:.0f} ms wall, "
+            f"device-busy {busy:.1f} ms ({busy / warm['batches']:.2f} ms a "
+            f"batch), share {busy / dump_wall:.3f}; "
+            f"{warm['audio_s'] / (busy / 1e3):.0f} s of audio per device "
+            f"second, {warm['audio_s'] / (dump_wall / 1e3):.0f} per second of "
+            f"the dump; {smi}")
+    log(f"  15a outputs: {len(entries)} kept clips of {stats['wavs']}, "
+        f"speakers {speakers}; {path_line}; missing {missing[:8]}")
+    if (missing or stats["audio_path"] != "native" or not path_line
+            or "native (" not in path_line[0] or len(entries) != P15_CLIPS
+            or feats["clips"] != P15_CLIPS or len(speakers) != 5):
+        raise SystemExit("chip_smoke: preprocess's outputs are incomplete, "
+                         "or it did not take the native audio path")
+    return cfg, entries
+
+
+def p15_frontend(cfg, entries, smi):
+    """The card's frontend against the port's CPU frontend on one full
+    batch (the 16 longest clips, bucket 2^19), and against the host
+    anchors. Returns the batch's clips."""
+    import numpy as np
+    import torch
+    from cookietts_tpu_torch.audio import dsp
+    from cookietts_tpu_torch.audio.features import estimate_f0
+    from cookietts_tpu_torch.audio.stft import TacotronSTFT
+    from cookietts_tpu_torch.data import audio_io
+    from cookietts_tpu_torch.pipeline.preprocess import (bucket_batch,
+                                                         feature_frontend)
+    clips = [audio_io.remove_dc_offset(audio_io.load_wav(
+        e["path"], target_sr=cfg.target_sr)[0]) for e in entries]
+    clips = sorted(clips, key=len)[-16:]
+    batch, lengths = bucket_batch(clips, cfg)
+    if batch.shape != (16, 2 ** 19):
+        raise SystemExit(f"chip_smoke: the batch is {batch.shape}, not 16 x "
+                         "2^19")
+    dev = torch.device(DEV)
+    fn = feature_frontend(cfg, dev)
+    fn(batch, lengths)                                  # warm
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    card = {k: v.cpu().numpy() for k, v in fn(batch, lengths).items()}
+    t_card = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base
+            if dev.type == "cuda" else 0)
+    wall, busy = (busy_share(lambda: fn(batch, lengths))
+                  if dev.type == "cuda" else (1.0, 0.0))
+    t0 = time.perf_counter()
+    cpu = {k: v.numpy() for k, v in
+           feature_frontend(cfg, "cpu")(batch, lengths).items()}
+    t_cpu = time.perf_counter() - t0
+    mel_err = float(np.abs(card["mel"] - cpu["mel"]).max())
+    lufs_err = float(np.abs(card["loudness"] - cpu["loudness"]).max())
+    energy_rel = float((np.abs(card["energy"] - cpu["energy"])
+                        / np.abs(cpu["energy"])).max())
+    f0_agree = float(np.isclose(card["f0"], cpu["f0"], rtol=1e-5,
+                                atol=1e-3).mean())
+    voiced_agree = float((card["voiced"] == cpu["voiced"]).mean())
+    log(f"  15b one batch (16 x 2^19, {lengths.min() / cfg.target_sr:.2f}-"
+        f"{lengths.max() / cfg.target_sr:.2f} s) card against the CPU: mel "
+        f"max abs {mel_err:.2e} (limit 1e-3), loudness {lufs_err:.2e} LU "
+        f"(1e-3), energy max rel {energy_rel:.2e} (1e-4), f0 frames equal "
+        f"{f0_agree:.4f} (0.99), voicing equal {voiced_agree:.4f} (0.99); card "
+        f"{1e3 * t_card:.1f} ms wall (the copy back included), "
+        f"{busy / wall:.3f} of a call device-busy, peak {peak / 2 ** 20:.0f} "
+        f"MiB above the {base / 2 ** 20 if dev.type == 'cuda' else 0:.0f} MiB "
+        f"resident; CPU {t_cpu:.2f} s; {smi}")
+    if not (mel_err <= 1e-3 and lufs_err <= 1e-3 and energy_rel <= 1e-4
+            and f0_agree >= 0.99 and voiced_agree >= 0.99):
+        raise SystemExit("chip_smoke: the card's feature frontend disagrees "
+                         "with the CPU's")
+
+    # the host anchors on the unpadded clips
+    stft = TacotronSTFT(cfg.filter_length, cfg.hop_length, cfg.win_length,
+                        cfg.n_mel_channels, cfg.target_sr, cfg.mel_fmin,
+                        cfg.mel_fmax, device="cpu")
+    mel_host, f0_share, lufs_host, t_host = 0.0, 1.0, 0.0, 0.0
+    for j, clip in enumerate(clips):
+        t0 = time.perf_counter()
+        host = stft.mel_spectrogram_np(clip)
+        hf0, hvoiced = audio_io.estimate_f0_autocorr(
+            clip, cfg.target_sr, hop_length=cfg.hop_length,
+            frame_length=cfg.filter_length)
+        if j < 8:
+            t_host += time.perf_counter() - t0
+        n = len(clip) // cfg.hop_length + 1
+        if host.shape[0] != n:
+            raise SystemExit("chip_smoke: the host mel's frame count")
+        mel_host = max(mel_host, float(np.abs(card["mel"][j, :n]
+                                              - host).max()))
+        with torch.no_grad():
+            f0, voiced = estimate_f0(
+                torch.from_numpy(clip[None]).to(dev), cfg.target_sr,
+                hop_length=cfg.hop_length, frame_length=cfg.filter_length)
+        f0_share = min(f0_share, float(np.isclose(
+            f0[0].cpu().numpy(), hf0, rtol=1e-4, atol=1e-3).mean()),
+            float((voiced[0].cpu().numpy() == hvoiced).mean()))
+        lufs_host = max(lufs_host, abs(float(card["loudness"][j])
+                                       - dsp.measure_loudness_lufs(
+                                           clip, cfg.target_sr)))
+    log(f"  15b against the host anchors: mel_spectrogram_np on the unpadded "
+        f"clips, tail frames included, max abs {mel_host:.2e} (limit 2e-3); "
+        f"estimate_f0_autocorr frames and voicing equal, least share "
+        f"{f0_share:.4f} (0.99); dsp.measure_loudness_lufs max "
+        f"{lufs_host:.2e} LU (0.1); the host anchor (mel and autocorrelation "
+        f"f0) {t_host / 8:.3f} s a clip on 8 clips; {smi}")
+    if mel_host > 2e-3 or f0_share < 0.99 or lufs_host > 0.1:
+        raise SystemExit("chip_smoke: the card's frontend disagrees with the "
+                         "host anchors")
+    return clips
+
+
+def p15_dataset(cfg, smi):
+    """The stage boundary: the port's TTSDataset over the written
+    filelist_train.txt with the matching DataConfig serves every mel from
+    the cache (the mel computation stubbed to raise); one batch collated."""
+    import numpy as np
+    from cookietts_tpu_torch.data.dataset import DataConfig, TTSDataset, collate
+    from cookietts_tpu_torch.data.filelist import load_filelist
+    from cookietts_tpu_torch.pipeline.preprocess import feature_cache_hash
+    dcfg = DataConfig(
+        sampling_rate=cfg.target_sr, filter_length=cfg.filter_length,
+        hop_length=cfg.hop_length, win_length=cfg.win_length,
+        n_mel_channels=cfg.n_mel_channels, mel_fmin=cfg.mel_fmin,
+        mel_fmax=cfg.mel_fmax, trim_enable=False, target_lufs=None,
+        p_arpabet=0.0)
+    entries = load_filelist(str(Path(cfg.out_dir) / "filelist_train.txt"))
+    ds = TTSDataset(entries, dcfg, features=["text", "mel", "speaker_id"])
+
+    def refuse(*_a, **_k):
+        raise SystemExit("chip_smoke: the dataset computed a mel that "
+                         "preprocess cached")
+    ds.stft.mel_spectrogram_np = refuse
+    t0 = time.perf_counter()
+    items = [ds[i] for i in range(len(entries))]
+    dt = time.perf_counter() - t0
+    h = feature_cache_hash(cfg)
+    for e, item in zip(entries, items):
+        if not np.array_equal(item["mel"], np.load(e["path"]
+                                                   + f".{h}.mel.npy")):
+            raise SystemExit("chip_smoke: a served mel is not its cache")
+    short = sorted(items, key=lambda it: it["mel_length"])[:8]
+    batch = collate(short, dcfg)
+    log(f"  15c TTSDataset over filelist_train.txt: {len(items)} items, every "
+        f"mel from the cache ({1e3 * dt / len(items):.2f} ms an item); one "
+        f"collated batch mels {tuple(batch['mels'].shape)}, text "
+        f"{tuple(batch['text'].shape)}; {smi}")
+
+
+def p15_griffin_lim(cfg, clips, smi):
+    """Griffin-Lim on the card (B=1, 200 frames) against the CPU from the
+    same initial angles, twice. One iteration, where rounding has not yet
+    been fed back, is held to a fixed 1e-4 of the peak. Thirty iterations
+    of the accelerated scheme (momentum 0.99) feed rounding back, so they
+    are held to a fixed 1e-2 of the peak; both runs to the CPU's spectral
+    convergence (the rebuilt audio's STFT magnitude against the target's,
+    relative L2, within 1%). Beside each limit: what a relative 1e-6 nudge
+    of the magnitudes moves the CPU's own result."""
+    import torch
+    from cookietts_tpu_torch.audio.stft import TacotronSTFT
+    audio = torch.from_numpy(clips[-1][:199 * cfg.hop_length][None].copy())
+    stfts = {dev: TacotronSTFT(cfg.filter_length, cfg.hop_length,
+                               cfg.win_length, cfg.n_mel_channels,
+                               cfg.target_sr, cfg.mel_fmin, cfg.mel_fmax,
+                               device=dev) for dev in (DEV, "cpu")}
+    with torch.no_grad():
+        mag, _ = stfts["cpu"].stft.transform(audio, return_phase=False)
+    angles = (torch.rand(mag.shape, generator=torch.Generator()
+                         .manual_seed(15)) * 2 - 1) * math.pi
+    nudged_mag = mag * (1 + 1e-6 * torch.randn(
+        mag.shape, generator=torch.Generator().manual_seed(16)))
+    ok = True
+    for n_iters, limit in ((1, 1e-4), (30, 1e-2)):
+        out, ms, conv = {}, {}, {}
+        for dev, stft in stfts.items():
+            m = mag.to(dev)
+            with torch.no_grad():
+                stft.griffin_lim(m, n_iters=2, angles=angles.to(dev))  # warm
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[dev] = stft.griffin_lim(m, n_iters=n_iters,
+                                            angles=angles.to(dev)).cpu()
+                ms[dev] = 1e3 * (time.perf_counter() - t0)
+                rebuilt, _ = stft.stft.transform(out[dev].to(dev),
+                                                 return_phase=False)
+                conv[dev] = float((rebuilt - m).norm() / m.norm())
+        with torch.no_grad():
+            nudged = stfts["cpu"].griffin_lim(nudged_mag, n_iters=n_iters,
+                                              angles=angles)
+        a, b = out[DEV], out["cpu"]
+        peak = float(b.abs().max())
+        err = float((a - b).abs().max()) / peak
+        nudge = float((nudged - b).abs().max()) / peak
+        log(f"  15d Griffin-Lim (B=1, {tuple(angles.shape)[1]} frames, "
+            f"{n_iters} iteration(s), momentum 0.99) card against the CPU, "
+            f"same angles: max abs {err:.2e} of the peak (limit {limit:.0e}; a "
+            f"1e-6 nudge of the magnitudes moves the CPU's {nudge:.2e}); "
+            f"spectral convergence card {conv[DEV]:.4f}, CPU "
+            f"{conv['cpu']:.4f}; card {ms[DEV]:.1f} ms, CPU {ms['cpu']:.1f} "
+            f"ms; {smi}")
+        ok = ok and (err <= limit and bool(torch.isfinite(a).all())
+                     and abs(conv[DEV] - conv["cpu"]) <= 0.01 * conv["cpu"]
+                     and a.shape == b.shape == (1, 199 * cfg.hop_length))
+    if not ok:
+        raise SystemExit("chip_smoke: Griffin-Lim on the card disagrees with "
+                         "the CPU's")
+
+
+def phase15(hk, tmp, smi):
+    """15a the preprocess command as a process, 15b the card's frontend
+    against the CPU's and the host anchors, 15c the dataset from the
+    caches, 15d Griffin-Lim. No kernel of the port lies on this path."""
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, entries = p15_preprocess(tmp, smi)
+    t1 = time.perf_counter()
+    clips = p15_frontend(cfg, entries, smi)
+    t2 = time.perf_counter()
+    p15_dataset(cfg, smi)
+    t3 = time.perf_counter()
+    p15_griffin_lim(cfg, clips, smi)
+    log(f"  phase 15a {t1 - t0:.1f} s, 15b {t2 - t1:.1f} s, 15c {t3 - t2:.1f} "
+        f"s, 15d {time.perf_counter() - t3:.1f} s")
+    if any(hk.LAUNCHES.values()):
+        raise SystemExit(f"chip_smoke: phase 15 launched {hk.LAUNCHES}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4508,6 +4895,12 @@ def main() -> int:
         t14 = time.perf_counter()
         phase14(hk, tcfg, Path(tmp), smi)
         log(f"  phase 14 in {time.perf_counter() - t14:.1f} s; {smi}")
+
+        log("phase 15: pipeline stages 0 and 1: the preprocess command, the "
+            "feature frontend on the card, Griffin-Lim")
+        t15 = time.perf_counter()
+        phase15(hk, Path(tmp), smi)
+        log(f"  phase 15 in {time.perf_counter() - t15:.1f} s; {smi}")
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -5,12 +5,13 @@ applied at hop-length stride, magnitude and phase split at the cutoff bin, and
 a pseudo-inverse basis with window-sum-square overlap-add correction.
 Spectrograms are time-major, [B, n_frames, cutoff], as in the JAX package.
 ``TacotronSTFT`` adds the Slaney mel projection and the log compression with
-the 1e-5 clamp (cookietts_tpu/audio/stft.py:TacotronSTFT); Griffin-Lim is not
-ported yet.
+the 1e-5 clamp (cookietts_tpu/audio/stft.py:TacotronSTFT), and accelerated
+Griffin-Lim over the STFT pair (``TacotronSTFT.griffin_lim``).
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -20,28 +21,7 @@ from scipy.signal import get_window
 
 from ..device import resolve_device
 from .mel import mel_filterbank
-
-
-def pad_center(window: np.ndarray, size: int) -> np.ndarray:
-    """Zero-pad a window symmetrically to ``size`` samples."""
-    n = len(window)
-    lpad = (size - n) // 2
-    out = np.zeros(size, dtype=window.dtype)
-    out[lpad:lpad + n] = window
-    return out
-
-
-def window_sumsquare(window_name: str, n_frames: int, hop_length: int,
-                     win_length: int, n_fft: int) -> np.ndarray:
-    """Sum-square envelope of an overlapped window sequence (float64)."""
-    n = n_fft + hop_length * (n_frames - 1)
-    x = np.zeros(n, dtype=np.float64)
-    win_sq = pad_center(get_window(window_name, win_length, fftbins=True) ** 2,
-                        n_fft)
-    for i in range(n_frames):
-        sample = i * hop_length
-        x[sample:min(n, sample + n_fft)] += win_sq[:max(0, min(n_fft, n - sample))]
-    return x
+from .processing import dynamic_range_compression, pad_center, window_sumsquare
 
 
 @functools.lru_cache(maxsize=2)
@@ -108,8 +88,7 @@ class STFT:
     def _window_sum(self, n_frames: int) -> torch.Tensor:
         if n_frames not in self._wss_cache:
             wss = window_sumsquare(self.window, n_frames, self.hop_length,
-                                   self.win_length, self.filter_length
-                                   ).astype(np.float32)
+                                   self.win_length, self.filter_length)
             tiny = np.finfo(np.float32).tiny
             self._wss_cache[n_frames] = torch.from_numpy(
                 np.where(wss > tiny, wss, np.float32(1.0))).to(self.device)
@@ -161,7 +140,7 @@ class TacotronSTFT:
         """[B, T] audio in [-1, 1] -> log-mel [B, n_frames, n_mel]."""
         magnitudes, _ = self.stft.transform(audio, return_phase=False)
         mel = torch.matmul(magnitudes, self.mel_basis)
-        return torch.log(mel.clamp_min(self.clip_val))
+        return dynamic_range_compression(mel, clip_val=self.clip_val)
 
     def mel_spectrogram_np(self, audio) -> np.ndarray:
         """Numpy mirror of :meth:`mel_spectrogram`; takes [T] or [B, T]."""
@@ -177,3 +156,35 @@ class TacotronSTFT:
         mag = np.sqrt(spec[..., :c] ** 2 + spec[..., c:] ** 2)
         mel = np.log(np.clip(mag @ self.mel_basis_np, self.clip_val, None))
         return mel[0] if squeeze else mel
+
+    def griffin_lim(self, magnitudes: torch.Tensor, n_iters: int = 30,
+                    momentum: float = 0.99,
+                    generator: Optional[torch.Generator] = None,
+                    angles: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Phase reconstruction from linear magnitudes [B, n_frames, cutoff]
+        -> audio [B, T] (cookietts_tpu/audio/stft.py:griffin_lim).
+
+        The accelerated (momentum) Griffin-Lim update; ``momentum=0`` is the
+        classic scheme of the reference (audio_processing.py:59-75). The
+        initial phases are ``angles`` when given, else uniform in [-pi, pi)
+        from ``generator`` (a generator on the magnitudes' device; by default
+        one seeded 0)."""
+        if angles is None:
+            if generator is None:
+                generator = torch.Generator(magnitudes.device).manual_seed(0)
+            angles = (torch.rand(magnitudes.shape, generator=generator,
+                                 device=magnitudes.device,
+                                 dtype=magnitudes.dtype) * 2.0 - 1.0) * math.pi
+        # the complex spectrum carried as a (real, imag) pair
+        rebuilt = torch.stack([torch.cos(angles), torch.sin(angles)])
+        prev = rebuilt
+        for _ in range(n_iters):
+            accel = rebuilt + momentum * (rebuilt - prev)
+            audio = self.stft.inverse(magnitudes, torch.atan2(accel[1],
+                                                              accel[0]))
+            mag2, phase2 = self.stft.transform(audio, return_phase=True)
+            new = torch.stack([mag2 * torch.cos(phase2),
+                               mag2 * torch.sin(phase2)])
+            rebuilt, prev = new / mag2.clamp_min(1e-16)[None], rebuilt
+        return self.stft.inverse(magnitudes,
+                                 torch.atan2(rebuilt[1], rebuilt[0]))

@@ -1,5 +1,20 @@
-"""Command-line interface of the port (cookietts_tpu/cli.py:193-486,
+"""Command-line interface of the port (cookietts_tpu/cli.py:32-41, 193-486,
 701-977, 979-1339, 1454-1697).
+
+Stages 0 and 1 of the pipeline, the corpus from the datasets' archives to
+the filelists ``train`` reads:
+
+    python -m cookietts_tpu_torch download -c download.json
+    python -m cookietts_tpu_torch preprocess -c preprocess.json \
+        [--device cuda|cpu]
+
+``preprocess`` rewrites the wavs in place (resample, high-pass, trim,
+loudness; the C++ kernels of data/native.py, built into ``build/`` at first
+use) and writes the filelists, speaker and emotion info and
+``meta_dump.json``; with ``on_device_features`` the fused feature frontend
+runs on the device and writes the dataset's mel caches and the ``.gt.f0`` /
+``.gt.energy`` dumps (pipeline/preprocess.py). The config's keys are
+``PreprocessConfig``'s (configs/preprocess.json drives both packages).
 
     python -m cookietts_tpu_torch train --model tacotron2|hifigan|waveglow|\
         gan_postnet|hifigan_denoiser|untts|gantts --filelist f.txt \
@@ -260,6 +275,22 @@ def _build_tacotron2(overrides, device, seed: int):
         torch.manual_seed(seed)
         model = Tacotron2(cfg, device="cpu")
     return model.to(device), cfg
+
+
+def cmd_download(args):
+    from .pipeline.download import run_downloads
+    run_downloads(args.config)
+
+
+def cmd_preprocess(args):
+    """Preprocess; the device is resolved first (raises without a card
+    unless ``--device cpu``). Returns the filelist result."""
+    from .config import load_json_config
+    from .device import resolve_device
+    from .pipeline.preprocess import PreprocessConfig, run_preprocess
+    device = resolve_device(args.device)
+    conf = load_json_config(args.config) if args.config else {}
+    return run_preprocess(PreprocessConfig(**conf), device=device)
 
 
 def cmd_train(args):
@@ -1488,6 +1519,18 @@ def _add_t2s_args(sp):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("cookietts_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    d = sub.add_parser("download", help="fetch the datasets of a config")
+    d.add_argument("-c", "--config", required=True)
+    d.set_defaults(fn=cmd_download)
+
+    pr = sub.add_parser("preprocess", help="wavs to filelists, with the "
+                        "feature frontend on the device")
+    pr.add_argument("-c", "--config", default=None,
+                    help="JSON of PreprocessConfig's keys")
+    pr.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+    pr.set_defaults(fn=cmd_preprocess)
+
     t = sub.add_parser("train")
     t.add_argument("--model", default="tacotron2", choices=TRAINERS)
     t.add_argument("--filelist", required=True)

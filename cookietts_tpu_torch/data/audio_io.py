@@ -18,15 +18,30 @@ soundfile/librosa/pyloudnorm/pyworld:
   voicedness, the cheaper stand-in.
 - :func:`count_syllables` — heuristic vowel-group counter (stand-in for
   the ``syllables`` package, data_utils.py:856-859).
+
+Resampling, the high-pass, the trim bounds and the loudness take the C++
+kernels of :mod:`.native` when that library is built (the JAX package's
+rule), numpy/scipy otherwise; ``COOKIETTS_DISABLE_NATIVE=1`` forces
+numpy/scipy.
 """
 from __future__ import annotations
 
+import os
 import re
 from typing import Optional, Tuple
 
 import numpy as np
 from scipy import signal
 from scipy.io import wavfile
+
+
+def _native():
+    """The C++ kernel library (data/native.py) if it is built, else None.
+    Set COOKIETTS_DISABLE_NATIVE=1 to force the numpy/scipy path."""
+    if os.environ.get("COOKIETTS_DISABLE_NATIVE"):
+        return None
+    from . import native
+    return native if native.available() else None
 
 
 def load_wav(path: str, target_sr: Optional[int] = None,
@@ -65,9 +80,14 @@ def remove_dc_offset(audio: np.ndarray) -> np.ndarray:
 
 
 def resample(audio: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
-    """Polyphase resampling — same role as librosa.resample (scipy)."""
+    """Polyphase resampling — same role as librosa.resample. Uses the
+    native windowed-sinc kernel when built, scipy otherwise."""
     if sr == target_sr:
         return audio
+    nat = _native()
+    if nat is not None:
+        return nat.resample(audio, int(sr), int(target_sr)).astype(
+            audio.dtype)
     g = np.gcd(int(sr), int(target_sr))
     return signal.resample_poly(audio, target_sr // g, sr // g).astype(
         audio.dtype)
@@ -79,6 +99,9 @@ def butter_highpass(audio: np.ndarray, sr: int, cutoff_hz: float,
     150 Hz then 40 Hz high-passes, audio_preprocessing.py:128-137)."""
     sos = signal.butter(order, cutoff_hz, btype="highpass", fs=sr,
                         output="sos")
+    nat = _native()
+    if nat is not None:
+        return nat.sos_filtfilt(audio, sos).astype(audio.dtype)
     return signal.sosfiltfilt(sos, audio).astype(audio.dtype)
 
 
@@ -101,9 +124,16 @@ def trim_silence(audio: np.ndarray, sr: int, top_db: float = 45.0,
     (data_utils.py:542-569); pass a list via successive calls or n_passes.
     """
     out = audio
+    nat = _native()
     for _ in range(max(n_passes, 1)):
         if len(out) < frame_length:
             break
+        if nat is not None:
+            s, e = nat.trim_bounds(out, frame_length, hop_length, top_db)
+            s = max(int(s - margin_left * sr), 0)
+            e = min(int(e + margin_right * sr), len(out))
+            out = out[s:e]
+            continue
         db = _frame_rms_db(out, frame_length, hop_length)
         keep = np.nonzero(db > (db.max() - top_db))[0]
         if len(keep) == 0:
@@ -147,6 +177,9 @@ def _k_weighting_sos(sr: int) -> np.ndarray:
 
 def bs1770_loudness(audio: np.ndarray, sr: int) -> float:
     """Integrated LUFS with -70 LUFS absolute + -10 LU relative gating."""
+    nat = _native()
+    if nat is not None:
+        return nat.bs1770_loudness(audio, int(sr))
     x = audio.astype(np.float64)
     sos = _k_weighting_sos(sr)
     for s in sos:

@@ -128,7 +128,7 @@ def bucket_size(n: int, buckets: Sequence[int]) -> int:
 
 
 FEATURES = ("text", "mel", "speaker_id", "sylps", "gate", "torchmoji",
-            "emotion_id", "f0", "energy", "durations")
+            "emotion_id", "f0", "energy", "durations", "audio")
 
 
 def fit_durations(dur: np.ndarray, n_text: int, t_mel: int) -> np.ndarray:
@@ -422,9 +422,12 @@ class TTSDataset:
         out: Dict[str, Any] = {"audiopath": e["path"], "index": index}
 
         audio = None
-        prosody = "f0" in self.features or "energy" in self.features
-        if "mel" in self.features or "sylps" in self.features or prosody:
-            if prosody or not (cfg.cache_mels and os.path.exists(
+        # the audio itself, f0 and energy need the clip even when the mel
+        # is cached (cookietts_tpu/data/dataset.py:431-440)
+        needs_audio = any(f in self.features for f in ("audio", "f0",
+                                                       "energy"))
+        if "mel" in self.features or "sylps" in self.features or needs_audio:
+            if needs_audio or not (cfg.cache_mels and os.path.exists(
                     self._cache_path(e["path"]))):
                 audio = self.load_audio(e["path"])
                 out["audio"] = audio

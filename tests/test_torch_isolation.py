@@ -45,7 +45,15 @@ for name in ("cookietts_tpu_torch.runtime.export_serving",
              "cookietts_tpu_torch.models.untts",
              "cookietts_tpu_torch.models.gantts",
              "cookietts_tpu_torch.data.dio",
-             "cookietts_tpu_torch.data.mfa"):
+             "cookietts_tpu_torch.data.mfa",
+             "cookietts_tpu_torch.utils",
+             "cookietts_tpu_torch.audio.dsp",
+             "cookietts_tpu_torch.audio.features",
+             "cookietts_tpu_torch.audio.processing",
+             "cookietts_tpu_torch.data.extract",
+             "cookietts_tpu_torch.data.native",
+             "cookietts_tpu_torch.pipeline.download",
+             "cookietts_tpu_torch.pipeline.preprocess"):
     assert name in sys.modules, name
 print("imported", len([m for m in sys.modules
                        if m.startswith("cookietts_tpu_torch")]))
@@ -412,3 +420,33 @@ def test_gta_and_adversarial_trainers_raise_without_cuda(monkeypatch,
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
         build("cpu")
+
+
+@pytest.mark.parametrize("entry", ["command", "run_preprocess", "dump",
+                                   "frontend"])
+def test_preprocess_raises_without_cuda(monkeypatch, tmp_path, entry):
+    """The preprocess command, run_preprocess, the feature dump and the
+    fused frontend run on the card unless asked for the CPU (then the
+    command goes on to read its missing config)."""
+    from cookietts_tpu_torch.audio.features import fused_frontend
+    from cookietts_tpu_torch.audio.stft import TacotronSTFT
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.pipeline.preprocess import (
+        PreprocessConfig, dump_features_on_device, run_preprocess)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing.json")
+    cfg = PreprocessConfig(out_dir=str(tmp_path / "out"))
+    make = {"command": lambda *a: cli(["preprocess", "-c", missing]
+                                      + (["--device", *a] if a else [])),
+            "run_preprocess": lambda *a: run_preprocess(cfg, None, *a),
+            "dump": lambda *a: dump_features_on_device([], cfg, *a),
+            "frontend": lambda *a: fused_frontend(
+                TacotronSTFT(256, 64, 256, 8, device="cpu"), sr=22050,
+                device=(a or ("cuda",))[0])}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    if entry == "command":
+        with pytest.raises(FileNotFoundError):     # past the device
+            make("cpu")
+    else:
+        make("cpu")

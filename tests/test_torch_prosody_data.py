@@ -3,8 +3,8 @@ reader, audio_io.estimate_f0_dio and the dataset's features and collate)
 against the JAX package's, on the CPU: bit for bit on the same inputs.
 
 The corpus is the evidence corpus (22050 Hz tones, 80 mels) written to a
-temporary directory, mel caching off, the JAX package's native audio
-library kept out (the port has only the numpy path)."""
+temporary directory, mel caching off, both packages' native audio
+libraries kept out (both run the numpy path)."""
 import numpy as np
 import pytest
 

@@ -2,9 +2,9 @@
 the CPU: Mel2Samp items (plain wavs, blur, GTA mels with and without DTW,
 an extremeGTA offset with logvar channels, a file shorter than a segment)
 and collate_mel2samp, dtw_align, LAMB and ReduceLROnPlateau. Both datasets
-read the same WAVs and GTA dumps, written to a temporary directory; the JAX
-package's optional native audio library is kept out (the port has only the
-numpy/scipy path)."""
+read the same WAVs and GTA dumps, written to a temporary directory; both
+packages' optional native audio libraries are kept out: both run the
+numpy/scipy path."""
 import jax
 import jax.numpy as jnp
 import numpy as np
