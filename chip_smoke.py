@@ -113,7 +113,8 @@ non-zero:
    default device, with --torchmoji, --arpa_dict and --speaker_info (gate
    threshold 2, one 128-step bucket, one attempt: a fixed decode length);
    the WAV's length, the stats line, the process's cold wall time. 9b: the
-   same with the WaveGlow behind the 160-mel Tacotron2 and --denoiser. 9c:
+   same with the WaveGlow behind the 160-mel Tacotron2 and --denoiser,
+   through the command's entry point (cli.main) in this process. 9c:
    the server's worker from _build_t2s, three requests through handle_tts
    (style_mode torchmoji and none, both field spellings), warm latency and
    peak memory; the torchmoji and none mels must differ, and the same
@@ -142,19 +143,19 @@ non-zero:
    the CPU with nothing drawn (dropouts 0, no postnet, the eps given; 1e-4);
    the train command with both heads on phase 7a's corpus, emotion ids on
    half of its lines, 2 iterations then a resume to 3 (launches counted).
-   10c: `python -m cookietts_tpu_torch convert` as a process on
+   10c: the convert command (its entry point, cli.main, in this process) on
    reference-layout .pt files of phase 9's seeded weights (Tacotron2 with
    both heads, HiFi-GAN, torchMoji) and of a WaveGlow at phase 4b's widths
    in the reference layout: each converted state dict equals its source bit
    for bit; the converted Tacotron2 and HiFi-GAN served through _build_t2s
    give phase 9's checkpoints' mels and audio exactly.
 11. serving exported artifacts (runtime/export_serving.py: torch.export
-   programs calling the kernels' custom ops). 11a: `python -m
-   cookietts_tpu_torch export` as a process on phase 9's seeded Tacotron2
+   programs calling the kernels' custom ops). 11a: the export command (its
+   entry point, cli.main, in this process) on phase 9's seeded Tacotron2
    (GST and EmotionNet) and HiFi-GAN (B=4, one text bucket of 64, 128 steps,
-   gate threshold 2), its wall time and bytes; then `tts --artifact` as a
-   process with phase 9a's flags: the WAV's length, the stats line, exact
-   launches, its cold wall time beside 9a's --checkpoint process. 11b: three
+   gate threshold 2), its wall time and bytes; then `tts --artifact` the
+   same way with phase 9a's flags: the WAV's length, the stats line, exact
+   launches, its wall time. 11b: three
    requests through _build_t2s(--artifact)'s worker, launch counters zeroed
    just before (attention_step 1 and lstm_gates 3 a decode step, the
    resblock its launches a vocoder call), mels and audio against the live
@@ -166,8 +167,8 @@ non-zero:
    (auto_functionalized nodes) in the WaveFlow program, vocode ms against
    the live infer's.
 12. the GTA stage and its two adversarial trainers, at full width. 12a: a
-   seeded Tacotron2Config() checkpoint; `python -m cookietts_tpu_torch gta`
-   as a process on a 12-utterance evidence corpus (22050 Hz, 80 mels, the
+   seeded Tacotron2Config() checkpoint; the gta command (its entry point,
+   cli.main, in this process) on a 12-utterance evidence corpus (22050 Hz, 80 mels, the
    data config's buckets) at batch 8, so the last batch is short: one map
    line an utterance, finite [T, 80] mels whose letter durations sum to T,
    attention_step once and lstm_gates 3 times a decoder step (the steps
@@ -210,17 +211,20 @@ non-zero:
    steps timed; one D+G step card against CPU with z and the window starts
    given (dropout 0).
 14. data-parallel training across processes (cookietts_tpu_torch/parallel/).
-   14a: `python -m torch.distributed.run --standalone --nproc_per_node 2 -m
-   cookietts_tpu_torch train --dist_backend gloo` (two ranks sharing the
-   card, TF32 off) at phase 7's widths on a 48-utterance evidence corpus,
-   global batch 16, 6 iterations with a validation and a checkpoint at 4,
-   against the same command in this process: per-iteration losses,
+   One `python -m torch.distributed.run --standalone --nproc_per_node 2`
+   launch of this script (--rank-jobs: two ranks sharing the card, gloo,
+   TF32 off) runs the train command's entry point for 14a, 14b, 16b and 16c
+   in turn, so the ranks start once. 14a: `train` at phase 7's widths on a
+   48-utterance evidence corpus, global batch 16, 4 iterations with a
+   validation at the start (validate_at_start) and a validation and a
+   checkpoint at 4 (async_save), against the same command in this process
+   (phase 16b's twin too): per-iteration losses,
    gradient norms and the validation loss within rel 1e-5 before the
    first update, 1e-4 after it and 1e-2 after more (dp_limit), the final
    weights every element within 2 lr an iteration, one writer's files,
    each rank's attention_step and lstm_gates launches one a decoder step,
    each run's s/iter (not a speed-up: one card). 14b: the same for `train
-   --model hifigan` at phase 8's widths and recipe, 4 iterations (no kernel
+   --model hifigan` at phase 8's widths and recipe, 2 iterations (no kernel
    launched). 14c: a world-1 NCCL group in this process (TCP store on
    localhost): the full-width Tacotron2 train step with the kernels at
    B=16, T_dec=200 under the group against the step with no group, loss
@@ -250,6 +254,23 @@ non-zero:
    stubbed to raise) and collates a batch. 15d: Griffin-Lim (B=1, 200
    frames, 30 iterations) on the card against the CPU from the same angles
    (1e-3 of the peak). No kernel is launched.
+16. tensor parallelism (parallel/tp.py, `train --tp 2`). 16a: lstm_gates at
+   the N = 2 shard widths of Tacotron2Config() (each rank's units' columns
+   of the four gate blocks: W [F, 4H/2] for H = 1280, 768, 768) at B = 16
+   and 4, each shard against its plain version and against the matching
+   columns of the unsharded kernel call (phase 3's limits), timed beside
+   the full call, with its bound. 16b: `train --model tacotron2 --tp 2` at
+   full width in phase 14's launch (validate_at_start, async_save) against
+   14a's one-process run: per-iteration losses and gradient norms, the
+   iteration-0 and later validations, the final weights (dp_limit's
+   rule), one writer's files, each rank's attention_step and lstm_gates
+   launches one a decoder step (lstm_gates at 4H/2 columns), whether the
+   validation images were written (the card's machine may lack matplotlib
+   and tensorboardX: reported, not required); the tp run's checkpoint loads
+   into a full Tacotron2 here. 16c: `train --model waveglow --tp 2` at
+   WaveGlowConfig() (48 kHz, batch 4), 2 iterations, validations at the
+   start and at 2 on the gathered weights (waveglow_wn_forward's launches
+   of one process on each rank), against the same command in this process.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -308,8 +329,24 @@ TOL = {"attention_step": (2e-5, 1e-4), "lstm_gates": (2e-5, 1e-4),
        "waveflow_row_step": (2e-5, 1e-4)}
 
 
+PHASE_STARTS = []     # (phase, perf_counter at its header line)
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def phase(name: str, title: str) -> None:
+    """A phase's header line; it also starts the phase's clock."""
+    PHASE_STARTS.append((name, time.perf_counter()))
+    log(f"phase {name}: {title}")
+
+
+def phase_seconds(end: float) -> dict:
+    """Each phase's seconds, from its header to the next one's (or
+    ``end``)."""
+    marks = PHASE_STARTS + [(None, end)]
+    return {p: round(b - a, 1) for (p, a), (_, b) in zip(marks, marks[1:])}
 
 
 def ptxas_report(text):
@@ -2664,35 +2701,48 @@ def p9_files(tmp, tcfg, hcfg, flows=True):
     return files
 
 
-P9_COLD = {}          # the cold wall seconds of each tts process, by vocoder
 
 
-def p9_tts(files, taco, vocoder, extra, out, smi, source=None):
+def p9_tts(files, taco, vocoder, extra, out, smi, source=None,
+           in_process=False):
     """``python -m cookietts_tpu_torch tts`` in a process of its own, default
     device, from the checkpoints (or the flags ``source``, such as an
-    --artifact); returns (its stats line, its kernel launches)."""
+    --artifact), or with ``in_process`` its entry point (cli.main) in this
+    process; returns (its stats line, its kernel launches)."""
+    import io
     source = source or ["--checkpoint", files[taco], "--vocoder", files[vocoder]]
-    cmd = [sys.executable, "-m", "cookietts_tpu_torch", "tts", *source,
-           "--torchmoji", files["pytorch_model.bin"],
-           "--torchmoji_vocab", files["vocabulary.json"],
-           "--arpa_dict", files["merged.dict"],
-           "--speaker_info", files["speaker_info.txt"], "--speaker", "bob",
-           "--text", P9_TEXT, "--max_attempts", "1", "--hparams", P9_HPARAMS,
-           "-o", str(out), *extra, *([] if DEV == "cuda" else ["--device", DEV])]
+    argv = ["tts", *source,
+            "--torchmoji", files["pytorch_model.bin"],
+            "--torchmoji_vocab", files["vocabulary.json"],
+            "--arpa_dict", files["merged.dict"],
+            "--speaker_info", files["speaker_info.txt"], "--speaker", "bob",
+            "--text", P9_TEXT, "--max_attempts", "1", "--hparams", P9_HPARAMS,
+            "-o", str(out), *extra, *([] if DEV == "cuda" else ["--device", DEV])]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    seconds = P9_COLD[vocoder] = time.perf_counter() - t0
-    if proc.returncode != 0:
-        log(proc.stdout[-3000:])
-        log(proc.stderr[-3000:])
-        raise SystemExit(f"chip_smoke: tts with {vocoder} exited "
-                         f"{proc.returncode}")
-    lines = proc.stdout.strip().splitlines()
+    if in_process:
+        from cookietts_tpu_torch.cli import main as cli
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(argv)
+        stdout = buf.getvalue()
+    else:
+        proc = subprocess.run([sys.executable, "-m", "cookietts_tpu_torch",
+                               *argv], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            log(proc.stdout[-3000:])
+            log(proc.stderr[-3000:])
+            raise SystemExit(f"chip_smoke: tts with {vocoder} exited "
+                             f"{proc.returncode}")
+        stdout = proc.stdout
+    seconds = time.perf_counter() - t0
+    lines = stdout.strip().splitlines()
     stats = json.loads(lines[-1])
     launches = next(json.loads(l)["kernel_launches"] for l in lines
                     if l.startswith('{"kernel_launches"'))
-    log(f"  tts {vocoder}: cold process {seconds:.2f} s wall (imports, "
+    where = ("in this process (imports and CUDA warm)" if in_process
+             else "cold process")
+    log(f"  tts {vocoder}: {where} {seconds:.2f} s wall (imports, "
         f"checkpoint loads and the first capture included); its own gen_time "
         f"{stats['gen_time']:.3f} s, total {stats['total_time']:.3f} s, xrt "
         f"{stats['xrt']:.3f}, {stats['audio_seconds']:.3f} s of audio; "
@@ -2750,9 +2800,10 @@ def phase9(hk, check, tcfg, hcfg, smi):
         del gen
 
         # 9b: WaveGlow behind a 160-mel Tacotron2, with the denoiser
+        # in this process: 9a's cold process is the script's cold tts
         stats, got = p9_tts(files, "taco160", "waveglow",
-                               ["--denoiser", "--denoise_strength", "0.1"],
-                               tmp / "b.wav", smi)
+                            ["--denoiser", "--denoise_strength", "0.1"],
+                            tmp / "b.wav", smi, in_process=True)
         with wave.open(str(tmp / "b.wav")) as w:
             rate, n = w.getframerate(), w.getnframes()
         flow = P9_SEGMENTS * P9_STEPS * FLOW_HOP
@@ -3102,17 +3153,14 @@ def phase10b_cli(hk, tmp):
 
 
 def p10_convert(model, src, dst):
-    """``python -m cookietts_tpu_torch convert`` as a process; its seconds."""
+    """The convert command's entry point (cli.main) in this process; its
+    seconds."""
+    import io
+    from cookietts_tpu_torch.cli import main as cli
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "cookietts_tpu_torch", "convert",
-                           "--model", model, "--torch_ckpt", str(src), "-o",
-                           str(dst)], cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    if proc.returncode != 0:
-        log(proc.stdout[-2000:])
-        log(proc.stderr[-2000:])
-        raise SystemExit(f"chip_smoke: 10c convert {model} exited "
-                         f"{proc.returncode}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli(["convert", "--model", model, "--torch_ckpt", str(src), "-o",
+             str(dst)])
     return time.perf_counter() - t0
 
 
@@ -3152,7 +3200,7 @@ def phase10c(tmp, tcfg, hcfg, smi):
         got, meta = load_checkpoint(str(tmp / name))
         same = set(got["state_dict"]) == set(sd) and all(
             torch.equal(got["state_dict"][k], t) for k, t in sd.items())
-        log(f"  10c convert {name}: {times[name]:.2f} s as a process "
+        log(f"  10c convert {name}: {times[name]:.2f} s in this process "
             f"({sum(t.numel() for t in sd.values()) / 1e6:.1f} M values); "
             f"state dict bit for bit: {same}; sidecar {meta}")
         if not same or meta["model"] != name:
@@ -3210,8 +3258,7 @@ def phase10(hk, check, tcfg, hcfg, smi):
         log(f"  phase 10b in {time.perf_counter() - t1:.1f} s")
         t2 = time.perf_counter()
         out["c"] = phase10c(Path(tmp), tcfg, hcfg, smi)
-        log(f"  phase 10c in {time.perf_counter() - t2:.1f} s")
-    log(f"  phase 10 in {time.perf_counter() - t0:.1f} s; {smi}")
+        log(f"  phase 10c in {time.perf_counter() - t2:.1f} s; {smi}")
     return out
 
 
@@ -3229,26 +3276,25 @@ P11_MEL_FRAMES = 32      # the flow vocoders' artifacts: 0.4 s of 48 kHz audio
 
 
 def p11_export(files, out, smi):
-    """The export command as a process on phase 9's seeded Tacotron2 and
+    """The export command in this process on phase 9's seeded Tacotron2 and
     HiFi-GAN: B = 4, one text bucket of 64, P9_STEPS decoder steps, a mel
     bucket of P9_STEPS frames, the gate threshold 2; logs its wall time and
     the artifact's bytes."""
-    cmd = [sys.executable, "-m", "cookietts_tpu_torch", "export",
-           "--checkpoint", files["taco80"], "--vocoder", files["hifigan"],
-           "-o", str(out), "--batch", "4", "--text_buckets", str(P11_TEXT_BUCKET),
-           "--mel_buckets", str(P9_STEPS), "--max_decoder_steps", str(P9_STEPS),
-           "--hparams", "gate_threshold=2.0",
-           *([] if DEV == "cuda" else ["--device", DEV])]
+    import io
+    from cookietts_tpu_torch.cli import main as cli
+    argv = ["export", "--checkpoint", files["taco80"], "--vocoder",
+            files["hifigan"], "-o", str(out), "--batch", "4", "--text_buckets",
+            str(P11_TEXT_BUCKET), "--mel_buckets", str(P9_STEPS),
+            "--max_decoder_steps", str(P9_STEPS), "--hparams",
+            "gate_threshold=2.0", *([] if DEV == "cuda" else ["--device", DEV])]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli(argv)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        log(proc.stdout[-3000:])
-        log(proc.stderr[-3000:])
-        raise SystemExit(f"chip_smoke: export exited {proc.returncode}")
-    got = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"  11a export: {seconds:.2f} s wall as a process, {got['bytes']} bytes "
+    got = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"  11a export: {seconds:.2f} s wall in this process (its entry "
+        f"point, cli.main), {got['bytes']} bytes "
         f"({Path(out).stat().st_size} on disk), functions {got['functions']} "
         f"({smi})")
 
@@ -3379,10 +3425,10 @@ def p11_flow(hk, check, name, model, gen, smi):
 
 
 def phase11(hk, check, tcfg, hcfg, smi):
-    """11a: the export command, then tts --artifact, each as a process at
-    the default device on phase 9's seeded checkpoints and phase 9a's flags
-    (the WAV's length, the stats line, launches, cold wall time beside 9a's
-    --checkpoint process); 11b and 11c above."""
+    """11a: the export command, then tts --artifact, each through its entry
+    point (cli.main) in this process at the default device on phase 9's
+    seeded checkpoints and phase 9a's flags (the WAV's length, the stats
+    line, launches, wall time); 11b and 11c above."""
     import tempfile
     import wave
 
@@ -3395,7 +3441,7 @@ def phase11(hk, check, tcfg, hcfg, smi):
         art = tmp / "serving.npz"
         p11_export(files, art, smi)
         stats, got = p9_tts(files, None, "artifact", [], tmp / "a.wav", smi,
-                            source=["--artifact", str(art)])
+                            source=["--artifact", str(art)], in_process=True)
         with wave.open(str(tmp / "a.wav")) as w:
             rate, n = w.getframerate(), w.getnframes()
         if (rate, n, stats["segments"]) != (SR, P9_SEGMENTS * P9_STEPS * HOP,
@@ -3407,9 +3453,7 @@ def phase11(hk, check, tcfg, hcfg, smi):
                         "hifigan_resblock": vocoder_launches(hk, gen, 1)},
                   "11a tts --artifact")
         del gen
-        log(f"  11a cold tts process: --artifact {P9_COLD['artifact']:.2f} s, "
-            f"--checkpoint (9a) {P9_COLD.get('hifigan', float('nan')):.2f} s "
-            f"({smi})")
+
         phase11_serving(hk, check, files, art, smi)
     # 11c: phase 4b's WaveGlow with ISO 226 de-emphasis off, then on, and
     # its WaveFlow
@@ -3479,8 +3523,8 @@ def p12_gta_files(map_lines, n_mel):
 
 
 def phase12a(hk, check, tcfg, smi, tmp):
-    """12a: a seeded full-width Tacotron2 checkpoint; the gta command as a
-    process on the card over a 12-utterance evidence corpus at batch 8 (a
+    """12a: a seeded full-width Tacotron2 checkpoint; the gta command in
+    this process on the card over a 12-utterance evidence corpus at batch 8 (a
     short last batch): one map line an utterance, finite [T, 80] mels whose
     letter durations sum to T, attention_step once and lstm_gates 3 times a
     decoder step; one batch through GTAGenerator with the kernels against
@@ -3513,19 +3557,11 @@ def phase12a(hk, check, tcfg, smi, tmp):
     dcfg = DataConfig(**{k: v for k, v in overrides.items()
                          if k in DataConfig.__dataclass_fields__})
     out = tmp / "gta"
-    cmd = [sys.executable, "-m", "cookietts_tpu_torch", "gta", "--checkpoint",
-           str(ckpt), "--filelist", train_fl, "-o", str(out), "--batch_size",
-           str(GTA_BATCH), "--hparams", GTA_HPARAMS,
-           *([] if DEV == "cuda" else ["--device", DEV])]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    cold = time.perf_counter() - t0
-    if proc.returncode != 0:
-        log(proc.stdout[-3000:])
-        log(proc.stderr[-3000:])
-        raise SystemExit(f"chip_smoke: gta exited {proc.returncode}")
-    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    stats = cli(["gta", "--checkpoint", str(ckpt), "--filelist", train_fl,
+                 "-o", str(out), "--batch_size", str(GTA_BATCH), "--hparams",
+                 GTA_HPARAMS, "--device", DEV])
+    wall = time.perf_counter() - t0
     map_path = out / "map_train_0.txt"
     lines = map_path.read_text().splitlines()
     if len(lines) != GTA_UTTERANCES or stats["utterances"] != len(lines):
@@ -3534,7 +3570,7 @@ def phase12a(hk, check, tcfg, smi, tmp):
     p12_gta_files(lines, tcfg.n_mel_channels)
     steps = gta_steps(lines, dcfg, GTA_BATCH)
     got = stats["kernel_launches"]
-    log(f"  12a gta process: {len(lines)} utterances in batches of "
+    log(f"  12a gta command: {len(lines)} utterances in batches of "
         f"{GTA_BATCH}, {stats['decoder_steps']} decoder steps (want {steps}); "
         f"launches {got}")
     if (stats["decoder_steps"], got["attention_step"], got["lstm_gates"]) != (
@@ -3548,7 +3584,8 @@ def phase12a(hk, check, tcfg, smi, tmp):
         f"{[round(t, 3) for t in stats['batch_seconds']]}): "
         f"{stats['seconds'] / len(lines):.4f} s per utterance, "
         f"{stats['seconds'] / stats['audio_seconds']:.4f} s per second of "
-        f"audio; the cold process {cold:.2f} s wall ({smi})")
+        f"audio; the command {wall:.2f} s wall in this process, its model "
+        f"load included ({smi})")
 
     # one batch in-process: kernels against plain, then card against CPU
     model, _ = _load_tacotron2(str(ckpt), overrides, DEV)
@@ -4140,12 +4177,14 @@ def phase13(hk, check, corpus, tmp, smi):
 # -- phase 14: data-parallel training across processes ------------------------
 
 # phase 7's corpus and widths (one 144-frame bucket and TBPTT segment, below
-# phase 10's T_dec cap of 200), global batch 16, 6 iterations with a
-# validation and a checkpoint at 4
+# phase 10's T_dec cap of 200), global batch 16, 4 iterations with a
+# validation at the start and a validation and a checkpoint at 4, written in
+# the background: the same run is phase 16b's one-process twin
 DP_TACO_HPARAMS = TRAIN_HPARAMS.replace(
     "validation_interval=3,checkpoint_interval=3",
-    "validation_interval=4,checkpoint_interval=4")
-DP_ITERS = {"tacotron2": 6, "hifigan": 4}
+    "validation_interval=4,checkpoint_interval=4,validate_at_start=True,"
+    "async_save=True")
+DP_ITERS = {"tacotron2": 4, "hifigan": 2}
 
 
 def dp_limit(updates: int) -> float:
@@ -4178,49 +4217,123 @@ def dp_events(run):
     return train, val
 
 
-def dp_run(hk, args, run, ranks):
-    """The train command on ``run``: in this process (one rank), or as
-    ``python -m torch.distributed.run --standalone --nproc_per_node
-    ranks`` with gloo (the ranks share the card), with TF32 off as in this
-    process (NVIDIA_TF32_OVERRIDE=0: the train command leaves torch's
-    defaults, which take cuDNN's convolutions in TF32). Returns (wall
-    seconds, each rank's kernel launches, the trainer of a run in this
-    process)."""
+def dp_run(hk, args, run):
+    """The train command on ``run`` in this process (one rank). Returns
+    (wall seconds, its kernel launches, the trainer)."""
     import torch
     from cookietts_tpu_torch.cli import main as cli
-    args = args + ["--run_dir", str(run)]
+    hk.reset_launch_counts()
     t0 = time.perf_counter()
-    if ranks == 1:
-        hk.reset_launch_counts()
-        trainer = cli(args)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, [dict(hk.LAUNCHES)], trainer
+    trainer = cli(args + ["--run_dir", str(run)])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, dict(hk.LAUNCHES), trainer
+
+
+def rank_launch(jobs, tmp):
+    """The train commands ``jobs`` ([(name, argv)]) one after another in one
+    ``python -m torch.distributed.run --standalone --nproc_per_node 2``
+    launch of this script (``--rank-jobs``): each rank starts once (its
+    imports, CUDA, the kernels' load) and calls the command's entry point,
+    cli.main, for each job, with gloo (the ranks share the card) and TF32
+    off as in this process (NVIDIA_TF32_OVERRIDE=0: the train command
+    leaves torch's defaults, which take cuDNN's convolutions in TF32).
+    Returns (the launch's wall seconds, {name: [each rank's record: seconds,
+    kernel launches, sharding]}); each record is a file beside the spec
+    (a line on the shared stdout could interleave with the other rank's)."""
     import os
+    spec = tmp / "rank_jobs.json"
+    spec.write_text(json.dumps({"device": DEV, "jobs": [
+        [name, args + ["--dist_backend", "gloo"]] for name, args in jobs]}))
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", str(ranks), "-m", "cookietts_tpu_torch"] + args
-        + ["--dist_backend", "gloo"], cwd=ROOT, capture_output=True,
-        text=True, timeout=900,
+         "--nproc_per_node", str(DP_WORLD), str(ROOT / "chip_smoke.py"),
+         "--rank-jobs", str(spec)], cwd=ROOT, capture_output=True, text=True,
+        timeout=1100,
         env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4",
                  NVIDIA_TF32_OVERRIDE="0"))
     dt = time.perf_counter() - t0
     if proc.returncode:
         log(proc.stdout[-3000:])
         log(proc.stderr[-6000:])
-        raise SystemExit(f"chip_smoke: the {ranks}-rank train command failed "
+        raise SystemExit(f"chip_smoke: the {DP_WORLD}-rank launch failed "
                          f"(exit {proc.returncode})")
-    launches = {}
-    for line in proc.stdout.splitlines():
-        if line.startswith('{"rank"'):
-            rec = json.loads(line)
-            launches[rec["rank"]] = rec["kernel_launches"]
-    if sorted(launches) != list(range(ranks)):
-        raise SystemExit(f"chip_smoke: launch counts of ranks "
-                         f"{sorted(launches)} of {ranks}")
-    return dt, [launches[r] for r in range(ranks)], None
+    out = {}
+    for path in tmp.glob("rank_job_*.json"):
+        rec = json.loads(path.read_text())
+        out.setdefault(rec["job"], {})[rec["rank"]] = rec
+    for name, _ in jobs:
+        if sorted(out.get(name, {})) != list(range(DP_WORLD)):
+            raise SystemExit(f"chip_smoke: job {name}: records of ranks "
+                             f"{sorted(out.get(name, {}))} of {DP_WORLD}")
+    return dt, {k: [v[r] for r in range(DP_WORLD)] for k, v in out.items()}
 
 
-def dp_compare(name, runs, iters, lr, smi):
+TP_CELLS = ("attention_rnn", "decoder_rnn", "second_decoder_rnn")
+
+
+def rank_jobs_main(spec) -> int:
+    """One rank of rank_launch: each job's train command in turn, its
+    seconds and kernel launches (counted from zero for each job) in
+    ``rank_job_<job>_<rank>.json`` beside ``spec``, with what shows the
+    model's tp sharding on this rank: each sharded tensor's axis and local shape, the decoder cells'
+    state widths and the column counts of the W that lstm_gates received
+    (with how many calls of each)."""
+    import collections
+    import gc
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.ops import _build
+    from cookietts_tpu_torch.ops import hopper_kernels as hk
+    from cookietts_tpu_torch.parallel import process_index, shutdown
+    from cookietts_tpu_torch.parallel.tp import layout_of
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(spec).parent
+    spec = json.loads(Path(spec).read_text())
+    cuda = spec["device"] == "cuda"
+    if cuda:
+        _build.load_all()
+    cols = collections.Counter()
+    gates = hk.lstm_gates
+
+    def gates_seen(xh, w, b, c):
+        cols[str(w.shape[1])] += 1
+        return gates(xh, w, b, c)
+
+    hk.lstm_gates = gates_seen
+    try:
+        for name, args in spec["jobs"]:
+            hk.reset_launch_counts()
+            cols.clear()
+            t0 = time.perf_counter()
+            trainer = cli(args)
+            if cuda:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            model = trainer.state.model
+            layout, local = layout_of(model), model.state_dict()
+            decoder = getattr(model, "decoder", None)
+            rank = process_index()
+            (out / f"rank_job_{name}_{rank}.json").write_text(json.dumps({
+                "job": name, "rank": rank, "seconds": seconds,
+                "kernel_launches": dict(hk.LAUNCHES),
+                "sharded": {k: [p.dim, list(local[k].shape)] for k, p in
+                            (layout.placements.items() if layout else ())},
+                "cell_widths": {c: getattr(decoder, c).state_width
+                                for c in TP_CELLS
+                                if getattr(decoder, c, None) is not None},
+                "lstm_cols": dict(cols)}))
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutdown()
+    return 0
+
+
+def dp_compare(name, runs, iters, lr, smi, what="2 ranks"):
     """Two runs of ``name`` (one process, then 2 ranks): the same
     per-iteration losses and gradient norms, and validation losses, within
     ``dp_limit`` of the updates before them; the final weights every element
@@ -4260,17 +4373,18 @@ def dp_compare(name, runs, iters, lr, smi):
     s_iter = [sum(t[k]["iter_s"] for k in t if k) / (iters - 1)
               for t in (t1, t2)]
     log(f"  {name}: losses {[round(t1[k]['loss'], 4) for k in range(iters)]}; "
-        f"2 ranks against 1 process, largest relative difference of a loss "
+        f"{what} against 1 process, largest relative difference of a loss "
         f"or gradient norm by iteration {[f'{d:.1e}' for d in d2]}, of the "
-        f"validation losses {[f'{d:.1e}' for d in val2]} (limits "
+        f"validation losses {[f'{d:.1e}' for d in val2]} at steps "
+        f"{[v['step'] for v in v1]} (limits "
         f"{[dp_limit(k) for k in range(iters)]} by iteration, the validations "
         f"the iteration's they follow); final "
         f"weights largest difference {w_abs[0]:.2e} ({w_abs[1]}; limit "
         f"{2 * lr * iters:.1e}), largest relative L2 {w_rel[0]:.2e} "
         f"({w_rel[1]}); files "
         f"{'the same' if files(one) == files(two) else 'differ'}, tensorboard "
-        f"files {tb}; s/iter after the first: 1 process {s_iter[0]:.3f}, 2 "
-        f"ranks sharing the card {s_iter[1]:.3f} (not a speed-up: one card); "
+        f"files {tb}; s/iter after the first: 1 process {s_iter[0]:.3f}, "
+        f"{what} sharing the card {s_iter[1]:.3f} (not a speed-up: one card); "
         f"{smi}")
     limits = ([dp_limit(k) for k in range(iters)]
               + [dp_limit(v["step"]) for v in v1])
@@ -4279,33 +4393,51 @@ def dp_compare(name, runs, iters, lr, smi):
             or tb[0] != tb[1] or tb[0] > 1
             or len((two / "events.jsonl").read_text().splitlines())
             != len((one / "events.jsonl").read_text().splitlines())):
-        raise SystemExit(f"chip_smoke: {name} at {DP_WORLD} ranks is not the "
+        raise SystemExit(f"chip_smoke: {name} at {what} is not the "
                          "one-process run, or left more than one writer's "
                          "files")
-    return s_iter
 
 
-def phase14a(hk, tmp, smi):
-    """The Tacotron2 train command at 2 ranks (gloo, one card) against one
-    process at phase 7's widths, with the kernels."""
+def phase14_jobs(tmp):
+    """Phase 14's and phase 16's train commands: {name: argv} (without
+    --run_dir), their run directories {name: (one process, ranks)}, and
+    the corpora."""
     from cookietts_tpu_torch.data.evidence_corpus import make_corpus
     train_fl, _ = make_corpus(str(tmp / "corpus14"), seed=0, n_train=32,
                               n_val=16)
-    iters = DP_ITERS["tacotron2"]
-    args = ["train", "--model", "tacotron2", "--filelist", train_fl,
+    sr = HIFIGAN_DATA["sampling_rate"]
+    hifigan_map = vocoder_corpus(tmp / "wav14", sr, 20,
+                                 2.5 * HIFIGAN_DATA["segment_length"] / sr,
+                                 seed=4)
+    flow_map = vocoder_corpus(tmp / "wav16", 48000, 6,
+                              1.5 * FLOW_SEGMENT / 48000, seed=6)
+    taco = ["train", "--model", "tacotron2", "--filelist", train_fl,
             "--hparams", DP_TACO_HPARAMS, "--seed", "0", "--iters",
-            str(iters)]
-    runs = [tmp / "dp_taco1", tmp / "dp_taco2"]
-    (dt1, [n1], trainer), (dt2, n2, _) = (dp_run(hk, args, runs[0], 1),
-                                          dp_run(hk, args, runs[1], DP_WORLD))
+            str(DP_ITERS["tacotron2"])]
+    hifigan = ["train", "--model", "hifigan", "--filelist", hifigan_map,
+               "--hparams", hparams_of({**HIFIGAN, **HIFIGAN_DATA, **CADENCE}),
+               "--seed", "0", "--iters", str(DP_ITERS["hifigan"])]
+    flow = ["train", "--model", "waveglow", "--filelist", flow_map,
+            "--hparams", TP_FLOW_HPARAMS, "--seed", "0", "--iters",
+            str(TP_FLOW_ITERS)]
+    dev = [] if DEV == "cuda" else ["--device", DEV]
+    return {"14a": taco + dev, "14b": hifigan + dev, "16c": flow + dev}
+
+
+def phase14a(runs, trainer, n1, dt1, rec, smi):
+    """The Tacotron2 train command at 2 ranks (gloo, one card) against one
+    process at phase 7's widths, with the kernels."""
+    iters = DP_ITERS["tacotron2"]
     # one launch a decoder step (lstm_gates 3) of the 144-frame bucket in
-    # every iteration and the two decodes of the validation batches in the
-    # one validation: each rank decodes its rows of every batch
-    want = expected_launches(trainer, iters, 1)
-    del trainer
+    # every iteration and the two decodes of the validation batches in each
+    # validation (at the start and at 4): each rank decodes its rows of
+    # every batch
+    want = expected_launches(trainer, iters, 2)
+    n2 = [r["kernel_launches"] for r in rec]
     log(f"  14a Tacotron2 (Tacotron2Config() widths, batch 16, {iters} "
-        f"iterations, validation and a checkpoint at 4): 1 process {dt1:.1f} "
-        f"s, {DP_WORLD} ranks {dt2:.1f} s (process start included); "
+        f"iterations, validation at the start and, with a checkpoint, at "
+        f"{iters}): 1 process {dt1:.1f} s, {DP_WORLD} ranks "
+        f"{[round(r['seconds'], 1) for r in rec]} s in the launch; "
         f"launches attention_step / lstm_gates: 1 process "
         f"{n1['attention_step']} / {n1['lstm_gates']}, ranks "
         f"{[(n['attention_step'], n['lstm_gates']) for n in n2]} (want "
@@ -4315,31 +4447,24 @@ def phase14a(hk, tmp, smi):
             raise SystemExit("chip_smoke: the data-parallel train command's "
                              "kernel launches are not one per decoder step")
     lr = 0.5e-3 + (1e-3 - 0.5e-3) * iters / 1000   # the live warm-up's
-    return dp_compare("14a Tacotron2", runs, iters, lr, smi), n2
+    dp_compare("14a Tacotron2", runs, iters, lr, smi)
+    return want
 
 
-def phase14b(hk, tmp, smi):
+def phase14b(runs, n1, dt1, rec, smi):
     """The HiFi-GAN train command at 2 ranks against one process at phase
     8's widths and recipe."""
-    sr = HIFIGAN_DATA["sampling_rate"]
-    map_file = vocoder_corpus(tmp / "wav14", sr, 20,
-                              2.5 * HIFIGAN_DATA["segment_length"] / sr,
-                              seed=4)
     iters = DP_ITERS["hifigan"]
-    args = ["train", "--model", "hifigan", "--filelist", map_file,
-            "--hparams", hparams_of({**HIFIGAN, **HIFIGAN_DATA, **CADENCE}),
-            "--seed", "0", "--iters", str(iters)]
-    runs = [tmp / "dp_hifigan1", tmp / "dp_hifigan2"]
-    (dt1, [n1], _), (dt2, n2, _) = (dp_run(hk, args, runs[0], 1),
-                                    dp_run(hk, args, runs[1], DP_WORLD))
+    n2 = [r["kernel_launches"] for r in rec]
     log(f"  14b HiFi-GAN (HiFiGANConfig(), batch 16, {iters} iterations, "
         f"validation and a checkpoint every 2): 1 process {dt1:.1f} s, "
-        f"{DP_WORLD} ranks {dt2:.1f} s; kernel launches {sum(n1.values())}, "
-        f"ranks {[sum(n.values()) for n in n2]} (training and its validation "
+        f"{DP_WORLD} ranks {[round(r['seconds'], 1) for r in rec]} s in the "
+        f"launch; kernel launches {sum(n1.values())}, ranks "
+        f"{[sum(n.values()) for n in n2]} (training and its validation "
         f"run the generator's training form: none)")
     if any(any(n.values()) for n in [n1] + n2):
         raise SystemExit("chip_smoke: HiFi-GAN training launched a kernel")
-    return dp_compare("14b HiFi-GAN", runs, iters, 2e-4, smi), n2
+    dp_compare("14b HiFi-GAN", runs, iters, 2e-4, smi)
 
 
 def phase14c(hk, tcfg, smi):
@@ -4403,15 +4528,43 @@ def phase14c(hk, tcfg, smi):
 
 def phase14(hk, tcfg, tmp, smi):
     """14a Tacotron2 and 14b HiFi-GAN through the train command at 2 ranks
-    against one process; 14c a world-1 NCCL group in this process."""
+    against one process; 14c a world-1 NCCL group in this process. The one
+    2-rank launch also runs phase 16's two tp commands (16b, 16c), and this
+    phase runs 16c's one-process twin; 14a's one-process run is 16b's
+    twin. Returns what phase 16 reads."""
     t0 = time.perf_counter()
-    taco = phase14a(hk, tmp, smi)
-    log(f"  phase 14a in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    hifigan = phase14b(hk, tmp, smi)
-    log(f"  phase 14b in {time.perf_counter() - t0:.1f} s")
+    jobs = phase14_jobs(tmp)
+    one = {}
+    for name in ("14a", "14b", "16c"):
+        run = tmp / f"run{name}_1"
+        dt, n, trainer = dp_run(hk, jobs[name], run)
+        one[name] = (run, dt, n)
+        if name == "14a":       # its validation batches size the launches
+            taco_trainer = trainer
+        del trainer
+    log(f"  14a, 14b and 16c one-process runs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launch = [(name, jobs[name] + ["--run_dir", str(tmp / f"run{name}_2")])
+              for name in ("14a", "14b")]
+    launch += [(name, jobs[key] + ["--run_dir", str(tmp / f"run{name}_2"),
+                                   "--tp", str(TP)])
+               for name, key in (("16b", "14a"), ("16c", "16c"))]
+    dt, rec = rank_launch(launch, tmp)
+    log(f"  the {DP_WORLD}-rank launch (14a, 14b, 16b, 16c in turn) "
+        f"{dt:.1f} s wall, of which the jobs "
+        f"{ {k: round(max(r['seconds'] for r in v), 1) for k, v in rec.items()} } s "
+        f"(the rest: the ranks' start, imports and CUDA); {smi}")
+    t2 = time.perf_counter()
+    run, dt1, n1 = one["14a"]
+    want = phase14a((run, tmp / "run14a_2"), taco_trainer, n1, dt1,
+                    rec["14a"], smi)
+    del taco_trainer
+    run, dt1, n1 = one["14b"]
+    phase14b((run, tmp / "run14b_2"), n1, dt1, rec["14b"], smi)
     phase14c(hk, tcfg, smi)
-    return taco, hifigan
+    log(f"  phase 14's checks in {time.perf_counter() - t2:.1f} s")
+    return {"one": one, "rec": rec, "want": want, "tmp": tmp,
+            "launch_s": dt}
 
 
 # -- phase 15: pipeline stages 0 and 1 (the preprocess command) ---------------
@@ -4779,6 +4932,209 @@ def phase15(hk, tmp, smi):
         raise SystemExit(f"chip_smoke: phase 15 launched {hk.LAUNCHES}")
 
 
+# -- phase 16: tensor parallelism (train --tp) ---------------------------------
+
+TP = 2
+# WaveGlowConfig() on phase 8b's front end (48 kHz, batch 4, 24000 samples),
+# 2 iterations, a validation at the start and, with a checkpoint, at 2, one
+# validation batch
+TP_FLOW_ITERS = 2
+TP_FLOW_HPARAMS = hparams_of({**WAVEGLOW_TRAIN, **FLOW_DATA, **CADENCE,
+                              "validate_at_start": True, "async_save": True,
+                              "max_val_batches": 1})
+
+
+def phase16a(hk, check, smi):
+    """lstm_gates at the tp shard widths of Tacotron2Config() (N = 2: H/N =
+    640, 384, 384) at the training (B = 16) and serving (B = 4) batches:
+    each rank's shard (its units' columns of all four gate blocks, by
+    parallel/tp.py's layout) against its plain version and against the
+    matching columns of the unsharded kernel call, phase 3's limits; each
+    shard timed beside the full call, with its bound."""
+    import torch
+    from cookietts_tpu_torch.parallel.tp import Placement, shard_tensor
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    out = []
+    for B in (16, 4):
+        for name, F, H in LSTM_SHAPES:
+            xh, W, b, c = lstm_inputs(B, F, H, gen)
+            full = hk.lstm_gates(xh, W, b, c)
+            h = H // TP
+            for k in range(TP):
+                cols = slice(k * h, (k + 1) * h)
+                Wk = shard_tensor(W, Placement(1, H), k, TP).contiguous()
+                bk = shard_tensor(b, Placement(0, H), k, TP).contiguous()
+                ck = c[:, cols].contiguous()
+                got = hk.lstm_gates(xh, Wk, bk, ck)
+                for i, want in enumerate(hk.lstm_gates_plain(xh, Wk, bk, ck)):
+                    check("lstm_gates", got[i], want, *TOL["lstm_gates"],
+                          f"tp {k}/{TP} B={B} {name} {'ch'[i]} plain")
+                    check("lstm_gates", got[i], full[i][:, cols],
+                          *TOL["lstm_gates"],
+                          f"tp {k}/{TP} B={B} {name} {'ch'[i]} full")
+            args = (xh, Wk, bk, ck)
+            with torch.no_grad():
+                ms = time_ms(lambda: hk.lstm_gates(*args), 100)
+                plain = time_ms(lambda: hk.lstm_gates_plain(*args), 100)
+                full_ms = time_ms(lambda: hk.lstm_gates(xh, W, b, c), 100)
+            bound = max(lstm_bound(B, F, h)) * 1e3
+            out.append((B, name, h, ms, plain, bound, full_ms))
+            log(f"  16a lstm_gates B={B} {name} shard W [{F}, {4 * h}]: "
+                f"{ms:.4f} ms (plain {plain:.4f}, bound {bound:.5f} by "
+                f"bytes), the full W [{F}, {4 * H}] {full_ms:.4f} ms; {smi}")
+    return out
+
+
+def tp_images(run):
+    """Whether a run wrote validation images (TensorBoard event files; the
+    card's machine may have neither matplotlib nor tensorboardX)."""
+    import importlib.util
+    tb = [p for p in run.iterdir() if p.name.startswith("events.out")]
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("matplotlib", "tensorboardX")}
+    return (f"validation images {'written' if tb else 'not written'} "
+            f"(matplotlib {have['matplotlib']}, tensorboardX "
+            f"{have['tensorboardX']})")
+
+
+def tp_sharding(name, rec, full, need):
+    """Each rank's sharded tensors against the full checkpoint ``full``:
+    the sharded axis at 1/TP of the checkpoint's, the other axes whole;
+    ``need`` ({what: (pattern, count)}): how many of them each pattern must
+    match."""
+    import re
+    counts = {w: n for w, (_, n) in need.items()}
+    for r in rec:
+        sh = r["sharded"]
+        for k, (dim, shape) in sh.items():
+            want = list(full[k].shape)
+            want[dim] //= TP
+            if shape != want or want[dim] * TP != full[k].shape[dim]:
+                raise SystemExit(f"chip_smoke: {name}: rank {r['rank']} "
+                                 f"holds {k} at {shape}, the checkpoint "
+                                 f"{list(full[k].shape)} (want {want})")
+        got = {w: sum(bool(re.search(pat, k)) for k in sh)
+               for w, (pat, _) in need.items()}
+        if got != counts:
+            raise SystemExit(f"chip_smoke: {name}: rank {r['rank']}'s "
+                             f"sharded tensors are {got}, want {counts}")
+    if [sorted(r["sharded"]) for r in rec[1:]] != [sorted(rec[0]["sharded"])
+                                                   ] * (len(rec) - 1):
+        raise SystemExit(f"chip_smoke: {name}: the ranks shard different "
+                         "tensors")
+    log(f"  {name} sharding: each rank holds {len(rec[0]['sharded'])} "
+        f"tensors at 1/{TP} of the checkpoint's axis: "
+        f"{counts}; the rest replicated")
+
+
+def phase16b(tcfg, p14, smi):
+    """train --model tacotron2 --tp 2 at full width (2 gloo ranks sharing
+    the card, validate_at_start and async_save; run in phase 14's launch)
+    against 14a's one-process run of the same command: per-iteration
+    losses and gradient norms, the iteration-0 validation, the final
+    weights, one writer's files; each rank's lstm_gates launches (3 a
+    decoder step at 4H/N columns) and attention_step launches; the
+    checkpoint loads into a full Tacotron2 in this process."""
+    import torch
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2
+    tmp, want = p14["tmp"], p14["want"]
+    iters = DP_ITERS["tacotron2"]
+    one, two = tmp / "run14a_1", tmp / "run16b_2"
+    rec = p14["rec"]["16b"]
+    n2 = [r["kernel_launches"] for r in rec]
+    log(f"  16b Tacotron2 --tp {TP} (Tacotron2Config(), batch 16, {iters} "
+        f"iterations): ranks {[round(r['seconds'], 1) for r in rec]} s in "
+        f"phase 14's launch (1 process {p14['one']['14a'][1]:.1f} s); "
+        f"launches attention_step / lstm_gates by rank "
+        f"{[(n['attention_step'], n['lstm_gates']) for n in n2]} (want "
+        f"{want} / {3 * want} each); {tp_images(two)}")
+    if any((n["attention_step"], n["lstm_gates"]) != (want, 3 * want)
+           for n in n2):
+        raise SystemExit("chip_smoke: the tp train command's kernel launches "
+                         "are not one per decoder step and cell")
+    lr = 0.5e-3 + (1e-3 - 0.5e-3) * iters / 1000
+    dp_compare(f"16b Tacotron2 tp {TP}", (one, two), iters, lr, smi,
+               what=f"tp {TP}")
+    full = torch.load(two / f"checkpoint_{iters}")["state_dict"]
+    hidden = {c: getattr(tcfg, f"{c}_dim") for c in TP_CELLS
+              if getattr(tcfg, f"{c}_dim")}
+    tp_sharding("16b", rec, full, {
+        "cells' weights and biases": (
+            r"decoder\.\w+_rnn\.(weight_ih|weight_hh|bias_ih|bias_hh)$",
+            4 * len(hidden)),
+        "encoder convs": (r"encoder\.convolutions\.\d+\.0\.conv\.weight$",
+                          tcfg.encoder_n_convolutions)})
+    widths = {c: h // TP for c, h in hidden.items()}
+    cols = {}
+    for h in widths.values():
+        cols[str(4 * h)] = cols.get(str(4 * h), 0) + want
+    log(f"  16b decoder cells' c widths by rank "
+        f"{[r['cell_widths'] for r in rec]}, lstm_gates W columns by rank "
+        f"{[r['lstm_cols'] for r in rec]} (want {widths}, {cols}: 4H/{TP} "
+        f"of H = {hidden})")
+    if any(r["cell_widths"] != widths or r["lstm_cols"] != cols
+           for r in rec):
+        raise SystemExit("chip_smoke: 16b: the decoder cells did not run "
+                         f"lstm_gates at 4H/{TP} columns")
+    model = Tacotron2(tcfg, device="cuda")
+    model.load_state_dict(full)
+    log(f"  16b the tp run's checkpoint_{iters} loads into a full "
+        f"Tacotron2 in one process (strict)")
+
+
+def phase16c(hk, p14, smi):
+    """train --model waveglow --tp 2 at WaveGlowConfig() (run in phase 14's
+    launch) against one process: per-iteration losses and gradient norms,
+    both validations, the final weights, one writer; each rank's validation
+    runs waveglow_wn_forward on the gathered weights (the launches of one
+    process's), training none; each rank holds its shards of every WN's
+    start, cond projection, gated and res/skip layers."""
+    import torch
+    from cookietts_tpu_torch.models.waveglow import WaveGlowConfig
+    tmp = p14["tmp"]
+    run1, dt1, n1 = p14["one"]["16c"]
+    rec = p14["rec"]["16c"]
+    cfg = WaveGlowConfig(**WAVEGLOW_TRAIN)
+    want = {k: 0 for k in n1}
+    want["waveglow_wn_forward"] = 2 * cfg.n_flows * hk.wn_launches(
+        cfg.n_layers)
+    n2 = [r["kernel_launches"] for r in rec]
+    log(f"  16c WaveGlow --tp {TP} (WaveGlowConfig(), batch 4, "
+        f"{TP_FLOW_ITERS} iterations): ranks "
+        f"{[round(r['seconds'], 1) for r in rec]} s in phase 14's launch, 1 "
+        f"process {dt1:.1f} s; launches 1 process {n1}, ranks {n2} (want "
+        f"{want}: two validations of one batch)")
+    if any(n != want for n in [n1] + n2):
+        raise SystemExit("chip_smoke: the tp WaveGlow run's launch counts")
+    dp_compare(f"16c WaveGlow tp {TP}", (run1, tmp / "run16c_2"),
+               TP_FLOW_ITERS, 1e-4, smi, what=f"tp {TP}")
+    full = torch.load(tmp / "run16c_2" / f"checkpoint_{TP_FLOW_ITERS}")[
+        "state_dict"]
+    layers = cfg.n_flows * cfg.n_layers
+    tp_sharding("16c", rec, full, {
+        "starts": (r"WN\.\d+\.start\.weight$", cfg.n_flows),
+        "cond layers": (r"WN\.\d+\.cond_layer\.weight$", cfg.n_flows),
+        "gated layers": (r"WN\.\d+\.in_layers\.\d+\.weight$", layers),
+        "res/skip layers": (r"WN\.\d+\.res_skip_layers\.\d+\.weight$",
+                            layers)})
+
+
+def phase16(hk, check, tcfg, p14, smi):
+    t0 = time.perf_counter()
+    shards = phase16a(hk, check, smi)
+    t1 = time.perf_counter()
+    phase16b(tcfg, p14, smi)
+    t2 = time.perf_counter()
+    phase16c(hk, p14, smi)
+    jobs = {k: max(r["seconds"] for r in p14["rec"][k]) for k in ("16b", "16c")}
+    log(f"  phase 16a {t1 - t0:.1f} s, 16b {t2 - t1:.1f} s of checks here "
+        f"({jobs['16b']:.1f} s of ranks in phase 14's launch), 16c "
+        f"{time.perf_counter() - t2:.1f} s of checks here ({jobs['16c']:.1f} s "
+        f"of ranks in the launch, {p14['one']['16c'][1]:.1f} s for its "
+        f"one-process twin in phase 14); {smi}")
+    return shards
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4797,7 +5153,7 @@ def main() -> int:
     from cookietts_tpu_torch.text import N_SYMBOLS
 
     t_all = time.perf_counter()
-    log("phase 1: environment")
+    phase("1", "environment")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -4808,7 +5164,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     log(f"  nvidia-smi: {smi}; TF32 off (matmul and cuDNN)")
 
-    log("phase 2: build")
+    phase("2", "build")
     _build.load_all()
     log(f"  built/loaded {len(_build._LIBS)} kernel libraries in "
         f"{_build.BUILD_SECONDS:.1f} s")
@@ -4817,12 +5173,12 @@ def main() -> int:
             log(f"  {logf.stem}: {kernel}: {report}")
 
     check = Check()
-    log("phase 3: kernels against their plain versions (full width)")
+    phase("3", "kernels against their plain versions (full width)")
     phase3(hk, check)
     phase3_flow(hk, check)
     phase3_widths(hk, check)
 
-    log("phase 4: main path, full width, 3 requests")
+    phase("4", "main path, full width, 3 requests")
     tcfg = Tacotron2Config(n_symbols=N_SYMBOLS)
     hcfg = HiFiGANConfig(upsample_rates=(8, 8, 4, 2),
                          upsample_kernel_sizes=(16, 16, 8, 4))
@@ -4837,7 +5193,7 @@ def main() -> int:
     timing = phase4_timing(hk, check, taco, gen, res, t2s_cfg.batch_size)
 
     del t2s, gen
-    log("phase 4b: the flow vocoders behind T2S, full width")
+    phase("4b", "the flow vocoders behind T2S, full width")
     torch.manual_seed(1)
     taco160 = Tacotron2(dataclasses.replace(tcfg, n_mel_channels=FLOW_MELS),
                         device="cuda")
@@ -4849,58 +5205,50 @@ def main() -> int:
         flows.append((name, model))
     del taco160
 
-    log("phase 5: whole slice, kernels against plain versions")
+    phase("5", "whole slice, kernels against plain versions")
     phase5(hk, check, (tcfg, hcfg))
     for name, model in flows:
         phase5_flow(hk, check, model, name)
     del flows, model
 
-    log("phase 6: the streaming and serving slice, full width")
+    phase("6", "the streaming and serving slice, full width")
     phase6(hk, check, tcfg, hcfg, smi)
 
-    log("phase 7: the training slice, full width")
+    phase("7", "the training slice, full width")
     phase7(hk, check, tcfg, smi)
 
-    log("phase 8: vocoder training, full width")
+    phase("8", "vocoder training, full width")
     phase8(hk, check, smi)
 
-    log("phase 9: serving checkpoints through the tts and server commands")
-    t9 = time.perf_counter()
+    phase("9", "serving checkpoints through the tts and server commands")
     phase9(hk, check, tcfg, hcfg, smi)
-    log(f"  phase 9 in {time.perf_counter() - t9:.1f} s; {smi}")
 
-    log("phase 10: GMM and DCA attention, training with the heads, convert")
+    phase("10", "GMM and DCA attention, training with the heads, convert")
     phase10(hk, check, tcfg, hcfg, smi)
 
-    log("phase 11: serving exported artifacts (torch.export)")
-    t11 = time.perf_counter()
+    phase("11", "serving exported artifacts (torch.export)")
     phase11(hk, check, tcfg, hcfg, smi)
-    log(f"  phase 11 in {time.perf_counter() - t11:.1f} s; {smi}")
 
     import tempfile
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        log("phase 12: the GTA stage, the GAN postnet and the HiFi-GAN "
-            "denoiser")
-        t12 = time.perf_counter()
+        phase("12", "the GTA stage, the GAN postnet and the HiFi-GAN "
+              "denoiser")
         corpus = phase12(hk, check, tcfg, smi, Path(tmp))
-        log(f"  phase 12 in {time.perf_counter() - t12:.1f} s; {smi}")
 
-        log("phase 13: UnTTS and GAN-TTS training, UnTTS inference")
-        t13 = time.perf_counter()
+        phase("13", "UnTTS and GAN-TTS training, UnTTS inference")
         phase13(hk, check, corpus, Path(tmp), smi)
-        log(f"  phase 13 in {time.perf_counter() - t13:.1f} s; {smi}")
 
-        log("phase 14: data-parallel training across processes")
-        t14 = time.perf_counter()
-        phase14(hk, tcfg, Path(tmp), smi)
-        log(f"  phase 14 in {time.perf_counter() - t14:.1f} s; {smi}")
+        phase("14", "data-parallel training across processes")
+        p14 = phase14(hk, tcfg, Path(tmp), smi)
 
-        log("phase 15: pipeline stages 0 and 1: the preprocess command, the "
-            "feature frontend on the card, Griffin-Lim")
-        t15 = time.perf_counter()
+        phase("15", "pipeline stages 0 and 1: the preprocess command, the "
+              "feature frontend on the card, Griffin-Lim")
         phase15(hk, Path(tmp), smi)
-        log(f"  phase 15 in {time.perf_counter() - t15:.1f} s; {smi}")
+
+        phase("16", f"tensor parallelism, train --tp {TP}")
+        phase16(hk, check, tcfg, p14, smi)
+        del p14
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -4912,7 +5260,9 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "eager_ms": t["eager_ms"], "unit": t["unit"]})
-    log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
+    t_end = time.perf_counter()
+    log(f"  phase seconds {json.dumps(phase_seconds(t_end))}")
+    log(f"all phases passed in {t_end - t_all:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4922,4 +5272,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-jobs"]:
+        sys.exit(rank_jobs_main(sys.argv[2]))
     sys.exit(main())

@@ -42,7 +42,8 @@ alone reads the live config and writes checkpoints and logs: N ranks train
 what one process trains on the same batches. NCCL on the card, gloo on the
 CPU; ``--dist_backend gloo`` lets ranks share a card. ``tacotron2``,
 ``hifigan``, ``gan_postnet``, ``hifigan_denoiser`` and ``gantts`` take a
-world above 1; ``untts`` and ``waveglow`` refuse one, as JAX's have no dp.
+world above 1; ``untts`` and ``waveglow`` refuse one, as JAX's have no dp
+(``waveglow`` takes one with ``--tp``, as JAX's tp mesh has dp = W / N).
 
 - ``tacotron2``: TBPTT batches from the filelist through a background
   prefetcher; keys of Tacotron2Config, DataConfig and the live config
@@ -112,8 +113,19 @@ Reference CookieTTS checkpoints become the port's (convert/reference.py):
     python -m cookietts_tpu_torch convert --model tacotron2|waveglow|hifigan|\
         torchmoji|gst|emotionnet|auxemotionnet --torch_ckpt X.pt|X.npz -o Y
 
-``--tp`` / ``--sp`` above 1 (tensor and sequence parallelism) raise: they
-come with the next slice of the parallel runtime.
+Tensor parallelism, ``--tp N`` under torchrun for ``tacotron2`` and
+``waveglow`` (WaveFlow too): the world of W ranks is dp x tp, dp = W / N;
+each tp group shards the decoder cells' gate matrices by hidden unit and
+the encoder convs by channel (Tacotron2), or the WNs' gated layers and
+their cond projection by channel pair with the res/skip layers
+row-parallel (WaveGlow), and trains what one process trains
+(parallel/tp.py). Rank 0 writes the full checkpoint, which loads in one
+process and resumes at any N. Other models refuse ``--tp`` above 1, and a
+world that N does not divide refuses; ``--sp`` above 1 (sequence
+parallelism) refuses: it comes with the next slice of the parallel
+runtime.
+
+    torchrun --nproc_per_node 2 -m cookietts_tpu_torch train --tp 2 ...
 """
 from __future__ import annotations
 
@@ -127,13 +139,16 @@ TRAINERS = ("tacotron2", "waveglow", "hifigan", "untts", "gantts",
 # the trainers that take a world above 1 (JAX's dp mesh trainers)
 DP_TRAINERS = ("tacotron2", "hifigan", "gan_postnet", "hifigan_denoiser",
                "gantts")
+# the trainers that take --tp above 1 (JAX wires tp for these two)
+TP_TRAINERS = ("tacotron2", "waveglow")
 # --hparams keys that reach the live config, with their types
 LIVE_OVERRIDES = (("validation_interval", int), ("checkpoint_interval", int),
                   ("LossExplosionThreshold", float),
                   ("grad_clip_thresh", float), ("drop_frame_rate", float),
                   ("p_teacher_forcing", float), ("teacher_force_till", int),
                   ("curation_enable", bool), ("curation_min_att_score", float),
-                  ("curation_min_avg_max_attention", float))
+                  ("curation_min_avg_max_attention", float),
+                  ("validate_at_start", bool))
 
 
 def _speaker_map(args, entries):
@@ -297,19 +312,29 @@ def cmd_train(args):
     """Train; returns the Trainer. Under torchrun's environment the rank
     joins the group first (parallel.initialize) and trains its rows."""
     from .parallel import initialize, process_count, rank_device
-    for flag, what in (("tp", "tensor"), ("sp", "sequence")):
-        if int(getattr(args, flag, 1) or 1) > 1:
-            raise SystemExit(
-                f"--{flag} > 1 ({what} parallelism) is not ported yet: it "
-                "comes with the next slice of the parallel runtime. Train "
-                "data-parallel with torchrun (one rank per card) instead")
+    if int(getattr(args, "sp", 1) or 1) > 1:
+        raise SystemExit(
+            "--sp > 1 (sequence parallelism) is not ported yet: it comes "
+            "with the next slice of the parallel runtime. Train data- or "
+            "tensor-parallel with torchrun (--tp) instead")
+    tp = int(getattr(args, "tp", 1) or 1)
+    if tp > 1 and args.model not in TP_TRAINERS:
+        raise SystemExit(
+            f"--tp {tp} (tensor parallelism) shards --model tacotron2 and "
+            f"--model waveglow (WaveFlow too), as JAX does; --model "
+            f"{args.model} trains with --tp 1")
     if initialize(args.device, getattr(args, "dist_backend", None)):
-        if process_count() > 1 and args.model not in DP_TRAINERS:
+        if (process_count() > 1 and args.model not in DP_TRAINERS
+                and not (tp > 1 and args.model in TP_TRAINERS)):
             raise SystemExit(
                 f"--model {args.model} trains in one process only (JAX's "
                 f"trainer has no data parallelism); run it without torchrun "
                 f"(this run has {process_count()} ranks)")
         args.device = str(rank_device(args.device))
+    if process_count() % tp:
+        raise SystemExit(
+            f"a world of {process_count()} ranks is not a multiple of --tp "
+            f"{tp}: start N x {tp} ranks with torchrun (the mesh is dp x tp)")
     trainer = OTHER_TRAINERS.get(args.model, _train_tacotron2)(args)
     if process_count() > 1:
         # each rank's kernel launches, training and validation (the
@@ -322,14 +347,15 @@ def cmd_train(args):
     return trainer
 
 
-def _data_parallel(batch_size: int):
-    """The group's DataParallel (None in one process), once the global
-    ``batch_size`` is known to divide by the ranks."""
+def _mesh(batch_size: int, tp: int = 1):
+    """(DataParallel, TensorParallel) of the group as dp x tp, dp = world /
+    ``tp`` (None, None in one process; TensorParallel None at tp 1), once
+    the global ``batch_size`` is known to divide by the dp ranks."""
     import torch.distributed as dist
-    from .parallel import DataParallel
+    from .parallel import make_mesh
     if not dist.is_initialized():
-        return None
-    dp = DataParallel()
+        return None, None
+    dp, tpg = make_mesh(tp)
     if batch_size % dp.size:
         raise SystemExit(f"batch_size={batch_size} must divide evenly over "
                          f"the {dp.size} ranks (each rank trains batch_size / "
@@ -337,8 +363,25 @@ def _data_parallel(batch_size: int):
     if dp.primary:
         print(f"[train] data parallel: {dp.size} ranks, "
               f"{batch_size // dp.size} rows of each global batch of "
-              f"{batch_size} per rank")
-    return dp
+              f"{batch_size} per rank"
+              + (f"; tensor parallel over {tp} ranks" if tp > 1 else ""))
+    return dp, tpg
+
+
+def _data_parallel(batch_size: int):
+    """The group's DataParallel (None in one process)."""
+    return _mesh(batch_size)[0]
+
+
+def _shard(model, rules, tp, dp):
+    """``model`` sharded over ``tp`` by ``rules`` (parallel/tp.py), its
+    sharded tensors listed by rank 0."""
+    from .parallel import describe, shard_model
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    layout = shard_model(model, rules, tp)
+    if dp.primary:
+        print(f"[train] tp={tp.size} sharded:\n"
+              + describe(layout.placements, shapes, tp.size))
 
 
 def _train_tacotron2(args):
@@ -365,7 +408,7 @@ def _train_tacotron2(args):
         print("[train] detect_anomaly: autograd anomaly mode on (slow)")
     batch_size = int(overrides.get("batch_size", 8))
     n_iters = int(overrides.get("n_iters", args.iters))
-    dp = _data_parallel(batch_size)
+    dp, tp = _mesh(batch_size, int(getattr(args, "tp", 1) or 1))
     primary = dp is None or dp.primary
 
     entries = load_filelist(args.filelist)
@@ -412,6 +455,9 @@ def _train_tacotron2(args):
         model.load_state_dict(sd)
         print(f"warm start: {n_l} loaded, {n_s} skipped"
               + (f" (ignore_layers={list(ig)})" if ig else ""))
+    if tp is not None:
+        from .parallel import TACOTRON2_TP_RULES
+        _shard(model, TACOTRON2_TP_RULES, tp, dp)
 
     state = TrainState.create(model, adam())
     val_batches = _tts_val_batches(val_entries, dcfg, features, batch_size,
@@ -419,7 +465,8 @@ def _train_tacotron2(args):
     trainer = Trainer(
         TrainerConfig(run_dir=args.run_dir, live_config_path=args.live_config,
                       seed=args.seed,
-                      log_every=int(overrides.get("log_every", 10))),
+                      log_every=int(overrides.get("log_every", 10)),
+                      async_save=bool(overrides.get("async_save", False))),
         state, make_tacotron2_train_step(model, dp=dp),
         make_tacotron2_eval_step(model, dp=dp), val_batches=val_batches,
         inference_eval_step=make_tacotron2_inference_eval_step(model, dp=dp),
@@ -491,6 +538,7 @@ def _train_tacotron2(args):
                 print(f"[curation] epoch {epoch}: dataset rebuilt with "
                       f"{len(entries_cur)} entries")
     trainer.save(periodic=True)
+    trainer.ckpt.wait()        # the last save on disk before reporting done
     if dp is not None:
         _merge_file_losses(trainer)
     if primary:
@@ -572,7 +620,8 @@ def _make_trainer(args, overrides, state, train_step, device, eval_step=None,
                       seed=args.seed,
                       log_every=int(overrides.get("log_every", 10)),
                       grad_clip=float(overrides.get("grad_clip", grad_clip)),
-                      plateau=plateau),
+                      plateau=plateau,
+                      async_save=bool(overrides.get("async_save", False))),
         state, train_step, eval_step, val_batches=val_batches, device=device,
         dp=dp)
     trainer.set_live_defaults({
@@ -583,6 +632,7 @@ def _make_trainer(args, overrides, state, train_step, device, eval_step=None,
         "checkpoint_interval": int(overrides.get("checkpoint_interval", 0)),
         "LossExplosionThreshold": float(
             overrides.get("loss_explosion_threshold", 1e3)),
+        "validate_at_start": bool(overrides.get("validate_at_start", False)),
     })
     return trainer
 
@@ -608,6 +658,7 @@ def _trainer_loop(trainer, make_batch, n_iters, run_dir, resume=None,
         it_next = int(trainer.state.step)
         it = it_next if it_next > it else it + 1     # an explosion rolls back
     trainer.save(periodic=True)
+    trainer.ckpt.wait()        # the last save on disk before reporting done
     print(f"done: checkpoints in {run_dir}")
     return trainer
 
@@ -648,13 +699,29 @@ def _train_waveglow(args):
         **{k: tuple(v) if isinstance(v, list) else v
            for k, v in overrides.items()
            if k in m_keys and k not in ("n_mel_channels", "hop_length")})
-    model = _build_seeded(args.seed, device,
-                          lambda: WaveGlow(wcfg, device="cpu"))
+    dp, tp = _mesh(batch_size, int(getattr(args, "tp", 1) or 1))
+    if tp is not None and (wcfg.cond_layers > 1 or wcfg.cond_residual):
+        raise SystemExit(
+            f"--tp {tp.size}: the sharded WN covers one cond projection "
+            f"without a residual; cond_layers={wcfg.cond_layers}, "
+            f"cond_residual={wcfg.cond_residual} train with --tp 1")
+    build = lambda: WaveGlow(wcfg, device="cpu")  # noqa: E731
+    model = _build_seeded(args.seed, device, build)
+    replica = None
+    if tp is not None:
+        from .parallel import WAVEGLOW_TP_RULES
+        _shard(model, WAVEGLOW_TP_RULES, tp, dp)
+        # validation runs the inverse's kernels on the gathered weights
+        replica = _build_seeded(args.seed, device, build)
     keys = ("audio", "mels") + (("speaker_id",) if wcfg.n_speakers else ())
     make_batch, val_batches = _vocoder_batches(dataset, val_items, batch_size,
                                                overrides, desc, keys)
+    if dp is not None:         # this rank's rows of every global batch
+        global_batch = make_batch
+        make_batch = lambda it: dp.shard_batch(global_batch(it))  # noqa: E731
+        val_batches = [dp.shard_batch(b) for b in val_batches]
     tx = lamb() if str(overrides.get("optimizer", "adam")) == "lamb" else adam()
-    val_step = make_waveglow_val_step(model)
+    val_step = make_waveglow_val_step(model, dp=dp, replica=replica)
 
     def eval_step(state, batch, generator, ctrl):
         m = val_step(state, batch, generator)
@@ -662,9 +729,10 @@ def _train_waveglow(args):
                  "MAE": m["val_MAE"]}, {}, None)
 
     trainer = _make_trainer(args, overrides, TrainState.create(model, tx),
-                            make_waveglow_train_step(model), device,
+                            make_waveglow_train_step(model, dp=dp), device,
                             eval_step=eval_step, val_batches=val_batches,
-                            plateau=ReduceLROnPlateau(), grad_clip=150.0)
+                            plateau=ReduceLROnPlateau(), grad_clip=150.0,
+                            dp=dp)
     trainer.default_metadata = _vocoder_metadata(
         "waveglow", dcfg, overrides, m_keys,
         {"n_mel_channels": dcfg.n_mel_channels, "hop_length": dcfg.hop_length})
@@ -1558,7 +1626,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "nccl on the card, gloo on the CPU; gloo lets ranks "
                         "share a card)")
     t.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism (above 1 raises: not ported)")
+                   help="tensor parallelism: the ranks of each tp group "
+                   "shard the weights (tacotron2, waveglow; the world is dp "
+                   "x tp under torchrun)")
     t.add_argument("--sp", type=int, default=1,
                    help="sequence parallelism (above 1 raises: not ported)")
     t.add_argument("--hparams", default="",

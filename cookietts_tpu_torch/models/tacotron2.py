@@ -284,7 +284,13 @@ class Encoder(nn.Module):
         mask_c = mask.transpose(1, 2)
         x = x.transpose(1, 2)
         for layer in self.convolutions:
-            x = F.leaky_relu(layer(x * mask_c), 0.01)
+            # under tp (parallel/tp.py) the conv and its BatchNorm hold this
+            # rank's output channels; the next conv takes them all-gathered
+            tp = getattr(layer[0].conv, "tp", None)
+            x = x * mask_c
+            x = F.leaky_relu(layer(x if tp is None else tp.copy_in(x)), 0.01)
+            if tp is not None:
+                x = tp.gather(x, 1)
             if self.training and cfg.encoder_conv_dropout > 0:
                 x = dropout(x, cfg.encoder_conv_dropout, generator)
         x = x.transpose(1, 2)
@@ -382,11 +388,16 @@ class Decoder(nn.Module):
 
     def init_state(self, batch: int, t_enc: int, device) -> DecoderState:
         cfg = self.cfg
-        z = lambda d: (torch.zeros(batch, d, device=device),
-                       torch.zeros(batch, d, device=device))
+
+        def z(cell):   # (c, h): c is this rank's units under tp, h all of them
+            if cell is None:
+                return (torch.zeros(batch, 1, device=device),) * 2
+            return (torch.zeros(batch, cell.state_width, device=device),
+                    torch.zeros(batch, cell.hidden_size, device=device))
+
         return DecoderState(
-            attn=z(cfg.attention_rnn_dim), dec=z(cfg.decoder_rnn_dim),
-            dec2=z(max(cfg.second_decoder_rnn_dim, 1)),
+            attn=z(self.attention_rnn), dec=z(self.decoder_rnn),
+            dec2=z(getattr(self, "second_decoder_rnn", None)),
             attention=self.attention_layer.init_state(batch, t_enc, device),
             context=torch.zeros(batch, self.memory_dim, device=device),
             prev_output=torch.zeros(

@@ -61,6 +61,7 @@ from torch import nn
 
 from ..device import full_float32, resolve_device
 from ..ops import hopper_kernels as hk
+from ..parallel.mesh import draw_rows
 
 
 def _tanhshrink(x):
@@ -190,18 +191,47 @@ class _WNBase(nn.Module):
         nn.init.zeros_(self.end.weight)
         nn.init.zeros_(self.end.bias)
 
+    @property
+    def tp(self):
+        """The tp group its layers are sharded over (parallel/tp.py), or
+        None."""
+        return getattr(self.in_layers[0], "tp", None)
+
+    def _train_input(self, x, cond):
+        """(the start's output h [B, C, ...], the cond projection) of the
+        training forward. Under tp both products are column-parallel: the
+        start's channels all-gathered, the cond projection this rank's
+        channel pairs."""
+        tp = self.tp
+        if tp is None:
+            return self.start(x), self.cond_layer(cond)
+        return (tp.gather(self.start(tp.copy_in(x)), 1),
+                self.cond_layer(tp.copy_in(cond)))
+
     def _train_layers(self, h, cond_all, conv):
         """The layers and the end of the training forward, from the start's
         output ``h`` and the cond projection ``cond_all`` [B, 2CL, ...];
-        ``conv(i, layer, h)`` is layer i's dilated conv. -> (log_s, t)."""
+        ``conv(i, layer, h)`` is layer i's dilated conv. -> (log_s, t).
+        Under tp each rank holds C/N channel pairs of every gated layer
+        (its conv's and the cond projection's outputs j and j + C) and the
+        res/skip rows over them: their products are summed over the group
+        (one all-reduce a layer) before the bias."""
         gate = GATED_UNITS[self.gated_unit]
+        tp = self.tp
         C, L = self.n_channels, self.n_layers
+        c = self.in_layers[0].weight.shape[0] // 2     # this rank's pairs
         cond_all = cond_all if h.dim() == 3 else cond_all[:, :, None]
         skip = 0
         for i, (layer, rs) in enumerate(zip(self.in_layers,
                                             self.res_skip_layers)):
-            acts = conv(i, layer, h) + cond_all[:, 2 * C * i:2 * C * (i + 1)]
-            r = rs(gate(acts[:, :C], acts[:, C:]))
+            acts = (conv(i, layer, h if tp is None else tp.copy_in(h))
+                    + cond_all[:, 2 * c * i:2 * c * (i + 1)])
+            gated = gate(acts[:, :c], acts[:, c:])
+            if tp is None:
+                r = rs(gated)
+            else:
+                r = tp.reduce(rs._conv_forward(gated, rs.weight, None))
+                r = r + rs.bias.view((1, -1) + (1,) * (r.dim() - 2))
             if i < L - 1:
                 h = h + r[:, :C]
                 skip = skip + r[:, C:]
@@ -244,6 +274,14 @@ class _WNBase(nn.Module):
         return out.view(cond.shape[0], self.n_layers, 2 * self.n_channels, -1)
 
 
+def _refuse_sharded(wn: _WNBase) -> None:
+    if wn.tp is not None:
+        raise RuntimeError("the inverse runs on the full weights: validate "
+                           "a tp-sharded WaveGlow on a replica that holds "
+                           "them gathered (runtime/trainer.py: "
+                           "make_waveglow_val_step)")
+
+
 class WN(_WNBase):
     """Non-causal dilated-conv WaveNet producing the affine (log_s, t)."""
 
@@ -258,8 +296,7 @@ class WN(_WNBase):
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The training forward (JAX ``WN.__call__``) from the live
         parameters: x [B, C_in, T], cond [B, D, T] -> (log_s, t)."""
-        h = self.start(x)
-        cond_all = self.cond_layer(cond)
+        h, cond_all = self._train_input(x, cond)
 
         def conv(i, layer, h):
             total = (layer.kernel_size[0] - 1) * 2 ** i     # flax's "SAME"
@@ -272,6 +309,7 @@ class WN(_WNBase):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The inverse's WN, without autograd: x [B, C_in, T], cond
         [B, D, T] -> (log_s, t), each [B, C_out, T]."""
+        _refuse_sharded(self)
         args = (x.contiguous(), self.cond_bc(cond), *self.kernel_weights())
         if self.gated_unit == "GTU":
             st = hk.waveglow_wn_forward(*args)
@@ -301,14 +339,15 @@ class WN2D(_WNBase):
         [B, D, W] -> (log_s, t), each [B, H, W]; row h depends on the rows
         above it only (the input shifted down a row, causal padding)."""
         kh = self.kernel_size_h
-        h = self.start(F.pad(x, (0, 0, 1, 0))[:, None, :-1])
+        h, cond_all = self._train_input(
+            F.pad(x, (0, 0, 1, 0))[:, None, :-1], cond)
 
         def conv(i, layer, h):
             pad = (layer.kernel_size[1] // 2) * 2 ** i
             return F.conv2d(F.pad(h, (pad, pad, kh - 1, 0)), layer.weight,
                             layer.bias, dilation=(1, 2 ** i))
 
-        log_s, t = self._train_layers(h, self.cond_layer(cond), conv)
+        log_s, t = self._train_layers(h, cond_all, conv)
         return log_s[:, 0], t[:, 0]
 
     def init_ring(self, batch: int, width: int) -> torch.Tensor:
@@ -322,6 +361,7 @@ class WN2D(_WNBase):
                  cond_bc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """One height row: x_prev [B, W] is the row generated before (zeros
         for row 0); ``ring`` advances in place. -> (log_s, t), each [B, W]."""
+        _refuse_sharded(self)
         args = (x_prev.contiguous(), ring, step, cond_bc, *self.kernel_weights())
         if self.gated_unit == "GTU":
             return hk.waveflow_row_step(*args)
@@ -598,8 +638,9 @@ class WaveGlow(nn.Module):
             B, T_mel = mel.shape[:2]
             n = T_mel * cfg.hop_length // cfg.n_group
             shape = (B, cfg.n_group, n) if self.waveflow else (B, n, cfg.n_group)
-            z = sigma * torch.randn(shape, generator=generator,
-                                    device=self.device, dtype=torch.float32)
+            # under a dp group's scope this rank's rows of the global draw
+            z = sigma * draw_rows(torch.randn, shape, generator=generator,
+                                  device=self.device, dtype=torch.float32)
         audio = self.inverse(z, mel, speaker_ids)
         if cfg.iso226_deemphasis:
             with full_float32():

@@ -16,6 +16,16 @@ one bias. Zoneout and dropout follow the JAX cell outside the kernel: with
 ``zoneout`` > 0 in training each state element keeps its previous value with
 probability ``zoneout``, and the dropout branch is not taken; else dropout
 ``dropout`` on the new h. Eval applies neither (no zoneout blend).
+
+Under tensor parallelism (parallel/tp.py, ``self.tp`` set by
+``shard_model``) the cell is sharded by hidden unit: rank k holds, for units
+[kH/N, (k+1)H/N), the rows of all four gate blocks of ``weight_ih`` /
+``weight_hh`` / the biases, and that slice of ``c``. It runs ``lstm_gates``
+on the full ``xh`` with its W [In+H, 4H/N], gets its slice of (c, h), and
+all-gathers h (the next step's input and attention's query). The zoneout
+and dropout masks are drawn at the full [B, H] shape from the shared
+generator and sliced (c) or applied to the gathered h, so N ranks draw what
+one process draws.
 """
 from __future__ import annotations
 
@@ -43,8 +53,13 @@ class ZoneoutLSTMCell(nn.Module):
         for p in self.parameters():
             nn.init.uniform_(p, -bound, bound)
 
+    @property
+    def state_width(self) -> int:
+        """The width of this rank's c: H, or H / N under tp."""
+        return self.weight_ih.shape[0] // 4
+
     def _build(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        H = self.hidden_size
+        H = self.state_width
         w = torch.cat([self.weight_ih.t(), self.weight_hh.t()], 0)
         b = self.bias_ih + self.bias_hh
         b = torch.cat([b[:H], b[H:2 * H] - 1.0, b[2 * H:]])
@@ -64,19 +79,27 @@ class ZoneoutLSTMCell(nn.Module):
                 fused: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x [B, In]; state (c, h) [B, H] f32 -> new (c, h). ``fused`` is
-        ``self.fused()`` built by the caller; ``generator`` draws zoneout
-        and dropout in training."""
+        """x [B, In]; state (c, h) [B, H] f32 -> new (c, h) (c [B, H/N]
+        under tp). ``fused`` is ``self.fused()`` built by the caller;
+        ``generator`` draws zoneout and dropout in training."""
+        tp = getattr(self, "tp", None)
         c, h = state
         w, b = fused if fused is not None else self.fused()
         xh = torch.cat([x, h.to(x.dtype)], dim=-1).float().contiguous()
+        if tp is not None:
+            xh = tp.copy_in(xh)
         c_new, h_new = hk.lstm_gates(xh, w, b, c.contiguous())
+        if tp is not None:
+            h_new = tp.gather(h_new, -1)
         if not self.training:
             return c_new, h_new
         if self.zoneout > 0.0:
-            zc = draw_rows(torch.rand, c.shape, generator=generator,
+            full = (h.shape[0], self.hidden_size)
+            zc = draw_rows(torch.rand, full, generator=generator,
                            device=c.device)
-            zh = draw_rows(torch.rand, h.shape, generator=generator,
+            if tp is not None:
+                zc = zc[:, tp.part(self.hidden_size)]
+            zh = draw_rows(torch.rand, full, generator=generator,
                            device=h.device)
             c_new = torch.where(zc < self.zoneout, c, c_new)
             h_new = torch.where(zh < self.zoneout, h, h_new)

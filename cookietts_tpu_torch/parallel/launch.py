@@ -87,17 +87,19 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def global_batch_slice(global_batch: int) -> slice:
+def global_batch_slice(global_batch: int, index: int | None = None,
+                       count: int | None = None) -> slice:
     """The half-open row range of the global batch this rank feeds (ranks
-    in order). A batch that does not divide by the ranks raises: every row
+    in order; ``index`` of ``count`` ranks, by default this process of the
+    world). A batch that does not divide by the ranks raises: every row
     belongs to exactly one rank."""
-    n = process_count()
+    n = process_count() if count is None else count
     if global_batch % n != 0:
         raise ValueError(
             f"global batch {global_batch} is not divisible by the "
             f"{n} processes — every row must belong to exactly one rank")
     per = global_batch // n
-    i = process_index()
+    i = process_index() if index is None else index
     return slice(i * per, (i + 1) * per)
 
 

@@ -1,4 +1,11 @@
-"""The dp half of cookietts_tpu/parallel/mesh.py on a torch.distributed group.
+"""cookietts_tpu/parallel/mesh.py on torch.distributed: the world as a
+dp x tp mesh (:func:`make_mesh`) and the data-parallel axis.
+
+The world of W ranks is dp x tp: rank r sits at (dp = r // tp, tp = r % tp),
+the order in which JAX's ``make_mesh`` reshapes the devices. Each dp index
+has one tp group (the ranks that hold one batch's rows and shard the
+weights: parallel/tp.py), each tp index one dp group (the ranks whose
+gradients are summed). Without tp the dp group is the world.
 
 JAX trains data-parallel by sharding the batch over a mesh's dp axis;
 GSPMD then takes every reduction of the step over the global batch. Here
@@ -43,16 +50,20 @@ class DataParallel:
 
     distributed = True
 
-    def __init__(self):
+    def __init__(self, group=None):
+        """The dp axis over ``group`` (the world by default)."""
         if not dist.is_initialized():
             raise RuntimeError("DataParallel needs a process group; "
                                "parallel.initialize() first")
-        self.rank = dist.get_rank()
-        self.size = dist.get_world_size()
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
 
     @property
     def primary(self) -> bool:
-        return self.rank == 0
+        """The world's rank 0: the one that reads the live config and
+        writes."""
+        return dist.get_rank() == 0
 
     @contextlib.contextmanager
     def scope(self):
@@ -66,8 +77,9 @@ class DataParallel:
     # -- the batch ------------------------------------------------------------
 
     def rows(self, n: int) -> slice:
-        """This rank's rows of a global batch of ``n``."""
-        return global_batch_slice(n)
+        """This rank's rows of a global batch of ``n`` (the dp group's
+        ranks in order)."""
+        return global_batch_slice(n, self.rank, self.size)
 
     def shard_batch(self, batch: Dict[str, Any],
                     replicated: Sequence[str] = ("global_mean",)
@@ -99,7 +111,7 @@ class DataParallel:
         """A masked mean's denominator summed over the group (no
         gradient: lengths and masks)."""
         den = den.detach().clone()
-        dist.all_reduce(den)
+        dist.all_reduce(den, group=self.group)
         return den
 
     def masked_mean(self, num: torch.Tensor, den: torch.Tensor
@@ -115,7 +127,8 @@ class DataParallel:
         """Means from this rank's ``sums`` over ``count`` elements each:
         the sums all-reduced over the group with their gradient (every
         rank's backward adds into every rank's activations)."""
-        return _AllReduceSum.apply(sums) / float(count * self.size)
+        return _AllReduceSum.apply(sums, self.group) / float(
+            count * self.size)
 
     def reduce_gradients(self, grads: Dict[str, Optional[torch.Tensor]]
                          ) -> Dict[str, Optional[torch.Tensor]]:
@@ -125,7 +138,7 @@ class DataParallel:
         if not names:
             return grads
         flat = torch.cat([grads[k].reshape(-1) for k in names])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=self.group)
         out, i = dict(grads), 0
         for k in names:
             n = grads[k].numel()
@@ -144,7 +157,7 @@ class DataParallel:
         flat = torch.stack([torch.as_tensor(parts[k], dtype=torch.float32,
                                             device=dev).detach().reshape(())
                             for k in keys])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=self.group)
         return dict(zip(keys, flat.unbind()))
 
 
@@ -154,14 +167,15 @@ class _AllReduceSum(torch.autograd.Function):
     newer torch marks deprecated)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group=None):
+        ctx.group = group
         x = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, grad):
-        return _AllReduceSum.apply(grad)
+        return _AllReduceSum.apply(grad, ctx.group), None
 
 
 class SingleProcess(DataParallel):
@@ -169,7 +183,7 @@ class SingleProcess(DataParallel):
     identity and nothing is communicated."""
 
     distributed = False
-    rank, size = 0, 1
+    rank, size, group = 0, 1, None
 
     def __init__(self):
         pass
@@ -193,6 +207,10 @@ class SingleProcess(DataParallel):
     def share(self, mean):
         return mean
 
+    @property
+    def primary(self) -> bool:
+        return True
+
     def reduce_gradients(self, grads):
         return grads
 
@@ -201,6 +219,33 @@ class SingleProcess(DataParallel):
 
 
 SINGLE = SingleProcess()
+
+
+def make_mesh(tp: int = 1):
+    """(DataParallel over this rank's dp group, TensorParallel over its tp
+    group or None at ``tp`` 1) of the world as dp x tp, dp = world / tp
+    (JAX's ``make_mesh(dp=-1)``). Every rank calls it: each group is made
+    by all. A world that ``tp`` does not divide refuses."""
+    from .tp import TensorParallel
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if tp < 1 or world % tp:
+        raise SystemExit(f"a world of {world} ranks is not a multiple of "
+                         f"--tp {tp}: the mesh is dp x tp, dp = world / tp")
+    dp = world // tp
+    if tp == 1:
+        return DataParallel(), None
+    tp_group = dp_group = None
+    for d in range(dp):
+        ranks = list(range(d * tp, (d + 1) * tp))
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            tp_group, tp_ranks = g, ranks
+    for t in range(tp):
+        ranks = list(range(t, world, tp))
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            dp_group = g
+    return DataParallel(dp_group), TensorParallel(tp_group, tp_ranks)
 
 
 def data_parallel(dp: Optional[DataParallel]) -> DataParallel:

@@ -10,7 +10,15 @@
 
 Under a data-parallel group one rank writes (``Checkpointer(writer=...)``,
 rank 0): the parameters are the same on every rank, and writers of one run
-directory would race on the same temporary file.
+directory would race on the same temporary file. Under tensor parallelism
+the tree it writes is the gathered, full one (runtime/train_state.py).
+
+``Checkpointer(async_save=True)`` writes in the background
+(cookietts_tpu/runtime/checkpoint.py:315-360): the caller hands over a host
+snapshot it does not touch again (the Trainer's ``to_host_tree()``, a fresh
+copy taken at the step), then ``torch.save`` and the rename run on one
+thread, one save in flight at a time; ``wait()`` and the process's exit
+drain it, and a failed save raises once, at ``wait()``.
 
 Format: ``torch.save`` of {"step", "state_dict", "opt_state"} (and the
 trainer's generator state in periodic checkpoints; a GAN's discriminators
@@ -25,10 +33,12 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
+from ..parallel.tp import layout_of
 from .optim import AdamState
 
 
@@ -84,15 +94,19 @@ def restore_train_state(state, path: str,
 
 
 def _restore(state, state_dict, opt, path: str) -> None:
-    state.model.load_state_dict(state_dict)
+    """A full (reference-layout) tree into ``state``: under tp each rank
+    takes its shards of it, whatever N the checkpoint was written at."""
+    layout = layout_of(state.model)
+    local = (lambda d: d) if layout is None else layout.shard
+    state.model.load_state_dict(local(state_dict))
     if opt is not None:
         like = state.opt_state.mu
         if set(opt["mu"]) != set(like):
             raise ValueError(f"{path}: optimizer moments for "
                              f"{sorted(set(opt['mu']) ^ set(like))} do not "
                              "match the model's trainable parameters")
-        to = lambda d: {k: d[k].to(like[k].device, like[k].dtype)  # noqa: E731
-                        for k in like}
+        to = lambda d: {k: v.to(like[k].device, like[k].dtype)  # noqa: E731
+                        for k, v in local({k: d[k] for k in like}).items()}
         state.opt_state = AdamState(int(opt["step"]), to(opt["mu"]),
                                     to(opt["nu"]))
 
@@ -120,27 +134,71 @@ def warm_start(target: Dict[str, torch.Tensor],
 
 
 class Checkpointer:
-    """Run-directory checkpoint manager with best-model tracking; writes
-    are synchronous. A Checkpointer that is not the ``writer`` tracks the
-    best losses and writes nothing (its trees may be None)."""
+    """Run-directory checkpoint manager with best-model tracking. A
+    Checkpointer that is not the ``writer`` tracks the best losses and
+    writes nothing (its trees may be None). With ``async_save`` the writer
+    writes each tree, a host snapshot that is now its own, on a background
+    thread."""
 
-    def __init__(self, run_dir: str, keep_last: int = 3, writer: bool = True):
+    def __init__(self, run_dir: str, keep_last: int = 3, writer: bool = True,
+                 async_save: bool = False):
         self.run_dir = run_dir
         self.keep_last = keep_last
         self.writer = writer
         os.makedirs(run_dir, exist_ok=True)
         self.best_val_loss = float("inf")
         self.best_inf_attsc = float("-inf")
+        self._executor = self._pending = None
+        if async_save and writer:
+            import atexit
+            import weakref
+            from concurrent.futures import ThreadPoolExecutor
+            self._executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ckpt-save")
+            # a weak reference: the exit hook must not keep the
+            # Checkpointer alive, and a save failing at exit warns
+            ref = weakref.ref(self)
 
-    def _save(self, path: str, tree, metadata) -> None:
-        if self.writer:
+            def _drain():
+                obj = ref()
+                if obj is not None:
+                    try:
+                        obj.wait()
+                    except Exception as e:
+                        print(f"[checkpoint] async save failed at exit: {e}")
+
+            atexit.register(_drain)
+
+    def wait(self) -> None:
+        """Block until the save in flight is on disk. A failed save raises
+        here, once: the pending save is cleared first."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            pending.result()
+
+    def _save(self, path: str, tree, metadata,
+              after: Optional[Callable[[], None]] = None) -> None:
+        if not self.writer:
+            return
+        if self._executor is None:
             save_checkpoint(path, tree, metadata)
+            if after is not None:
+                after()
+            return
+        assert all(x.device.type == "cpu" for x in pytree.tree_leaves(tree)
+                   if torch.is_tensor(x)), "async saves take a host snapshot"
+        self.wait()      # one save in flight
+
+        def job():
+            save_checkpoint(path, tree, metadata)
+            if after is not None:
+                after()
+
+        self._pending = self._executor.submit(job)
 
     def save_periodic(self, step: int, tree, metadata=None) -> str:
         path = os.path.join(self.run_dir, f"checkpoint_{step}")
-        self._save(path, tree, metadata)
-        if self.writer:
-            self._gc()
+        self._save(path, tree, metadata, after=self._gc)
         return path
 
     def _periodic(self):
@@ -187,6 +245,7 @@ class Checkpointer:
         return False
 
     def latest(self) -> Optional[str]:
+        self.wait()
         cks = self._periodic()
         if not cks:
             return None

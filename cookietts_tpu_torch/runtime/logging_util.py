@@ -76,6 +76,12 @@ class MetricsLogger:
             self._jsonl.write(json.dumps(rec) + "\n")
             self._jsonl.flush()
 
+    def log_image(self, step: int, name: str, image) -> None:
+        """An HWC uint8 image (runtime/plotting.py) to TensorBoard; without
+        tensorboardX, or on a rank that does not write, nothing."""
+        if self.tb is not None:
+            self.tb.add_image(name, image, step, dataformats="HWC")
+
     def log_histograms(self, step: int, params: Dict[str, Any],
                        prefix: str = "params") -> None:
         """Per-parameter histograms of {name: array} (reference

@@ -1,5 +1,5 @@
-"""Adam, LAMB, the plateau LR scheduler and the gradient utilities of the
-trainers (cookietts_tpu/runtime/optim.py:40-198).
+"""Adam, LAMB, the plateau LR scheduler, the fp16 loss scaler and the
+gradient utilities of the trainers (cookietts_tpu/runtime/optim.py:40-198).
 
 Functional, like the JAX version: parameters, gradients and moments are
 dicts {name: tensor} keyed by ``state_dict`` names.
@@ -18,6 +18,7 @@ import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
 Tree = Dict[str, torch.Tensor]
 
@@ -109,16 +110,31 @@ def apply_updates(params: Tree, updates: Tree) -> None:
         p.add_(updates[name].to(p.dtype))
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(sum((x.float() ** 2).sum() for x in tree.values()
-                          if x is not None))
+def global_norm(tree: Tree, layout=None) -> torch.Tensor:
+    """The L2 norm of every tensor of ``tree``. Under a tp ``layout``
+    (parallel/tp.py) the squares of its sharded entries are summed over the
+    tp group and the replicated ones counted once: the norm of the full
+    tree, the same on every rank."""
+    if layout is None:
+        return torch.sqrt(sum((x.float() ** 2).sum() for x in tree.values()
+                              if x is not None))
+    sq = [(x.float() ** 2).sum() for k, x in tree.items()
+          if x is not None and k not in layout.names]
+    sh = [(x.float() ** 2).sum() for k, x in tree.items()
+          if x is not None and k in layout.names]
+    total = sum(sq) if sq else 0.0
+    if sh:
+        total = total + layout.tp.all_reduce(torch.stack(sh).sum())
+    return torch.sqrt(torch.as_tensor(total))
 
 
-def clip_by_global_norm(grads: Tree, max_norm) -> Tuple[Tree, torch.Tensor]:
+def clip_by_global_norm(grads: Tree, max_norm, layout=None
+                        ) -> Tuple[Tree, torch.Tensor]:
     """(clipped grads, pre-clip norm). The scale is min(1, max_norm /
     (norm + 1e-6)); a non-finite norm zeroes every gradient (the step is
-    skipped). No host sync: the norm stays on the device."""
-    norm = global_norm(grads)
+    skipped). No host sync: the norm stays on the device. ``layout``: the
+    model's tp layout, whose sharded gradients count over the group."""
+    norm = global_norm(grads, layout)
     finite = torch.isfinite(norm)
     scale = torch.where(finite, torch.clamp(max_norm / (norm + 1e-6), max=1.0),
                         torch.zeros_like(norm))
@@ -126,6 +142,36 @@ def clip_by_global_norm(grads: Tree, max_norm) -> Tuple[Tree, torch.Tensor]:
                torch.where(finite, g * scale.to(g.dtype), torch.zeros_like(g))
                for k, g in grads.items()}
     return clipped, norm
+
+
+@dataclasses.dataclass
+class DynamicLossScaler:
+    """fp16 dynamic loss scaling (cookietts_tpu/runtime/optim.py:143; the
+    reference's loss_scaler.py:31-69): start at ``scale``, multiply it by
+    ``scale_factor`` after ``scale_window`` steps without overflow, divide
+    it on an overflow (never below 1). No trainer calls it yet: it waits
+    for reduced-precision training."""
+    scale: float = 2.0 ** 17
+    scale_factor: float = 2.0
+    scale_window: int = 1000
+    _good_steps: int = 0
+
+    def unscale(self, grads: Any) -> Any:
+        """Every tensor of a tree (dicts, lists, tuples) times 1 / scale;
+        None leaves stay None."""
+        s = 1.0 / self.scale
+        return pytree.tree_map(lambda g: None if g is None else g * s,
+                               grads)
+
+    def step(self, overflow: bool) -> None:
+        if overflow:
+            self.scale = max(self.scale / self.scale_factor, 1.0)
+            self._good_steps = 0
+        else:
+            self._good_steps += 1
+            if self._good_steps >= self.scale_window:
+                self.scale *= self.scale_factor
+                self._good_steps = 0
 
 
 @dataclasses.dataclass

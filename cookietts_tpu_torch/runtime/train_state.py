@@ -5,7 +5,8 @@ generator's with its discriminators'.
 
 The trainable parameters are the model's parameters that require a
 gradient, keyed by their ``state_dict`` names; the frozen half of each
-split LSTM bias stays out of the optimizer.
+split LSTM bias stays out of the optimizer. Under tensor parallelism
+(parallel/tp.py) they are this rank's shards, and so are the moments.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from ..parallel.tp import layout_of
 from .optim import Optimizer, apply_updates
 
 
@@ -47,15 +49,18 @@ class TrainState:
 
     def to_host_tree(self) -> Dict[str, Any]:
         """The checkpoint payload on the CPU: step, the model's state dict
-        (every parameter and buffer), the optimizer state."""
-        cpu = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
+        (every parameter and buffer), the optimizer state. A model sharded
+        over a tp group gives the full, gathered tree (a collective: every
+        rank of the group calls it), the file one process writes."""
+        layout = layout_of(self.model)
+        full = (lambda d: d) if layout is None else layout.gather
+        cpu = lambda d: {k: t.detach().to("cpu", copy=True)  # noqa: E731
+                         for k, t in full(d).items()}
         opt = self.opt_state
         return {"step": int(self.step),
-                "state_dict": {k: cpu(v) for k, v in
-                               self.model.state_dict().items()},
-                "opt_state": {"step": int(opt.step),
-                              "mu": {k: cpu(v) for k, v in opt.mu.items()},
-                              "nu": {k: cpu(v) for k, v in opt.nu.items()}}}
+                "state_dict": cpu(self.model.state_dict()),
+                "opt_state": {"step": int(opt.step), "mu": cpu(opt.mu),
+                              "nu": cpu(opt.nu)}}
 
 
 @dataclasses.dataclass

@@ -39,8 +39,20 @@ and the manual-save trigger and broadcasts them, and alone writes
 checkpoints and logs (the others wait at a barrier after each save); every
 rank's generator has one state, from the seed, since every draw is made at
 the global batch's shape (parallel/mesh.py: draw_rows). Without a group
-every path is the one-process one. Tensor and sequence parallelism are not
-ported; validation images are not logged.
+every path is the one-process one.
+
+Tensor parallel (parallel/tp.py): a model sharded over a tp group trains
+its shards with the same steps (the gradients of the sharded weights are
+this rank's, those of the replicated ones whole on every rank through the
+conjugate collectives; the global norm sums the shards over the group);
+``save`` gathers the full tree on every rank (a collective) and rank 0
+writes it; ``resume`` reslices a full checkpoint onto this rank's shards.
+
+The live config's ``validate_at_start`` runs one validation (and the
+free-running one, where there is an inference eval step) before iteration
+0; each validation logs the first batch's alignment, mels and gate as
+images (runtime/plotting.py; rendering never stops training), and
+``TrainerConfig.async_save`` writes the checkpoints in the background.
 """
 from __future__ import annotations
 
@@ -65,6 +77,7 @@ from ..models.tacotron2 import batch_inputs
 from ..models.waveglow import waveglow_loss
 from ..ops.metrics import alignment_metric, weighted_score
 from ..parallel.mesh import SINGLE, DataParallel, data_parallel, draw_rows
+from ..parallel.tp import layout_of
 from .checkpoint import Checkpointer, restore_train_state
 from .live_config import LiveConfig, LossExplosion
 from .logging_util import FileLossDB, MetricsLogger
@@ -113,7 +126,8 @@ def make_tacotron2_train_step(model, gate_positive_weight: float = 10.0,
         grads = torch.autograd.grad(total, list(params.values()),
                                     allow_unused=True)
         grads, grad_norm = clip_by_global_norm(
-            dp.reduce_gradients(dict(zip(params, grads))), ctrl["grad_clip"])
+            dp.reduce_gradients(dict(zip(params, grads))), ctrl["grad_clip"],
+            layout_of(model))
         state.apply_gradients(grads, ctrl["lr"])
         loss_dict = {k: v.detach() for k, v in loss_dict.items()}
         loss_dict["grad_norm"] = grad_norm
@@ -245,6 +259,8 @@ class TrainerConfig:
     grad_clip: Optional[float] = None
     # stepped with each validation's val_loss; its scale multiplies the LR
     plateau: Optional[ReduceLROnPlateau] = None
+    # checkpoints written on a background thread (Checkpointer(async_save))
+    async_save: bool = False
 
 
 class Trainer:
@@ -270,7 +286,8 @@ class Trainer:
         if cfg.grad_clip is not None:
             self.set_live_defaults({"grad_clip_thresh": float(cfg.grad_clip)})
         self.plateau = cfg.plateau
-        self.ckpt = Checkpointer(cfg.run_dir, writer=self.dp.primary)
+        self.ckpt = Checkpointer(cfg.run_dir, writer=self.dp.primary,
+                                 async_save=cfg.async_save)
         self.logger = MetricsLogger(cfg.run_dir, writer=self.dp.primary)
         self.file_db = FileLossDB()
         self.n_restarts = 0
@@ -285,6 +302,7 @@ class Trainer:
         self.carry = None            # TBPTT decoder state across iterations
         self._iter_time_ema = None
         self._profiler = None
+        self._start_validated = False
 
     def _sides(self):
         """The TrainStates of the state: G and D for a GAN."""
@@ -377,6 +395,17 @@ class Trainer:
         self._maybe_profile(it)
         if it % 5 == 0 or (self.dp.distributed and not self._live_synced):
             self._poll_live(it)
+        if (it == 0 and not self._start_validated
+                and bool(self.live.get("validate_at_start", False))
+                and self.eval_step is not None and self.val_batches):
+            # the live config's one-shot validation at iteration 0: the
+            # learning curves start at the initial weights
+            self._start_validated = True
+            self.validate(self.val_batches, iteration=0)
+            if self.inference_eval_step is not None:
+                self.validate(self.val_batches, iteration=0,
+                              step_fn=self.inference_eval_step,
+                              prefix="validation_inf")
         ctrl = self.ctrl(it)
         paths = batch.get("audiopath")
         dev = batch_to_device(batch, self.device)
@@ -412,10 +441,13 @@ class Trainer:
             self.logger.log_scalars(it, metrics)
         hi = int(self.live.get("histogram_interval", 20000) or 0)
         if hi > 0 and int(self.state.step) % hi == 0:
+            params = {k: v.detach() for k, v in self.state.params.items()}
+            layout = layout_of(self.state.model)
+            if layout is not None:       # the full weights (a collective)
+                params = layout.gather(params)
             self.logger.log_histograms(
                 int(self.state.step),
-                {k: v.detach().cpu().numpy()
-                 for k, v in self.state.params.items()})
+                {k: v.cpu().numpy() for k, v in params.items()})
         if self._manual_save_requested():
             self.save(periodic=True)
 
@@ -448,6 +480,8 @@ class Trainer:
         if self.n_restarts > self.cfg.n_restarts_max:
             raise LossExplosion(
                 f"loss {loss} exploded {self.n_restarts} times; giving up")
+        self.ckpt.wait()       # a best-model save may still be in flight
+        self.dp.barrier()
         best = os.path.join(self.cfg.run_dir, "best_val_model")
         if os.path.exists(best):
             self.state, _ = restore_train_state(self.state, best)
@@ -471,8 +505,13 @@ class Trainer:
     def save(self, periodic=True, val_loss: Optional[float] = None,
              att_score: Optional[float] = None, metadata=None) -> None:
         """Rank 0 writes (every rank tracks the best losses, which are
-        global); under a group every rank then waits for the files."""
-        tree = self.state.to_host_tree() if self.dp.primary else None
+        global); under a group every rank then waits for the files. A
+        tp-sharded state is gathered by every rank (a collective), and rank
+        0 writes the full tree."""
+        sharded = any(layout_of(side.model) is not None
+                      for side in self._sides())
+        tree = (self.state.to_host_tree() if self.dp.primary or sharded
+                else None)
         metadata = {**self.default_metadata, **(metadata or {})}
         metadata.setdefault("best_val_loss", self.ckpt.best_val_loss)
         metadata.setdefault("best_inf_attsc", self.ckpt.best_inf_attsc)
@@ -495,24 +534,58 @@ class Trainer:
         """Seeded, reproducible validation over an iterable of batches
         (this rank's rows of each under a group): batch i draws from a
         generator seeded with ``seed + i``. ``step_fn`` defaults to the
-        teacher-forced eval step."""
+        teacher-forced eval step. The first batch's alignment, mels and gate
+        go to TensorBoard as images where the step returns outputs."""
         step_fn = step_fn or self.eval_step
         it = iteration if iteration is not None else int(self.state.step)
         ctrl = self.ctrl(it)
         agg: Dict[str, list] = {}
+        first = None
         for i, batch in enumerate(batches):
             gen = torch.Generator(self.device).manual_seed(self.cfg.seed + i)
             paths = batch.get("audiopath")
-            loss_dict, file_losses, _ = step_fn(
+            loss_dict, file_losses, outputs = step_fn(
                 self.state, batch_to_device(batch, self.device), gen, ctrl)
             if paths is not None and file_losses:
                 self.file_db.update(paths,
                                     align_file_losses(paths, file_losses))
             for k, v in loss_dict.items():
                 agg.setdefault(k, []).append(float(v))
+            if i == 0 and outputs is not None:
+                first = (batch, outputs)
         means = {f"val_{k}": float(np.mean(v)) for k, v in agg.items()}
         self.logger.log_scalars(it, means, prefix=prefix)
+        if first is not None and self.dp.primary:
+            self._log_validation_images(it, *first, prefix=prefix)
         return means
+
+    def _log_validation_images(self, it: int, batch, outputs,
+                               prefix: str = "validation") -> None:
+        """The first row's alignment, predicted and target mel and gate as
+        images (cookietts_tpu/runtime/trainer.py:689-706). Rendering never
+        stops training: a failure (no matplotlib) is printed."""
+        try:
+            from .plotting import plot_alignment, plot_gate, plot_spectrogram
+            host = lambda x: (x.detach().cpu().numpy()  # noqa: E731
+                              if torch.is_tensor(x) else np.asarray(x))
+            t_dec = int(host(batch["mel_lengths"])[0])
+            t_enc = int(host(batch["text_lengths"])[0])
+            align = host(outputs["alignments"])[0, :t_dec, :t_enc]
+            self.logger.log_image(it, f"{prefix}/alignment",
+                                  plot_alignment(align))
+            mel_pred = host(outputs["mel_outputs_postnet"])[0, :t_dec]
+            self.logger.log_image(it, f"{prefix}/mel_predicted",
+                                  plot_spectrogram(mel_pred, "predicted"))
+            mel_gt = host(batch["mels"])[0, :t_dec]
+            self.logger.log_image(it, f"{prefix}/mel_target",
+                                  plot_spectrogram(mel_gt, "target"))
+            if "gate_target" in batch:
+                self.logger.log_image(
+                    it, f"{prefix}/gate",
+                    plot_gate(host(batch["gate_target"])[0, :t_dec],
+                              host(outputs["gate_outputs"])[0, :t_dec]))
+        except Exception as e:
+            print(f"[trainer] image logging failed: {e!r}")
 
 
 # -- HiFi-GAN ------------------------------------------------------------------
@@ -552,12 +625,14 @@ def make_gan_trainer_step(d_step: Callable, g_step: Callable,
 def _apply_clipped(state: TrainState, loss: torch.Tensor, ctrl,
                    dp: DataParallel = SINGLE):
     """Gradients of ``loss`` (this rank's part of the global loss under a
-    group) for the state's parameters, summed over the group, clipped by
-    their global norm, and one optimizer step. Returns the pre-clip norm."""
+    group) for the state's parameters, summed over the dp group, clipped by
+    their global norm (over the tp group's shards too), and one optimizer
+    step. Returns the pre-clip norm."""
     params = state.params
     grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     grads, norm = clip_by_global_norm(
-        dp.reduce_gradients(dict(zip(params, grads))), ctrl["grad_clip"])
+        dp.reduce_gradients(dict(zip(params, grads))), ctrl["grad_clip"],
+        layout_of(state.model))
     state.apply_gradients(grads, ctrl["lr"])
     return norm
 
@@ -823,9 +898,14 @@ def make_hifigan_denoiser_eval_step(gen, mrs, stage: int,
 
 # -- WaveGlow / WaveFlow ---------------------------------------------------------
 
-def make_waveglow_train_step(model, sigma: float = 1.0) -> Callable:
+def make_waveglow_train_step(model, sigma: float = 1.0,
+                             dp: Optional[DataParallel] = None) -> Callable:
     """The flow NLL step: step(state, batch{audio, mels[, speaker_id]},
-    generator, ctrl{lr, grad_clip}) -> (state, metrics), in place."""
+    generator, ctrl{lr, grad_clip}) -> (state, metrics), in place. Under
+    ``dp`` (this rank's rows; the shapes are equal on every rank) the loss
+    and the metrics are the global batch's means. A model sharded over a tp
+    group (parallel/tp.py) trains its shards."""
+    dp = data_parallel(dp)
 
     def step(state: TrainState, batch, generator, ctrl):
         del generator
@@ -833,8 +913,9 @@ def make_waveglow_train_step(model, sigma: float = 1.0) -> Callable:
                     speaker_ids=batch.get("speaker_id"))
         loss, loss_dict = waveglow_loss(out, sigma=sigma)
         with full_float32():
-            norm = _apply_clipped(state, loss, ctrl)
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
+            norm = _apply_clipped(state, dp.share(loss), ctrl, dp)
+        metrics = dp.report({k: dp.share(v.detach())
+                             for k, v in loss_dict.items()})
         metrics["grad_norm"] = norm
         return state, metrics
 
@@ -843,17 +924,37 @@ def make_waveglow_train_step(model, sigma: float = 1.0) -> Callable:
 
 def make_waveglow_val_step(model, stft_windows=((1200, 300, 1200),
                                                 (2400, 600, 2400)),
-                           sigma: float = 1.0) -> Callable:
+                           sigma: float = 1.0,
+                           dp: Optional[DataParallel] = None,
+                           replica=None) -> Callable:
     """Validation through the inverse: audio from z ~ N(0, sigma) drawn from
     ``generator`` (or the ``z`` given), against the batch's audio in STFT
     magnitude at each of ``stft_windows`` (filter, hop, window), averaged.
-    step(state, batch, generator, z=None) -> {val_MSE, val_MAE}."""
+    step(state, batch, generator, z=None) -> {val_MSE, val_MAE}; under
+    ``dp`` the global batch's (each rank its rows of z).
+
+    A model sharded over a tp group (parallel/tp.py) validates on
+    ``replica``, an unsharded WaveGlow of its configuration that takes the
+    gathered weights once per validation (a new ``state.step``) and runs the
+    inverse's kernels on the rank's rows: what GSPMD does with a kernel call
+    it cannot partition."""
+    dp = data_parallel(dp)
+    layout = layout_of(model)
+    if layout is not None and replica is None:
+        raise ValueError("a tp-sharded WaveGlow validates on a replica")
+    net = model if layout is None else replica
     banks = [STFT(f, h, w, device=model.device) for f, h, w in stft_windows]
+    synced = {"step": None}
 
     @torch.no_grad()
     def step(state, batch, generator, z=None):
-        del state
-        gen = model.infer(batch["mels"], generator, sigma=sigma, z=z)
+        if layout is not None:
+            at = None if state is None else int(state.step)
+            if at is None or at != synced["step"]:
+                net.load_state_dict(layout.gather(model.state_dict()))
+                synced["step"] = at
+        with dp.scope():
+            gen = net.infer(batch["mels"], generator, sigma=sigma, z=z)
         gt = batch["audio"][:, :gen.shape[1]]
         gen = gen[:, :gt.shape[1]].float()
         mse = mae = gen.new_zeros(())
@@ -863,7 +964,8 @@ def make_waveglow_val_step(model, stft_windows=((1200, 300, 1200),
                 mag_gt, _ = bank.transform(gt, return_phase=False)
                 mse = mse + torch.mean((mag_gen - mag_gt) ** 2)
                 mae = mae + torch.mean(torch.abs(mag_gen - mag_gt))
-        return {"val_MSE": mse / len(banks), "val_MAE": mae / len(banks)}
+        return dp.report({"val_MSE": dp.share(mse / len(banks)),
+                          "val_MAE": dp.share(mae / len(banks))})
 
     return step
 

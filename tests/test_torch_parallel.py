@@ -730,11 +730,17 @@ def test_nccl_refuses_the_cpu(monkeypatch):
     assert not dist.is_initialized()
 
 
-def test_tp_and_sp_refuse_naming_the_next_slice(tmp_path):
-    for flag in ("--tp", "--sp"):
-        with pytest.raises(SystemExit, match="next slice"):
-            cli(["train", "--device", "cpu", "--filelist", "x", flag, "2",
-                 "--run_dir", str(tmp_path)])
+@pytest.mark.parametrize("argv,message", [
+    (["--sp", "2"], "next slice"),
+    (["--tp", "2", "--model", "hifigan"],
+     "--tp 2 .*--model tacotron2 and --model waveglow"),
+    (["--tp", "2"], "a world of 1 ranks is not a multiple of --tp 2")])
+def test_tp_and_sp_refuse_naming_the_next_slice(tmp_path, argv, message):
+    """--sp refuses (the next slice); --tp refuses a model JAX does not
+    shard, naming the two it takes, and a world it does not divide."""
+    with pytest.raises(SystemExit, match=message):
+        cli(["train", "--device", "cpu", "--filelist", "x", *argv,
+             "--run_dir", str(tmp_path)])
 
 
 if __name__ == "__main__":
