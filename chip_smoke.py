@@ -1018,7 +1018,7 @@ def make_flow_vocoder(kw, seed):
     import torch
     from cookietts_tpu_torch.models.waveglow import WaveGlow, WaveGlowConfig
     torch.manual_seed(seed)
-    model = WaveGlow(WaveGlowConfig(**kw), device="cuda")
+    model = WaveGlow(WaveGlowConfig(**kw), device=DEV)
     with torch.no_grad():
         for wn in model.WN:
             wn.end.weight.normal_(std=0.05 * kw["n_channels"] ** -0.5)
@@ -2355,16 +2355,23 @@ def moments_grads(side):
 def parity_run(build, step_of, batch, ctrl, device):
     """One train step from ``build()``'s modules (built on the CPU under
     seed 0, moved to ``device``) -> (metrics, gradients from Adam's first
-    moments, the parameters after the step, all on the CPU, seconds)."""
+    moments, the parameters after the step, all on the CPU, seconds). On
+    the card with cuDNN's deterministic algorithms (step_parity says why)."""
     import torch
     from cookietts_tpu_torch.device import batch_to_device
     torch.manual_seed(0)
     modules = [m.to(device) for m in build()]
     step, state = step_of(modules, device)
-    t0 = time.perf_counter()
-    state, metrics = step(state, batch_to_device(batch, device), None, ctrl)
-    if device != "cpu":
-        torch.cuda.synchronize()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = device != "cpu" or deterministic
+    try:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_to_device(batch, device), None,
+                              ctrl)
+        if device != "cpu":
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     sides = [state.g, state.d] if hasattr(state, "d") else [state]
     return ({k: float(v) for k, v in metrics.items()},
             {f"{i}.{k}": g.cpu() for i, side in enumerate(sides)
@@ -2389,7 +2396,11 @@ def step_parity(name, build, step_of, batch, ctrl, check_params=False):
     the batch moved by a relative 1e-6 (about 16 ulp a value), and that
     number is held to 10 times what the nudge moves it (rounding acts at
     each of some 30 layers, not once at the input). A loss has no such
-    escape.
+    escape. The card's step takes cuDNN's deterministic algorithms: with
+    the default ones, 12b's g_adv (a G loss after the D step's Adam update)
+    read 0.660222-0.66032 in five runs of this script on an H100, a spread
+    of 5e-5 of the loss, against the CPU's 0.660109 and a limit of 1e-4 of
+    the loss, and one of the five failed.
 
     ``check_params``: every parameter after the step within 1e-4, but where
     the CPU's gradient is within rounding of zero, which Adam's normalised
@@ -2703,13 +2714,13 @@ def p9_files(tmp, tcfg, hcfg, flows=True):
 
 
 
-def p9_tts(files, taco, vocoder, extra, out, smi, source=None,
-           in_process=False):
-    """``python -m cookietts_tpu_torch tts`` in a process of its own, default
+def p9_tts(files, taco, vocoder, extra, out, smi, source=None):
+    """The tts command's entry point (cli.main) in this process, default
     device, from the checkpoints (or the flags ``source``, such as an
-    --artifact), or with ``in_process`` its entry point (cli.main) in this
-    process; returns (its stats line, its kernel launches)."""
+    --artifact); returns (its stats line, its kernel launches)."""
     import io
+
+    from cookietts_tpu_torch.cli import main as cli
     source = source or ["--checkpoint", files[taco], "--vocoder", files[vocoder]]
     argv = ["tts", *source,
             "--torchmoji", files["pytorch_model.bin"],
@@ -2719,30 +2730,17 @@ def p9_tts(files, taco, vocoder, extra, out, smi, source=None,
             "--text", P9_TEXT, "--max_attempts", "1", "--hparams", P9_HPARAMS,
             "-o", str(out), *extra, *([] if DEV == "cuda" else ["--device", DEV])]
     t0 = time.perf_counter()
-    if in_process:
-        from cookietts_tpu_torch.cli import main as cli
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            cli(argv)
-        stdout = buf.getvalue()
-    else:
-        proc = subprocess.run([sys.executable, "-m", "cookietts_tpu_torch",
-                               *argv], cwd=ROOT, capture_output=True,
-                              text=True, timeout=600)
-        if proc.returncode != 0:
-            log(proc.stdout[-3000:])
-            log(proc.stderr[-3000:])
-            raise SystemExit(f"chip_smoke: tts with {vocoder} exited "
-                             f"{proc.returncode}")
-        stdout = proc.stdout
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli(argv)
+    stdout = buf.getvalue()
     seconds = time.perf_counter() - t0
     lines = stdout.strip().splitlines()
     stats = json.loads(lines[-1])
     launches = next(json.loads(l)["kernel_launches"] for l in lines
                     if l.startswith('{"kernel_launches"'))
-    where = ("in this process (imports and CUDA warm)" if in_process
-             else "cold process")
-    log(f"  tts {vocoder}: {where} {seconds:.2f} s wall (imports, "
+    log(f"  tts {vocoder}: in this process (imports and CUDA warm) "
+        f"{seconds:.2f} s wall (imports, "
         f"checkpoint loads and the first capture included); its own gen_time "
         f"{stats['gen_time']:.3f} s, total {stats['total_time']:.3f} s, xrt "
         f"{stats['xrt']:.3f}, {stats['audio_seconds']:.3f} s of audio; "
@@ -2757,7 +2755,8 @@ def p9_expect(got, want, what):
 
 
 def phase9(hk, check, tcfg, hcfg, smi):
-    """9a, 9b: the tts command as a process on the card, with --torchmoji,
+    """9a, 9b: the tts command (its entry point in this process) on the
+    card, with --torchmoji,
     --arpa_dict and --speaker_info, HiFi-GAN then WaveGlow with --denoiser;
     9c: the server's worker from _build_t2s answering three requests
     through handle_tts, kernels against the plain path; 9d: TorchMojiEncoder
@@ -2800,10 +2799,9 @@ def phase9(hk, check, tcfg, hcfg, smi):
         del gen
 
         # 9b: WaveGlow behind a 160-mel Tacotron2, with the denoiser
-        # in this process: 9a's cold process is the script's cold tts
         stats, got = p9_tts(files, "taco160", "waveglow",
                             ["--denoiser", "--denoise_strength", "0.1"],
-                            tmp / "b.wav", smi, in_process=True)
+                            tmp / "b.wav", smi)
         with wave.open(str(tmp / "b.wav")) as w:
             rate, n = w.getframerate(), w.getnframes()
         flow = P9_SEGMENTS * P9_STEPS * FLOW_HOP
@@ -3441,7 +3439,7 @@ def phase11(hk, check, tcfg, hcfg, smi):
         art = tmp / "serving.npz"
         p11_export(files, art, smi)
         stats, got = p9_tts(files, None, "artifact", [], tmp / "a.wav", smi,
-                            source=["--artifact", str(art)], in_process=True)
+                            source=["--artifact", str(art)])
         with wave.open(str(tmp / "a.wav")) as w:
             rate, n = w.getframerate(), w.getnframes()
         if (rate, n, stats["segments"]) != (SR, P9_SEGMENTS * P9_STEPS * HOP,
@@ -4243,7 +4241,9 @@ def rank_launch(jobs, tmp):
     import os
     spec = tmp / "rank_jobs.json"
     spec.write_text(json.dumps({"device": DEV, "jobs": [
-        [name, args + ["--dist_backend", "gloo"]] for name, args in jobs]}))
+        [name, args + ([] if args[0] == SP_INFER_JOB
+                       else ["--dist_backend", "gloo"])]
+        for name, args in jobs]}))
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -4286,13 +4286,16 @@ def rank_jobs_main(spec) -> int:
     from cookietts_tpu_torch.cli import main as cli
     from cookietts_tpu_torch.ops import _build
     from cookietts_tpu_torch.ops import hopper_kernels as hk
-    from cookietts_tpu_torch.parallel import process_index, shutdown
+    from cookietts_tpu_torch.parallel import (HALO, process_index,
+                                              reset_halo_counts, shutdown)
     from cookietts_tpu_torch.parallel.tp import layout_of
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global DEV
     out = Path(spec).parent
     spec = json.loads(Path(spec).read_text())
-    cuda = spec["device"] == "cuda"
+    DEV = spec["device"]
+    cuda = DEV == "cuda"
     if cuda:
         _build.load_all()
     cols = collections.Counter()
@@ -4306,7 +4309,11 @@ def rank_jobs_main(spec) -> int:
     try:
         for name, args in spec["jobs"]:
             hk.reset_launch_counts()
+            reset_halo_counts()
             cols.clear()
+            if args[0] == SP_INFER_JOB:
+                sp_infer_job(hk, name, Path(args[1]), out)
+                continue
             t0 = time.perf_counter()
             trainer = cli(args)
             if cuda:
@@ -4324,7 +4331,7 @@ def rank_jobs_main(spec) -> int:
                 "cell_widths": {c: getattr(decoder, c).state_width
                                 for c in TP_CELLS
                                 if getattr(decoder, c, None) is not None},
-                "lstm_cols": dict(cols)}))
+                "lstm_cols": dict(cols), "halo": dict(HALO)}))
             del trainer
             gc.collect()
             torch.cuda.empty_cache()
@@ -4420,8 +4427,12 @@ def phase14_jobs(tmp):
     flow = ["train", "--model", "waveglow", "--filelist", flow_map,
             "--hparams", TP_FLOW_HPARAMS, "--seed", "0", "--iters",
             str(TP_FLOW_ITERS)]
+    waveflow = ["train", "--model", "waveglow", "--filelist", flow_map,
+                "--hparams", SP_WAVEFLOW_HPARAMS, "--seed", "0", "--iters",
+                str(SP_FLOW_ITERS)]
     dev = [] if DEV == "cuda" else ["--device", DEV]
-    return {"14a": taco + dev, "14b": hifigan + dev, "16c": flow + dev}
+    return {"14a": taco + dev, "14b": hifigan + dev, "16c": flow + dev,
+            "17b": waveflow + dev}
 
 
 def phase14a(runs, trainer, n1, dt1, rec, smi):
@@ -4531,26 +4542,33 @@ def phase14(hk, tcfg, tmp, smi):
     against one process; 14c a world-1 NCCL group in this process. The one
     2-rank launch also runs phase 16's two tp commands (16b, 16c), and this
     phase runs 16c's one-process twin; 14a's one-process run is 16b's
-    twin. Returns what phase 16 reads."""
+    twin. The launch also runs phase 17's sp jobs (17a WaveGlow, 17b
+    WaveFlow, 17c sharded inference), and this phase runs 17b's one-process
+    twin (16c's is 17a's). Returns what phases 16 and 17 read."""
     t0 = time.perf_counter()
     jobs = phase14_jobs(tmp)
     one = {}
-    for name in ("14a", "14b", "16c"):
+    for name in ("14a", "14b", "16c", "17b"):
         run = tmp / f"run{name}_1"
         dt, n, trainer = dp_run(hk, jobs[name], run)
         one[name] = (run, dt, n)
         if name == "14a":       # its validation batches size the launches
             taco_trainer = trainer
         del trainer
-    log(f"  14a, 14b and 16c one-process runs in "
+    log(f"  14a, 14b, 16c and 17b one-process runs in "
         f"{time.perf_counter() - t0:.1f} s")
     launch = [(name, jobs[name] + ["--run_dir", str(tmp / f"run{name}_2")])
               for name in ("14a", "14b")]
     launch += [(name, jobs[key] + ["--run_dir", str(tmp / f"run{name}_2"),
                                    "--tp", str(TP)])
                for name, key in (("16b", "14a"), ("16c", "16c"))]
+    launch += [(name, jobs[key] + ["--run_dir", str(tmp / f"run{name}_2"),
+                                   "--sp", str(SP)])
+               for name, key in (("17a", "16c"), ("17b", "17b"))]
+    launch.append(("17c", [SP_INFER_JOB, str(p17c_inputs(tmp))]))
     dt, rec = rank_launch(launch, tmp)
-    log(f"  the {DP_WORLD}-rank launch (14a, 14b, 16b, 16c in turn) "
+    log(f"  the {DP_WORLD}-rank launch (14a, 14b, 16b, 16c, 17a, 17b, 17c in "
+        "turn) "
         f"{dt:.1f} s wall, of which the jobs "
         f"{ {k: round(max(r['seconds'] for r in v), 1) for k, v in rec.items()} } s "
         f"(the rest: the ranks' start, imports and CUDA); {smi}")
@@ -4621,12 +4639,13 @@ def p15_corpus(root, n, seed=0):
 
 
 def p15_preprocess(tmp, smi):
-    """The preprocess command as a process on the corpus at
-    configs/preprocess.json's values (44.1 kHz, high-pass 150 and 40 Hz, 3
+    """The preprocess command (its entry point in this process) on the
+    corpus at configs/preprocess.json's values (44.1 kHz, high-pass 150 and 40 Hz, 3
     trim passes at 45 dB, -27 LUFS, 0.9 s minimum) with 4 worker processes
     and the feature dump on the card (PreprocessConfig's frontend: filter
     2048, hop 512, 80 mels, 20-11025 Hz; batches of 16). Returns (the
     config, its stats line, the kept entries)."""
+    import io
     import os
     from cookietts_tpu_torch.data.filelist import load_filelist
     from cookietts_tpu_torch.pipeline.preprocess import (PreprocessConfig,
@@ -4640,22 +4659,18 @@ def p15_preprocess(tmp, smi):
     cfg_path = tmp / "preprocess15.json"
     cfg_path.write_text(json.dumps(conf))
     cfg = PreprocessConfig(**conf)
-    args = [sys.executable, "-m", "cookietts_tpu_torch", "preprocess", "-c",
-            str(cfg_path), *([] if DEV == "cuda" else ["--device", DEV])]
+    from cookietts_tpu_torch.cli import main as cli
+    args = ["preprocess", "-c", str(cfg_path),
+            *([] if DEV == "cuda" else ["--device", DEV])]
     t0 = time.perf_counter()
-    proc = subprocess.run(args, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600, env=dict(os.environ,
-                                                PYTHONPATH=str(ROOT)))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli(args)
     wall = time.perf_counter() - t0
-    if proc.returncode:
-        log(proc.stdout[-3000:])
-        log(proc.stderr[-6000:])
-        raise SystemExit(f"chip_smoke: preprocess failed (exit "
-                         f"{proc.returncode})")
-    stats = json.loads(proc.stdout.strip().splitlines()[-1])[
-        "preprocess_stats"]
+    stdout = buf.getvalue()
+    stats = json.loads(stdout.strip().splitlines()[-1])["preprocess_stats"]
     feats = stats["features"]
-    path_line = [ln for ln in proc.stdout.splitlines()
+    path_line = [ln for ln in stdout.splitlines()
                  if ln.startswith("[preprocess] audio path:")]
     out = Path(conf["out_dir"])
     missing = [name for name in (
@@ -4676,20 +4691,21 @@ def p15_preprocess(tmp, smi):
     batch_ms = feats["batch_ms"]
     peak = feats["peak_bytes"] or 0
     log(f"  15a corpus: {P15_CLIPS} clips, {seconds:.1f} s of audio at "
-        f"{P15_SR_IN} Hz, written in {t_corpus:.1f} s; the preprocess process "
-        f"{wall:.1f} s wall: the audio step (resample to {cfg.target_sr}, "
+        f"{P15_SR_IN} Hz, written in {t_corpus:.1f} s; the preprocess command "
+        f"in this process {wall:.1f} s wall: the audio step (resample to "
+        f"{cfg.target_sr}, "
         f"high-pass, trim, loudness; {cfg.threads} spawned workers) "
         f"{stats['audio_step_s']:.2f} s on the {stats['audio_path']} path, "
         f"the feature dump {feats['wall_s']:.2f} s ({feats['load_s']:.2f} s "
-        f"reading the wavs), {stats['total_s']:.2f} s in run_preprocess, the "
-        f"rest process start; {smi}")
-    log(f"  15a the process's feature dump on {feats['device']}: "
+        f"reading the wavs), {stats['total_s']:.2f} s in run_preprocess; "
+        f"{smi}")
+    log(f"  15a the command's feature dump on {feats['device']}: "
         f"{feats['batches']} batches of up to {cfg.feature_batch} (sorted by "
         f"length, buckets {feats['buckets']}), wall ms a batch "
         f"{[round(x, 2) for x in batch_ms]} (CUDA events around each call: "
         f"the pageable copy to the card and the host's launch gaps included; "
-        f"the first batch pays CUDA's and the libraries' start-up, each new "
-        f"bucket its FFT plans), {feats['audio_s'] / feats['wall_s']:.0f} s "
+        f"the first batch pays the libraries' start-up, each new bucket its "
+        f"FFT plans), {feats['audio_s'] / feats['wall_s']:.0f} s "
         f"of audio per second of the dump; peak memory "
         f"{peak / 2 ** 30:.3f} GiB; {smi}")
     if DEV == "cuda":
@@ -5135,6 +5151,295 @@ def phase16(hk, check, tcfg, p14, smi):
     return shards
 
 
+# -- phase 17: sequence parallelism (train --sp), sharded inference -----------
+
+SP = 2
+# 17a: 16c's command at --sp 2; 17b: WaveFlow at phase 8b's recipe, 2
+# iterations, validations at the start and, with a checkpoint, at 2
+SP_FLOW_ITERS = 2
+SP_WAVEFLOW_HPARAMS = hparams_of({**WAVEFLOW, **FLOW_DATA, **CADENCE,
+                                  "validate_at_start": True,
+                                  "async_save": True, "max_val_batches": 1})
+# 17c: WaveGlow at phase 4b's widths on a 30 s mel, HiFi-GAN at phase 4's
+# bench-serving configuration on a 2048-frame mel
+SP_INFER_JOB = "sp-infer"
+SP_WAVEGLOW_FRAMES = 30 * FLOW_SR // FLOW_HOP
+SP_HIFIGAN_FRAMES = 2048
+SP_HIFIGAN = dict(upsample_rates=(8, 8, 4, 2),
+                  upsample_kernel_sizes=(16, 16, 8, 4))
+
+
+def p17c_inputs(tmp):
+    """17c's inputs, seeded, in a file the ranks read: the models'
+    configurations, the mels and z."""
+    import torch
+    g = torch.Generator().manual_seed(17)
+    frames = SP_WAVEGLOW_FRAMES
+    cols = frames * WAVEGLOW["hop_length"] // WAVEGLOW["n_group"]
+    path = tmp / "sp_infer_inputs.pt"
+    torch.save({"glow_kw": WAVEGLOW, "hifigan_kw": SP_HIFIGAN,
+                "mel": torch.randn(1, frames, WAVEGLOW["n_mel_channels"],
+                                   generator=g),
+                "z": 0.6 * torch.randn(1, cols, WAVEGLOW["n_group"],
+                                       generator=g),
+                "hmel": torch.randn(1, SP_HIFIGAN_FRAMES, 80, generator=g)
+                - 5.0}, path)
+    return path
+
+
+def p17c_models(inp):
+    """The WaveGlow of phase 4b (seed 11) and the HiFi-GAN of phase 4
+    (seed 0) at ``inp``'s configurations, on DEV."""
+    import torch
+    from cookietts_tpu_torch.models.hifigan import Generator, HiFiGANConfig
+    glow = make_flow_vocoder(inp["glow_kw"], seed=11)
+    torch.manual_seed(0)
+    return glow, Generator(HiFiGANConfig(**inp["hifigan_kw"]), device=DEV)
+
+
+def device_parts(fn, prefixes):
+    """(the output of one ``fn()``, its wall ms, the device-busy ms inside
+    it, and the device ms of the kernels whose names hold each of
+    ``prefixes``): torch.profiler's raw kineto records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in events) / 1e6
+    parts = {p: sum(e.duration_ns() for e in events if p in e.name()) / 1e6
+             for p in prefixes}
+    return out, wall, busy, parts
+
+
+# the kernels' device functions: the WN's (csrc/wn_layer.cuh) and the
+# resblock's (csrc/hifigan_resblock.cu)
+WN_KERNELS = ("wn_start_kernel", "wn_gemm", "wn_end_kernel")
+RESBLOCK_KERNELS = ("resblock_pair_fused", "resblock_conv_split")
+
+
+def p17c_alone(glow, gen, cols, frames):
+    """Device ms alone on the card (CUDA-graph replay, time_ms) at a rank's
+    shapes and at one process's: one infer's WN calls (their cond
+    projections and kernels; the time depends on the shapes only) at
+    ``cols`` columns and at the whole utterance's, and the generator at
+    ``frames`` mel frames and at the whole mel's."""
+    import torch
+    out = {}
+    g = torch.Generator(device=DEV).manual_seed(3)
+    D = glow.WN[0].cond_layer.in_channels
+    with torch.no_grad():
+        for what, n, f in (("run", cols[0], frames[0]),
+                           ("whole", cols[1], frames[1])):
+            xs = [torch.randn(1, wn.start.in_channels, n, generator=g,
+                              device=DEV) for wn in glow.WN]
+            cond = torch.randn(1, D, n, generator=g, device=DEV)
+            out[f"waveglow_{what}"] = time_ms(
+                lambda: [wn(x, cond) for wn, x in zip(glow.WN, xs)], 2)
+            del xs, cond
+            mel = torch.randn(1, f, 80, generator=g, device=DEV)
+            out[f"hifigan_{what}"] = time_ms(lambda: gen(mel, infer=True), 2)
+    return out
+
+
+def p17c_run(hk, model, fn, prefixes):
+    """``fn`` warmed, then once with its launches counted and its device
+    time split: (output, record)."""
+    fn()
+    hk.reset_launch_counts()
+    out, wall, busy, parts = device_parts(fn, prefixes)
+    return out, {"launches": dict(hk.LAUNCHES), "wall_ms": wall,
+                 "busy_ms": busy, "kernel_ms": sum(parts.values())}
+
+
+def sp_infer_job(hk, name, inputs, out):
+    """17c on one rank of the launch: WaveGlow's ``infer`` and HiFi-GAN's
+    generator on this rank's run of the mels at sp SP (z the rank's columns
+    of one process's), each warmed, then counted and timed; the runs saved
+    beside the spec for the main process, the record as the train jobs'."""
+    import torch
+    from cookietts_tpu_torch.parallel import (HALO, initialize, make_mesh,
+                                              process_index)
+    initialize(DEV, "gloo")
+    rank = process_index()
+    _, _, sp = make_mesh(1, SP)
+    inp = torch.load(inputs)
+    glow, gen = p17c_models(inp)
+
+    def run_of(x):
+        n = x.shape[1] // SP
+        return x[:, sp.rank * n:(sp.rank + 1) * n].to(DEV)
+
+    mel, z, hmel = run_of(inp["mel"]), run_of(inp["z"]), run_of(inp["hmel"])
+    t0 = time.perf_counter()
+    audio, rec_glow = p17c_run(hk, glow, lambda: glow.infer(mel, z=z, sp=sp),
+                               WN_KERNELS)
+    halo = dict(HALO)
+    wav, rec_gen = p17c_run(hk, gen, lambda: gen(hmel, infer=True, sp=sp),
+                            RESBLOCK_KERNELS)
+    torch.save({"waveglow": audio.cpu(), "hifigan": wav.cpu()},
+               out / f"sp_infer_{rank}.pt")
+    (out / f"rank_job_{name}_{rank}.json").write_text(json.dumps({
+        "job": name, "rank": rank, "seconds": time.perf_counter() - t0,
+        "waveglow": rec_glow, "hifigan": rec_gen, "halo": halo,
+        "kernel_launches": {}}))
+
+
+def halo_per_iteration(rec):
+    """Each rank's halo bytes sent under autograd (the training steps'
+    forwards, recomputes and backwards) over the iterations."""
+    return [(r["halo"]["bytes"] - r["halo"]["bytes_no_grad"]) / SP_FLOW_ITERS
+            for r in rec]
+
+
+def phase17a(hk, p14, smi):
+    """train --model waveglow --sp 2 at WaveGlowConfig() (run in phase 14's
+    launch) against 16c's one-process run of the same command: per-iteration
+    losses and gradient norms, both validations, the final weights, one
+    writer; each rank's validation runs waveglow_wn_forward on its widened
+    runs (one process's launches), training none. Prints the halo bytes an
+    iteration."""
+    from cookietts_tpu_torch.models.waveglow import WaveGlowConfig, wn_reach
+    tmp = p14["tmp"]
+    run1, dt1, n1 = p14["one"]["16c"]
+    rec = p14["rec"]["17a"]
+    cfg = WaveGlowConfig(**WAVEGLOW_TRAIN)
+    want = {k: 0 for k in n1}
+    want["waveglow_wn_forward"] = 2 * cfg.n_flows * hk.wn_launches(
+        cfg.n_layers)
+    n2 = [r["kernel_launches"] for r in rec]
+    train_bytes = halo_per_iteration(rec)
+    log(f"  17a WaveGlow --sp {SP} (WaveGlowConfig(), batch 4, "
+        f"{FLOW_SEGMENT} samples, {SP_FLOW_ITERS} iterations, validations "
+        f"at the start and at {SP_FLOW_ITERS}): ranks "
+        f"{[round(r['seconds'], 1) for r in rec]} s in phase 14's launch, 1 "
+        f"process {dt1:.1f} s; launches 1 process {n1}, ranks {n2} (want "
+        f"{want}); halo bytes sent an iteration by rank {train_bytes} "
+        f"(exchanges in the job {[r['halo']['exchanges'] for r in rec]}; "
+        f"the validations' {[r['halo']['bytes_no_grad'] for r in rec]} bytes, "
+        f"the WN's reach {wn_reach(cfg)} columns a flow)")
+    if any(n != want for n in [n1] + n2) or not all(train_bytes):
+        raise SystemExit("chip_smoke: the sp WaveGlow run's launch counts or "
+                         "halo exchanges")
+    dp_compare(f"17a WaveGlow sp {SP}", (run1, tmp / "run17a_2"),
+               TP_FLOW_ITERS, 1e-4, smi, what=f"sp {SP}")
+
+
+def phase17b(hk, p14, smi):
+    """WaveFlow at phase 8b's recipe, --sp 2, against its one-process twin:
+    the losses, both validations (the row kernel on the gathered time axis
+    on every rank: one process's launches), the final weights."""
+    from cookietts_tpu_torch.models.waveglow import WaveGlowConfig
+    tmp = p14["tmp"]
+    run1, dt1, n1 = p14["one"]["17b"]
+    rec = p14["rec"]["17b"]
+    cfg = WaveGlowConfig(**WAVEFLOW)
+    want = {k: 0 for k in n1}
+    want["waveflow_row_step"] = (2 * cfg.n_flows * cfg.n_group
+                                 * hk.wn_launches(cfg.n_layers))
+    n2 = [r["kernel_launches"] for r in rec]
+    log(f"  17b WaveFlow --sp {SP} (phase 4b's, batch 4, {SP_FLOW_ITERS} "
+        f"iterations): ranks {[round(r['seconds'], 1) for r in rec]} s in the "
+        f"launch, 1 process {dt1:.1f} s; launches 1 process {n1}, ranks {n2} "
+        f"(want {want}: the validations gather the time axis); halo bytes "
+        f"sent an iteration by rank {halo_per_iteration(rec)}")
+    if any(n != want for n in [n1] + n2):
+        raise SystemExit("chip_smoke: the sp WaveFlow run's launch counts")
+    dp_compare(f"17b WaveFlow sp {SP}", (run1, tmp / "run17b_2"),
+               SP_FLOW_ITERS, 1e-4, smi, what=f"sp {SP}")
+
+
+def phase17c(hk, p14, smi):
+    """Sharded inference at sp 2 against one process on the same inputs:
+    WaveGlow's infer with the same z (atol 2e-4), HiFi-GAN's generator
+    (phase 5's resblock tolerance); each rank's launches of the kernel (a
+    whole WN a flow, a resblock a call, on the widened runs: one process's
+    counts), device ms beside one process's."""
+    import torch
+    from cookietts_tpu_torch.models.waveglow import wn_reach
+    tmp = p14["tmp"]
+    rec = p14["rec"]["17c"]
+    inp = torch.load(tmp / "sp_infer_inputs.pt")
+    glow, gen = p17c_models(inp)
+    mel, z, hmel = (inp[k].to(DEV) for k in ("mel", "z", "hmel"))
+    with torch.no_grad():
+        audio, one_glow = p17c_run(hk, glow, lambda: glow.infer(mel, z=z),
+                                   WN_KERNELS)
+        wav, one_gen = p17c_run(hk, gen, lambda: gen(hmel, infer=True),
+                                RESBLOCK_KERNELS)
+    reach = wn_reach(glow.cfg)
+    alone = p17c_alone(glow, gen, (z.shape[1] // SP + reach, z.shape[1]),
+                       (hmel.shape[1] // SP + gen.reach(), hmel.shape[1]))
+    log(f"  17c alone on the card, device ms (CUDA-graph replay) at a "
+        f"rank's widened run and at the whole utterance: WaveGlow's 48 WN "
+        f"calls "
+        f"{alone['waveglow_run']:.2f} at {z.shape[1] // SP + reach} columns, "
+        f"{alone['waveglow_whole']:.2f} at {z.shape[1]} (ratio "
+        f"{alone['waveglow_run'] / max(alone['waveglow_whole'], 1e-9):.3f}); "
+        f"the generator {alone['hifigan_run']:.2f} at "
+        f"{hmel.shape[1] // SP + gen.reach()} frames, "
+        f"{alone['hifigan_whole']:.2f} at {hmel.shape[1]} (ratio "
+        f"{alone['hifigan_run'] / max(alone['hifigan_whole'], 1e-9):.3f}); "
+        f"{smi}")
+    runs = [torch.load(tmp / f"sp_infer_{r}.pt") for r in range(DP_WORLD)]
+    got_glow = torch.cat([r["waveglow"] for r in runs], 1).to(DEV)
+    got_gen = torch.cat([r["hifigan"] for r in runs], 1).to(DEV)
+    d_glow = float((got_glow - audio).abs().max())
+    d_gen = float((got_gen - wav).abs().max())
+    log(f"  17c WaveGlow: {SP_WAVEGLOW_FRAMES} frames (30 s), each rank's "
+        f"run widened by {wn_reach(glow.cfg)} columns a flow, halo bytes by "
+        f"rank {[r['halo']['bytes'] for r in rec]}; max abs against one "
+        f"process {d_glow:.2e} (limit 2e-4); HiFi-GAN {SP_HIFIGAN_FRAMES} "
+        f"frames, reach {gen.reach()} frames: {d_gen:.2e} (limit "
+        f"{TOL['hifigan_resblock'][0]:.0e} + {TOL['hifigan_resblock'][1]:.0e}"
+        f" |x|); {smi}")
+    if not (torch.allclose(got_glow, audio, atol=2e-4, rtol=1e-4)
+            and torch.allclose(got_gen, wav,
+                               atol=TOL["hifigan_resblock"][0],
+                               rtol=TOL["hifigan_resblock"][1])):
+        raise SystemExit("chip_smoke: 17c: the sharded inference is not one "
+                         "process's")
+    for what, one, key in (("WaveGlow", one_glow, "waveglow_wn_forward"),
+                           ("HiFi-GAN", one_gen, "hifigan_resblock")):
+        part = "waveglow" if what == "WaveGlow" else "hifigan"
+        ranks = [r[part] for r in rec]
+        log(f"  17c {what} at sp {SP}: launches of {key} 1 process "
+            f"{one['launches'].get(key, 0)}, ranks "
+            f"{[r['launches'].get(key, 0) for r in ranks]}; the kernel's "
+            f"device ms 1 process {one['kernel_ms']:.2f}, ranks "
+            f"{[round(r['kernel_ms'], 2) for r in ranks]}; device-busy ms "
+            f"{one['busy_ms']:.2f}, ranks "
+            f"{[round(r['busy_ms'], 2) for r in ranks]}; wall ms "
+            f"{one['wall_ms']:.1f}, ranks "
+            f"{[round(r['wall_ms'], 1) for r in ranks]} (the ranks share the "
+            f"card)")
+        want = one["launches"].get(key, 0)
+        if want == 0 or any(r["launches"].get(key, 0) != want for r in ranks):
+            raise SystemExit(f"chip_smoke: 17c {what}: the ranks did not "
+                             f"launch {key} as one process does")
+
+
+def phase17(hk, p14, smi):
+    t0 = time.perf_counter()
+    phase17a(hk, p14, smi)
+    t1 = time.perf_counter()
+    phase17b(hk, p14, smi)
+    t2 = time.perf_counter()
+    phase17c(hk, p14, smi)
+    jobs = {k: max(r["seconds"] for r in p14["rec"][k])
+            for k in ("17a", "17b", "17c")}
+    log(f"  phase 17a {t1 - t0:.1f} s, 17b {t2 - t1:.1f} s, 17c "
+        f"{time.perf_counter() - t2:.1f} s of checks here; {jobs} s of ranks "
+        f"in phase 14's launch ({p14['one']['17b'][1]:.1f} s for 17b's "
+        f"one-process twin in phase 14); {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5248,6 +5553,10 @@ def main() -> int:
 
         phase("16", f"tensor parallelism, train --tp {TP}")
         phase16(hk, check, tcfg, p14, smi)
+
+        phase("17", f"sequence parallelism, train --sp {SP}, sharded "
+              "inference")
+        phase17(hk, p14, smi)
         del p14
 
     kernels = []

@@ -141,6 +141,8 @@ DP_TRAINERS = ("tacotron2", "hifigan", "gan_postnet", "hifigan_denoiser",
                "gantts")
 # the trainers that take --tp above 1 (JAX wires tp for these two)
 TP_TRAINERS = ("tacotron2", "waveglow")
+# the trainers that take --sp above 1 (JAX wires sp for the flow vocoders)
+SP_TRAINERS = ("waveglow",)
 # --hparams keys that reach the live config, with their types
 LIVE_OVERRIDES = (("validation_interval", int), ("checkpoint_interval", int),
                   ("LossExplosionThreshold", float),
@@ -312,11 +314,14 @@ def cmd_train(args):
     """Train; returns the Trainer. Under torchrun's environment the rank
     joins the group first (parallel.initialize) and trains its rows."""
     from .parallel import initialize, process_count, rank_device
-    if int(getattr(args, "sp", 1) or 1) > 1:
+    from .parallel.mesh import mesh_dp
+    sp = int(getattr(args, "sp", 1) or 1)
+    if sp > 1 and args.model not in SP_TRAINERS:
+        # never drop a parallelism request silently (JAX's message)
         raise SystemExit(
-            "--sp > 1 (sequence parallelism) is not ported yet: it comes "
-            "with the next slice of the parallel runtime. Train data- or "
-            "tensor-parallel with torchrun (--tp) instead")
+            "--sp (vocoder time-axis sequence parallelism) is only wired "
+            "for --model waveglow/waveflow; remove the flag or use that "
+            "trainer")
     tp = int(getattr(args, "tp", 1) or 1)
     if tp > 1 and args.model not in TP_TRAINERS:
         raise SystemExit(
@@ -325,16 +330,14 @@ def cmd_train(args):
             f"{args.model} trains with --tp 1")
     if initialize(args.device, getattr(args, "dist_backend", None)):
         if (process_count() > 1 and args.model not in DP_TRAINERS
-                and not (tp > 1 and args.model in TP_TRAINERS)):
+                and not (tp > 1 and args.model in TP_TRAINERS)
+                and not (sp > 1 and args.model in SP_TRAINERS)):
             raise SystemExit(
                 f"--model {args.model} trains in one process only (JAX's "
                 f"trainer has no data parallelism); run it without torchrun "
                 f"(this run has {process_count()} ranks)")
         args.device = str(rank_device(args.device))
-    if process_count() % tp:
-        raise SystemExit(
-            f"a world of {process_count()} ranks is not a multiple of --tp "
-            f"{tp}: start N x {tp} ranks with torchrun (the mesh is dp x tp)")
+    mesh_dp(process_count(), tp, sp)  # one process too, before any loading
     trainer = OTHER_TRAINERS.get(args.model, _train_tacotron2)(args)
     if process_count() > 1:
         # each rank's kernel launches, training and validation (the
@@ -347,25 +350,30 @@ def cmd_train(args):
     return trainer
 
 
-def _mesh(batch_size: int, tp: int = 1):
-    """(DataParallel, TensorParallel) of the group as dp x tp, dp = world /
-    ``tp`` (None, None in one process; TensorParallel None at tp 1), once
-    the global ``batch_size`` is known to divide by the dp ranks."""
+def _mesh(batch_size: int, tp: int = 1, sp: int = 1):
+    """(DataParallel, TensorParallel, SequenceParallel) of the group as dp x
+    tp x sp, dp = world / (``tp`` ``sp``) (None, None, None in one process;
+    TensorParallel None at tp 1, SequenceParallel None at sp 1), once the
+    global ``batch_size`` is known to divide by the dp ranks. The
+    DataParallel's group is the replica group (dp x sp ranks)."""
     import torch.distributed as dist
     from .parallel import make_mesh
     if not dist.is_initialized():
-        return None, None
-    dp, tpg = make_mesh(tp)
-    if batch_size % dp.size:
+        return None, None, None
+    dp, tpg, spg = make_mesh(tp, sp)
+    rows = dp.row_count
+    if batch_size % rows:
         raise SystemExit(f"batch_size={batch_size} must divide evenly over "
-                         f"the {dp.size} ranks (each rank trains batch_size / "
-                         f"{dp.size} rows of every global batch)")
+                         f"the {rows} ranks (each rank trains batch_size / "
+                         f"{rows} rows of every global batch)")
     if dp.primary:
-        print(f"[train] data parallel: {dp.size} ranks, "
-              f"{batch_size // dp.size} rows of each global batch of "
+        print(f"[train] data parallel: {rows} ranks, "
+              f"{batch_size // rows} rows of each global batch of "
               f"{batch_size} per rank"
-              + (f"; tensor parallel over {tp} ranks" if tp > 1 else ""))
-    return dp, tpg
+              + (f"; tensor parallel over {tp} ranks" if tp > 1 else "")
+              + (f"; sequence parallel over {spg.size} ranks, each a "
+                 "run of the time axis" if spg is not None else ""))
+    return dp, tpg, spg
 
 
 def _data_parallel(batch_size: int):
@@ -408,7 +416,7 @@ def _train_tacotron2(args):
         print("[train] detect_anomaly: autograd anomaly mode on (slow)")
     batch_size = int(overrides.get("batch_size", 8))
     n_iters = int(overrides.get("n_iters", args.iters))
-    dp, tp = _mesh(batch_size, int(getattr(args, "tp", 1) or 1))
+    dp, tp, _ = _mesh(batch_size, int(getattr(args, "tp", 1) or 1))
     primary = dp is None or dp.primary
 
     entries = load_filelist(args.filelist)
@@ -699,7 +707,13 @@ def _train_waveglow(args):
         **{k: tuple(v) if isinstance(v, list) else v
            for k, v in overrides.items()
            if k in m_keys and k not in ("n_mel_channels", "hop_length")})
-    dp, tp = _mesh(batch_size, int(getattr(args, "tp", 1) or 1))
+    sp_n = int(getattr(args, "sp", 1) or 1)
+    if sp_n > 1 and dcfg.segment_length % (sp_n * dcfg.hop_length):
+        raise SystemExit(
+            f"--sp {sp_n}: segment_length={dcfg.segment_length} must split "
+            f"into {sp_n} runs of whole hops of {dcfg.hop_length} samples "
+            f"(a multiple of sp * hop_length = {sp_n * dcfg.hop_length})")
+    dp, tp, sp = _mesh(batch_size, int(getattr(args, "tp", 1) or 1), sp_n)
     if tp is not None and (wcfg.cond_layers > 1 or wcfg.cond_residual):
         raise SystemExit(
             f"--tp {tp.size}: the sharded WN covers one cond projection "
@@ -717,11 +731,17 @@ def _train_waveglow(args):
     make_batch, val_batches = _vocoder_batches(dataset, val_items, batch_size,
                                                overrides, desc, keys)
     if dp is not None:         # this rank's rows of every global batch
+        rates = {"audio": 1, "mels": dcfg.hop_length}
+
+        def local(batch):       # and, under sp, its run of the time axis
+            batch = dp.shard_batch(batch)
+            return batch if sp is None else sp.shard_batch(batch, rates)
+
         global_batch = make_batch
-        make_batch = lambda it: dp.shard_batch(global_batch(it))  # noqa: E731
-        val_batches = [dp.shard_batch(b) for b in val_batches]
+        make_batch = lambda it: local(global_batch(it))  # noqa: E731
+        val_batches = [local(b) for b in val_batches]
     tx = lamb() if str(overrides.get("optimizer", "adam")) == "lamb" else adam()
-    val_step = make_waveglow_val_step(model, dp=dp, replica=replica)
+    val_step = make_waveglow_val_step(model, dp=dp, replica=replica, sp=sp)
 
     def eval_step(state, batch, generator, ctrl):
         m = val_step(state, batch, generator)
@@ -729,7 +749,8 @@ def _train_waveglow(args):
                  "MAE": m["val_MAE"]}, {}, None)
 
     trainer = _make_trainer(args, overrides, TrainState.create(model, tx),
-                            make_waveglow_train_step(model, dp=dp), device,
+                            make_waveglow_train_step(model, dp=dp, sp=sp),
+                            device,
                             eval_step=eval_step, val_batches=val_batches,
                             plateau=ReduceLROnPlateau(), grad_clip=150.0,
                             dp=dp)
@@ -1630,7 +1651,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "shard the weights (tacotron2, waveglow; the world is dp "
                    "x tp under torchrun)")
     t.add_argument("--sp", type=int, default=1,
-                   help="sequence parallelism (above 1 raises: not ported)")
+                   help="sequence parallelism: the ranks of each sp group "
+                   "hold runs of the vocoders' time axis and exchange the "
+                   "convolutions' halos (waveglow/waveflow; the world is dp "
+                   "x tp x sp under torchrun)")
     t.add_argument("--hparams", default="",
                    help='override string, e.g. "batch_size=32,p_arpabet=0"')
     t.add_argument("--run_dir", default="runs/default")

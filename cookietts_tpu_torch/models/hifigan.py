@@ -41,6 +41,15 @@ spectrally normalised through ``SNConv``: the exact top singular value of
 the weight (``eigh`` of the smaller Gram matrix, u and v detached) at every
 call, as the JAX model computes it, not torch's power iteration.
 
+Sequence parallelism (parallel/sp.py): ``Generator.forward(mel, infer,
+sp=sp)`` takes this rank's run of the mel frames and returns its run of the
+audio. The generator's reach in mel frames (``Generator.reach``: conv_pre,
+each transposed conv, each stage's widest MRF at its rate, conv_post) is
+computed from the configuration; the run is widened by that many frames
+from the neighbours (inward only at the utterance's ends, where the convs'
+own zero padding is one process's), the whole generator runs on the widened
+run (the resblock kernel included) and the rank keeps its samples.
+
 Traps kept from the JAX model: ConvTranspose ``padding=(k-u)//2`` matches
 flax's "SAME" transposed conv (the checkpoint kernel is the flipped flax
 one), the MRF averages its resblocks, and the final leaky ReLU uses slope
@@ -50,6 +59,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+from fractions import Fraction
 from typing import Any, Callable, List, Tuple
 
 import torch
@@ -58,6 +69,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import hopper_kernels as hk
+from ..parallel.sp import conv_transpose_reach
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,8 +239,41 @@ class Generator(nn.Module):
                       self.resblocks[i * n_k].use_kernel)
                      for i in range(len(self.ups)))
 
-    def forward(self, mel: torch.Tensor, infer: bool = False) -> torch.Tensor:
-        """[B, T_mel, n_mel] -> [B, T_mel * prod(upsample_rates)]."""
+    def reach(self) -> int:
+        """The mel frames an output sample depends on beyond its own, on
+        the wider side, rounded up: conv_pre's (k - 1) / 2 at the mel rate;
+        each transposed conv's reach in its input steps; each stage's widest
+        MRF, sum over its dilation pairs of (k - 1) / 2 (d + 1), at the
+        stage's rate; conv_post's at the audio rate."""
+        cfg = self.cfg
+        half = lambda conv: (conv.weight.shape[-1] - 1) // 2  # noqa: E731
+        side = [Fraction(half(self.conv_pre))] * 2
+        rate = 1
+        for u, k in zip(cfg.upsample_rates, cfg.upsample_kernel_sizes):
+            for i, r in enumerate(conv_transpose_reach(k, u, (k - u) // 2)):
+                side[i] += r / rate
+            rate *= u
+            mrf = max((rk - 1) // 2 * sum(int(d) + 1 for d in rd)
+                      for rk, rd in zip(cfg.resblock_kernel_sizes,
+                                        cfg.resblock_dilations))
+            side = [v + Fraction(mrf, rate) for v in side]
+        side = [v + Fraction(half(self.conv_post), rate) for v in side]
+        return math.ceil(max(side))
+
+    def forward(self, mel: torch.Tensor, infer: bool = False, sp=None
+                ) -> torch.Tensor:
+        """[B, T_mel, n_mel] -> [B, T_mel * prod(upsample_rates)]. Under an
+        sp group (parallel/sp.py) ``mel`` is this rank's run of the frames
+        and the audio its run of the samples."""
+        if sp is not None:
+            msp = sp.bind(mel.shape[1])
+            reach = self.reach()
+            wide, l, _ = msp.widen(torch.as_tensor(
+                mel, dtype=torch.float32, device=self.conv_pre.bias.device),
+                reach, reach, dim=1)
+            hop = math.prod(self.cfg.upsample_rates)
+            out = self.forward(wide, infer)
+            return out[:, l * hop:(l + mel.shape[1]) * hop]
         if infer:
             with torch.no_grad():
                 return self._forward(mel, True)

@@ -47,10 +47,33 @@ the 1e-2 level.
 
 With ``iso226_deemphasis``, ``infer`` removes the ISO 226 equal-loudness
 emphasis from its audio (audio/iso226.py), as the JAX model does.
+
+Sequence parallelism (parallel/sp.py): ``forward``, ``inverse`` and
+``infer`` take an ``sp`` group whose ranks each hold a run of the time axis
+(the audio's samples, the mel's frames; ``SequenceParallel.shard_batch``).
+The flows are pointwise in time given their conditioning but for the WN's
+dilated convs and the upsampler, so:
+
+- the upsampler runs on the rank's mel frames widened by its reach in
+  frames, computed from the configuration (``upsample_reach``), and keeps
+  the rank's columns;
+- in training each WN layer pads its conv input with ``halo_pad``: the
+  neighbours' columns, zeros past the utterance's ends, as ``F.pad`` does
+  in one process; the loss terms are the rank's parts of the global sums;
+- in the inverse one exchange a flow widens the WN's input by the whole
+  WN's reach (``wn_reach``), the ``waveglow_wn_forward`` kernel runs on the
+  widened run and the rank keeps the centre. At the utterance's ends a run
+  widens inward only: the kernel's own zero padding is one process's;
+- WaveFlow's inverse, causal in height with width halos in its ring from
+  row to row, gathers the time axis and runs the row kernel on the whole
+  utterance on every rank (what GSPMD does with a Pallas call it cannot
+  partition), each rank keeping its columns.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from fractions import Fraction
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -62,6 +85,7 @@ from torch import nn
 from ..device import full_float32, resolve_device
 from ..ops import hopper_kernels as hk
 from ..parallel.mesh import draw_rows
+from ..parallel.sp import conv_transpose_reach
 
 
 def _tanhshrink(x):
@@ -292,15 +316,19 @@ class WN(_WNBase):
         self.gated_unit = gated_unit
         self._make(nn.Conv1d, n_in, n_out, n_cond, (kernel_size,))
 
-    def forward_train(self, x: torch.Tensor, cond: torch.Tensor
+    def forward_train(self, x: torch.Tensor, cond: torch.Tensor, sp=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The training forward (JAX ``WN.__call__``) from the live
-        parameters: x [B, C_in, T], cond [B, D, T] -> (log_s, t)."""
+        parameters: x [B, C_in, T], cond [B, D, T] -> (log_s, t). Under
+        ``sp`` (bound to the time axis) T is this rank's run and each
+        layer's padding holds the neighbours' columns."""
         h, cond_all = self._train_input(x, cond)
+        pad = F.pad if sp is None else (
+            lambda h, lr: sp.halo_pad(h, lr[0], lr[1]))
 
         def conv(i, layer, h):
             total = (layer.kernel_size[0] - 1) * 2 ** i     # flax's "SAME"
-            return F.conv1d(F.pad(h, (total // 2, total - total // 2)),
+            return F.conv1d(pad(h, (total // 2, total - total // 2)),
                             layer.weight, layer.bias, dilation=2 ** i)
 
         return self._train_layers(h, cond_all, conv)
@@ -332,19 +360,23 @@ class WN2D(_WNBase):
         self.kernel_size_h, self.gated_unit = kernel_size_h, gated_unit
         self._make(nn.Conv2d, 1, 1, n_cond, (kernel_size_h, kernel_size))
 
-    def forward_train(self, x: torch.Tensor, cond: torch.Tensor
+    def forward_train(self, x: torch.Tensor, cond: torch.Tensor, sp=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The training forward over every row at once (JAX
         ``WN2D.__call__``), from the live parameters: x [B, H, W], cond
         [B, D, W] -> (log_s, t), each [B, H, W]; row h depends on the rows
-        above it only (the input shifted down a row, causal padding)."""
+        above it only (the input shifted down a row, causal padding). Under
+        ``sp`` W is this rank's run: the width padding holds the
+        neighbours' columns, the height padding stays causal and local."""
         kh = self.kernel_size_h
         h, cond_all = self._train_input(
             F.pad(x, (0, 0, 1, 0))[:, None, :-1], cond)
 
         def conv(i, layer, h):
             pad = (layer.kernel_size[1] // 2) * 2 ** i
-            return F.conv2d(F.pad(h, (pad, pad, kh - 1, 0)), layer.weight,
+            h = (F.pad(h, (pad, pad)) if sp is None
+                 else sp.halo_pad(h, pad, pad))
+            return F.conv2d(F.pad(h, (0, 0, kh - 1, 0)), layer.weight,
                             layer.bias, dilation=(1, 2 ** i))
 
         log_s, t = self._train_layers(h, cond_all, conv)
@@ -375,6 +407,35 @@ def _same_offset(stride: int) -> int:
     pads the dilated input by ceil((3s - 2) / 2) on the left where the full
     conv pads by 2s - 1."""
     return (2 * stride - 1) - -(-(3 * stride - 2) // 2)
+
+
+def upsample_reach(cfg: WaveGlowConfig) -> Tuple[Fraction, Fraction]:
+    """(left, right) reach of the conditioning in mel frames: cond column c
+    (at group rate, mel position c G / hop) depends on the mel frames within
+    [c G / hop - left, c G / hop + right]. Each stage of the "multi"
+    upsampler is a transposed conv (kernel 2s, stride s) cut at
+    ``_same_offset(s)``, in units of its input; "single" is one transposed
+    conv (``upsample_win_length``, stride hop) cut at 0, whose samples fold
+    G to a column."""
+    if cfg.upsample_mode == "single":
+        left, right = conv_transpose_reach(cfg.upsample_win_length,
+                                           cfg.hop_length, 0)
+        return left, right + Fraction(cfg.n_group - 1, cfg.hop_length)
+    left = right = Fraction(0)
+    rate = 1
+    for s in cfg.upsample_strides:
+        l, r = conv_transpose_reach(2 * s, s, _same_offset(s))
+        left, right = left + l / rate, right + r / rate
+        rate *= s
+    return left, right
+
+
+def wn_reach(cfg: WaveGlowConfig) -> int:
+    """The columns one WN reaches on either side (its dilated convs'
+    "SAME" padding summed over the layers, the wider side)."""
+    return sum((cfg.kernel_size - 1) * 2 ** i
+               - (cfg.kernel_size - 1) * 2 ** i // 2
+               for i in range(cfg.n_layers))
 
 
 class UpsampleNet(nn.ModuleList):
@@ -464,19 +525,55 @@ class WaveGlow(nn.Module):
     def device(self) -> torch.device:
         return self.WN[0].start.weight.device
 
-    def _cond(self, mel: torch.Tensor,
-              speaker_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """mel [B, T_mel, M] -> cond [B, D, T/G] at group rate."""
+    def _upsample(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel [B, M, T_mel] -> the upsampled conditioning [B, D, T_mel hop
+        / G] at group rate, before the speaker."""
         cfg = self.cfg
-        mel = mel.transpose(1, 2)                                # [B, M, T_mel]
         if cfg.upsample_mode == "single":
             G, B, t = cfg.n_group, mel.shape[0], mel.shape[2] * cfg.hop_length
             up = self.upsample(mel)[..., :t]       # trim the conv's overhang
             # unfold: feature index m * G + g, as the reference's view order
-            cond = up.reshape(B, cfg.n_mel_channels, t // G, G).permute(
+            return up.reshape(B, cfg.n_mel_channels, t // G, G).permute(
                 0, 1, 3, 2).reshape(B, cfg.n_mel_channels * G, t // G)
-        else:
-            cond = self.upsample(mel)
+        return self.upsample(mel)
+
+    def _cond(self, mel: torch.Tensor,
+              speaker_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mel [B, T_mel, M] -> cond [B, D, T/G] at group rate."""
+        return self._speaker(self._upsample(mel.transpose(1, 2)), mel,
+                             speaker_ids)
+
+    def _cond_run(self, mel: torch.Tensor, speaker_ids, msp, xsp,
+                  extra: int = 0) -> torch.Tensor:
+        """This rank's columns of the cond, widened by up to ``extra`` on
+        either side (none past the utterance's ends), from its run of the
+        mel ``mel`` [B, T_run, M] (``msp`` bound to the mel frames, ``xsp``
+        to the columns): the mel frames widened by the upsampler's reach
+        and ``extra``'s, upsampled, and cut."""
+        cfg = self.cfg
+        G, hop = cfg.n_group, cfg.hop_length
+        if hop % G or xsp.offset * G != msp.offset * hop:
+            raise ValueError(
+                f"the runs of the columns (from {xsp.offset}, hop {hop}, "
+                f"group {G}) and of the mel frames (from {msp.offset}) "
+                "must start together")
+        c0 = max(0, xsp.offset - extra)
+        c1 = min(xsp.total, xsp.offset + xsp.length + extra)
+        reach = math.ceil(max(upsample_reach(cfg))
+                          + Fraction(extra * G, hop)) + 1
+        wide, l, _ = msp.widen(mel.transpose(1, 2), reach, reach)
+        start = c0 - (msp.offset - l) * hop // G
+        cond = self._upsample(wide)[..., start:start + c1 - c0]
+        if cond.shape[-1] != c1 - c0:
+            raise ValueError(f"the mel frames reach column "
+                             f"{start + cond.shape[-1]}, the run needs "
+                             f"{c1 - c0}")
+        return self._speaker(cond, mel, speaker_ids)
+
+    def _speaker(self, cond: torch.Tensor, mel: torch.Tensor,
+                 speaker_ids=None) -> torch.Tensor:
+        """cond with the speaker embedding appended to every column."""
+        cfg = self.cfg
         if cfg.n_speakers > 0:
             if speaker_ids is None:
                 speaker_ids = torch.zeros(mel.shape[0], dtype=torch.long,
@@ -493,22 +590,25 @@ class WaveGlow(nn.Module):
                                                      use_reentrant=False)
         return fn(*args)
 
-    def _glow_flow(self, k: int, x: torch.Tensor, cond: torch.Tensor):
+    def _glow_flow(self, k: int, x: torch.Tensor, cond: torch.Tensor,
+                   sp=None):
         """Flow k forward: 1x1 mixing, then the affine coupling. -> (y,
         sum of log_s, log|det W|)."""
         y, logdet = self.convinv[k](x)
         xa, xb = y[:, :self._half[k]], y[:, self._half[k]:]
         if self.cfg.couple_transform == "second":
-            log_s, t = self.WN[k].forward_train(xa, cond)
+            log_s, t = self.WN[k].forward_train(xa, cond, sp)
             xb = xb * torch.exp(log_s) + t
         else:
-            log_s, t = self.WN[k].forward_train(xb, cond)
+            log_s, t = self.WN[k].forward_train(xb, cond, sp)
             xa = xa * torch.exp(log_s) + t
         return torch.cat([xa, xb], dim=1), log_s.sum(), logdet
 
-    def _forward_waveglow(self, x: torch.Tensor, cond: torch.Tensor):
+    def _forward_waveglow(self, x: torch.Tensor, cond: torch.Tensor,
+                          sp=None):
         """x [B, G, T'] -> (z [B, G, T'] with the early outputs first,
-        sum of log_s, sum of the 1x1 log-determinants over positions)."""
+        sum of log_s, sum of the 1x1 log-determinants over positions; this
+        rank's parts of the sums under ``sp``)."""
         B, _, T = x.shape
         log_s_sum = logdet_sum = x.new_zeros(())
         early = []
@@ -516,46 +616,71 @@ class WaveGlow(nn.Module):
             if self._early[k]:
                 early.append(x[:, :self._early[k]])
                 x = x[:, self._early[k]:]
-            x, ls, lw = self._flow(self._glow_flow, k, x, cond)
+            x, ls, lw = self._flow(self._glow_flow, k, x, cond, sp)
             log_s_sum = log_s_sum + ls
             logdet_sum = logdet_sum + lw * (B * T)
         return torch.cat(early + [x], dim=1), log_s_sum, logdet_sum
 
-    def _flow_2d(self, k: int, x: torch.Tensor, cond: torch.Tensor):
-        log_s, t = self.WN[k].forward_train(x, cond)
+    def _flow_2d(self, k: int, x: torch.Tensor, cond: torch.Tensor,
+                 sp=None):
+        log_s, t = self.WN[k].forward_train(x, cond, sp)
         return x * torch.exp(log_s) + t, log_s.sum()
 
-    def _forward_waveflow(self, x: torch.Tensor, cond: torch.Tensor):
+    def _forward_waveflow(self, x: torch.Tensor, cond: torch.Tensor,
+                          sp=None):
         """x [B, H, W] -> (z [B, H, W], sum of log_s, 0): each flow permutes
         the rows, then its height-causal affine coupling."""
         log_s_sum = x.new_zeros(())
         for k in range(self.cfg.n_flows):
             x = x[:, permute_height_order(self.cfg.n_group, "bipartize", k)]
-            x, ls = self._flow(self._flow_2d, k, x, cond)
+            x, ls = self._flow(self._flow_2d, k, x, cond, sp)
             log_s_sum = log_s_sum + ls
         return x, log_s_sum, x.new_zeros(())
 
     def forward(self, audio: torch.Tensor, mel: torch.Tensor,
-                speaker_ids: Optional[torch.Tensor] = None
+                speaker_ids: Optional[torch.Tensor] = None, sp=None
                 ) -> Dict[str, Any]:
         """Training forward (JAX ``WaveGlow.__call__``): audio [B, T], mel
         [B, T_mel, M] -> dict(z, log_s_sum, logdet_w_sum, n_elements), z in
-        the JAX layout: [B, T/G, G] for WaveGlow, [B, G, T/G] for WaveFlow."""
+        the JAX layout: [B, T/G, G] for WaveGlow, [B, G, T/G] for WaveFlow.
+        Under an sp group (parallel/sp.py) audio and mel are this rank's
+        runs (``SequenceParallel.shard_batch``) and so are z and the sums:
+        ``waveglow_loss`` of them is this rank's part of the loss over the
+        rank's count, which the step shares over the group."""
         G = self.cfg.n_group
         B, T = audio.shape
         x = audio[:, :(T // G) * G].reshape(B, T // G, G).transpose(1, 2)
         with full_float32():
-            cond = self._cond(mel, speaker_ids)[..., :x.shape[2]]
-            if self.waveflow:
-                z, log_s, logdet = self._forward_waveflow(x, cond)
+            if sp is None:
+                cond = self._cond(mel, speaker_ids)[..., :x.shape[2]]
             else:
-                z, log_s, logdet = self._forward_waveglow(x, cond)
+                sp = sp.bind(x.shape[2])
+                cond = self._cond_run(mel, speaker_ids,
+                                      sp.bind(mel.shape[1]), sp)
+            if self.waveflow:
+                z, log_s, logdet = self._forward_waveflow(x, cond, sp)
+            else:
+                z, log_s, logdet = self._forward_waveglow(x, cond, sp)
                 z = z.transpose(1, 2)
         return {"z": z, "log_s_sum": log_s, "logdet_w_sum": logdet,
                 "n_elements": B * (T // G) * G}
 
-    def _inverse_waveglow(self, z: torch.Tensor, cond: torch.Tensor
-                          ) -> torch.Tensor:
+    def _wn_inverse(self, k: int, x: torch.Tensor, cond: torch.Tensor,
+                    sp=None):
+        """Flow k's WN on the inverse's kernels. Under ``sp`` x is the
+        rank's run and ``cond`` its columns widened by the WN's reach: x is
+        widened as far (one exchange), the kernel runs on the widened run
+        and the rank keeps the centre."""
+        if sp is None:
+            return self.WN[k](x, cond)
+        reach = wn_reach(self.cfg)
+        wide, l, _ = sp.widen(x, reach, reach)
+        log_s, t = self.WN[k](wide, cond)
+        n = x.shape[-1]
+        return log_s[..., l:l + n], t[..., l:l + n]
+
+    def _inverse_waveglow(self, z: torch.Tensor, cond: torch.Tensor,
+                          sp=None) -> torch.Tensor:
         """z [B, G, T'] channels-first (early outputs first) -> x [B, G, T']."""
         second = self.cfg.couple_transform == "second"
         *early_parts, x = z.split([e for e in self._early if e]
@@ -563,10 +688,10 @@ class WaveGlow(nn.Module):
         for k in reversed(range(self.cfg.n_flows)):
             xa, xb = x[:, :self._half[k]], x[:, self._half[k]:]
             if second:
-                log_s, t = self.WN[k](xa, cond)
+                log_s, t = self._wn_inverse(k, xa, cond, sp)
                 xb = (xb - t) * torch.exp(-log_s)
             else:
-                log_s, t = self.WN[k](xb, cond)
+                log_s, t = self._wn_inverse(k, xb, cond, sp)
                 xa = (xa - t) * torch.exp(-log_s)
             x = self.convinv[k].inverse(torch.cat([xa, xb], dim=1))
             if self._early[k]:
@@ -594,11 +719,15 @@ class WaveGlow(nn.Module):
 
     @torch.no_grad()
     def inverse(self, z: torch.Tensor, mel: torch.Tensor,
-                speaker_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Latent -> audio [B, T]."""
+                speaker_ids: Optional[torch.Tensor] = None, sp=None
+                ) -> torch.Tensor:
+        """Latent -> audio [B, T]. Under an sp group z and mel are this
+        rank's runs of the time axis, and so is the audio."""
         dev = self.device
         z = torch.as_tensor(z, dtype=torch.float32, device=dev)
         mel = torch.as_tensor(mel, dtype=torch.float32, device=dev)
+        if sp is not None:
+            return self._inverse_run(z, mel, speaker_ids, sp)
         with full_float32():
             cond = self._cond(mel, speaker_ids)
             if self.waveflow:
@@ -608,6 +737,25 @@ class WaveGlow(nn.Module):
                 x = self._inverse_waveglow(
                     z.transpose(1, 2), cond[..., :z.shape[1]].contiguous())
                 x = x.transpose(1, 2)                            # [B, T', G]
+        return x.reshape(x.shape[0], -1)
+
+    def _inverse_run(self, z, mel, speaker_ids, sp) -> torch.Tensor:
+        """``inverse`` of this rank's runs of z and mel."""
+        G = self.cfg.n_group
+        msp = sp.bind(mel.shape[1])
+        if self.waveflow:
+            # the row kernel's ring carries width halos from row to row:
+            # gather the time axis, run the whole utterance, keep the run
+            zsp = sp.bind(z.shape[2])
+            full = self.inverse(zsp.gather(z, 2), msp.gather(mel, 1),
+                                speaker_ids)
+            return full[:, zsp.offset * G:(zsp.offset + zsp.length) * G]
+        zsp = sp.bind(z.shape[1])
+        with full_float32():
+            cond = self._cond_run(mel, speaker_ids, msp, zsp,
+                                  wn_reach(self.cfg)).contiguous()
+            x = self._inverse_waveglow(z.transpose(1, 2), cond, zsp)
+            x = x.transpose(1, 2)                                # [B, T', G]
         return x.reshape(x.shape[0], -1)
 
     def iso226(self):
@@ -627,24 +775,36 @@ class WaveGlow(nn.Module):
               generator: Optional[torch.Generator] = None,
               sigma: Optional[float] = None,
               speaker_ids: Optional[torch.Tensor] = None,
-              z: Optional[torch.Tensor] = None) -> torch.Tensor:
+              z: Optional[torch.Tensor] = None, sp=None) -> torch.Tensor:
         """Sample z ~ N(0, sigma) from ``generator`` (a generator on the
         model's device) and invert; a given ``z`` is used as it is. With
         ``iso226_deemphasis`` the audio then loses the equal-loudness
-        emphasis (JAX ``WaveGlow.infer``)."""
+        emphasis (JAX ``WaveGlow.infer``). Under an sp group (parallel/
+        sp.py) ``mel`` (and a given ``z``) is this rank's run of the time
+        axis, the draw is the one-process draw's columns of the run, and
+        the audio is the run's."""
         cfg = self.cfg
         if z is None:
             sigma = cfg.sigma if sigma is None else sigma
             B, T_mel = mel.shape[:2]
             n = T_mel * cfg.hop_length // cfg.n_group
             shape = (B, cfg.n_group, n) if self.waveflow else (B, n, cfg.n_group)
+            kw = dict(generator=generator, device=self.device,
+                      dtype=torch.float32)
             # under a dp group's scope this rank's rows of the global draw
-            z = sigma * draw_rows(torch.randn, shape, generator=generator,
-                                  device=self.device, dtype=torch.float32)
-        audio = self.inverse(z, mel, speaker_ids)
+            z = sigma * (draw_rows(torch.randn, shape, **kw) if sp is None
+                         else sp.bind(n).draw(torch.randn, shape,
+                                              2 if self.waveflow else 1,
+                                              **kw))
+        audio = self.inverse(z, mel, speaker_ids, sp)
         if cfg.iso226_deemphasis:
             with full_float32():
-                audio = self.iso226().inverse(audio)
+                if sp is None:
+                    audio = self.iso226().inverse(audio)
+                else:       # an STFT filter: over the whole utterance
+                    asp = sp.bind(audio.shape[1])
+                    audio = asp.columns(self.iso226().inverse(
+                        asp.gather(audio, 1)), 1)
         return audio
 
 

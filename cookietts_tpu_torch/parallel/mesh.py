@@ -1,11 +1,13 @@
 """cookietts_tpu/parallel/mesh.py on torch.distributed: the world as a
-dp x tp mesh (:func:`make_mesh`) and the data-parallel axis.
+dp x tp x sp mesh (:func:`make_mesh`) and the data-parallel axis.
 
-The world of W ranks is dp x tp: rank r sits at (dp = r // tp, tp = r % tp),
-the order in which JAX's ``make_mesh`` reshapes the devices. Each dp index
-has one tp group (the ranks that hold one batch's rows and shard the
-weights: parallel/tp.py), each tp index one dp group (the ranks whose
-gradients are summed). Without tp the dp group is the world.
+The world of W ranks is dp x tp x sp: rank r = (d tp + t) sp + s, the order
+in which JAX's ``make_mesh`` reshapes the devices, so an sp group is a run
+of consecutive ranks. Each (d, t) has one sp group (the ranks that hold
+one batch's rows, each its run of the time axis: parallel/sp.py), each
+(d, s) one tp group (the ranks that shard the weights: parallel/tp.py), and
+each t one replica group: the dp x sp ranks that hold the same weights and
+whose gradients are summed. Without tp and sp that group is the world.
 
 JAX trains data-parallel by sharding the batch over a mesh's dp axis;
 GSPMD then takes every reduction of the step over the global batch. Here
@@ -35,7 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -50,14 +52,20 @@ class DataParallel:
 
     distributed = True
 
-    def __init__(self, group=None):
-        """The dp axis over ``group`` (the world by default)."""
+    def __init__(self, group=None, rows: Optional[Tuple[int, int]] = None):
+        """The dp axis over ``group`` (the world by default): its ranks
+        hold replicas of the weights and their loss terms and gradients are
+        summed. ``rows`` (index, count) is this rank's place among the
+        holders of distinct batch rows, by default its place in the group;
+        under sp the ranks of an sp group hold the same rows."""
         if not dist.is_initialized():
             raise RuntimeError("DataParallel needs a process group; "
                                "parallel.initialize() first")
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
+        self.row_index, self.row_count = (
+            (self.rank, self.size) if rows is None else rows)
 
     @property
     def primary(self) -> bool:
@@ -77,9 +85,9 @@ class DataParallel:
     # -- the batch ------------------------------------------------------------
 
     def rows(self, n: int) -> slice:
-        """This rank's rows of a global batch of ``n`` (the dp group's
-        ranks in order)."""
-        return global_batch_slice(n, self.rank, self.size)
+        """This rank's rows of a global batch of ``n`` (the dp ranks in
+        order)."""
+        return global_batch_slice(n, self.row_index, self.row_count)
 
     def shard_batch(self, batch: Dict[str, Any],
                     replicated: Sequence[str] = ("global_mean",)
@@ -184,6 +192,7 @@ class SingleProcess(DataParallel):
 
     distributed = False
     rank, size, group = 0, 1, None
+    row_index, row_count = 0, 1
 
     def __init__(self):
         pass
@@ -221,31 +230,55 @@ class SingleProcess(DataParallel):
 SINGLE = SingleProcess()
 
 
-def make_mesh(tp: int = 1):
-    """(DataParallel over this rank's dp group, TensorParallel over its tp
-    group or None at ``tp`` 1) of the world as dp x tp, dp = world / tp
-    (JAX's ``make_mesh(dp=-1)``). Every rank calls it: each group is made
-    by all. A world that ``tp`` does not divide refuses."""
+def mesh_dp(world: int, tp: int = 1, sp: int = 1) -> int:
+    """The dp size of a world of ``world`` ranks as dp x tp x sp; a world
+    that tp sp does not divide refuses (JAX's message inside)."""
+    if tp < 1 or sp < 1 or world % (tp * sp):
+        what = f"--tp {tp}" + (f" x --sp {sp}" if sp > 1 else "")
+        raise SystemExit(
+            f"a world of {world} ranks is not a multiple of {what} ({world} "
+            f"devices not divisible by tp*sp={tp * sp}): start N x {tp * sp} "
+            f"ranks with torchrun (the mesh is dp x tp x sp)")
+    return world // (tp * sp)
+
+
+def make_mesh(tp: int = 1, sp: int = 1):
+    """(DataParallel, TensorParallel, SequenceParallel) of the world as dp x
+    tp x sp, dp = world / (tp sp) (JAX's ``make_mesh(dp=-1)``): the
+    DataParallel over this rank's replica group (dp x sp ranks) with its dp
+    index for the rows, the TensorParallel over its tp group or None at
+    ``tp`` 1, the SequenceParallel over its sp group or None at ``sp`` 1.
+    Every rank calls it: each group is made by all. A world that tp sp does
+    not divide refuses."""
+    from .sp import SequenceParallel
     from .tp import TensorParallel
     world, rank = dist.get_world_size(), dist.get_rank()
-    if tp < 1 or world % tp:
-        raise SystemExit(f"a world of {world} ranks is not a multiple of "
-                         f"--tp {tp}: the mesh is dp x tp, dp = world / tp")
-    dp = world // tp
-    if tp == 1:
-        return DataParallel(), None
-    tp_group = dp_group = None
-    for d in range(dp):
-        ranks = list(range(d * tp, (d + 1) * tp))
-        g = dist.new_group(ranks)
-        if rank in ranks:
-            tp_group, tp_ranks = g, ranks
-    for t in range(tp):
-        ranks = list(range(t, world, tp))
-        g = dist.new_group(ranks)
-        if rank in ranks:
-            dp_group = g
-    return DataParallel(dp_group), TensorParallel(tp_group, tp_ranks)
+    dp = mesh_dp(world, tp, sp)
+    if tp == 1 and sp == 1:
+        return DataParallel(), None, None
+    at = lambda d, t, s: (d * tp + t) * sp + s  # noqa: E731
+    mine = {}
+    groups = {"sp": [[at(d, t, s) for s in range(sp)]
+                     for d in range(dp) for t in range(tp)],
+              "tp": [[at(d, t, s) for t in range(tp)]
+                     for d in range(dp) for s in range(sp)],
+              "replica": [[at(d, t, s) for d in range(dp) for s in range(sp)]
+                          for t in range(tp)]}
+    for axis, lists in groups.items():
+        if axis != "replica" and len(lists[0]) == 1:
+            continue
+        for ranks in lists:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine[axis] = (g, ranks)
+    replica = DataParallel(mine["replica"][0], rows=(rank // (tp * sp), dp))
+    return (replica, TensorParallel(*mine["tp"]) if tp > 1 else None,
+            SequenceParallel(*mine["sp"]) if sp > 1 else None)
+
+
+# batch keys whose axis 1 is the time axis (audio samples, mel frames): the
+# axis the vocoder flows treat pointwise given their conditioning
+VOCODER_TIME_AXES: Dict[str, int] = {"audio": 1, "mels": 1}
 
 
 def data_parallel(dp: Optional[DataParallel]) -> DataParallel:
@@ -263,8 +296,8 @@ def draw_rows(draw: Callable, shape: Sequence[int], **kwargs) -> torch.Tensor:
     if dp is None or not shape:
         return draw(shape, **kwargs)
     n = shape[0]
-    full = draw((n * dp.size,) + shape[1:], **kwargs)
-    return full[dp.rank * n:(dp.rank + 1) * n]
+    full = draw((n * dp.row_count,) + shape[1:], **kwargs)
+    return full[dp.row_index * n:(dp.row_index + 1) * n]
 
 
 def batch_means(*xs: torch.Tensor, dims: Sequence[int]):

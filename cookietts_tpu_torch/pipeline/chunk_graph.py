@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -105,6 +106,11 @@ class DecodeChunkGraphs:
             self.stream = torch.cuda.Stream(memory.device)
         before = dict(hk.LAUNCHES)
         sets = set(hk._TICKETS)
+        # a collection during the capture may free an earlier program's
+        # CUDAGraph, whose reset is not permitted while a stream captures
+        # and invalidates this capture (CUDA error 901): collect after it
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=self.stream,
                                   capture_error_mode="thread_local"):
@@ -119,6 +125,8 @@ class DecodeChunkGraphs:
             hk.release_tickets([k for k in hk._TICKETS if k not in sets])
             raise
         finally:
+            if collecting:
+                gc.enable()
             launches = {k: hk.LAUNCHES[k] - before[k] for k in before}
             hk.LAUNCHES.update(before)
         tickets = [k for k in hk._TICKETS if k not in sets]

@@ -48,6 +48,14 @@ conjugate collectives; the global norm sums the shards over the group);
 ``save`` gathers the full tree on every rank (a collective) and rank 0
 writes it; ``resume`` reslices a full checkpoint onto this rank's shards.
 
+Sequence parallel (parallel/sp.py, the flow vocoders): each rank of an sp
+group holds its run of the batch's time axis; the flow step's forward
+exchanges the convolutions' halos, its loss terms are the rank's parts of
+the global sums, and its ``dp`` is the replica group (the dp x sp ranks
+that hold one tp rank's weights), over which the gradients are summed.
+Validation runs the sharded inverse and gathers the audio for the STFT
+losses.
+
 The live config's ``validate_at_start`` runs one validation (and the
 free-running one, where there is an inference eval step) before iteration
 0; each validation logs the first batch's alignment, mels and gate as
@@ -899,18 +907,22 @@ def make_hifigan_denoiser_eval_step(gen, mrs, stage: int,
 # -- WaveGlow / WaveFlow ---------------------------------------------------------
 
 def make_waveglow_train_step(model, sigma: float = 1.0,
-                             dp: Optional[DataParallel] = None) -> Callable:
+                             dp: Optional[DataParallel] = None,
+                             sp=None) -> Callable:
     """The flow NLL step: step(state, batch{audio, mels[, speaker_id]},
     generator, ctrl{lr, grad_clip}) -> (state, metrics), in place. Under
     ``dp`` (this rank's rows; the shapes are equal on every rank) the loss
     and the metrics are the global batch's means. A model sharded over a tp
-    group (parallel/tp.py) trains its shards."""
+    group (parallel/tp.py) trains its shards. Under an sp group (parallel/
+    sp.py) the batch holds this rank's runs of the time axis and ``dp`` is
+    the replica group: the rank's part of the loss is its sums over the
+    global count, and the gradients are summed over the group."""
     dp = data_parallel(dp)
 
     def step(state: TrainState, batch, generator, ctrl):
         del generator
         out = model(batch["audio"], batch["mels"],
-                    speaker_ids=batch.get("speaker_id"))
+                    speaker_ids=batch.get("speaker_id"), sp=sp)
         loss, loss_dict = waveglow_loss(out, sigma=sigma)
         with full_float32():
             norm = _apply_clipped(state, dp.share(loss), ctrl, dp)
@@ -926,7 +938,7 @@ def make_waveglow_val_step(model, stft_windows=((1200, 300, 1200),
                                                 (2400, 600, 2400)),
                            sigma: float = 1.0,
                            dp: Optional[DataParallel] = None,
-                           replica=None) -> Callable:
+                           replica=None, sp=None) -> Callable:
     """Validation through the inverse: audio from z ~ N(0, sigma) drawn from
     ``generator`` (or the ``z`` given), against the batch's audio in STFT
     magnitude at each of ``stft_windows`` (filter, hop, window), averaged.
@@ -937,7 +949,12 @@ def make_waveglow_val_step(model, stft_windows=((1200, 300, 1200),
     ``replica``, an unsharded WaveGlow of its configuration that takes the
     gathered weights once per validation (a new ``state.step``) and runs the
     inverse's kernels on the rank's rows: what GSPMD does with a kernel call
-    it cannot partition."""
+    it cannot partition.
+
+    Under an sp group the batch holds this rank's runs: the sharded
+    inverse (``WaveGlow.infer(sp=...)``) gives the run's audio, and the
+    generated and the batch's audio are gathered whole for the STFT
+    windows, which cross the runs."""
     dp = data_parallel(dp)
     layout = layout_of(model)
     if layout is not None and replica is None:
@@ -954,8 +971,12 @@ def make_waveglow_val_step(model, stft_windows=((1200, 300, 1200),
                 net.load_state_dict(layout.gather(model.state_dict()))
                 synced["step"] = at
         with dp.scope():
-            gen = net.infer(batch["mels"], generator, sigma=sigma, z=z)
-        gt = batch["audio"][:, :gen.shape[1]]
+            gen = net.infer(batch["mels"], generator, sigma=sigma, z=z, sp=sp)
+        gt = batch["audio"]
+        if sp is not None:
+            gen = sp.bind(gen.shape[1]).gather(gen, 1)
+            gt = sp.bind(gt.shape[1]).gather(gt, 1)
+        gt = gt[:, :gen.shape[1]]
         gen = gen[:, :gt.shape[1]].float()
         mse = mae = gen.new_zeros(())
         with full_float32():

@@ -731,13 +731,14 @@ def test_nccl_refuses_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--sp", "2"], "next slice"),
+    (["--sp", "2"], "only wired for --model waveglow/waveflow"),
     (["--tp", "2", "--model", "hifigan"],
      "--tp 2 .*--model tacotron2 and --model waveglow"),
     (["--tp", "2"], "a world of 1 ranks is not a multiple of --tp 2")])
 def test_tp_and_sp_refuse_naming_the_next_slice(tmp_path, argv, message):
-    """--sp refuses (the next slice); --tp refuses a model JAX does not
-    shard, naming the two it takes, and a world it does not divide."""
+    """--sp refuses a model other than waveglow, with JAX's message; --tp
+    refuses a model JAX does not shard, naming the two it takes, and a
+    world it does not divide."""
     with pytest.raises(SystemExit, match=message):
         cli(["train", "--device", "cpu", "--filelist", "x", *argv,
              "--run_dir", str(tmp_path)])

@@ -302,7 +302,7 @@ def worker(out):
     torch.set_num_threads(1)
     import torch.distributed as dist
     assert initialize("cpu")
-    dp, tp = make_mesh(WORLD)
+    dp, tp, _ = make_mesh(WORLD)
     inputs = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
     res = {"rank": dist.get_rank(), "dp_size": dp.size, "tp_rank": tp.rank}
     res["taco"] = taco_steps(inputs, tp)
