@@ -271,6 +271,29 @@ non-zero:
    WaveGlowConfig() (48 kHz, batch 4), 2 iterations, validations at the
    start and at 2 on the gathered weights (waveglow_wn_forward's launches
    of one process on each rank), against the same command in this process.
+17. sequence parallelism (parallel/sp.py, `train --sp 2`, time-sharded
+   WaveGlow and HiFi-GAN inference; see phase17's docstring).
+18. the bf16 serving path (Tacotron2 and HiFi-GAN with dtype=bfloat16).
+   18a: the bf16 forms of attention_step (B=4, 32 by T_enc=64, 384, a
+   window and a full mask, D=1313 with row 0 empty), lstm_gates (the three
+   cells at B=4 and 32) and hifigan_resblock (the 12 resblocks of the
+   bench-serving generator at B=3, T_mel=512, and C=96, 24, 6) against
+   their plain bf16 versions (attention and LSTM at f32 rounding; the
+   resblock within two bf16 ulps at the output's largest value, its mean
+   error logged), one launch a call and two calls bit-identical for
+   attention and LSTM; each timed by CUDA-graph replay beside its f32 form
+   on the same values, with its bound (bf16 bytes at 3.35 TB/s, operations
+   at 989 TFLOP/s). 18b: T2S over Tacotron2Config(dtype=bfloat16) and the
+   bench-serving HiFi-GAN in bf16 with phase 4's weights, phase 4's three
+   requests through the CUDA-graph chunks (counters zeroed before and read
+   after: each bf16 form launched, no f32 form), request s, decode and
+   vocode s, x realtime and peak memory beside phase 4's; a replayed bf16
+   chunk bit-identical to the eager bf16 chunk; JAX's quality gates
+   (bench.py's bench_quality_gate) against the same weights in f32:
+   Tacotron2 teacher-forced mel MSE < 5e-3 and MCD < 0.5 dB (B=8,
+   T_txt=96, T_mel=384), HiFi-GAN MCD < 1.0 dB (256 frames); one
+   `tts --hparams ...,dtype=bfloat16` through the command's entry point in
+   this process on seeded checkpoints, exact bf16 launch counts.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -302,7 +325,15 @@ KERNEL_SOURCES = {
                             "cookietts_tpu/ops/pallas_kernels.py:609"),
     "waveflow_row_step": ("cookietts_tpu_torch/csrc/waveflow_row.cu",
                           "cookietts_tpu/ops/pallas_kernels.py:467"),
+    # the bf16 forms of the serving path's three kernels (phase 18)
+    "attention_step_bf16": ("cookietts_tpu_torch/csrc/attention_step.cu",
+                            "cookietts_tpu/ops/pallas_kernels.py:74"),
+    "lstm_gates_bf16": ("cookietts_tpu_torch/csrc/lstm_gates.cu",
+                        "cookietts_tpu/ops/pallas_kernels.py:236"),
+    "hifigan_resblock_bf16": ("cookietts_tpu_torch/csrc/hifigan_resblock.cu",
+                              "cookietts_tpu/ops/pallas_kernels.py:724"),
 }
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 # the flow vocoders at full width (48 kHz, hop 600, 160 mel channels)
 FLOW_SR, FLOW_HOP, FLOW_MELS = 48000, 600, 160
 WAVEGLOW = dict(n_mel_channels=FLOW_MELS, n_flows=48, n_group=24,
@@ -326,7 +357,10 @@ HOLD_CYCLES, MAX_HOLD_CYCLES = 50_000_000, 3_200_000_000
 # near 2 (tests/test_torch_kernels.py emulates the split).
 TOL = {"attention_step": (2e-5, 1e-4), "lstm_gates": (2e-5, 1e-4),
        "hifigan_resblock": (1e-4, 1e-4), "waveglow_wn_forward": (2e-5, 1e-4),
-       "waveflow_row_step": (2e-5, 1e-4)}
+       "waveflow_row_step": (2e-5, 1e-4),
+       # the bf16 forms of attention and the LSTM compute in f32 on the same
+       # bf16 values as their plain versions: f32 rounding, as the f32 forms
+       "attention_step_bf16": (2e-5, 1e-4), "lstm_gates_bf16": (2e-5, 1e-4)}
 
 
 PHASE_STARTS = []     # (phase, perf_counter at its header line)
@@ -698,25 +732,40 @@ def phase3_lstm(hk, check, gen):
     torch.cuda.synchronize()
 
 
+MAIN_REQUESTS = [
+    ("The quick brown fox jumps over the lazy dog.", ["alice"]),
+    ('She looked up and said, "It is a fine day for a walk." Then she '
+     "left the room without another word.", ["alice", "bob"]),
+    ("Serving on the card, one more request for the smoke test.", ["bob"]),
+]
+P4_FIGURES = {}     # phase 4's per-request figures and peak memory (phase 18)
+
+
+def request_figures(res, seconds):
+    return {"s": seconds, "decode_s": res["gen_time"],
+            "vocode_s": res["total_time"] - res["gen_time"],
+            "xrt": res["audio_seconds"] / seconds,
+            "mel_lengths": res["mel_lengths"].tolist()}
+
+
 def phase4(t2s, hk):
     """The main path: 3 requests through T2S; returns the result with the
     most audio, whose shapes phase4_timing uses."""
     import numpy as np
-    requests = [
-        ("The quick brown fox jumps over the lazy dog.", ["alice"]),
-        ('She looked up and said, "It is a fine day for a walk." Then she '
-         "left the room without another word.", ["alice", "bob"]),
-        ("Serving on the card, one more request for the smoke test.", ["bob"]),
-    ]
+    import torch
     t2s.infer("A warm-up request.", speaker=["alice"], seed=99)
+    torch.cuda.reset_peak_memory_stats()
+    P4_FIGURES["base_bytes"] = torch.cuda.memory_allocated()
     hk.reset_launch_counts()
     largest, n_segments = None, []
-    for i, (text, speakers) in enumerate(requests):
+    P4_FIGURES["requests"] = []
+    for i, (text, speakers) in enumerate(MAIN_REQUESTS):
         t0 = time.perf_counter()
         res = t2s.infer(text, speaker=speakers, seed=i)
         seconds = time.perf_counter() - t0
         audio = res["audio"]
         n_samples = int(res["mel_lengths"].sum()) * HOP
+        P4_FIGURES["requests"].append(request_figures(res, seconds))
         log(f"  request {i}: {len(res['segments'])} segment(s), mel_lengths "
             f"{res['mel_lengths'].tolist()}, {seconds:.3f} s (decode "
             f"{res['gen_time']:.3f} s, vocode "
@@ -732,9 +781,12 @@ def phase4(t2s, hk):
         n_segments.append(len(res["segments"]))
     if max(n_segments) < 2:
         raise SystemExit("chip_smoke: no request was multi-segment")
+    P4_FIGURES["peak_bytes"] = torch.cuda.max_memory_allocated()
     launches = {name: hk.LAUNCHES[name] for name in
                 ("attention_step", "lstm_gates", "hifigan_resblock")}
-    log(f"  launches on the main path: {launches}")
+    log(f"  launches on the main path: {launches}; peak memory "
+        f"{P4_FIGURES['peak_bytes'] / 2 ** 30:.3f} GiB, "
+        f"{P4_FIGURES['base_bytes'] / 2 ** 30:.3f} GiB before the requests")
     if min(launches.values()) <= 0:
         raise SystemExit("chip_smoke: a kernel of the main path never launched")
     step_ms, device_ms = decode_busy_share(t2s.model)
@@ -1613,9 +1665,12 @@ def chunk_graph_cache_bound(hk, taco):
 
 
 def vocoder_launches(hk, gen, calls):
-    """Resblock kernel launches of ``calls`` generator calls."""
+    """Resblock kernel launches of ``calls`` generator calls (its bf16
+    form's for a bf16 generator)."""
+    import torch
+    bf16 = gen.cfg.dtype == torch.bfloat16
     return calls * sum(hk.hifigan_resblock_launches(rb.convs1[0].in_channels,
-                                                    len(rb.dilations))
+                                                    len(rb.dilations), bf16)
                        for rb in gen.resblocks if rb.use_kernel)
 
 
@@ -5440,6 +5495,445 @@ def phase17(hk, p14, smi):
         f"one-process twin in phase 14); {smi}")
 
 
+# -- phase 18: the bf16 serving path -------------------------------------------
+
+BF16_GATES = {"tacotron2_mse": 5e-3, "tacotron2_mcd_db": 0.5,
+              "hifigan_mcd_db": 1.0}     # JAX's bench_quality_gate (bench.py)
+
+
+def bf16(t):
+    import torch
+    return t.to(torch.bfloat16)
+
+
+def bf16_ulp(x) -> float:
+    """One bf16 ulp at the scale of max |x| (8 significant bits)."""
+    m = float(x.detach().abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def attention_bound_bf16(B, T, A=192, D=512):
+    """(s by bytes, s by operations) of the bf16 form: qp, lp, mp and memory
+    in bf16, v, ctx and w in f32, the mask 1 byte; the operations at the
+    bf16 tensor-core rate."""
+    nbytes = 2 * (B * A + 2 * B * T * A + B * T * D) + 4 * (A + B * D + B * T) + B * T
+    return nbytes / HBM_BYTES_PER_S, B * T * (4 * A + 2 * D) / BF16_FLOPS
+
+
+def lstm_bound_bf16(B, F, H):
+    nbytes = 2 * (B * F + F * 4 * H + 4 * H) + 4 * 3 * B * H
+    return nbytes / HBM_BYTES_PER_S, 2 * B * F * 4 * H / BF16_FLOPS
+
+
+def resblock_bound_bf16(B, C, T, k, P=3):
+    nbytes = 2 * (2 * B * C * T + 2 * P * C * C * k) + 4 * 2 * P * C
+    return nbytes / HBM_BYTES_PER_S, P * 2 * 2 * C * C * k * T * B / BF16_FLOPS
+
+
+def p18_times(f32_fn, kernel_fn, plain_fn, reps, graph=False):
+    """(bf16 kernel, f32 kernel, bf16 plain) device ms by CUDA-graph replay,
+    in turns (f32, bf16, bf16, f32) so neither gets the warmer card."""
+    timer = graph_ms if graph else (lambda fn: time_ms(fn, reps))
+    f32_a = timer(f32_fn)
+    ms = min(timer(kernel_fn), timer(kernel_fn))
+    f32_ms = min(f32_a, timer(f32_fn))
+    return ms, f32_ms, timer(plain_fn)
+
+
+def phase18a(hk, check, smi):
+    """The bf16 forms of the serving path's three kernels against their
+    plain bf16 versions on the card, at the main path's shapes (the decode
+    step at B=4, T_enc=64, the LSTM cells at B=4 and 32, the 12 resblocks of
+    the bench-serving generator at B=3, T_mel=512), plus a ragged attention
+    memory (D=1313, row 0 empty) and ragged resblock widths; each timed by
+    CUDA-graph replay beside its f32 form on the same values, with its bound
+    (bf16 bytes at 3.35 TB/s, operations at 989 TFLOP/s)."""
+    import torch
+    from cookietts_tpu_torch.ops import _build
+    g = torch.Generator(device="cuda").manual_seed(18)
+    lib = _build.library("attention_step")
+    out = {}
+
+    # attention_step_bf16
+    for B, T, D, window, empty in ((4, 64, 512, 16, False), (1, 128, 1313, 16, True),
+                                   (32, 384, 512, 16, False), (4, 64, 512, 0, False)):
+        a32 = attention_inputs(B, T, g, D=D, window=window, empty_row=empty)
+        a16 = (bf16(a32[0]), bf16(a32[1]), bf16(a32[2]), a32[3], bf16(a32[4]), a32[5])
+        plan = hk.attention_step_plan(B, T, 192, D, elem=2)
+        if lib.attention_step_smem_bf16(192, D, *plan.ints()[1:]) != plan.smem:
+            raise SystemExit("chip_smoke: attention_step_plan's bf16 shared "
+                             "memory is not the kernel's layout")
+        before = hk.LAUNCHES["attention_step_bf16"]
+        ctx, w = hk.attention_step(*a16)
+        again = hk.attention_step(*a16)
+        ctx_p, w_p = hk.attention_step_plain(*a16)
+        tag = f"B={B} T={T} D={D} {'window 16' if window else 'full mask'}" + (
+            " empty row 0" if empty else "")
+        check("attention_step_bf16", w, w_p, *TOL["attention_step_bf16"], tag + " w")
+        check("attention_step_bf16", ctx, ctx_p, 1e-4, 1e-4, tag + " ctx")
+        same = torch.equal(ctx, again[0]) and torch.equal(w, again[1])
+        if hk.LAUNCHES["attention_step_bf16"] - before != 2 or not same \
+                or ctx.dtype != torch.float32:
+            raise SystemExit(f"chip_smoke: attention_step_bf16 {tag}: one f32 "
+                             "launch a call, bit-identical twice")
+        if (B, T, D, window) == (4, 64, 512, 16):
+            fns = (lambda: hk.attention_step(*a32), lambda: hk.attention_step(*a16),
+                   lambda: hk.attention_step_plain(*a16))
+            ms, f32_ms, plain_ms = p18_times(*fns, 200)
+            in_graph = p18_times(*fns, 200, graph=True)
+            log(f"  attention_step_bf16 B={B} T_enc={T}: a call in a graph of 20 "
+                f"{in_graph[0]:.4f} ms, the f32 form {in_graph[1]:.4f}, plain "
+                f"{in_graph[2]:.4f}")
+            out["attention_step_bf16"] = dict(
+                unit=f"one decode step, B={B}, T_enc={T}",
+                ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, library_ms=None,
+                eager_ms=eager_ms(lambda: hk.attention_step(*a16), 200),
+                bound=bound_of([attention_bound_bf16(B, T)]), plan=plan.ints())
+
+    # lstm_gates_bf16: the three decoder cells
+    for B in (4, 32):
+        cases32, cases16 = [], []
+        for name, F, H in LSTM_SHAPES:
+            xh, W, b, c = lstm_inputs(B, F, H, g)
+            cases32.append((xh, W, b, c))
+            cases16.append((bf16(xh), bf16(W), bf16(b), c))
+            first = hk.lstm_gates(*cases16[-1])
+            for i, (got, want) in enumerate(zip(first, hk.lstm_gates_plain(
+                    *cases16[-1]))):
+                check("lstm_gates_bf16", got, want, *TOL["lstm_gates_bf16"],
+                      f"B={B} {name} {'ch'[i]}")
+            again = hk.lstm_gates(*cases16[-1])
+            if not all(torch.equal(a, b_) for a, b_ in zip(first, again)):
+                raise SystemExit(f"chip_smoke: lstm_gates_bf16 B={B} {name} is "
+                                 "not deterministic")
+        if B == 4:
+            run = lambda cases, fn: lambda: [fn(*cs) for cs in cases]  # noqa: E731
+            ms, f32_ms, plain_ms = p18_times(
+                run(cases32, hk.lstm_gates), run(cases16, hk.lstm_gates),
+                run(cases16, hk.lstm_gates_plain), 200)
+            out["lstm_gates_bf16"] = dict(
+                unit=f"one decode step (3 cells), B={B}", ms=ms, f32_ms=f32_ms,
+                plain_ms=plain_ms, library_ms=None,
+                eager_ms=eager_ms(run(cases16, hk.lstm_gates), 200),
+                bound=bound_of([lstm_bound_bf16(B, F, H) for _, F, H in LSTM_SHAPES]))
+
+    # hifigan_resblock_bf16: the 12 resblocks of one bench-serving generator
+    # call at B=3, T_mel=512 (stages C = 256, 128, 64, 32)
+    B, T, blocks32, blocks16, parts = 3, 512, [], [], []
+    for C, u in ((256, 8), (128, 8), (64, 4), (32, 2)):
+        T *= u
+        x = torch.randn(B, C, T, device="cuda", generator=g)
+        for k in (3, 7, 11):
+            _, w1, b1, w2, b2 = resblock_inputs(1, C, 1, k, g)
+            w1, w2 = bf16(w1).float(), bf16(w2).float()   # the same values in both
+            blocks32.append((x, w1, b1, w2, b2, (1, 3, 5), 0.1))
+            blocks16.append((bf16(x), bf16(w1), b1, bf16(w2), b2, (1, 3, 5), 0.1))
+            parts.append(resblock_bound_bf16(B, C, T, k))
+        del x
+    means = []
+    for a in blocks16:
+        before = hk.LAUNCHES["hifigan_resblock_bf16"]
+        got = hk.hifigan_resblock(*a)
+        n = hk.LAUNCHES["hifigan_resblock_bf16"] - before
+        want = hk.hifigan_resblock_plain(*a)
+        atol = 2 * bf16_ulp(want)
+        means.append(float((got.float() - want.float()).abs().mean()))
+        check("hifigan_resblock_bf16", got.float(), want.float(), atol, 0.0,
+              f"B={B} C={a[0].shape[1]} T={a[0].shape[2]} k={a[1].shape[1]} "
+              f"(2 ulps at max: {atol:.3g}; mean abs {means[-1]:.3g})")
+        if n != hk.hifigan_resblock_launches(a[0].shape[1], 3, True) \
+                or got.dtype != torch.bfloat16:
+            raise SystemExit("chip_smoke: hifigan_resblock_bf16 launch count "
+                             "or dtype")
+        del got, want
+    for C in (96, 24, 6):                         # ragged widths, 2-byte weights
+        a = resblock_inputs(1, C, 4096 + 7, 7, torch.Generator(
+            device="cuda").manual_seed(C))
+        a = (bf16(a[0]), bf16(a[1]), a[2], bf16(a[3]), a[4], (1, 3, 5), 0.1)
+        want = hk.hifigan_resblock_plain(*a)
+        check("hifigan_resblock_bf16", hk.hifigan_resblock(*a).float(),
+              want.float(), 2 * bf16_ulp(want), 0.0, f"C={C} k=7 T=4103 ragged")
+    ms, f32_ms, plain_ms = p18_times(
+        lambda: [hk.hifigan_resblock(*a) for a in blocks32],
+        lambda: [hk.hifigan_resblock(*a) for a in blocks16],
+        lambda: [hk.hifigan_resblock_plain(*a) for a in blocks16], 3)
+    out["hifigan_resblock_bf16"] = dict(
+        unit=f"one generator call (12 resblocks), B={B}, T_mel=512",
+        ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, library_ms=None,
+        eager_ms=eager_ms(lambda: [hk.hifigan_resblock(*a) for a in blocks16], 3),
+        bound=bound_of(parts), mean_abs=max(means))
+    del blocks32, blocks16
+    for name, o in out.items():
+        log(f"  {name:22s} {o['unit']}: kernel {o['ms']:.4f} ms (eager "
+            f"{o['eager_ms']:.4f} ms), f32 form {o['f32_ms']:.4f} ms, plain "
+            f"{o['plain_ms']:.4f} ms, bound {o['bound'][0]:.4f} ms "
+            f"({o['bound'][1]}) ({smi})")
+    torch.cuda.synchronize()
+    return out
+
+
+def p18_checkpoints(tmp, tcfg, hcfg):
+    """Seeded Tacotron2 (no style heads) and HiFi-GAN checkpoints with their
+    sidecars, as phase 9 writes them, for the bf16 tts command."""
+    import torch
+    from cookietts_tpu_torch.models.hifigan import Generator
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2
+    from cookietts_tpu_torch.runtime.checkpoint import save_checkpoint
+    config_json = lambda cfg: {k: v for k, v in dataclasses.asdict(  # noqa: E731
+        cfg).items() if k != "dtype"}
+    files = {k: str(tmp / k) for k in ("taco", "hifigan")}
+    torch.manual_seed(30)
+    save_checkpoint(files["taco"],
+                    {"state_dict": Tacotron2(tcfg, device="cpu").state_dict()},
+                    {"model": "tacotron2", "model_config": config_json(tcfg),
+                     "speaker_ids": {"narrator": 0},
+                     "audio": {"sampling_rate": SR, "hop_length": HOP,
+                               "n_mel_channels": tcfg.n_mel_channels}})
+    torch.manual_seed(31)
+    save_checkpoint(files["hifigan"],
+                    {"state_dict": Generator(hcfg, device="cpu").state_dict()},
+                    {"model": "hifigan", "model_config": config_json(hcfg),
+                     "audio": {"sampling_rate": SR, "hop_length": HOP,
+                               "n_mel_channels": hcfg.n_mel_channels}})
+    return files
+
+
+F32_FORMS = ("attention_step", "lstm_gates", "hifigan_resblock")
+BF16_FORMS = tuple(n + "_bf16" for n in F32_FORMS)
+
+
+def p18_launches(hk, got, want, what):
+    """The bf16 forms launched as ``want`` says (at least once where want
+    is None) and no f32 form of the three."""
+    log(f"  {what} launches {got}")
+    for name in BF16_FORMS:
+        n = got.get(name, 0)
+        if n <= 0 or (want is not None and n != want[name]):
+            raise SystemExit(f"chip_smoke: {what}: {name} launched {n} times"
+                             + ("" if want is None else f", expected {want[name]}"))
+    if any(got.get(name, 0) for name in F32_FORMS):
+        raise SystemExit(f"chip_smoke: {what}: an f32 form launched on the "
+                         "bf16 path")
+
+
+def phase18b(hk, check, tcfg, hcfg, smi):
+    """The main path in bf16: T2S over Tacotron2Config(dtype=bfloat16) and
+    the bench-serving HiFi-GAN in bf16, phase 4's weights (same seed), phase
+    4's three requests through the CUDA-graph chunks; the counters zeroed
+    before and read after (each bf16 form launched, no f32 form); a
+    replayed bf16 chunk against the eager bf16 chunk, bit for bit; JAX's
+    quality gates against the same weights in f32 (bench_quality_gate:
+    Tacotron2 teacher-forced mel MSE < 5e-3 and MCD < 0.5 dB at B=8,
+    T_txt=96, T_mel=384, phase 4's weights; HiFi-GAN MCD < 1.0 dB on a
+    256-frame mel at flax's initialisation, which JAX's gate measures, and
+    logged, not gated, at phase 4's weights); one
+    ``tts --hparams ...,dtype=bfloat16`` through the command's entry point
+    in this process. Returns the bf16 forms' main-path launches."""
+    import io
+    import tempfile
+    import wave
+
+    import numpy as np
+    import torch
+    from cookietts_tpu_torch.audio.stft import TacotronSTFT
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.models.hifigan import Generator
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2
+    from cookietts_tpu_torch.ops.mcd import mcd
+    from cookietts_tpu_torch.pipeline.chunk_graph import DecodeChunkGraphs
+    from cookietts_tpu_torch.pipeline.text2speech import T2S, T2SConfig
+
+    t0 = time.perf_counter()
+    torch.manual_seed(0)                        # phase 4's weights
+    # the f32 twins wait on the host until the gates, so the requests' peak
+    # memory holds what phase 4's holds: one model pair and its caches
+    taco32 = Tacotron2(tcfg, device="cpu")
+    gen32 = Generator(hcfg, device="cpu")
+    taco = Tacotron2(dataclasses.replace(tcfg, dtype="bfloat16"), device="cpu")
+    taco.load_state_dict(taco32.state_dict())
+    taco.to("cuda")
+    gen = Generator(dataclasses.replace(hcfg, dtype=torch.bfloat16), device="cpu")
+    gen.load_state_dict(gen32.state_dict())
+    gen.to("cuda")
+    log(f"  bf16 models from phase 4's weights in {time.perf_counter() - t0:.1f} s")
+
+    # 18b.1: phase 4's requests
+    t2s_cfg = T2SConfig(batch_size=4, max_attempts=1, step_buckets=(256, 512),
+                        max_decoder_steps=512)
+    t2s = T2S(t2s_cfg, taco, {"alice": 0, "bob": 1}, vocoder_fn=gen,
+              sample_rate=SR, hop_length=HOP, device="cuda")
+    t2s.infer("A warm-up request.", speaker=["alice"], seed=99)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    hk.reset_launch_counts()
+    figures = []
+    for i, (text, speakers) in enumerate(MAIN_REQUESTS):
+        t1 = time.perf_counter()
+        res = t2s.infer(text, speaker=speakers, seed=i)
+        seconds = time.perf_counter() - t1
+        n_samples = int(res["mel_lengths"].sum()) * HOP
+        if not np.isfinite(res["audio"]).all() or len(res["audio"]) != n_samples \
+                or res["audio"].dtype != np.float32:
+            raise SystemExit(f"chip_smoke: bf16 request {i}: audio not finite "
+                             f"f32 of {n_samples} samples")
+        figures.append(request_figures(res, seconds))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: hk.LAUNCHES[name] for name in BF16_FORMS}
+    p18_launches(hk, dict(hk.LAUNCHES), None, "bf16 main path")
+    f32 = P4_FIGURES.get("requests") or [None] * len(figures)
+    for i, (b, f) in enumerate(zip(figures, f32)):
+        log(f"  request {i}: bf16 {b['s']:.3f} s (decode {b['decode_s']:.3f} s, "
+            f"vocode {b['vocode_s']:.3f} s), {b['xrt']:.2f} x realtime, "
+            f"mel_lengths {b['mel_lengths']}; " + (
+                "f32 (phase 4) not run" if f is None else
+                f"f32 (phase 4) {f['s']:.3f} s (decode {f['decode_s']:.3f} s, "
+                f"vocode {f['vocode_s']:.3f} s), {f['xrt']:.2f} x realtime, "
+                f"mel_lengths {f['mel_lengths']}"))
+    gib = lambda n: n / 2 ** 30  # noqa: E731
+    p4_peak, p4_base = P4_FIGURES.get("peak_bytes", 0), P4_FIGURES.get("base_bytes", 0)
+    log(f"  peak memory: bf16 {gib(peak):.3f} GiB, {gib(peak - base):.3f} above "
+        f"the {gib(base):.3f} GiB allocated before the requests (the models, "
+        f"their bf16 copies and what earlier phases keep); f32 (phase 4) "
+        f"{gib(p4_peak):.3f} GiB, {gib(p4_peak - p4_base):.3f} above "
+        f"{gib(p4_base):.3f} ({smi})")
+    del t2s
+
+    # 18b.2: a replayed bf16 chunk equals the eager bf16 chunk
+    B, T, S = 4, 64, 32
+    memory, const, state = taco.inference_prepare(*decode_inputs(taco, B, T, 11))
+    if memory.dtype != torch.bfloat16 or state.attn[0].dtype != torch.float32:
+        raise SystemExit("chip_smoke: the bf16 decode's memory must be bf16 "
+                         "and its cells' states f32")
+    program = DecodeChunkGraphs(taco.decoder)
+    seeded = lambda: torch.Generator(device="cuda").manual_seed(21)  # noqa: E731
+    first = program(memory, const, state, S, seeded())       # eager, then capture
+    before = dict(hk.LAUNCHES)
+    replayed = program(memory, const, state, S, seeded())
+    moved = {k: hk.LAUNCHES[k] - before[k] for k in before}
+    eager = taco.decode_chunk(memory, const, state, S, seeded())
+    want = {**{k: 0 for k in hk.LAUNCHES}, "attention_step_bf16": S,
+            "lstm_gates_bf16": 3 * S}
+    if moved != want:
+        raise SystemExit(f"chip_smoke: a bf16 chunk replay must launch {want}, "
+                         f"moved {moved}")
+    for i, name in enumerate(("mel", "gate", "alignments")):
+        same = torch.equal(replayed[i], eager[i]) and torch.equal(first[i], eager[i])
+        log(f"  replayed bf16 chunk {name} ({replayed[i].dtype}): bit-identical "
+            f"to the eager bf16 chunk: {same}")
+        if not same:
+            raise SystemExit(f"chip_smoke: the replayed bf16 chunk's {name} "
+                             "differs from the eager chunk's")
+    del program, first, replayed, eager, memory, const, state
+
+    # 18b.3: JAX's quality gates against the same weights in f32
+    taco32.to("cuda")
+    gen32.to("cuda")
+    rng = np.random.default_rng(7)
+    Bq, T_txt, T_mel = 8, 96, 384
+    batch = dict(
+        text=torch.as_tensor(rng.integers(1, tcfg.n_symbols, (Bq, T_txt)),
+                             device="cuda"),
+        text_lengths=torch.full((Bq,), T_txt, device="cuda"),
+        mels=torch.as_tensor(np.log(np.clip(np.abs(rng.standard_normal(
+            (Bq, T_mel, tcfg.n_mel_channels))), 1e-5, None)),
+            dtype=torch.float32, device="cuda"),
+        mel_lengths=torch.full((Bq,), T_mel, device="cuda"),
+        speaker_id=torch.as_tensor(rng.integers(0, tcfg.n_speakers, (Bq,)),
+                                   device="cuda"),
+        sylps=torch.full((Bq,), 4.0, device="cuda"))
+    mels = {}
+    for name, model in (("f32", taco32), ("bf16", taco)):
+        g = torch.Generator(device="cuda").manual_seed(3)
+        mels[name] = model.eval_forward(batch, g)["mel_outputs_postnet"].float(
+            ).cpu().numpy()
+    t2_mse = float(np.mean((mels["f32"] - mels["bf16"]) ** 2))
+    t2_mcd = float(np.mean([mcd(mels["f32"][i], mels["bf16"][i]) for i in range(Bq)]))
+    mel_h = torch.as_tensor(rng.standard_normal((1, 256, hcfg.n_mel_channels)),
+                            dtype=torch.float32, device="cuda")
+    hstft = TacotronSTFT(filter_length=2048, hop_length=HOP, win_length=2048,
+                         n_mel_channels=80, sampling_rate=SR, mel_fmax=11025.0,
+                         device="cpu")
+
+    def vocoder_gate(g32, g16):
+        w32, w16 = g32(mel_h, infer=True), g16(mel_h, infer=True)
+        if w16.dtype != torch.float32:
+            raise SystemExit("chip_smoke: the bf16 generator must return f32 audio")
+        return (mcd(hstft.mel_spectrogram_np(w32[0].cpu().numpy()),
+                    hstft.mel_spectrogram_np(w16[0].cpu().numpy())),
+                float(((w32 - w16) ** 2).mean()))
+
+    # JAX's gate measures flax's initialisation: weight norm's scale of ones
+    # (every filter of unit norm) and zero biases; the port's training form
+    # starts there (weight_g = 1), its biases zeroed
+    torch.manual_seed(5)
+    flax_init = {k: torch.zeros_like(t) if k.endswith("bias") else t for k, t in
+                 Generator(hcfg, device="cpu", weight_norm=True).state_dict().items()}
+    g32 = Generator(hcfg, device="cpu")
+    g32.load_state_dict(flax_init)
+    g16 = Generator(dataclasses.replace(hcfg, dtype=torch.bfloat16), device="cpu")
+    g16.load_state_dict(flax_init)
+    h_mcd, h_mse = vocoder_gate(g32.to("cuda"), g16.to("cuda"))
+    p4_mcd, p4_mse = vocoder_gate(gen32, gen)
+    gates = {"tacotron2_mse": t2_mse, "tacotron2_mcd_db": t2_mcd,
+             "hifigan_mcd_db": h_mcd}
+    log(f"  quality gates, bf16 against f32 from the same weights: Tacotron2 "
+        f"(phase 4's weights) teacher-forced mel MSE {t2_mse:.3e} (< 5e-3), MCD "
+        f"{t2_mcd:.4f} dB (< 0.5); HiFi-GAN (flax's initialisation) MCD "
+        f"{h_mcd:.4f} dB (< 1.0), waveform MSE {h_mse:.3e}; not gated: "
+        f"HiFi-GAN with phase 4's weights (torch's default initialisation, "
+        f"filters about 1/1.7 of unit norm, random biases) MCD {p4_mcd:.4f} dB, "
+        f"waveform MSE {p4_mse:.3e}")
+    if any(not v < BF16_GATES[k] for k, v in gates.items()):
+        raise SystemExit(f"chip_smoke: a bf16 quality gate failed: {gates}")
+    del taco32, gen32, taco, gen, batch, g32, g16
+
+    # 18b.4: tts --hparams dtype=bfloat16 in this process
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        files = p18_checkpoints(tmp, tcfg, hcfg)
+        argv = ["tts", "--checkpoint", files["taco"], "--vocoder", files["hifigan"],
+                "--text", P9_TEXT, "--max_attempts", "1", "--hparams",
+                P9_HPARAMS + ",dtype=bfloat16", "-o", str(tmp / "b.wav")]
+        t1 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(argv)
+        seconds = time.perf_counter() - t1
+        lines = buf.getvalue().strip().splitlines()
+        stats = json.loads(lines[-1])
+        got = next(json.loads(l)["kernel_launches"] for l in lines
+                   if l.startswith('{"kernel_launches"'))
+        with wave.open(str(tmp / "b.wav")) as w:
+            rate, n = w.getframerate(), w.getnframes()
+    n_samples = P9_SEGMENTS * P9_STEPS * HOP
+    log(f"  tts --hparams dtype=bfloat16 in this process: {seconds:.2f} s wall "
+        f"(checkpoint loads and the first capture included), gen_time "
+        f"{stats['gen_time']:.3f} s, total {stats['total_time']:.3f} s, "
+        f"{stats['audio_seconds']:.3f} s of audio, {n} samples at {rate} Hz")
+    if (rate, n, stats["segments"]) != (SR, n_samples, P9_SEGMENTS):
+        raise SystemExit(f"chip_smoke: bf16 tts wrote {n} samples at {rate} Hz, "
+                         f"expected {n_samples} at {SR}")
+    resblocks = sum(hk.hifigan_resblock_launches(
+        hcfg.upsample_initial_channel // 2 ** (i + 1), len(rd), True)
+        for i in range(len(hcfg.upsample_rates)) for rd in hcfg.resblock_dilations)
+    p18_launches(hk, got, {"attention_step_bf16": P9_STEPS,
+                           "lstm_gates_bf16": 3 * P9_STEPS,
+                           "hifigan_resblock_bf16": resblocks}, "bf16 tts")
+    torch.cuda.synchronize()
+    return launches, gates
+
+
+def phase18(hk, check, tcfg, hcfg, smi):
+    """18a, then 18b; returns (timing, launches) of the bf16 forms for the
+    kernels line."""
+    log("  18a: the three bf16 kernels against their plain versions")
+    timing = phase18a(hk, check, smi)
+    log("  18b: the main path in bf16")
+    launches, _ = phase18b(hk, check, tcfg, hcfg, smi)
+    return timing, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5558,6 +6052,11 @@ def main() -> int:
               "inference")
         phase17(hk, p14, smi)
         del p14
+
+    phase("18", "the bf16 serving path")
+    b16_timing, b16_launches = phase18(hk, check, tcfg, hcfg, smi)
+    timing.update(b16_timing)
+    launches.update(b16_launches)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

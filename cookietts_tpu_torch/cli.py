@@ -1451,7 +1451,7 @@ def cmd_export(args):
 
     import torch
 
-    from .config import parse_override_string
+    from .config import compute_dtype, parse_override_string, refuse_bf16
     from .device import resolve_device
     from .runtime.export_serving import (export_tacotron2_serving,
                                          export_vocoder_serving,
@@ -1459,6 +1459,9 @@ def cmd_export(args):
 
     device = resolve_device(args.device)
     overrides = parse_override_string(args.hparams) if args.hparams else {}
+    if "dtype" in overrides:
+        refuse_bf16(compute_dtype(overrides["dtype"]), "export",
+                    "bf16 export and artifacts")
     entries, meta = {}, {"device": device.type, "torch": torch.__version__}
     steps = args.max_decoder_steps or None
     if args.checkpoint:

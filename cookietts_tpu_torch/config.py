@@ -237,3 +237,32 @@ def load_json_config(path: str) -> Dict[str, Any]:
         # tolerate // comments like the reference's JSON configs
         text = re.sub(r"^\s*//.*$", "", f.read(), flags=re.MULTILINE)
     return json.loads(text)
+
+
+# -- the compute dtype of a model config ----------------------------------------
+
+_COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def compute_dtype(value: Any):
+    """A model config's ``dtype`` as a torch dtype: ``torch.float32`` or
+    ``torch.bfloat16``, given as such or by name (``"float32"``,
+    ``"bfloat16"``: how ``--hparams dtype=bfloat16`` reaches a config, as it
+    reaches the JAX package's). Any other value raises and names it."""
+    import torch
+    name = value if isinstance(value, str) else str(value).replace("torch.", "")
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"dtype={value!r}: a model computes in float32 or "
+                         "bfloat16 (torch dtypes or their names)")
+    return getattr(torch, name)
+
+
+def refuse_bf16(dtype, what: str, slice_: str) -> None:
+    """Raise NotImplementedError when ``dtype`` is bfloat16 for ``what``,
+    which the port runs in float32 only until ``slice_`` (a later slice of
+    the port, ROADMAP.md §1 item 4)."""
+    import torch
+    if dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{what} in bfloat16 comes with a later slice of the port "
+            f"({slice_}); it runs in float32")

@@ -41,7 +41,20 @@
 // A row whose mask is empty keeps its meaning (uniform weights 1/T, ctx
 // the mean of memory over all T rows): the cluster sees no admitted row
 // anywhere and takes a second pass that reads memory for every row.
+//
+// The bf16 form (attention_step_bf16): qp, lp, mp and memory are bf16, the
+// rest as in the f32 form; every value is widened to f32 as it is read and
+// all the math is f32, as the JAX package's Pallas path computes on the
+// bf16-rounded operands cast to f32 (cookietts_tpu/ops/attention.py:164-170,
+// pallas_kernels.py:102-107); ctx and w are written in f32 (the caller
+// rounds ctx to bf16). Its rows are half the bytes, so a stage holds more
+// of them in the same shared memory. The staging works in bytes: a row
+// segment is copied from the 4-byte word that holds its first element to
+// the one that holds its last, so a bf16 row that starts or ends mid-word
+// also reads the 2 bytes beside it (in the same word, never used); no other
+// byte of a masked row is read.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -69,45 +82,68 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Floats of a staged row segment of n values: room for the source's shift
-// within 16 bytes (0-3 floats), rounded up to whole 16-byte words.
-__host__ __device__ __forceinline__ int seg(int n) { return (n + 6) / 4 * 4; }
-
-// The float offset, mod 4, of a global address: a segment is staged at
-// this offset inside its slot, so source and destination agree mod 16 bytes.
-__device__ __forceinline__ int shift_of(const float* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+template <typename T>
+__device__ __forceinline__ float ldg_f32(const T* p) { return to_f32(__ldg(p)); }
+
+// Bytes of a staged row segment of n values of T: room for the source's
+// shift within 16 bytes (0-12 bytes) and, for bf16, for the 2 bytes before
+// and after it in its end words, rounded up to whole 16-byte words.
+template <typename T>
+__host__ __device__ __forceinline__ int seg_bytes(int n) {
+  return (n * (int)sizeof(T) + 12 + (sizeof(T) == 2 ? 4 : 0) + 15) / 16 * 16;
+}
+
+// The byte offset, mod 16, of a global address: a segment is staged at
+// this offset inside its slot, so source and destination agree mod 16 bytes.
+__device__ __forceinline__ int shift_of(const void* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+__device__ __forceinline__ void cp_async4(char* dst, const char* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    (unsigned)__cvta_generic_to_shared(dst)),
                "l"(src));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(char* dst, const char* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    (unsigned)__cvta_generic_to_shared(dst)),
                "l"(src));
 }
 
-// One warp copies n floats from src into slot (seg(n) floats):
-// 4-byte copies up to src's first 16-byte boundary and after its last,
-// 16-byte copies between.
-__device__ __forceinline__ void copy_segment(float* slot, const float* src,
+// One warp copies the n values at src into slot (seg_bytes<T>(n) bytes),
+// from the 4-byte word that holds the first to the one that holds the
+// last: 4-byte copies up to the first 16-byte boundary and after the last,
+// 16-byte copies between. The values start at slot + shift_of(src).
+template <typename T>
+__device__ __forceinline__ void copy_segment(char* slot, const T* src_t,
                                              int n, int lane) {
-  const int sh = shift_of(src);
-  float* dst = slot + sh;
-  const int head = min(n, (4 - sh) & 3);
-  const int body = (n - head) >> 2;
-  const int tail = n - head - 4 * body;
-  if (lane < head) cp_async4(dst + lane, src + lane);
+  const char* p = reinterpret_cast<const char*>(src_t);
+  const char* src = p - (reinterpret_cast<uintptr_t>(p) & 3);
+  const int words = ((int)(p - src) + n * (int)sizeof(T) + 3) >> 2;
+  const int sh = shift_of(src) >> 2;
+  char* dst = slot + 4 * sh;
+  const int head = min(words, (4 - sh) & 3);
+  const int body = (words - head) >> 2;
+  const int tail = words - head - 4 * body;
+  if (lane < head) cp_async4(dst + 4 * lane, src + 4 * lane);
   for (int k = lane; k < body; k += 32)
-    cp_async16(dst + head + 4 * k, src + head + 4 * k);
+    cp_async16(dst + 4 * (head + 4 * k), src + 4 * (head + 4 * k));
   if (lane < tail) {
     const int j = head + 4 * body + lane;
-    cp_async4(dst + j, src + j);
+    cp_async4(dst + 4 * j, src + 4 * j);
   }
+}
+
+// The staged row of src inside slot.
+template <typename T>
+__device__ __forceinline__ const T* staged(const char* slot, const T* src) {
+  return reinterpret_cast<const T*>(slot + shift_of(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -119,29 +155,32 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 struct Layout {
-  int row;        // floats of one staged row: lp, mp, memory segments
+  int row;        // bytes of one staged row: lp, mp, memory segments
   int fixed;      // floats before the staged rows (a whole 16-byte word)
   size_t bytes;   // dynamic shared memory of a block
 };
 
+template <typename T>
 __host__ __device__ inline Layout layout(int A, int D, int R, int stage_rows) {
   Layout l;
-  l.row = 2 * seg(A) + seg(D);
+  l.row = 2 * seg_bytes<T>(A) + seg_bytes<T>(D);
   l.fixed = (2 * A + 2 * R + stage_rows + kMisc + D + 3) / 4 * 4;
-  l.bytes = sizeof(float) * ((size_t)l.fixed + (size_t)stage_rows * l.row);
+  l.bytes = sizeof(float) * (size_t)l.fixed + (size_t)stage_rows * l.row;
   return l;
 }
 
+// E: float (the f32 form) or __nv_bfloat16 (qp, lp, mp, memory in bf16).
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-attention_step_kernel(const float* __restrict__ qp, const float* __restrict__ lp,
-                      const float* __restrict__ mp, const float* __restrict__ v,
-                      const float* __restrict__ memory,
+attention_step_kernel(const E* __restrict__ qp, const E* __restrict__ lp,
+                      const E* __restrict__ mp, const float* __restrict__ v,
+                      const E* __restrict__ memory,
                       const unsigned char* __restrict__ mask,
                       const float* __restrict__ scale, int T, int A, int D,
                       int R, int stage_rows, float* __restrict__ ctx,
                       float* __restrict__ w) {
   extern __shared__ __align__(16) float smem[];
-  const Layout lay = layout(A, D, R, stage_rows);
+  const Layout lay = layout<E>(A, D, R, stage_rows);
   float* q_s = smem;                                   // [A]
   float* v_s = q_s + A;                                // [A]
   float* e_s = v_s + A;                                // [R] energies
@@ -149,7 +188,7 @@ attention_step_kernel(const float* __restrict__ qp, const float* __restrict__ lp
   float* p_s = reinterpret_cast<float*>(idx_s + R);    // [stage_rows]
   float* misc = p_s + stage_rows;                      // [kMisc]
   float* part_s = misc + kMisc;                        // [D] partial context
-  float* buf = smem + lay.fixed;                       // [stage_rows][row]
+  char* buf = reinterpret_cast<char*>(smem + lay.fixed);  // [stage_rows][row]
   int* cnt_s = reinterpret_cast<int*>(misc);           // [kWarps]
   float* stat_s = misc + kWarps;                       // m, l; M, L
   float* corr_s = stat_s + 4;                          // a stage's rescale
@@ -165,7 +204,7 @@ attention_step_kernel(const float* __restrict__ qp, const float* __restrict__ lp
   const float sc = scale ? __ldg(scale) : 1.f;
 
   for (int a = tid; a < A; a += kThreads) {
-    q_s[a] = __ldg(qp + (size_t)b * A + a);
+    q_s[a] = ldg_f32(qp + (size_t)b * A + a);
     v_s[a] = __ldg(v + a);
   }
   for (int d = tid; d < D; d += kThreads) part_s[d] = 0.f;
@@ -198,22 +237,22 @@ attention_step_kernel(const float* __restrict__ qp, const float* __restrict__ lp
     const int n = min(stage_rows, n_adm - first);
     for (int i = warp; i < n; i += kWarps) {
       const size_t t = row0 + idx_s[first + i];
-      float* slot = buf + (size_t)i * lay.row;
+      char* slot = buf + (size_t)i * lay.row;
       copy_segment(slot, lp + t * A, A, lane);
-      copy_segment(slot + seg(A), mp + t * A, A, lane);
-      copy_segment(slot + 2 * seg(A), memory + t * D, D, lane);
+      copy_segment(slot + seg_bytes<E>(A), mp + t * A, A, lane);
+      copy_segment(slot + 2 * seg_bytes<E>(A), memory + t * D, D, lane);
     }
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
     for (int i = warp; i < n; i += kWarps) {
       const int j = idx_s[first + i];
-      const float* slot = buf + (size_t)i * lay.row;
-      const float* l_row = slot + shift_of(lp + (row0 + j) * A);
-      const float* m_row = slot + seg(A) + shift_of(mp + (row0 + j) * A);
+      const char* slot = buf + (size_t)i * lay.row;
+      const E* l_row = staged(slot, lp + (row0 + j) * A);
+      const E* m_row = staged(slot + seg_bytes<E>(A), mp + (row0 + j) * A);
       float acc = 0.f;
       for (int a = lane; a < A; a += 32)
-        acc += v_s[a] * tanhf(q_s[a] + l_row[a] + m_row[a]);
+        acc += v_s[a] * tanhf(q_s[a] + to_f32(l_row[a]) + to_f32(m_row[a]));
       acc = warp_sum(acc);
       if (lane == 0) e_s[j] = acc * sc;
     }
@@ -238,9 +277,9 @@ attention_step_kernel(const float* __restrict__ qp, const float* __restrict__ lp
     for (int d = tid; d < D; d += kThreads) {
       float acc = part_s[d] * corr;
       for (int i = 0; i < n; ++i) {
-        const float* mem_row = buf + (size_t)i * lay.row + 2 * seg(A) +
-                               shift_of(memory + (row0 + idx_s[first + i]) * D);
-        acc += p_s[i] * mem_row[d];
+        const E* mem_row = staged(buf + (size_t)i * lay.row + 2 * seg_bytes<E>(A),
+                                  memory + (row0 + idx_s[first + i]) * D);
+        acc += p_s[i] * to_f32(mem_row[d]);
       }
       part_s[d] = acc;
     }
@@ -277,7 +316,7 @@ attention_step_kernel(const float* __restrict__ qp, const float* __restrict__ lp
     // uniform weights: ctx is the mean of memory over all T rows
     for (int d = tid; d < D; d += kThreads) {
       float acc = 0.f;
-      for (int j = 0; j < n_rows; ++j) acc += __ldg(memory + (row0 + j) * D + d);
+      for (int j = 0; j < n_rows; ++j) acc += ldg_f32(memory + (row0 + j) * D + d);
       part_s[d] = acc;
     }
     cluster.sync();
@@ -307,38 +346,39 @@ attention_step_kernel(const float* __restrict__ qp, const float* __restrict__ lp
 // as the floor beside the bound; the port does not call it).
 __global__ void empty_kernel(int) {}
 
-int max_smem_set = 48 * 1024;
-bool non_portable_set = false;
 bool empty_non_portable_set = false;
 
-}  // namespace
+// What a form's kernel has been given: the shared memory it may use, and
+// clusters past 8 blocks.
+template <typename E>
+struct Attributes {
+  static int max_smem;
+  static bool non_portable;
+};
+template <typename E> int Attributes<E>::max_smem = 48 * 1024;
+template <typename E> bool Attributes<E>::non_portable = false;
 
-extern "C" int attention_step_smem(int A, int D, int R, int stage_rows) {
-  return (int)layout(A, D, R, stage_rows).bytes;
-}
-
-extern "C" int attention_step(const float* qp, const float* lp, const float* mp,
-                              const float* v, const float* memory,
-                              const unsigned char* mask, const float* scale,
-                              int B, int T, int A, int D, int S, int R,
-                              int stage_rows, float* ctx, float* w,
-                              void* stream) {
+template <typename E>
+int launch(const E* qp, const E* lp, const E* mp, const float* v,
+           const E* memory, const unsigned char* mask, const float* scale,
+           int B, int T, int A, int D, int S, int R, int stage_rows,
+           float* ctx, float* w, void* stream) {
   if (S < 1 || S > kClusterMax || R < 1 || (long long)S * R < T ||
       stage_rows < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = layout(A, D, R, stage_rows).bytes;
-  if ((int)smem > max_smem_set) {
+  const size_t smem = layout<E>(A, D, R, stage_rows).bytes;
+  if ((int)smem > Attributes<E>::max_smem) {
     cudaError_t err = cudaFuncSetAttribute(
-        attention_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attention_step_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
-    max_smem_set = (int)smem;
+    Attributes<E>::max_smem = (int)smem;
   }
-  if (S > 8 && !non_portable_set) {
+  if (S > 8 && !Attributes<E>::non_portable) {
     cudaError_t err = cudaFuncSetAttribute(
-        attention_step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        attention_step_kernel<E>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
-    non_portable_set = true;
+    Attributes<E>::non_portable = true;
   }
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(S, B, 1);
@@ -352,11 +392,44 @@ extern "C" int attention_step(const float* qp, const float* lp, const float* mp,
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&config, attention_step_kernel, qp, lp,
-                                       mp, v, memory, mask, scale, T, A, D, R,
-                                       stage_rows, ctx, w);
+  cudaError_t err = cudaLaunchKernelEx(&config, attention_step_kernel<E>, qp,
+                                       lp, mp, v, memory, mask, scale, T, A,
+                                       D, R, stage_rows, ctx, w);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int attention_step_smem(int A, int D, int R, int stage_rows) {
+  return (int)layout<float>(A, D, R, stage_rows).bytes;
+}
+
+extern "C" int attention_step_smem_bf16(int A, int D, int R, int stage_rows) {
+  return (int)layout<__nv_bfloat16>(A, D, R, stage_rows).bytes;
+}
+
+extern "C" int attention_step(const float* qp, const float* lp, const float* mp,
+                              const float* v, const float* memory,
+                              const unsigned char* mask, const float* scale,
+                              int B, int T, int A, int D, int S, int R,
+                              int stage_rows, float* ctx, float* w,
+                              void* stream) {
+  return launch(qp, lp, mp, v, memory, mask, scale, B, T, A, D, S, R,
+                stage_rows, ctx, w, stream);
+}
+
+// The bf16 form: qp, lp, mp and memory bf16; v, scale, ctx and w f32.
+extern "C" int attention_step_bf16(const __nv_bfloat16* qp,
+                                   const __nv_bfloat16* lp,
+                                   const __nv_bfloat16* mp, const float* v,
+                                   const __nv_bfloat16* memory,
+                                   const unsigned char* mask,
+                                   const float* scale, int B, int T, int A,
+                                   int D, int S, int R, int stage_rows,
+                                   float* ctx, float* w, void* stream) {
+  return launch(qp, lp, mp, v, memory, mask, scale, B, T, A, D, S, R,
+                stage_rows, ctx, w, stream);
 }
 
 // An empty kernel launched as attention_step would launch it: S x B blocks

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config import compute_dtype, refuse_bf16
 from ..device import resolve_device
 from ..ops.masking import get_mask_from_lengths
 from ..parallel.mesh import draw_rows
@@ -52,6 +53,10 @@ class GANTTSConfig:
     d_windows: Tuple[int, ...] = (32, 64, 128)   # random mel windows
     dropout: float = 0.1
     dtype: Any = torch.float32
+
+    def __post_init__(self):
+        # torch.float32 / torch.bfloat16 or their names (config.compute_dtype)
+        object.__setattr__(self, "dtype", compute_dtype(self.dtype))
 
 
 class ConditionalBatchNorm(nn.Module):
@@ -129,8 +134,7 @@ class GANTTSGenerator(nn.Module):
 
     def __init__(self, cfg: GANTTSConfig, device: str | torch.device = "cuda"):
         super().__init__()
-        if cfg.dtype != torch.float32:
-            raise NotImplementedError("the port runs in float32")
+        refuse_bf16(cfg.dtype, "GAN-TTS", "bf16 UnTTS and GAN-TTS")
         self.cfg = cfg
         D = cfg.symbols_embedding_dim
         self.embedding = nn.Embedding(cfg.n_symbols, D)

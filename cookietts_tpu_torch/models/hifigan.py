@@ -50,6 +50,16 @@ from the neighbours (inward only at the utterance's ends, where the convs'
 own zero padding is one process's), the whole generator runs on the widened
 run (the resblock kernel included) and the rank keeps its samples.
 
+``Generator(HiFiGANConfig(dtype=torch.bfloat16))`` serves in bf16 with the
+JAX package's casts (``ops/precision.py``): conv_pre, the transposed convs
+and conv_post round input, weights and output to bf16 (bias added in bf16),
+the leaky ReLUs run on bf16 values, each stage's MRF sums and averages its
+resblocks in bf16, and every resblock runs the bf16 form of
+``hifigan_resblock`` on bf16 copies of its weights (JAX's Pallas path,
+``models/hifigan.py:243-246``). The audio is bf16-valued and returned as
+f32. Only ``infer=True`` serves in bf16: training, the weight-norm form and
+sequence parallelism refuse it (later slices).
+
 Traps kept from the JAX model: ConvTranspose ``padding=(k-u)//2`` matches
 flax's "SAME" transposed conv (the checkpoint kernel is the flipped flax
 one), the MRF averages its resblocks, and the final leaky ReLU uses slope
@@ -67,8 +77,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config import compute_dtype, refuse_bf16
 from ..device import resolve_device
 from ..ops import hopper_kernels as hk
+from ..ops import precision
 from ..parallel.sp import conv_transpose_reach
 
 
@@ -86,6 +98,10 @@ class HiFiGANConfig:
     lrelu_slope: float = 0.1
     dtype: Any = torch.float32
     pallas_resblocks: Any = "auto"      # True, False or "auto" (see above)
+
+    def __post_init__(self):
+        # torch.float32 / torch.bfloat16 or their names (config.compute_dtype)
+        object.__setattr__(self, "dtype", compute_dtype(self.dtype))
 
 
 WN_EPS = 1e-12                          # flax WeightNorm's epsilon
@@ -160,21 +176,24 @@ class ResBlock1(nn.Module):
                            padding=_padding(kernel_size)))
             for _ in self.dilations)
 
-    def kernel_weights(self):
-        """(w1, b1, w2, b2) with w [P, k, C_in, C_out], b [P, C]; built
-        without autograd, for the inference kernel only."""
+    def kernel_weights(self, dtype: torch.dtype = torch.float32):
+        """(w1, b1, w2, b2) with w [P, k, C_in, C_out] in ``dtype``, b
+        [P, C] f32; built without autograd, for the inference kernel only."""
         def build():
             w = lambda convs: torch.stack(
-                [c.weight.permute(2, 1, 0) for c in convs]).contiguous()
+                [c.weight.permute(2, 1, 0) for c in convs]).to(dtype).contiguous()
             b = lambda convs: torch.stack([c.bias for c in convs]).contiguous()
             return w(self.convs1), b(self.convs1), w(self.convs2), b(self.convs2)
-        return hk.derived(self, "_kernel_weights", list(self.parameters()), build)
+        name = "_kernel_weights" + ("" if dtype == torch.float32 else "_bf16")
+        return hk.derived(self, name, list(self.parameters()), build)
 
     def forward(self, x: torch.Tensor, infer: bool = False) -> torch.Tensor:
         """[B, C, T] -> [B, C, T]; the kernel's entry with ``infer`` where
-        the stage takes it, else the modules' own convs."""
+        the stage takes it (its bf16 form for a bf16 x), else the modules'
+        own convs."""
         if infer and self.use_kernel:
-            return hk.hifigan_resblock(x.contiguous(), *self.kernel_weights(),
+            return hk.hifigan_resblock(x.contiguous(),
+                                       *self.kernel_weights(x.dtype),
                                        self.dilations, self.slope)
         for c1, c2 in zip(self.convs1, self.convs2):
             x = x + c2(F.leaky_relu(c1(F.leaky_relu(x, self.slope)), self.slope))
@@ -196,8 +215,12 @@ class Generator(nn.Module):
     def __init__(self, cfg: HiFiGANConfig, device: str | torch.device = "cuda",
                  weight_norm: bool = False):
         super().__init__()
-        if cfg.dtype != torch.float32:
-            raise NotImplementedError("the port's kernels run in float32")
+        if weight_norm:
+            refuse_bf16(cfg.dtype, "HiFi-GAN's weight-norm (training) form",
+                        "bf16 training")
+        if cfg.pallas_resblocks is False:
+            refuse_bf16(cfg.dtype, "HiFi-GAN without the resblock kernel",
+                        "bf16 training")
         if cfg.pallas_resblocks not in (True, False, "auto"):
             raise ValueError(f"pallas_resblocks={cfg.pallas_resblocks!r}: "
                              "True, False or 'auto'")
@@ -265,6 +288,10 @@ class Generator(nn.Module):
         """[B, T_mel, n_mel] -> [B, T_mel * prod(upsample_rates)]. Under an
         sp group (parallel/sp.py) ``mel`` is this rank's run of the frames
         and the audio its run of the samples."""
+        if not infer or sp is not None:
+            refuse_bf16(self.cfg.dtype, "HiFi-GAN's training forward and "
+                        "sequence-parallel inference", "bf16 training, tp "
+                        "and sp")
         if sp is not None:
             msp = sp.bind(mel.shape[1])
             reach = self.reach()
@@ -281,19 +308,20 @@ class Generator(nn.Module):
 
     def _forward(self, mel: torch.Tensor, infer: bool) -> torch.Tensor:
         cfg = self.cfg
+        dt = cfg.dtype
         n_k = len(cfg.resblock_kernel_sizes)
-        x = self.conv_pre(torch.as_tensor(
-            mel, dtype=torch.float32, device=self.conv_pre.bias.device
-        ).transpose(1, 2))
+        mel = torch.as_tensor(mel, device=self.conv_pre.bias.device)
+        x = precision.conv1d(self.conv_pre, mel.to(dt).transpose(1, 2), dt)
         for i, up in enumerate(self.ups):
-            x = up(F.leaky_relu(x, cfg.lrelu_slope))
+            x = precision.conv_transpose1d(
+                up, precision.leaky_relu(x, cfg.lrelu_slope), dt)
             blocks = self.resblocks[i * n_k:(i + 1) * n_k]
             acc = blocks[0](x, infer)
             for block in blocks[1:]:
                 acc = acc + block(x, infer)
             x = acc / n_k
-        x = self.conv_post(F.leaky_relu(x, 0.01))
-        return torch.tanh(x)[:, 0]
+        x = precision.conv1d(self.conv_post, precision.leaky_relu(x, 0.01), dt)
+        return torch.tanh(x)[:, 0].float()
 
 
 def serving_vocoder(fn: Callable) -> Callable:

@@ -40,6 +40,22 @@ inference methods always run in eval form.
 Submodule and parameter names follow the reference torch checkpoint, so its
 ``state_dict`` (and ``convert.from_jax``'s) loads as it is. The reference's
 two LSTM biases are one in JAX; each pair's ``bias_hh`` is frozen.
+
+``Tacotron2Config(dtype=torch.bfloat16)`` (or ``"bfloat16"``) serves in
+bf16 with the JAX package's casts (``ops/precision.py``): parameters stay
+f32 and every Dense and Conv rounds its input, weights and output to bf16;
+the embeddings, the encoder convs and BatchNorms (f32 statistics), the
+sylps head, the torchMoji crush, the bottleneck, the prenet, the decoder's
+inputs and outputs, the projection and the postnet are bf16; the encoder's
+BiLSTM (no dtype in JAX) and SylpsNet's mu and logvar are f32, the memory
+bf16 after the bottleneck. The LSTM cells keep c and h in f32 and run the
+bf16 form of ``lstm_gates`` on bf16 ``[x; h]``, W and bias; attention keeps
+its weights, cumulative weights, position and softmax in f32 and runs the
+bf16 form of ``attention_step``, its context rounded to bf16; the gate
+logits are f32. Only inference and the eval-form forward run in bf16 (this
+slice is serving): ``train()`` refuses, as do the GST and EmotionNet heads,
+GMM and DCA attention, the learned temperature, and a decoder without the
+memory bottleneck (ROADMAP.md §1 item 4).
 """
 from __future__ import annotations
 
@@ -52,14 +68,18 @@ import torch.nn.functional as F
 import torch.utils._pytree as pytree
 from torch import nn
 
+from ..config import compute_dtype, refuse_bf16
 from ..device import resolve_device
 from ..ops.attention import (ConvNorm, DynamicConvolutionAttention,
                              GMMAttention, LinearNorm,
                              LocationSensitiveAttention)
+from ..ops import precision
 from ..ops.batchnorm import BatchNorm1d
+from ..ops.hopper_kernels import bf16_value
 from ..ops.lstm import ZoneoutLSTMCell
 from ..ops.masking import (dropout, dropout_frame, get_first_over_thresh,
                            get_mask_from_lengths)
+from ..parallel.mesh import draw_rows
 from .emotionnet import AuxEmotionNet, EmotionNet, EmotionNetConfig
 from .gst import GST, GSTConfig
 from .sylpsnet import SylpsNet
@@ -149,6 +169,10 @@ class Tacotron2Config:
     # precision
     dtype: Any = torch.float32
 
+    def __post_init__(self):
+        # torch.float32 / torch.bfloat16 or their names (config.compute_dtype)
+        object.__setattr__(self, "dtype", compute_dtype(self.dtype))
+
 
 class Prenet(nn.Module):
     """Bias-free Linear + ReLU + dropout, dropout ALWAYS on (also at
@@ -161,14 +185,23 @@ class Prenet(nn.Module):
         self.layers = nn.ModuleList(
             LinearNorm(a, b, bias=False) for a, b in zip(dims[:-1], dims[1:]))
         self.p = cfg.p_prenet_dropout
+        self.dtype = cfg.dtype
 
     def forward(self, x, generator: Optional[torch.Generator] = None,
                 masks=None):
+        dt = self.dtype
         for i, layer in enumerate(self.layers):
-            x = F.relu(layer(x))
-            if self.p > 0:
+            x = F.relu(precision.dense(layer, x, dt))
+            if self.p <= 0:
+                continue
+            if dt == torch.float32:
                 x = (torch.where(masks[i], x / (1.0 - self.p), 0.0)
                      if masks is not None else dropout(x, self.p, generator))
+            else:       # JAX's x / (1 - p) on bf16 x divides by bf16(1 - p)
+                keep = masks[i] if masks is not None else draw_rows(
+                    torch.rand, x.shape, generator=generator,
+                    device=x.device) < 1.0 - self.p
+                x = torch.where(keep, x / bf16_value(1.0 - self.p), 0.0)
         return x
 
 
@@ -193,12 +226,15 @@ class Postnet(nn.Module):
             convs.append(nn.Sequential(*layer))
             in_ch = out_ch
         self.convolutions = nn.ModuleList(convs)
+        self.dtype = cfg.dtype
 
     def forward(self, mel: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x_orig = h = mel.transpose(1, 2)                     # [B, M, T]
         for out, layer in zip(self.is_output, self.convolutions):
-            y = layer(h)
+            y = precision.conv1d(layer[0], h, self.dtype)
+            if not out:
+                y = layer[1](y)
             if out:
                 x_orig = x_orig + y
                 h = x_orig
@@ -274,6 +310,7 @@ class Encoder(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """embedded [B, T, E] -> (outputs [B, T, lstm_dim], pred_sylps [B])."""
         cfg = self.cfg
+        dt = cfg.dtype
         B, T, _ = embedded.shape
         mask = get_mask_from_lengths(text_lengths, T)[:, :, None]
         spk = (None if speaker_embed is None else
@@ -288,7 +325,8 @@ class Encoder(nn.Module):
             # rank's output channels; the next conv takes them all-gathered
             tp = getattr(layer[0].conv, "tp", None)
             x = x * mask_c
-            x = F.leaky_relu(layer(x if tp is None else tp.copy_in(x)), 0.01)
+            x = precision.conv1d(layer[0], x if tp is None else tp.copy_in(x), dt)
+            x = precision.leaky_relu(layer[1](x), 0.01)
             if tp is not None:
                 x = tp.gather(x, 1)
             if self.training and cfg.encoder_conv_dropout > 0:
@@ -299,13 +337,15 @@ class Encoder(nn.Module):
         x = x * mask
 
         # the reverse direction runs inside each row's length, like flax's
-        # nn.RNN(reverse=True, keep_order=True, seq_lengths=...)
-        out = bilstm_unpacked(self.lstm, x, text_lengths.clamp_min(1))
+        # nn.RNN(reverse=True, keep_order=True, seq_lengths=...); its cells
+        # have no dtype in JAX, so they run in f32 on bf16 inputs
+        out = bilstm_unpacked(self.lstm, x.float(), text_lengths.clamp_min(1))
         half = cfg.encoder_lstm_dim // 2
         idx = (text_lengths - 1).clamp_min(0)
         h_fwd = out[torch.arange(B, device=out.device), idx, :half]
         h_bwd = out[:, 0, half:]
-        pred_sylps = self.sylps_layer(torch.cat([h_fwd, h_bwd], dim=-1))[:, 0]
+        pred_sylps = precision.dense(self.sylps_layer,
+                                     torch.cat([h_fwd, h_bwd], dim=-1), dt)[:, 0]
         return out * mask, pred_sylps
 
 
@@ -386,7 +426,10 @@ class Decoder(nn.Module):
         self.linear_projection = LinearNorm(final + mem, mel_dim)
         self.gate_layer = LinearNorm(final + mem, cfg.n_frames_per_step)
 
-    def init_state(self, batch: int, t_enc: int, device) -> DecoderState:
+    def init_state(self, batch: int, t_enc: int, device,
+                   dtype: torch.dtype = torch.float32) -> DecoderState:
+        """The zero state; the context and previous frame in ``dtype`` (the
+        memory's, as in JAX), the cells' (c, h) and attention's state f32."""
         cfg = self.cfg
 
         def z(cell):   # (c, h): c is this rank's units under tp, h all of them
@@ -399,9 +442,11 @@ class Decoder(nn.Module):
             attn=z(self.attention_rnn), dec=z(self.decoder_rnn),
             dec2=z(getattr(self, "second_decoder_rnn", None)),
             attention=self.attention_layer.init_state(batch, t_enc, device),
-            context=torch.zeros(batch, self.memory_dim, device=device),
+            context=torch.zeros(batch, self.memory_dim, device=device,
+                                dtype=dtype),
             prev_output=torch.zeros(
-                batch, cfg.n_mel_channels * cfg.n_frames_per_step, device=device),
+                batch, cfg.n_mel_channels * cfg.n_frames_per_step, device=device,
+                dtype=dtype),
             finished=torch.zeros(batch, dtype=torch.bool, device=device))
 
     def step(self, s: DecoderState, memory: torch.Tensor,
@@ -414,21 +459,23 @@ class Decoder(nn.Module):
         them from ``generator``); ``fused`` holds each cell's ``fused()``
         weights, built once per decode in training."""
         cfg = self.cfg
+        dt = cfg.dtype       # the cells' h carries stay f32; their outputs dt
         fused = fused or {}
         prev = s.prev_output if dec_input is None else dec_input
+        prev = prev.to(dt)
         attn_in = [self.prenet(prev, generator) if masks is None
-                   else self.prenet(prev, generator, masks), s.context]
+                   else self.prenet(prev, generator, masks), s.context.to(dt)]
         if cfg.attrnn_extra_decoder_input:
-            attn_in.append(s.dec[1])
+            attn_in.append(s.dec[1].to(dt))
         attn = self.attention_rnn(torch.cat(attn_in, dim=-1), s.attn,
                                   fused.get("attention_rnn"), generator)
-        attn_h = attn[1]
+        attn_h = attn[1].to(dt)
         context, weights, att_state = self.attention_layer(
             attn_h, memory, const, s.attention,
             getattr(self, "exp_smoothing_factor", None))
-        dec = self.decoder_rnn(torch.cat([attn_h, context], dim=-1), s.dec,
-                               fused.get("decoder_rnn"), generator)
-        dec_h = dec[1]
+        dec = self.decoder_rnn(torch.cat([attn_h, context.to(dt)], dim=-1),
+                               s.dec, fused.get("decoder_rnn"), generator)
+        dec_h = dec[1].to(dt)
         if cfg.decoder_residual_connection:
             dec_h = dec_h + attn_h[..., :dec_h.shape[-1]]
         dec2, final_h = s.dec2, dec_h
@@ -436,12 +483,12 @@ class Decoder(nn.Module):
             dec2 = self.second_decoder_rnn(dec_h, s.dec2,
                                            fused.get("second_decoder_rnn"),
                                            generator)
-            final_h = dec2[1]
+            final_h = dec2[1].to(dt)
             if cfg.second_decoder_residual_connection:
                 final_h = final_h + dec_h
-        proj_in = torch.cat([final_h, context], dim=-1)
-        mel = self.linear_projection(proj_in)
-        gate = self.gate_layer(proj_in)
+        proj_in = torch.cat([final_h, context.to(dt)], dim=-1)
+        mel = precision.dense(self.linear_projection, proj_in, dt)
+        gate = precision.dense(self.gate_layer, proj_in, dt).float()
         finished = s.finished
         if not self.training:       # the stop mask of a free-running decode
             finished = finished | (torch.sigmoid(gate).amax(-1)
@@ -513,7 +560,7 @@ class Decoder(nn.Module):
         the attention precompute runs here, once per utterance."""
         B, T_enc, _ = memory.shape
         return (self.attention_layer.precompute(memory, memory_lengths),
-                self.init_state(B, T_enc, memory.device))
+                self.init_state(B, T_enc, memory.device, memory.dtype))
 
     def decode_chunk(self, memory: torch.Tensor, const: Dict[str, Any],
                      state: DecoderState, steps: int,
@@ -582,7 +629,8 @@ class Decoder(nn.Module):
         left = S_max - len(mels) * chunk_size        # never decoded
         dev = memory.device
         if left:
-            mels.append(torch.zeros(B, left * r, cfg.n_mel_channels, device=dev))
+            mels.append(torch.zeros(B, left * r, cfg.n_mel_channels, device=dev,
+                                    dtype=memory.dtype))
             gates.append(torch.full((B, left * r), -1e4, device=dev))
             weights.append(torch.zeros(B, left, T_enc, device=dev))
         gates = torch.cat(gates, 1)
@@ -630,14 +678,25 @@ def batch_inputs(batch: Dict[str, Any]) -> Dict[str, Any]:
 class Tacotron2(nn.Module):
     def __init__(self, cfg: Tacotron2Config, device: str | torch.device = "cuda"):
         super().__init__()
-        if cfg.dtype != torch.float32:
-            raise NotImplementedError("the port's kernels run in float32")
+        for on, what, later in (
+                (cfg.use_gst, "the GST head", "bf16 GST and EmotionNet"),
+                (cfg.use_emotionnet, "the EmotionNet heads",
+                 "bf16 GST and EmotionNet"),
+                (cfg.attention_type != 0, "GMM and DCA attention",
+                 "bf16 GMM and DCA"),
+                (cfg.attention_learned_temperature,
+                 "attention's learned temperature", "bf16 GMM and DCA"),
+                (not cfg.use_memory_bottleneck,
+                 "a decoder without the memory bottleneck (an f32 memory)",
+                 "bf16 GMM and DCA")):
+            if on:
+                refuse_bf16(cfg.dtype, what, later)
         self.cfg = cfg
         self.embedding = nn.Embedding(cfg.n_symbols, cfg.symbols_embedding_dim)
         self.speaker_embedding = nn.Embedding(cfg.n_speakers,
                                               cfg.speaker_embedding_dim)
         self.encoder = Encoder(cfg)
-        self.sylps_net = SylpsNet(cfg.sylpsnet_layer_dims)
+        self.sylps_net = SylpsNet(cfg.sylpsnet_layer_dims, cfg.dtype)
         if cfg.torchmoji_batchnorm:
             self.tm_bn = BatchNorm1d(cfg.torchmoji_dim)
         self.tm_linear = nn.Linear(cfg.torchmoji_dim, cfg.torchmoji_crushed_dim)
@@ -673,6 +732,13 @@ class Tacotron2(nn.Module):
     def device(self) -> torch.device:
         return self.embedding.weight.device
 
+    def train(self, mode: bool = True):
+        if mode:
+            refuse_bf16(self.cfg.dtype, "Tacotron2 training",
+                        "bf16 training: the kernels' backward and "
+                        "DynamicLossScaler")
+        return super().train(mode)
+
     def _build_memory(self, text, text_lengths, speaker_id, sylps=None,
                       torchmoji_hidden=None, generator=None, sylps_noise=None,
                       ref_mel=None, emotion_id=None, emotion_onehot=None,
@@ -686,22 +752,27 @@ class Tacotron2(nn.Module):
         draw their dropout and zu from ``generator``; ``head_noise`` (keys
         ``emotion_net``, ``aux_emotion_net``) sets zu's eps instead."""
         cfg = self.cfg
+        dt = cfg.dtype
         B, T = text.shape
         # out-of-range ids would index out of the table: clamp like JAX
-        embedded = self.embedding(text.clamp(0, cfg.n_symbols - 1))
-        enc_spk = (self.encoder.encoder_speaker_embedding(speaker_id)
+        embedded = self.embedding(text.clamp(0, cfg.n_symbols - 1)).to(dt)
+        enc_spk = (self.encoder.encoder_speaker_embedding(speaker_id).to(dt)
                    if cfg.encoder_speaker_embed_dim > 0 else None)
         enc_out, pred_sylps = self.encoder(embedded, text_lengths, enc_spk,
                                            generator)
         # without a ground-truth rate, the encoder's own prediction
         syl_zu, syl_mu, syl_logvar = self.sylps_net(
             pred_sylps if sylps is None else sylps, generator, sylps_noise)
-        spk = self.speaker_embedding(speaker_id)
-        tm_hidden = (torch.zeros(B, cfg.torchmoji_dim, device=text.device)
+        spk = self.speaker_embedding(speaker_id).to(dt)
+        tm_hidden = (torch.zeros(B, cfg.torchmoji_dim, device=text.device,
+                                 dtype=dt)
                      if torchmoji_hidden is None else torchmoji_hidden)
         tm = self.tm_bn(tm_hidden) if cfg.torchmoji_batchnorm else tm_hidden
-        tm = self.tm_linear(tm)
-        parts = [enc_out, spk, syl_zu, tm]
+        tm = precision.dense(self.tm_linear, tm, dt)
+        # in bf16 the parts meet in f32 (the encoder's BiLSTM output), as
+        # jnp.concatenate promotes them; the bottleneck rounds to bf16
+        parts = [enc_out, spk.to(enc_out.dtype), syl_zu.to(dt).to(enc_out.dtype),
+                 tm.to(enc_out.dtype)]
         heads = {"pred_sylps": pred_sylps, "syl_mu": syl_mu,
                  "syl_logvar": syl_logvar}
         noise = head_noise or {}
@@ -727,7 +798,8 @@ class Tacotron2(nn.Module):
         memory = torch.cat([enc_out] + [p[:, None, :].expand(B, T, -1)
                                         for p in parts[1:]], dim=-1)
         if cfg.use_memory_bottleneck:
-            memory = self.decoder.memory_bottleneck(memory)
+            memory = precision.dense(self.decoder.memory_bottleneck.bottleneck,
+                                     memory, dt)
         return memory.contiguous(), heads
 
     def _inputs(self, text, text_lengths, speaker_id, torchmoji_hidden, sylps):

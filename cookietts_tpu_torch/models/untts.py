@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config import compute_dtype, refuse_bf16
 from ..device import full_float32, resolve_device
 from ..ops.masking import dropout, get_mask_from_lengths
 from .waveglow import WN, Invertible1x1Conv
@@ -86,6 +87,10 @@ class UnTTSConfig:
     max_frames_per_char: float = 40.0
     sigma: float = 1.0
     dtype: Any = torch.float32
+
+    def __post_init__(self):
+        # torch.float32 / torch.bfloat16 or their names (config.compute_dtype)
+        object.__setattr__(self, "dtype", compute_dtype(self.dtype))
 
 
 # -- flax-semantics layers -------------------------------------------------------
@@ -456,8 +461,7 @@ class UnTTS(nn.Module):
 
     def __init__(self, cfg: UnTTSConfig, device: str | torch.device = "cuda"):
         super().__init__()
-        if cfg.dtype != torch.float32:
-            raise NotImplementedError("the port's kernels run in float32")
+        refuse_bf16(cfg.dtype, "UnTTS", "bf16 UnTTS and GAN-TTS")
         self.cfg = cfg
         D = cfg.symbols_embedding_dim
         enc_dim = D + cfg.speaker_embedding_dim

@@ -82,6 +82,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..config import compute_dtype, refuse_bf16
 from ..device import full_float32, resolve_device
 from ..ops import hopper_kernels as hk
 from ..parallel.mesh import draw_rows
@@ -158,6 +159,10 @@ class WaveGlowConfig:
     memory_efficient: bool = True
     sigma: float = 1.0
     dtype: Any = torch.float32
+
+    def __post_init__(self):
+        # torch.float32 / torch.bfloat16 or their names (config.compute_dtype)
+        object.__setattr__(self, "dtype", compute_dtype(self.dtype))
 
 
 def permute_height_order(h: int, kind: str, flow_idx: int) -> np.ndarray:
@@ -465,8 +470,8 @@ class WaveGlow(nn.Module):
 
     def __init__(self, cfg: WaveGlowConfig, device: str | torch.device = "cuda"):
         super().__init__()
-        if cfg.dtype != torch.float32:
-            raise NotImplementedError("the port's kernels run in float32")
+        refuse_bf16(cfg.dtype, "WaveGlow and WaveFlow",
+                    "the bf16 forms of the two WN kernels")
         if cfg.gated_unit not in GATED_UNITS:
             raise ValueError(f"unknown gated unit {cfg.gated_unit!r}")
         self.cfg = cfg

@@ -20,6 +20,15 @@ one per ``attention_type``:
   ``W_static``, ``W_dynamic``, ``v``), since no reference checkpoint fits it.
 
 GMM and DCA run in plain PyTorch, as JAX runs them in plain XLA.
+
+Location-sensitive attention over a bf16 memory (the bf16 serving path)
+follows the JAX module at ``dtype=bfloat16`` with its Pallas kernel
+(cookietts_tpu/ops/attention.py:149-170): the query, location and memory
+projections are bf16 (``ops/precision.py``), the location features are
+rounded to bf16 before the location conv, the step runs in the bf16 form of
+``attention_step`` (v, the mask, the softmax, the weights and the position
+f32) and the context is rounded to bf16. GMM and DCA refuse bf16 (a later
+slice).
 Each class has ``precompute(memory, lengths)`` (once per utterance),
 ``init_state(batch, t_enc, device)`` and
 ``forward(query, memory, const, state, exp_smoothing_factor=None)`` ->
@@ -36,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import hopper_kernels as hk
+from . import precision
 
 
 class LinearNorm(nn.Module):
@@ -69,8 +79,10 @@ class LocationLayer(nn.Module):
         self.location_conv = ConvNorm(2, n_filters, kernel_size, bias=False)
         self.location_dense = LinearNorm(n_filters, attention_dim, bias=False)
 
-    def forward(self, loc_feats):          # [B, 2, T] -> [B, T, A]
-        return self.location_dense(self.location_conv(loc_feats).transpose(1, 2))
+    def forward(self, loc_feats, dtype=torch.float32):   # [B, 2, T] -> [B, T, A]
+        """In ``dtype`` (ops/precision.py): bf16 rounds the features too."""
+        conv = precision.conv1d(self.location_conv, loc_feats.to(dtype), dtype)
+        return precision.dense(self.location_dense, conv.transpose(1, 2), dtype)
 
 
 class AttentionState(NamedTuple):
@@ -131,7 +143,8 @@ class LocationSensitiveAttention(nn.Module):
                    memory_lengths: torch.Tensor) -> Dict[str, Any]:
         T = memory.shape[1]
         return {
-            "processed_memory": self.memory_layer(memory).contiguous(),
+            "processed_memory": precision.dense(self.memory_layer, memory,
+                                                memory.dtype).contiguous(),
             "mask": torch.arange(T, device=memory.device)[None, :]
                     < memory_lengths[:, None],
             "lengths": memory_lengths,
@@ -164,17 +177,19 @@ class LocationSensitiveAttention(nn.Module):
                 exp_smoothing_factor: Optional[torch.Tensor] = None):
         """query [B, rnn_dim]; memory [B, T, D] -> (context, weights, state)."""
         T = state.weights.shape[1]
-        processed_query = self.query_layer(query)
+        dt = memory.dtype
+        processed_query = precision.dense(self.query_layer, query, dt)
         loc = torch.stack([state.weights, state.weights_cum], dim=1)
-        processed_loc = self.location_layer(loc)
+        processed_loc = self.location_layer(loc, dt)
         mask = const["mask"]
         if self.window_range > 0:
             mask = mask & self.window_mask(state.position, const["lengths"], T)
         scale = F.softplus(self.softmax_temp) if self.learn_temperature else None
         context, weights = hk.attention_step(
-            processed_query.float().contiguous(), processed_loc.float().contiguous(),
+            processed_query.to(dt).contiguous(), processed_loc.to(dt).contiguous(),
             const["processed_memory"], self.v.linear_layer.weight[0].contiguous(),
             memory, mask.contiguous(), scale)
+        context = context.to(dt)
         expected = (weights * torch.arange(T, device=weights.device,
                                            dtype=torch.float32)).sum(-1)
         if self.window_range > 0:

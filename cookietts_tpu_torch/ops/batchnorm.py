@@ -8,7 +8,12 @@ Under a data-parallel group (parallel/mesh.py) the training statistics come
 from the sum and the sum of squares all-reduced over the group, with
 gradient, and the running averages move with those global statistics: the
 BatchNorm JAX runs over the global batch of a dp mesh. (Not
-``nn.SyncBatchNorm``, whose running variance is the unbiased one.)"""
+``nn.SyncBatchNorm``, whose running variance is the unbiased one.)
+
+A bf16 input (the bf16 serving path) is normalised in eval as flax's
+``BatchNorm(dtype=bfloat16)`` does it: in f32, ``(x - mean) * (rsqrt(var +
+eps) * scale) + bias`` with the f32 running statistics, the result rounded
+to bf16. Training statistics are f32 only."""
 from __future__ import annotations
 
 import torch
@@ -19,6 +24,12 @@ from ..parallel.mesh import batch_means
 
 class _FlaxStatistics:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training and x.dtype != torch.float32:
+            shape = [1, -1] + [1] * (x.dim() - 2)
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            y = ((x.float() - self.running_mean.view(shape)) * mul.view(shape)
+                 + self.bias.view(shape))
+            return y.to(x.dtype)
         if not self.training:
             return super().forward(x)
         dims = [0] + list(range(2, x.dim()))

@@ -23,6 +23,15 @@ Each kernel has three parts here:
   models' types (plans as dataclasses, tuples of dilations). There is no
   fallback from the card to the plain version.
 
+``attention_step``, ``lstm_gates`` and ``hifigan_resblock`` have a bf16 form
+too, for the bf16 serving path: the same op, chosen by the dtype of its
+first input, with a C entry of its own (``<entry>_bf16``) and a launch
+count of its own (``<name>_bf16``). Every other input must then have the
+dtype that form takes (``_check``): nothing is cast on the way in. The
+plain versions take the same bf16 inputs and compute what the bf16 kernels
+compute: f32 math on the widened values, rounded to bf16 where the kernel
+rounds.
+
 The TPU kernel each one replaces, and what bounds it on the H100, is noted
 at the head of its ``.cu`` source.
 """
@@ -43,7 +52,9 @@ NEG = -1e30
 NAMESPACE = "cookietts_tpu_torch"
 LAUNCHES: Dict[str, int] = {"attention_step": 0, "lstm_gates": 0,
                             "hifigan_resblock": 0, "waveglow_wn_forward": 0,
-                            "waveflow_row_step": 0}
+                            "waveflow_row_step": 0, "attention_step_bf16": 0,
+                            "lstm_gates_bf16": 0, "hifigan_resblock_bf16": 0}
+BF16 = torch.bfloat16
 
 
 def reset_launch_counts() -> None:
@@ -70,6 +81,12 @@ def _check(name: str, t: torch.Tensor, shape: Sequence[int],
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _form(t: torch.Tensor) -> Tuple[torch.dtype, str]:
+    """(dtype, suffix) of the form a kernel's first input picks: bf16 for a
+    bf16 tensor, else f32 (whose _check then refuses anything but f32)."""
+    return (BF16, "_bf16") if t.dtype == BF16 else (torch.float32, "")
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -144,7 +161,9 @@ def derived(module: nn.Module, name: str, sources: Sequence[torch.Tensor],
 def attention_step_plain(qp, lp, mp, v, memory, mask, scale=None):
     """qp [B, A]; lp/mp [B, T, A]; v [A]; memory [B, T, D]; mask [B, T] bool
     (length and window); scale: None or a 1-element energy scale.
-    Returns (context [B, D], weights [B, T])."""
+    Returns (context [B, D], weights [B, T]), f32. bf16 qp, lp, mp and
+    memory (the bf16 form) are widened to f32 first: all the math is f32."""
+    qp, lp, mp, memory = qp.float(), lp.float(), mp.float(), memory.float()
     e = torch.einsum("bta,a->bt", torch.tanh(qp[:, None, :] + lp + mp), v)
     if scale is not None:
         e = e * scale
@@ -168,18 +187,21 @@ ATTN_MISC = 64                       # floats of a block's counts and statistics
 ATTN_STAGE_ROWS = 48
 
 
-def _attn_seg(n: int) -> int:
-    """attention_step.cu's seg: floats of a staged row segment of n values
-    (room for a 0-3 float shift, whole 16-byte words)."""
-    return (n + 6) // 4 * 4
+def _attn_seg(n: int, elem: int = 4) -> int:
+    """attention_step.cu's seg_bytes: bytes of a staged row segment of n
+    values of ``elem`` bytes (room for a 0-12 byte shift, for bf16 2 bytes
+    either side, whole 16-byte words)."""
+    return (n * elem + 12 + (4 if elem == 2 else 0) + 15) // 16 * 16
 
 
-def attention_step_smem(A: int, D: int, rows: int, stage_rows: int) -> int:
+def attention_step_smem(A: int, D: int, rows: int, stage_rows: int,
+                        elem: int = 4) -> int:
     """Dynamic shared memory of a block (attention_step.cu's layout): q, v,
     the energies and admitted-row list of its rows, a stage's weights, the
-    statistics, the partial context, and the staged rows."""
+    statistics, the partial context (all f32), and the staged rows of
+    ``elem``-byte values (4: the f32 form, 2: bf16)."""
     fixed = (2 * A + 2 * rows + stage_rows + ATTN_MISC + D + 3) // 4 * 4
-    return 4 * (fixed + stage_rows * (2 * _attn_seg(A) + _attn_seg(D)))
+    return 4 * fixed + stage_rows * (2 * _attn_seg(A, elem) + _attn_seg(D, elem))
 
 
 def clusters_fit(B: int, S: int, smem: int) -> bool:
@@ -210,15 +232,17 @@ class AttentionPlan:
 @functools.lru_cache(maxsize=None)
 def attention_step_plan(B: int, T: int, A: int, D: int,
                         cluster: Optional[int] = None,
-                        stage_rows: Optional[int] = None) -> AttentionPlan:
+                        stage_rows: Optional[int] = None,
+                        elem: int = 4) -> AttentionPlan:
     """Split each batch row's T rows over a cluster of S blocks: by default
     the fewest (a power of two up to 16, at most T) that give B x S at least
     one block per SM, then as few as still cover T in R = ceil(T / S) rows
     a block, so none is empty. A stage holds R rows, at most
     ATTN_STAGE_ROWS; where B such clusters would not all be resident at
     once, S is halved until they are. ``cluster`` and ``stage_rows`` force
-    the plan (tools/bench_attention.py). Raises where shared memory cannot
-    hold one row."""
+    the plan (tools/bench_attention.py); ``elem`` is the bytes of a staged
+    value (2 for the bf16 form, whose rows take half the room). Raises
+    where shared memory cannot hold one row."""
     if min(B, T, A, D) < 1:
         raise ValueError(f"attention_step: B={B}, T={T}, A={A}, D={D} must "
                          "be positive")
@@ -234,9 +258,9 @@ def attention_step_plan(B: int, T: int, A: int, D: int,
         R = -(-T // S)
         S = -(-T // R)
         rows = min(R, stage_rows or ATTN_STAGE_ROWS)
-        while rows > 1 and attention_step_smem(A, D, R, rows) > SMEM_MAX:
+        while rows > 1 and attention_step_smem(A, D, R, rows, elem) > SMEM_MAX:
             rows -= 1
-        smem = attention_step_smem(A, D, R, rows)
+        smem = attention_step_smem(A, D, R, rows, elem)
         if cluster or S == 1 or clusters_fit(B, S, smem):
             break
         S //= 2
@@ -262,22 +286,25 @@ def attention_step_vjp(qp, lp, mp, v, memory, mask, scale, grad_ctx,
 def _attention_step_cuda(qp, lp, mp, v, memory, mask, scale, plan):
     B, T, A = lp.shape
     D = memory.shape[-1]
-    for name, t, shape in (("qp", qp, (B, A)), ("lp", lp, (B, T, A)),
-                           ("mp", mp, (B, T, A)), ("v", v, (A,)),
-                           ("memory", memory, (B, T, D))):
-        _check(f"attention_step {name}", t, shape)
-    _check("attention_step mask", mask, (B, T), torch.bool)
+    dt, form = _form(qp)
+    for name, t, shape, t_dt in (
+            ("qp", qp, (B, A), dt), ("lp", lp, (B, T, A), dt),
+            ("mp", mp, (B, T, A), dt), ("v", v, (A,), torch.float32),
+            ("memory", memory, (B, T, D), dt)):
+        _check(f"attention_step{form} {name}", t, shape, t_dt)
+    _check(f"attention_step{form} mask", mask, (B, T), torch.bool)
     if scale is not None:
-        _check("attention_step scale", scale, (1,))
-    ints = tuple(plan) or attention_step_plan(B, T, A, D).ints()
+        _check(f"attention_step{form} scale", scale, (1,))
+    ints = tuple(plan) or attention_step_plan(B, T, A, D,
+                                              elem=qp.element_size()).ints()
     lib = _build.library("attention_step")
     out_ctx = torch.empty((B, D), device=qp.device, dtype=torch.float32)
     out_w = torch.empty((B, T), device=qp.device, dtype=torch.float32)
-    err = lib.attention_step(
+    err = getattr(lib, "attention_step" + form)(
         _ptr(qp), _ptr(lp), _ptr(mp), _ptr(v), _ptr(memory), _ptr(mask),
         _ptr(scale), B, T, A, D, *ints, _ptr(out_ctx), _ptr(out_w), _stream())
-    _raise_on(err, "attention_step")
-    LAUNCHES["attention_step"] += 1
+    _raise_on(err, "attention_step" + form)
+    LAUNCHES["attention_step" + form] += 1
     return out_ctx, out_w
 
 
@@ -292,8 +319,9 @@ _attention_step_op.register_kernel("cuda")(_attention_step_cuda)
 
 @_attention_step_op.register_fake
 def _(qp, lp, mp, v, memory, mask, scale, plan):
-    return (memory.new_empty((memory.shape[0], memory.shape[2])),
-            memory.new_empty(memory.shape[:2]))
+    return (memory.new_empty((memory.shape[0], memory.shape[2]),
+                             dtype=torch.float32),
+            memory.new_empty(memory.shape[:2], dtype=torch.float32))
 
 
 def _attention_step_setup(ctx, inputs, output):
@@ -317,7 +345,8 @@ def attention_step(qp, lp, mp, v, memory, mask, scale=None,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused location-sensitive attention step (see attention_step_plain);
     on the card one launch, split over T by ``plan`` (by default
-    attention_step_plan's), reading only the rows the mask admits."""
+    attention_step_plan's), reading only the rows the mask admits. bf16
+    qp, lp, mp and memory take the bf16 form; ctx and weights are f32."""
     _refuse_other_devices(qp, "attention_step")
     return _attention_step_op(qp, lp, mp, v, memory, mask, scale,
                               list(plan.ints()) if plan else [])
@@ -327,7 +356,10 @@ def attention_step(qp, lp, mp, v, memory, mask, scale=None,
 
 def lstm_gates_plain(xh, weight, bias, c_prev):
     """xh [B, F]; weight [F, 4H] (gate blocks i, f, g, o); bias [4H];
-    c_prev [B, H]. Returns (c_new, h_new); the forget gate gets +1."""
+    c_prev [B, H] f32. Returns (c_new, h_new), f32; the forget gate gets
+    +1. bf16 xh, weight and bias (the bf16 form) are widened to f32 first:
+    the gates are f32, not rounded to bf16."""
+    xh, weight, bias = xh.float(), weight.float(), bias.float()
     i, f, g, o = (xh @ weight + bias).chunk(4, dim=-1)
     c = torch.sigmoid(f + 1.0) * c_prev + torch.sigmoid(i) * torch.tanh(g)
     return c, torch.sigmoid(o) * torch.tanh(c)
@@ -335,6 +367,7 @@ def lstm_gates_plain(xh, weight, bias, c_prev):
 
 LSTM_COLS = 64          # columns of each gate block per block (lstm_gates.cu)
 LSTM_GROUP_ROWS = 32    # batch rows per block pass (lstm_gates.cu)
+LSTM_STAGE_BYTES = 16384   # bytes of W a pipeline stage holds (lstm_gates.cu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,9 +384,12 @@ class LstmPlan:
 
 
 def lstm_gates_plan(B: int, F: int, H: int, target_blocks: int = 264,
-                    min_rows: int = 32) -> LstmPlan:
+                    elem: int = 4) -> LstmPlan:
     """Split F into slices so that the grid is about two blocks per SM of
-    the card's 132, with at least ``min_rows`` rows of W per slice."""
+    the card's 132, with at least two pipeline stages of W rows per slice:
+    32 rows of ``elem``-byte values (4: f32), 64 in the bf16 form (2),
+    whose rows are half the bytes."""
+    min_rows = 2 * LSTM_STAGE_BYTES // (4 * LSTM_COLS * elem)
     col_tiles = -(-H // LSTM_COLS)
     groups = -(-B // LSTM_GROUP_ROWS)
     slices = max(1, min(target_blocks // (col_tiles * groups), F // min_rows))
@@ -425,21 +461,24 @@ def lstm_gates_vjp(xh, weight, bias, c_prev, grad_c, grad_h,
 def _lstm_gates_cuda(xh, weight, bias, c_prev):
     B, F_ = xh.shape
     H = c_prev.shape[-1]
-    for name, t, shape in (("xh", xh, (B, F_)), ("weight", weight, (F_, 4 * H)),
-                           ("bias", bias, (4 * H,)), ("c_prev", c_prev, (B, H))):
-        _check(f"lstm_gates {name}", t, shape)
+    dt, form = _form(xh)
+    for name, t, shape, t_dt in (
+            ("xh", xh, (B, F_), dt), ("weight", weight, (F_, 4 * H), dt),
+            ("bias", bias, (4 * H,), dt),
+            ("c_prev", c_prev, (B, H), torch.float32)):
+        _check(f"lstm_gates{form} {name}", t, shape, t_dt)
     lib = _build.library("lstm_gates")
-    plan = lstm_gates_plan(B, F_, H)
+    plan = lstm_gates_plan(B, F_, H, elem=xh.element_size())
     partial = torch.empty(plan.partial, device=xh.device, dtype=torch.float32)
     tickets = _tickets(xh.device, plan.tickets)
     c_new = torch.empty((B, H), device=xh.device, dtype=torch.float32)
     h_new = torch.empty_like(c_new)
-    err = lib.lstm_gates(_ptr(xh), _ptr(weight), _ptr(bias), _ptr(c_prev),
-                         B, F_, H, plan.grid[0], plan.slices,
-                         plan.f_per_slice, _ptr(partial), _ptr(tickets),
-                         _ptr(c_new), _ptr(h_new), _stream())
-    _raise_on(err, "lstm_gates")
-    LAUNCHES["lstm_gates"] += 1
+    err = getattr(lib, "lstm_gates" + form)(
+        _ptr(xh), _ptr(weight), _ptr(bias), _ptr(c_prev), B, F_, H,
+        plan.grid[0], plan.slices, plan.f_per_slice, _ptr(partial),
+        _ptr(tickets), _ptr(c_new), _ptr(h_new), _stream())
+    _raise_on(err, "lstm_gates" + form)
+    LAUNCHES["lstm_gates" + form] += 1
     return c_new, h_new
 
 
@@ -470,17 +509,44 @@ _lstm_gates_op.register_autograd(_lstm_gates_backward,
 
 
 def lstm_gates(xh, weight, bias, c_prev) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused LSTM gate step (see lstm_gates_plain)."""
+    """Fused LSTM gate step (see lstm_gates_plain); bf16 xh, weight and
+    bias take the bf16 form, c_prev and the outputs are f32."""
     _refuse_other_devices(xh, "lstm_gates")
     return _lstm_gates_op(xh, weight, bias, c_prev)
 
 
 # -- hifigan_resblock ----------------------------------------------------------
 
+def bf16_value(c: float) -> float:
+    """``c`` rounded to bf16, as a Python float: what a weak-typed constant
+    becomes in the JAX package's bf16 arithmetic (``slope * x`` on a bf16
+    x multiplies by bf16(slope))."""
+    return float(torch.tensor(c, dtype=BF16))
+
+
+def leaky_relu_bf16(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """JAX's leaky ReLU of a bf16 x: x, or bf16(slope) * x rounded to bf16."""
+    return torch.where(x >= 0, x, x * bf16_value(slope))
+
+
 def hifigan_resblock_plain(x, w1, b1, w2, b2, dilations, slope):
     """One MRF ResBlock1. x [B, C, T]; w1/w2 [P, k, C_in, C_out] (weight
-    norm folded); b1/b2 [P, C]; dilations: P ints. Returns [B, C, T]."""
+    norm folded); b1/b2 [P, C] f32; dilations: P ints. Returns [B, C, T].
+    With bf16 x and weights (the bf16 form) it rounds where the kernel
+    does: lrelu on the bf16 input, each conv in f32 on the bias, conv1's
+    lrelu rounded to bf16, conv2's sum rounded to bf16, then the residual
+    sum rounded to bf16."""
     k = w1.shape[1]
+    if x.dtype == BF16:
+        for p, d in enumerate(dilations):
+            h = F.conv1d(leaky_relu_bf16(x, slope).float(),
+                         w1[p].float().permute(2, 1, 0), b1[p],
+                         padding=d * (k - 1) // 2, dilation=d)
+            h = F.leaky_relu(h, slope).to(BF16).float()
+            h = F.conv1d(h, w2[p].float().permute(2, 1, 0), b2[p],
+                         padding=(k - 1) // 2)
+            x = x + h.to(BF16)
+        return x
     for p, d in enumerate(dilations):
         h = F.conv1d(F.leaky_relu(x, slope), w1[p].permute(2, 1, 0), b1[p],
                      padding=d * (k - 1) // 2, dilation=d)
@@ -538,9 +604,54 @@ def hifigan_resblock_plan(B: int, C: int, T: int, k: int, d: int
     return tile, grid, smem, variant
 
 
-def hifigan_resblock_launches(C: int, n_pairs: int) -> int:
-    """Kernel launches of one resblock on the card."""
-    return n_pairs * (1 if C in RESBLOCK_FUSED else 2)
+def hifigan_resblock_launches(C: int, n_pairs: int, bf16: bool = False) -> int:
+    """Kernel launches of one resblock on the card (the bf16 form: two a
+    pair at every C)."""
+    return n_pairs * (1 if C in RESBLOCK_FUSED and not bf16 else 2)
+
+
+RESBLOCK_BF16_TILE = 64         # samples per block of the bf16 form
+RESBLOCK_BF16_KC = 32           # input channels per K chunk of the bf16 form
+
+
+def hifigan_resblock_bf16_plan(B: int, C: int, T: int, k: int, d: int
+                               ) -> Tuple[int, Tuple[int, int, int], int, int]:
+    """Launch plan of one dilation pair in the bf16 form: (tile, grid,
+    smem_bytes, rows). Both launches (conv1 into h, conv2 + residual) take
+    grid (ceil(T / 64), ceil(C / rows), B), rows = resblock_split_rows(C);
+    a block stages a 32-channel chunk's window of 64 + (k - 1) d samples
+    and the chunk's weights of all k taps (hifigan_resblock.cu's bf16_smem).
+    Raises for an even k or a window past shared memory."""
+    if k % 2 == 0:
+        raise ValueError(f"hifigan_resblock: k={k} must be odd")
+    if C <= 0:
+        raise ValueError(f"hifigan_resblock: C={C} must be positive")
+    rows, tile = resblock_split_rows(C), RESBLOCK_BF16_TILE
+    smem = 2 * ((tile + (k - 1) * d) * (RESBLOCK_BF16_KC + 8)
+                + k * RESBLOCK_BF16_KC * (rows + 8))
+    if smem > SMEM_MAX:
+        raise ValueError(f"hifigan_resblock bf16: C={C} k={k} d={d} needs "
+                         f"{smem} B of shared memory (max {SMEM_MAX})")
+    return tile, (-(-T // tile), -(-C // rows), B), smem, rows
+
+
+def _hifigan_resblock_bf16_cuda(x, w1, b1, w2, b2, dilations, slope):
+    B, C, T = x.shape
+    P, k = w1.shape[:2]
+    plans = [hifigan_resblock_bf16_plan(B, C, T, k, d) for d in dilations]
+    lib = _build.library("hifigan_resblock")
+    h = torch.empty_like(x)
+    stream = _stream()
+    for p, (d, (_, _, smem, rows)) in enumerate(zip(dilations, plans)):
+        y = torch.empty_like(x)
+        err = lib.hifigan_resblock_pair_bf16(
+            _ptr(x), _ptr(w1[p]), _ptr(b1[p]), _ptr(w2[p]), _ptr(b2[p]),
+            B, C, T, k, d, ctypes.c_float(slope), rows,
+            ctypes.c_longlong(smem), _ptr(h), _ptr(y), stream)
+        _raise_on(err, "hifigan_resblock_bf16")
+        LAUNCHES["hifigan_resblock_bf16"] += hifigan_resblock_launches(C, 1, True)
+        x = y
+    return x
 
 
 def _hifigan_resblock_cuda(x, w1, b1, w2, b2, dilations, slope):
@@ -549,10 +660,14 @@ def _hifigan_resblock_cuda(x, w1, b1, w2, b2, dilations, slope):
     if len(dilations) != P:
         raise ValueError(f"hifigan_resblock: {P} weight pairs, "
                          f"{len(dilations)} dilations")
-    for name, t, shape in (("x", x, (B, C, T)), ("w1", w1, (P, k, C, C)),
-                           ("b1", b1, (P, C)), ("w2", w2, (P, k, C, C)),
-                           ("b2", b2, (P, C))):
-        _check(f"hifigan_resblock {name}", t, shape)
+    dt, form = _form(x)
+    for name, t, shape, t_dt in (
+            ("x", x, (B, C, T), dt), ("w1", w1, (P, k, C, C), dt),
+            ("b1", b1, (P, C), torch.float32), ("w2", w2, (P, k, C, C), dt),
+            ("b2", b2, (P, C), torch.float32)):
+        _check(f"hifigan_resblock{form} {name}", t, shape, t_dt)
+    if dt == BF16:
+        return _hifigan_resblock_bf16_cuda(x, w1, b1, w2, b2, dilations, slope)
     plans = [hifigan_resblock_plan(B, C, T, k, d) for d in dilations]
     lib = _build.library("hifigan_resblock")
     h = (torch.empty_like(x) if plans[0][3] == "split" else None)
@@ -584,7 +699,8 @@ def hifigan_resblock(x, w1, b1, w2, b2, dilations: Sequence[int],
                      slope: float) -> torch.Tensor:
     """Fused MRF resblock (see hifigan_resblock_plain); on the card one
     launch per dilation pair at C of 8, 16, 32 or 64, two at every other C
-    (hifigan_resblock_plan)."""
+    (hifigan_resblock_plan). bf16 x and weights (f32 biases) take the bf16
+    form: two launches a pair at every C (hifigan_resblock_bf16_plan)."""
     _refuse_other_devices(x, "hifigan_resblock")
     return _hifigan_resblock_op(x, w1, b1, w2, b2, [int(d) for d in dilations],
                                 float(slope))

@@ -26,6 +26,12 @@ all-gathers h (the next step's input and attention's query). The zoneout
 and dropout masks are drawn at the full [B, H] shape from the shared
 generator and sliced (c) or applied to the gathered h, so N ranks draw what
 one process draws.
+
+A bf16 ``x`` runs the cell as the JAX cell does at ``dtype=bfloat16`` with
+its Pallas kernel (cookietts_tpu/ops/lstm.py:64-70): ``[x; h]``, W and the
+bias rounded to bf16 (bf16 copies of W and the bias, cached as the f32 ones
+are), the gates in f32 inside the bf16 form of ``lstm_gates``, c and h
+kept in f32. The tp-sharded cell refuses bf16 (a later slice).
 """
 from __future__ import annotations
 
@@ -65,11 +71,15 @@ class ZoneoutLSTMCell(nn.Module):
         b = torch.cat([b[:H], b[H:2 * H] - 1.0, b[2 * H:]])
         return w.float().contiguous(), b.float().contiguous()
 
-    def fused(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(W [In+H, 4H], bias [4H]) in the kernel's layout; the bias has
-        the forget block's +1 taken out because the kernel adds it. Under
-        autograd with trainable weights they are built with gradient;
-        otherwise cached on the module."""
+    def fused(self, dtype: torch.dtype = torch.float32
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(W [In+H, 4H], bias [4H]) in the kernel's layout, in ``dtype``;
+        the bias has the forget block's +1 taken out because the kernel adds
+        it. Under autograd with trainable weights they are built with
+        gradient; otherwise cached on the module."""
+        if dtype != torch.float32:
+            return hk.derived(self, "_fused_bf16", list(self.parameters()),
+                              lambda: tuple(t.to(dtype) for t in self._build()))
         if torch.is_grad_enabled() and self.weight_ih.requires_grad:
             return self._build()
         return hk.derived(self, "_fused", list(self.parameters()), self._build)
@@ -84,6 +94,14 @@ class ZoneoutLSTMCell(nn.Module):
         ``generator`` draws zoneout and dropout in training."""
         tp = getattr(self, "tp", None)
         c, h = state
+        if x.dtype == torch.bfloat16:
+            if tp is not None:
+                raise NotImplementedError(
+                    "a tp-sharded LSTM cell in bfloat16 comes with a later "
+                    "slice of the port (bf16 tp and sp); it runs in float32")
+            w, b = self.fused(x.dtype)
+            xh = torch.cat([x, h.to(x.dtype)], dim=-1).contiguous()
+            return hk.lstm_gates(xh, w, b, c.contiguous())
         w, b = fused if fused is not None else self.fused()
         xh = torch.cat([x, h.to(x.dtype)], dim=-1).float().contiguous()
         if tp is not None:

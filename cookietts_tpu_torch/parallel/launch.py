@@ -17,7 +17,9 @@ GPU). Nothing switches backend after a failure.
 """
 from __future__ import annotations
 
+import datetime
 import os
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -31,12 +33,15 @@ def launched() -> bool:
 
 
 def initialize(device: str | torch.device = "cuda",
-               backend: str | None = None) -> bool:
+               backend: str | None = None,
+               timeout: Optional[float] = None) -> bool:
     """Join the process group torchrun describes, on ``device``'s type:
     ``backend`` (default NCCL on "cuda", gloo on "cpu"). On the card the
     rank is pinned to ``cuda:LOCAL_RANK`` (ranks past the card count share
-    cards, which only gloo allows). Returns False without a torchrun
-    environment, True once the group exists (again on a second call)."""
+    cards, which only gloo allows). ``timeout`` (seconds; torch's default
+    when None) bounds the rendezvous and every collective. Returns False
+    without a torchrun environment, True once the group exists (again on a
+    second call)."""
     if dist.is_initialized():
         return True
     if not launched():
@@ -59,8 +64,10 @@ def initialize(device: str | torch.device = "cuda",
                 "NCCL refuses; pass --dist_backend gloo, or start one rank "
                 "per card")
         torch.cuda.set_device(local % n)
-    dist.init_process_group(backend, rank=int(os.environ["RANK"]),
-                            world_size=int(os.environ["WORLD_SIZE"]))
+    dist.init_process_group(
+        backend, rank=int(os.environ["RANK"]),
+        world_size=int(os.environ["WORLD_SIZE"]),
+        timeout=None if timeout is None else datetime.timedelta(seconds=timeout))
     return True
 
 

@@ -275,6 +275,11 @@ def shard_model(model: nn.Module, rules: Sequence[TPRule],
     shards, in place, and mark their modules with ``tp`` (the modules'
     forwards read ``module.tp``). The model keeps its layout as
     ``model.tp_layout``. Returns it."""
+    cfg = getattr(model, "cfg", None)
+    if getattr(cfg, "dtype", None) == torch.bfloat16:
+        raise NotImplementedError(
+            "tensor parallelism in bfloat16 comes with a later slice of the "
+            "port (bf16 tp and sp); it runs in float32")
     placements = plan(model, rules, tp.size)
     for name, p in placements.items():
         mod_name, _, leaf = name.rpartition(".")

@@ -31,6 +31,10 @@ its inputs into the graph's buffers and replays it.
   replayed graph is released, with its memory pool and its ``lstm_gates``
   counters, after the card has finished what was queued.
 - A failed capture raises; nothing falls back to the eager chunk.
+- A bf16 decoder's chunk captures the same way: its static buffers (memory,
+  the processed memory, the context and previous frame) are bf16, the cells'
+  states and attention's f32, and a replay equals the eager bf16 chunk bit
+  for bit as the f32 one does.
 """
 from __future__ import annotations
 

@@ -420,7 +420,9 @@ class T2S:
             mels, mel_lengths, scores = self._generate(
                 text_arr, lens, spk, tm_arr, generator, max_steps, thr, delay,
                 seed + round_ * 2 ** 32)
-            mels = mels.cpu().numpy()
+            # a bf16 model's mels cross as f32 arrays of bf16 values, as
+            # JAX's reach numpy (the vocoder rounds them to its dtype)
+            mels = mels.float().cpu().numpy()
             mel_lengths = np.minimum(mel_lengths.cpu().numpy(), cap_here)
             scores = scores.cpu().numpy()
 

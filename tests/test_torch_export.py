@@ -79,9 +79,20 @@ def _op_cases():
              *wn[3:])
     row = (_r(rng, 1, 25), _r(rng, 2, 3, 1, 8, 25), 4, _r(rng, 1, 2, 16, 25),
            *row_w, [])
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    att16 = (bf(att[0]), bf(att[1]), bf(att[2]), att[3], bf(att[4]), *att[5:])
+    lstm16 = (bf(lstm[0]), bf(lstm[1]), bf(lstm[2]), lstm[3])
+    res16 = (bf(res[0]), bf(res[1]), res[2], bf(res[3]), *res[4:])
     return {
         "attention_step": (hk._attention_step_op, att,
                            lambda a: hk.attention_step_plain(*a[:7])),
+        # the bf16 forms: the same ops on bf16 operands
+        "attention_step_bf16": (hk._attention_step_op, att16,
+                                lambda a: hk.attention_step_plain(*a[:7])),
+        "lstm_gates_bf16": (hk._lstm_gates_op, lstm16,
+                            lambda a: hk.lstm_gates_plain(*a)),
+        "hifigan_resblock_bf16": (hk._hifigan_resblock_op, res16,
+                                  lambda a: hk.hifigan_resblock_plain(*a)),
         "lstm_gates": (hk._lstm_gates_op, lstm,
                        lambda a: hk.lstm_gates_plain(*a)),
         "hifigan_resblock": (hk._hifigan_resblock_op, res,
@@ -107,7 +118,8 @@ def test_ops_on_the_cpu_are_their_plain_versions(name):
     for g, w in zip(got_args, want_args):
         if torch.is_tensor(g):
             assert torch.equal(g, w)
-    assert str(op._opoverload).startswith(f"{hk.NAMESPACE}.{name}")
+    assert str(op._opoverload).startswith(
+        f"{hk.NAMESPACE}.{name.removesuffix('_bf16')}")
     torch.library.opcheck(op, tuple(clone(args)))
 
 

@@ -485,7 +485,9 @@ def test_waveglow_wn_forward_pads_with_zeros_at_both_ends():
 
 def test_launch_counters_cover_every_kernel():
     assert set(hk.LAUNCHES) == {"attention_step", "lstm_gates", "hifigan_resblock",
-                                "waveglow_wn_forward", "waveflow_row_step"}
+                                "waveglow_wn_forward", "waveflow_row_step",
+                                "attention_step_bf16", "lstm_gates_bf16",
+                                "hifigan_resblock_bf16"}
     assert hk.wn_launches(8) == 18
     hk.LAUNCHES["waveglow_wn_forward"] = 3
     hk.reset_launch_counts()

@@ -28,8 +28,6 @@ loss. Checked:
 """
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -57,8 +55,8 @@ from cookietts_tpu_torch.runtime.trainer import (
     make_tacotron2_train_step)
 from cookietts_tpu_torch.text import N_SYMBOLS
 from test_torch_threads import _one_thread  # noqa: F401
+from torch_ranks import RANK_TIMEOUT, Ranks
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
 LOSS_RTOL, ATOL, RTOL = 1e-5, 1e-6, 1e-4
 
@@ -315,7 +313,7 @@ def worker(out):
     """One rank of the module's run (started with torchrun's environment)."""
     torch.set_num_threads(1)
     import cookietts_tpu_torch.runtime.checkpoint as ckpt
-    assert initialize("cpu")
+    assert initialize("cpu", timeout=RANK_TIMEOUT)
     dp = DataParallel()
     inputs = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
     res = {"rank": dp.rank, "slice": global_batch_slice(8)}
@@ -363,29 +361,6 @@ def worker(out):
 
 
 # -- the module's run ------------------------------------------------------------
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _start_ranks(out):
-    port = str(_free_port())
-    procs = []
-    for rank in range(WORLD):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(WORLD),
-                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(WORLD),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
-                   GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1",
-                   PYTHONPATH=os.pathsep.join(
-                       [ROOT, os.environ.get("PYTHONPATH", "")]))
-        log = open(os.path.join(out, f"rank{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), out], env=env,
-            stdout=log, stderr=subprocess.STDOUT, cwd=out), log))
-    return procs
-
 
 JAX_KEY = 5
 
@@ -487,7 +462,7 @@ def run(tmp_path_factory):
               "state_dict": taco_weights(),
               "corpus": corpus}
     torch.save(inputs, os.path.join(out, "inputs.pt"))
-    procs = _start_ranks(out)
+    ranks = Ranks(__file__, out, WORLD)
     try:
         one = {"jax": jax_loss_terms(inputs["state_dict"], batch),
                "shards": _jax_shards(corpus),
@@ -497,16 +472,9 @@ def run(tmp_path_factory):
             one["postnet" + suffix] = postnet_iteration(None, order)
         cli(taco_cli_args(corpus, os.path.join(out, "taco1")))
         cli(gantts_cli_args(corpus, os.path.join(out, "gantts1"), 4))
-        for p, _ in procs:
-            p.wait(timeout=600)
+        ranks.wait()
     finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-            log.close()
-    for rank, (p, _) in enumerate(procs):
-        text = open(os.path.join(out, f"rank{rank}.log")).read()
-        assert p.returncode == 0, f"rank {rank} failed:\n{text[-4000:]}"
+        ranks.close()
     ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
              for r in range(WORLD)]
     return dict(out=out, one=one, ranks=ranks)

@@ -35,8 +35,6 @@ Checked:
 import json
 import os
 import shutil
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -56,8 +54,8 @@ from cookietts_tpu_torch.runtime.optim import adam
 from cookietts_tpu_torch.runtime.train_state import TrainState
 from cookietts_tpu_torch.runtime.trainer import make_waveglow_train_step
 from test_torch_threads import _one_thread  # noqa: F401
+from torch_ranks import RANK_TIMEOUT, Ranks
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
 ATOL = RTOL = 1e-4            # tests/test_tp.py's
 LOSS_RTOL = 1e-5
@@ -223,7 +221,7 @@ def worker(out):
     """One rank of the module's run (started with torchrun's environment)."""
     torch.set_num_threads(1)
     import torch.distributed as dist
-    assert initialize("cpu")
+    assert initialize("cpu", timeout=RANK_TIMEOUT)
     rank = dist.get_rank()
     inputs = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
     meshes = {(1, 2): make_mesh(1, 2), (1, 4): make_mesh(1, 4),
@@ -289,29 +287,6 @@ def flow_cli(map_file, run, extra=(), hparams=""):
 
 
 # -- the module's run ------------------------------------------------------------
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _start_ranks(out):
-    port = str(_free_port())
-    procs = []
-    for rank in range(WORLD):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(WORLD),
-                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(WORLD),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
-                   GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1",
-                   PYTHONPATH=os.pathsep.join(
-                       [ROOT, os.environ.get("PYTHONPATH", "")]))
-        log = open(os.path.join(out, f"rank{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), out], env=env,
-            stdout=log, stderr=subprocess.STDOUT, cwd=out), log))
-    return procs
-
 
 def jax_flow(name):
     """(the port's state dict, JAX's loss on the train batch) from JAX's
@@ -393,7 +368,7 @@ def run(tmp_path_factory):
               "infer": (mel, z, hmel),
               "map": flow_map(os.path.join(out, "wavs"))}
     torch.save(inputs, os.path.join(out, "inputs.pt"))
-    procs = _start_ranks(out)
+    ranks = Ranks(__file__, out, WORLD)
     try:
         one = {"jax_loss": {n: f[1] for n, f in flows.items()},
                "jax_infer": jax_infer(*flows["waveglow"][2], mel, z),
@@ -417,16 +392,9 @@ def run(tmp_path_factory):
         for name, _, hp in CLI_RUNS:
             cli(flow_cli(inputs["map"], os.path.join(out, name + "1"), [],
                          hp))
-        for p, _ in procs:
-            p.wait(timeout=600)
+        ranks.wait()
     finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-            log.close()
-    for rank, (p, _) in enumerate(procs):
-        text = open(os.path.join(out, f"rank{rank}.log")).read()
-        assert p.returncode == 0, f"rank {rank} failed:\n{text[-4000:]}"
+        ranks.close()
     # the sp run's checkpoint at 2 resumed in one process
     os.makedirs(os.path.join(out, "resumed"))
     for f in ("checkpoint_2", "checkpoint_2.json"):

@@ -30,8 +30,6 @@ losses. Checked:
 import json
 import os
 import shutil
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -55,8 +53,8 @@ from cookietts_tpu_torch.runtime.trainer import (Trainer, TrainerConfig,
                                                  make_tacotron2_train_step,
                                                  make_waveglow_train_step)
 from test_torch_threads import _one_thread  # noqa: F401
+from torch_ranks import RANK_TIMEOUT, Ranks
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
 ATOL = RTOL = 1e-4            # tests/test_tp.py's
 LOSS_RTOL = 1e-5              # tests/test_torch_parallel.py's
@@ -301,7 +299,7 @@ def worker(out):
     """One rank of the module's run (started with torchrun's environment)."""
     torch.set_num_threads(1)
     import torch.distributed as dist
-    assert initialize("cpu")
+    assert initialize("cpu", timeout=RANK_TIMEOUT)
     dp, tp, _ = make_mesh(WORLD)
     inputs = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
     res = {"rank": dist.get_rank(), "dp_size": dp.size, "tp_rank": tp.rank}
@@ -335,29 +333,6 @@ def worker(out):
 
 
 # -- the module's run ------------------------------------------------------------
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _start_ranks(out):
-    port = str(_free_port())
-    procs = []
-    for rank in range(WORLD):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(WORLD),
-                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(WORLD),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
-                   GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1",
-                   PYTHONPATH=os.pathsep.join(
-                       [ROOT, os.environ.get("PYTHONPATH", "")]))
-        log = open(os.path.join(out, f"rank{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), out], env=env,
-            stdout=log, stderr=subprocess.STDOUT, cwd=out), log))
-    return procs
-
 
 def taco_weights():
     torch.manual_seed(0)
@@ -461,7 +436,7 @@ def run(tmp_path_factory):
               "map": flow_map(os.path.join(out, "wavs")),
               **{n: sd for n, (sd, _) in flows.items()}}
     torch.save(inputs, os.path.join(out, "inputs.pt"))
-    procs = _start_ranks(out)
+    ranks = Ranks(__file__, out, WORLD)
     try:
         one = {"jax_taco": jax_taco_terms(inputs["taco"], inputs["batch"]),
                "jax_flows": {n: loss for n, (_, loss) in flows.items()},
@@ -471,16 +446,9 @@ def run(tmp_path_factory):
                                            None, trainer_batches())}
         cli(taco_cli(inputs["corpus"], os.path.join(out, "cli_taco1")))
         cli(flow_cli(inputs["map"], os.path.join(out, "cli_flow1")))
-        for p, _ in procs:
-            p.wait(timeout=600)
+        ranks.wait()
     finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-            log.close()
-    for rank, (p, _) in enumerate(procs):
-        text = open(os.path.join(out, f"rank{rank}.log")).read()
-        assert p.returncode == 0, f"rank {rank} failed:\n{text[-4000:]}"
+        ranks.close()
     # the tp run's checkpoint resumed in one process
     os.makedirs(os.path.join(out, "resumed1"))
     for f in ("checkpoint_2", "checkpoint_2.json"):
