@@ -294,6 +294,22 @@ non-zero:
    T_txt=96, T_mel=384), HiFi-GAN MCD < 1.0 dB (256 frames); one
    `tts --hparams ...,dtype=bfloat16` through the command's entry point in
    this process on seeded checkpoints, exact bf16 launch counts.
+19. the bf16 flow vocoders (WaveGlow and WaveFlow with dtype=bfloat16).
+   19a: the bf16 forms of waveglow_wn_forward (T' = 10000, Cin 12 and 1;
+   C = 48 and 50) and waveflow_row_step (4 rows at W = 30000; C = 48 and
+   50) against their plain bf16 versions (WaveGlow's at f32 rounding,
+   WaveFlow's within two bf16 ulps), each call the launches wn_launches
+   predicts and no other; each timed over the 48 calls of a 5 s infer by
+   CUDA-graph replay beside its f32 form on the same values, with its
+   bound (bf16 bytes, operations at the 2xTF32 or the bf16 rate). 19b:
+   phase 4b's two vocoders in bf16 (same weights), a 5 s infer each with
+   exact bf16 launch counts and no f32 form, x realtime beside f32; JAX's
+   WaveGlow gate (bench_quality_gate on the chip: 160 frames, one f32 z,
+   flax's initialisation with the end fill): STFT MSE < 0.05, MCD < 1.0
+   dB; the pair logged for WaveFlow and for phase 4b's weights. 19c: `tts
+   --hparams ...,dtype=bfloat16` with a full-width WaveGlow and
+   --denoiser, and `train --model waveglow --hparams ...,dtype=bfloat16`
+   at WaveGlowConfig() for 2 iterations with a validation.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -332,6 +348,11 @@ KERNEL_SOURCES = {
                         "cookietts_tpu/ops/pallas_kernels.py:236"),
     "hifigan_resblock_bf16": ("cookietts_tpu_torch/csrc/hifigan_resblock.cu",
                               "cookietts_tpu/ops/pallas_kernels.py:724"),
+    # the bf16 forms of the flow vocoders' two WN kernels (phase 19)
+    "waveglow_wn_forward_bf16": ("cookietts_tpu_torch/csrc/waveglow_wn_bf16.cu",
+                                 "cookietts_tpu/ops/pallas_kernels.py:609"),
+    "waveflow_row_step_bf16": ("cookietts_tpu_torch/csrc/waveflow_row_bf16.cu",
+                               "cookietts_tpu/ops/pallas_kernels.py:467"),
 }
 BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 # the flow vocoders at full width (48 kHz, hop 600, 160 mel channels)
@@ -359,8 +380,10 @@ TOL = {"attention_step": (2e-5, 1e-4), "lstm_gates": (2e-5, 1e-4),
        "hifigan_resblock": (1e-4, 1e-4), "waveglow_wn_forward": (2e-5, 1e-4),
        "waveflow_row_step": (2e-5, 1e-4),
        # the bf16 forms of attention and the LSTM compute in f32 on the same
-       # bf16 values as their plain versions: f32 rounding, as the f32 forms
-       "attention_step_bf16": (2e-5, 1e-4), "lstm_gates_bf16": (2e-5, 1e-4)}
+       # bf16 values as their plain versions: f32 rounding, as the f32 forms;
+       # so does WaveGlow's bf16 WN (2xTF32 on exact bf16 weights)
+       "attention_step_bf16": (2e-5, 1e-4), "lstm_gates_bf16": (2e-5, 1e-4),
+       "waveglow_wn_forward_bf16": (2e-5, 1e-4)}
 
 
 PHASE_STARTS = []     # (phase, perf_counter at its header line)
@@ -1181,6 +1204,7 @@ def phase4b_timing(hk, check, model, name, mel):
     seconds = mel.shape[1] * FLOW_HOP / FLOW_SR
     gen = torch.Generator(device="cuda").manual_seed(1)
     kernel_ms = wall_ms(lambda: model.infer(mel, gen))
+    P4_FIGURES[f"{name}_infer_ms"] = kernel_ms
     with plain_kernels(hk):
         plain_ms = wall_ms(lambda: model.infer(mel, gen))
     log(f"  {name}.infer, {mel.shape[1]} frames ({seconds:.1f} s of audio), B=1: "
@@ -5893,8 +5917,9 @@ def phase18b(hk, check, tcfg, hcfg, smi):
         tmp = Path(tmp)
         files = p18_checkpoints(tmp, tcfg, hcfg)
         argv = ["tts", "--checkpoint", files["taco"], "--vocoder", files["hifigan"],
-                "--text", P9_TEXT, "--max_attempts", "1", "--hparams",
-                P9_HPARAMS + ",dtype=bfloat16", "-o", str(tmp / "b.wav")]
+                "--text", P9_TEXT, "--max_attempts", "1", "--device", DEV,
+                "--hparams", P9_HPARAMS + ",dtype=bfloat16", "-o",
+                str(tmp / "b.wav")]
         t1 = time.perf_counter()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -5931,6 +5956,399 @@ def phase18(hk, check, tcfg, hcfg, smi):
     timing = phase18a(hk, check, smi)
     log("  18b: the main path in bf16")
     launches, _ = phase18b(hk, check, tcfg, hcfg, smi)
+    return timing, launches
+
+
+# -- phase 19: the bf16 flow vocoders ---------------------------------------------
+
+WN_F32_FORMS = ("waveglow_wn_forward", "waveflow_row_step")
+TF32X2_FLOPS = 495e12 / 2      # TF32 tensor cores, 2 products a flop (bf16 weights)
+P19_GATE_FRAMES = 160          # bench_quality_gate's on-chip mel (2 s at 48 kHz)
+WAVEGLOW_GATE = {"stft_mse": 0.05, "mcd_db": 1.0}    # bench.py:517-520
+
+
+def wn_bound_bf16(B, T, Cin, C, Cout, L, rows, kw, rate):
+    """wn_bound of a bf16 form: x and the output f32, cond_bc, the weights
+    and (for a row step) the queues' rows bf16; the operations at ``rate``
+    (2xTF32 for WaveGlow's form, bf16 for WaveFlow's)."""
+    weights = Cin * C + C + L * (rows * kw * C * 2 * C + C * 2 * C + 2 * C) \
+        + C * Cout + Cout
+    state = L * rows * C * T * B if rows > 1 else 0
+    nbytes = 4 * B * T * (Cin + Cout) + 2 * (B * T * L * 2 * C + weights + state)
+    flops = B * T * (2 * Cin * C + L * 2 * 2 * C * (rows * kw + 1) * C
+                     - 2 * C * C + 2 * C * Cout)
+    return nbytes / HBM_BYTES_PER_S, flops / rate
+
+
+def bf16_weights(w, form):
+    """WN weights (start_w, ..., end_b) in the dtypes of the kernel's bf16
+    ``form`` (hk.WN_BF16_DTYPES), and the same values in f32."""
+    from cookietts_tpu_torch.ops import hopper_kernels as hk
+    dtypes = list(hk.WN_BF16_DTYPES[form].values())[-len(w):]
+    w16 = [t.to(d).contiguous() for t, d in zip(w, dtypes)]
+    return w16, [t.float() for t in w16]
+
+
+def p19_check_bf16(check, name, got, want, what):
+    """A bf16 form that rounds to bf16 inside (WaveFlow's): within two bf16
+    ulps at the largest value (an f32 ulp of another summation order can
+    flip a rounding), the mean logged."""
+    got, want = got.float(), want.float()
+    atol = 2 * bf16_ulp(want)
+    mean = float((got - want).abs().mean())
+    check(name, got, want, atol, 0.0, f"{what} (mean {mean:.2e})")
+    return mean
+
+
+def phase19a(hk, check, smi):
+    """Both bf16 WN forms against their plain bf16 versions on the card at
+    the main path's shapes, batch 1: WaveGlow's WN at T' = 10000 (5 s), its
+    first flow (12 input channels) and last (1); four WaveFlow rows at W =
+    30000 (the ring round once); ragged widths (C = 48: the kPad variant
+    with 16-byte copies; C = 50 at T' = 250: 2-byte weights and, in
+    WaveFlow's bf16 windows, T' not a multiple of 8). Each timed by
+    CUDA-graph replay over the 48 calls of one 5 s infer, in turns beside
+    the f32 form on the same values, with the plain version and the bound."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    L, kw, kh, out = 8, 3, 3, {}
+
+    # waveglow_wn_forward_bf16
+    for C, T, cins in ((256, 10000, (12, 1)), (48, 1500, (4,)), (50, 250, (4,))):
+        for Cin in cins:
+            w16, _ = bf16_weights(wn_weights(gen, Cin, C, 2 * Cin, L, 1, kw),
+                                  "glow_bf16")
+            x, cond16 = r(1, Cin, T), bf16(r(1, L, 2 * C, T))
+            before = dict(hk.LAUNCHES)
+            got = hk.waveglow_wn_forward(x, cond16, *w16)
+            moved = {k: hk.LAUNCHES[k] - before[k] for k in before}
+            want = hk.waveglow_wn_forward_plain(x, cond16, *w16)
+            check("waveglow_wn_forward_bf16", got, want,
+                  *TOL["waveglow_wn_forward_bf16"], f"B=1 C={C} Cin={Cin} T'={T}")
+            if moved != {**{k: 0 for k in moved},
+                         "waveglow_wn_forward_bf16": hk.wn_launches(L)} \
+                    or got.dtype != torch.float32:
+                raise SystemExit(f"chip_smoke: waveglow_wn_forward_bf16 C={C}: "
+                                 f"launches {moved}, dtype {got.dtype}")
+    T, n_calls = 10000, WAVEGLOW["n_flows"]
+    calls = []
+    for k in range(n_calls):             # WAVEGLOW's flow k: 12 - k // 4 inputs
+        Cin = 12 - k // 4
+        w16, w32 = bf16_weights(wn_weights(gen, Cin, 256, 2 * Cin, L, 1, kw),
+                                "glow_bf16")
+        calls.append((r(1, Cin, T), w16, w32))
+    cond16 = bf16(r(1, L, 512, T))
+    cond32 = cond16.float()
+    fns = (lambda: [hk.waveglow_wn_forward(x, cond32, *w) for x, _, w in calls],
+           lambda: [hk.waveglow_wn_forward(x, cond16, *w) for x, w, _ in calls],
+           lambda: [hk.waveglow_wn_forward_plain(x, cond16, *w) for x, w, _ in calls])
+    ms, f32_ms, plain_ms = p18_times(*fns, 2)
+    parts = [(1, T, x.shape[1], 256, 2 * x.shape[1], L, 1, kw) for x, _, _ in calls]
+    out["waveglow_wn_forward_bf16"] = dict(
+        unit=f"the {n_calls} WN calls of one 5 s infer, B=1, T'={T}",
+        ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, library_ms=None,
+        eager_ms=eager_ms(fns[1], 2),
+        bound=bound_of([wn_bound_bf16(*p, rate=TF32X2_FLOPS) for p in parts]))
+    del calls, cond16, cond32
+
+    # waveflow_row_step_bf16
+    for C, W in ((64, 30000), (48, 1500), (50, 250)):
+        w16, _ = bf16_weights(wn_weights(gen, 1, C, 2, L, kh, kw), "flow_bf16")
+        cond = bf16(r(1, L, 2 * C, W))
+        ring = torch.zeros(L, kh, 1, C, W, device="cuda", dtype=torch.bfloat16)
+        queues = torch.zeros(L, kh - 1, 1, C, W, device="cuda", dtype=torch.bfloat16)
+        x_prev = torch.zeros(1, W, device="cuda")
+        before = dict(hk.LAUNCHES)
+        for step in range(4):
+            log_s, t = hk.waveflow_row_step(x_prev, ring, step, cond, *w16)
+            ls_p, t_p, queues = hk.waveflow_row_step_plain(x_prev, queues, cond, *w16)
+            tag = f"B=1 C={C} W={W} row {step}"
+            p19_check_bf16(check, "waveflow_row_step_bf16", log_s, ls_p, tag + " log_s")
+            p19_check_bf16(check, "waveflow_row_step_bf16", t, t_p, tag + " t")
+            p19_check_bf16(check, "waveflow_row_step_bf16",
+                           hk.ring_queues(ring, step + 1), queues, tag + " queues")
+            x_prev = r(1, W)
+        moved = {k: hk.LAUNCHES[k] - before[k] for k in before}
+        if moved != {**{k: 0 for k in moved},
+                     "waveflow_row_step_bf16": 4 * hk.wn_launches(L)} \
+                or log_s.dtype != torch.float32 or ring.dtype != torch.bfloat16:
+            raise SystemExit(f"chip_smoke: waveflow_row_step_bf16 C={C}: "
+                             f"launches {moved}")
+        del ring, queues, cond
+    W = 30000
+    n_calls = WAVEFLOW["n_flows"] * WAVEFLOW["n_group"]
+    flows = [bf16_weights(wn_weights(gen, 1, 64, 2, L, kh, kw), "flow_bf16")
+             for _ in range(WAVEFLOW["n_flows"])]
+    cond16 = bf16(r(1, L, 128, W))
+    cond32 = cond16.float()
+    ring16 = bf16(r(L, kh, 1, 64, W))
+    ring32 = ring16.float()
+    queues16 = hk.ring_queues(ring16, 0).contiguous()
+    x_prev = r(1, W)
+    rows = [(w, h) for w in flows for h in range(WAVEFLOW["n_group"])]
+    fns = (lambda: [hk.waveflow_row_step(x_prev, ring32, h, cond32, *w[1])
+                    for w, h in rows],
+           lambda: [hk.waveflow_row_step(x_prev, ring16, h, cond16, *w[0])
+                    for w, h in rows],
+           lambda: [hk.waveflow_row_step_plain(x_prev, queues16, cond16, *w[0])
+                    for w, _ in rows])
+    ms, f32_ms, plain_ms = p18_times(*fns, 2)
+    out["waveflow_row_step_bf16"] = dict(
+        unit=f"the {n_calls} row steps of one 5 s infer, B=1, W={W}",
+        ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, library_ms=None,
+        eager_ms=eager_ms(fns[1], 2),
+        bound=bound_of([wn_bound_bf16(1, W, 1, 64, 2, L, kh, kw, BF16_FLOPS)]
+                       * n_calls))
+    del flows, rows, cond16, cond32, ring16, ring32, queues16
+    for name, o in out.items():
+        f32 = name[:-len("_bf16")]
+        log(f"  {name:24s} {o['unit']}: kernel {o['ms']:.3f} ms (eager "
+            f"{o['eager_ms']:.3f} ms), f32 form {o['f32_ms']:.3f} ms on the same "
+            f"values ({f32}), plain {o['plain_ms']:.3f} ms, bound "
+            f"{o['bound'][0]:.3f} ms ({o['bound'][1]}) ({smi})")
+    torch.cuda.synchronize()
+    return out
+
+
+def flax_init(model, seed):
+    """The weights bench_quality_gate measures (bench.py:463-481): flax's
+    initialisation (lecun-normal kernels, a truncated normal of std
+    fan_in^-0.5 / 0.8796 cut at 2 std; zero biases; the 1x1 convs kept as
+    the rotations they are built as), then the end layers' kernels filled
+    with 0.002 normals."""
+    import torch
+    from torch import nn
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if not isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)) \
+                    or name.startswith("convinv"):
+                continue
+            w = mod.weight
+            fan_in = w[0].numel() if not isinstance(mod, nn.ConvTranspose1d) \
+                else w.shape[0] * w[0, 0].numel()
+            std = fan_in ** -0.5 / 0.87962566103423978
+            if name.endswith(".end"):
+                new = 0.002 * torch.randn(w.shape, generator=g)
+            else:
+                new = torch.empty(w.shape)
+                nn.init.trunc_normal_(new, std=std, a=-2 * std, b=2 * std,
+                                      generator=g)
+            w.copy_(new)
+            if mod.bias is not None:
+                mod.bias.zero_()
+
+
+def gate_metrics(a, b):
+    """JAX's WaveGlow gate (bench.py:497-516): STFT magnitude MSE over
+    1200- and 2400-sample windows, and the MCD of 160-band mels, 48 kHz."""
+    import torch
+    from cookietts_tpu_torch.audio.stft import STFT, TacotronSTFT
+    from cookietts_tpu_torch.ops.mcd import mcd
+    n = min(a.shape[-1], b.shape[-1])
+    a, b = a[..., :n].float(), b[..., :n].float()
+    mse = 0.0
+    for f, h, w in ((1200, 300, 1200), (2400, 600, 2400)):
+        bank = STFT(f, h, w, device=DEV)
+        ma, _ = bank.transform(a, return_phase=False)
+        mb, _ = bank.transform(b, return_phase=False)
+        mse += float(torch.mean((ma - mb) ** 2)) / 2
+    stft = TacotronSTFT(filter_length=2400, hop_length=600, win_length=2400,
+                        n_mel_channels=160, sampling_rate=FLOW_SR,
+                        mel_fmax=16000.0, device="cpu")
+    return mse, mcd(stft.mel_spectrogram_np(a[0].cpu().numpy()),
+                    stft.mel_spectrogram_np(b[0].cpu().numpy()))
+
+
+def phase19b(hk, check, smi):
+    """The full-width flow vocoders in bf16: phase 4b's weights (same seed)
+    in f32 and in bf16, the 5 s infer of each (400 frames, batch 1) with the
+    counters zeroed before and read after (each bf16 WN form exactly its
+    launches, no f32 form), wall time in turns beside f32; then JAX's
+    WaveGlow gate at bench_quality_gate's on-chip shapes (160 frames, one
+    fixed f32 z through the f32 path and the bf16 kernel path, flax's
+    initialisation with the end fill): STFT MSE < 0.05, MCD < 1.0 dB;
+    logged, not gated: WaveFlow at the same initialisation and WaveGlow at
+    phase 4b's. Returns the bf16 forms' launches."""
+    import numpy as np
+    import torch
+    launches = {}
+    mel400 = torch.randn(1, 400, FLOW_MELS, device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(8))
+    g = torch.Generator(device=DEV).manual_seed(19)
+    mel_gate = torch.randn(1, P19_GATE_FRAMES, FLOW_MELS, device=DEV, generator=g)
+    for name, kw in (("WaveGlow", WAVEGLOW), ("WaveFlow", WAVEFLOW)):
+        key = "waveflow_row_step_bf16" if kw.get("channel_mixing") \
+            else "waveglow_wn_forward_bf16"
+        m32 = make_flow_vocoder(kw, seed=11)
+        m16 = make_flow_vocoder(dict(kw, dtype="bfloat16"), seed=11)
+        m16.load_state_dict(m32.state_dict())
+        calls = kw["n_flows"] * (kw["n_group"] if m16.waveflow else 1)
+        gen = lambda: torch.Generator(device=DEV).manual_seed(2)  # noqa: E731
+        hk.reset_launch_counts()
+        audio = m16.infer(mel400, gen())
+        torch.cuda.synchronize()
+        got = dict(hk.LAUNCHES)
+        want = {**{k: 0 for k in got}, key: calls * hk.wn_launches(kw["n_layers"])}
+        log(f"  {name} bf16 infer (400 frames, B=1) launches: {key} {got[key]} "
+            f"(want {want[key]}), f32 forms "
+            f"{[got[k] for k in WN_F32_FORMS]}")
+        if got != want:
+            raise SystemExit(f"chip_smoke: {name} bf16 infer launched {got}")
+        launches[key] = got[key]
+        if audio.dtype != torch.float32 or audio.shape != (1, 400 * FLOW_HOP) \
+                or not bool(torch.isfinite(audio).all()):
+            raise SystemExit(f"chip_smoke: {name} bf16 audio {audio.dtype} "
+                             f"{tuple(audio.shape)} or not finite")
+        seconds = 400 * FLOW_HOP / FLOW_SR
+        f32_a = wall_ms(lambda: m32.infer(mel400, gen()))
+        b_ms = min(wall_ms(lambda: m16.infer(mel400, gen())) for _ in range(2))
+        f32_ms = min(f32_a, wall_ms(lambda: m32.infer(mel400, gen())))
+        p4b = P4_FIGURES.get(f"{name}_infer_ms")
+        log(f"  {name}.infer 5 s, B=1: bf16 {b_ms:.1f} ms = "
+            f"{seconds * 1e3 / b_ms:.1f} x realtime; f32 {f32_ms:.1f} ms = "
+            f"{seconds * 1e3 / f32_ms:.1f} x realtime (phase 4b: "
+            + ("not run" if p4b is None else f"{p4b:.1f} ms") + f") ({smi})")
+        # JAX's gate: one fixed f32 z through both paths
+        n = P19_GATE_FRAMES * FLOW_HOP // kw["n_group"]
+        z = torch.randn((1, kw["n_group"], n) if m16.waveflow else
+                        (1, n, kw["n_group"]), device=DEV, generator=g)
+        torch_init = gate_metrics(m32.inverse(z, mel_gate), m16.inverse(z, mel_gate))
+        flax_init(m32, seed=5)
+        m16.load_state_dict(m32.state_dict())
+        mse, mcd_db = gate_metrics(m32.inverse(z, mel_gate), m16.inverse(z, mel_gate))
+        log(f"  {name} gate, bf16 against f32 on one f32 z ({P19_GATE_FRAMES} "
+            f"frames): flax's initialisation with the end fill STFT MSE "
+            f"{mse:.3e}, MCD {mcd_db:.4f} dB"
+            + (" (gated: < 0.05, < 1.0 dB)" if name == "WaveGlow" else
+               " (logged)") + f"; phase 4b's weights (torch's initialisation) "
+            f"STFT MSE {torch_init[0]:.3e}, MCD {torch_init[1]:.4f} dB (logged)")
+        if name == "WaveGlow" and not (mse < WAVEGLOW_GATE["stft_mse"]
+                                       and mcd_db < WAVEGLOW_GATE["mcd_db"]):
+            raise SystemExit(f"chip_smoke: the bf16 WaveGlow gate failed: "
+                             f"{mse}, {mcd_db}")
+        if not np.isfinite([mse, mcd_db, *torch_init]).all():
+            raise SystemExit(f"chip_smoke: {name} gate numbers not finite")
+        del m32, m16, z
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase19c(hk, tcfg, smi):
+    """In-process entry points in bf16: one ``tts --hparams
+    ...,dtype=bfloat16`` with a seeded full-width WaveGlow checkpoint behind
+    a 160-mel Tacotron2 and ``--denoiser`` (the command's launch counts:
+    the bf16 forms only); then ``train --model waveglow --hparams
+    ...,dtype=bfloat16`` at WaveGlowConfig() on a synthetic 48 kHz corpus,
+    2 iterations with one validation: finite losses, the validation
+    launching waveglow_wn_forward_bf16 only."""
+    import io
+    import tempfile
+    import wave
+    import torch
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.models.tacotron2 import Tacotron2
+    from cookietts_tpu_torch.runtime.checkpoint import save_checkpoint
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(tcfg, n_mel_channels=FLOW_MELS)
+        audio = {"sampling_rate": FLOW_SR, "hop_length": FLOW_HOP,
+                 "n_mel_channels": FLOW_MELS}
+        torch.manual_seed(32)
+        save_checkpoint(str(tmp / "taco"),
+                        {"state_dict": Tacotron2(cfg, device="cpu").state_dict()},
+                        {"model": "tacotron2", "model_config": {
+                            k: v for k, v in dataclasses.asdict(cfg).items()
+                            if k != "dtype"}, "speaker_ids": {"narrator": 0},
+                         "audio": {"sampling_rate": SR, "hop_length": HOP,
+                                   "n_mel_channels": FLOW_MELS}})
+        save_checkpoint(str(tmp / "glow"),
+                        {"state_dict": make_flow_vocoder(WAVEGLOW, 33).state_dict()},
+                        {"model": "waveglow", "model_config": WAVEGLOW,
+                         "audio": audio})
+        argv = ["tts", "--checkpoint", str(tmp / "taco"), "--vocoder",
+                str(tmp / "glow"), "--denoiser", "--denoise_strength", "0.1",
+                "--text", P9_TEXT, "--max_attempts", "1", "--device", DEV,
+                "--hparams", P9_HPARAMS + ",dtype=bfloat16", "-o",
+                str(tmp / "b.wav")]
+        t1 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(argv)
+        seconds = time.perf_counter() - t1
+        lines = buf.getvalue().strip().splitlines()
+        stats = json.loads(lines[-1])
+        got = next(json.loads(l)["kernel_launches"] for l in lines
+                   if l.startswith('{"kernel_launches"'))
+        with wave.open(str(tmp / "b.wav")) as w:
+            rate, n = w.getframerate(), w.getnframes()
+        want = P9_SEGMENTS * P9_STEPS * FLOW_HOP
+        log(f"  19c tts bf16 (WaveGlow, --denoiser) in this process: "
+            f"{seconds:.2f} s wall (checkpoints written in {t1 - t0:.1f} s), "
+            f"gen_time {stats['gen_time']:.3f} s, total {stats['total_time']:.3f} "
+            f"s, {n} samples at {rate} Hz; launches {got}")
+        if (rate, n) != (FLOW_SR, want):
+            raise SystemExit(f"chip_smoke: 19c tts wrote {n} samples at {rate} "
+                             f"Hz, expected {want} at {FLOW_SR}")
+        per_infer = WAVEGLOW["n_flows"] * hk.wn_launches(WAVEGLOW["n_layers"])
+        expect = {**{k: 0 for k in got}, "attention_step_bf16": P9_STEPS,
+                  "lstm_gates_bf16": 3 * P9_STEPS,
+                  "waveglow_wn_forward_bf16": per_infer}
+        if got != expect:
+            raise SystemExit(f"chip_smoke: 19c tts launches {got}, expected "
+                             f"{expect}")
+        p19_train(hk, tmp, smi)
+    torch.cuda.synchronize()
+
+
+def p19_train(hk, tmp, smi):
+    """19c's ``train --model waveglow --hparams ...,dtype=bfloat16``."""
+    import torch
+    from cookietts_tpu_torch.cli import main as cli
+    from cookietts_tpu_torch.models.waveglow import WaveGlowConfig
+    t1 = time.perf_counter()
+    flow_map = vocoder_corpus(tmp / "wav48k", FLOW_SR, 10,
+                              1.5 * FLOW_SEGMENT / FLOW_SR, seed=19)
+    cfg = WaveGlowConfig(**WAVEGLOW_TRAIN)
+    per_batch = cfg.n_flows * hk.wn_launches(cfg.n_layers)
+    hk.reset_launch_counts()
+    trainer = cli(["train", "--model", "waveglow", "--filelist", flow_map,
+                   "--run_dir", str(tmp / "run"), "--seed", "0",
+                   "--device", DEV, "--iters", "2", "--hparams",
+                   hparams_of({**WAVEGLOW_TRAIN, **FLOW_DATA, **CADENCE,
+                               "dtype": "bfloat16"})])
+    torch.cuda.synchronize()
+    got = dict(hk.LAUNCHES)
+    want = {**{k: 0 for k in got},
+            "waveglow_wn_forward_bf16": len(trainer.val_batches) * per_batch}
+    ev = [json.loads(line) for line in
+          (tmp / "run" / "events.jsonl").read_text().splitlines()]
+    train = [(e["step"], e["loss"], e["iter_s"]) for e in ev
+             if e["prefix"] == "train"]
+    val = [e["val_loss"] for e in ev if e["prefix"] == "validation"]
+    log(f"  19c train --model waveglow bf16 (WaveGlowConfig(), batch "
+        f"{FLOW_DATA['batch_size']}): {time.perf_counter() - t1:.1f} s; "
+        f"losses {[(k, round(v, 4)) for k, v, _ in train]}, s per iteration "
+        f"{[round(t, 3) for _, _, t in train]}, validation {val}; "
+        f"launches {got} (want {want}) ({smi})")
+    if got != want or trainer.state.model.cfg.dtype != torch.bfloat16 \
+            or [k for k, _, _ in train] != [0, 1] or len(val) != 1 \
+            or not all(math.isfinite(v) for v in [l for _, l, _ in train] + val):
+        raise SystemExit("chip_smoke: 19c bf16 WaveGlow training")
+
+
+def phase19(hk, check, tcfg, smi):
+    """19a, 19b, 19c; returns (timing, launches) of the two bf16 WN forms
+    for the kernels line (launches: 19b's bf16 infers)."""
+    log("  19a: the two bf16 WN forms against their plain versions")
+    timing = phase19a(hk, check, smi)
+    log("  19b: the full-width flow vocoders in bf16")
+    launches = phase19b(hk, check, smi)
+    log("  19c: bf16 tts with a flow vocoder and the denoiser, bf16 training")
+    phase19c(hk, tcfg, smi)
     return timing, launches
 
 
@@ -6055,6 +6473,11 @@ def main() -> int:
 
     phase("18", "the bf16 serving path")
     b16_timing, b16_launches = phase18(hk, check, tcfg, hcfg, smi)
+    timing.update(b16_timing)
+    launches.update(b16_launches)
+
+    phase("19", "the bf16 flow vocoders")
+    b16_timing, b16_launches = phase19(hk, check, tcfg, smi)
     timing.update(b16_timing)
     launches.update(b16_launches)
 

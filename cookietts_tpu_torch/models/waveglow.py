@@ -48,6 +48,29 @@ the 1e-2 level.
 With ``iso226_deemphasis``, ``infer`` removes the ISO 226 equal-loudness
 emphasis from its audio (audio/iso226.py), as the JAX model does.
 
+``WaveGlowConfig(dtype=torch.bfloat16)`` (or ``"bfloat16"``) runs in bf16
+with the JAX model's casts; the parameters stay f32 and their bf16 copies
+are cached (``hopper_kernels.derived``, ``ops/precision.py``):
+
+- the inverse follows JAX's Pallas path (models/waveglow.py:664-760 and
+  :873-956 there): the upsampler and the speaker embedding run in bf16 (a
+  bf16 transposed conv rounds its product and its bias sum), each flow's
+  cond projection rounds as JAX's callers round it (``cond_bc``), and the
+  WN kernels run their bf16 forms (``waveglow_wn_forward`` on bf16 weights
+  with f32 activations, ``waveflow_row_step`` on a bf16 ring). WaveGlow's
+  coupling chain keeps z's dtype: an f32 z stays f32 against the bf16
+  log_s and t, a bf16 z (``infer`` draws z in f32 and rounds it, as JAX
+  draws it in bf16) rounds every step; the 1x1 inverse is W^-1 in f32
+  rounded to z's dtype. WaveFlow's rows stay f32 and its audio is rounded
+  to bf16. The audio is returned as f32 either way.
+- the training forward runs every flow's WN, the 1x1 convs and the
+  coupling on bf16 values (flax's bf16 Dense and Conv: the product and the
+  bias sum each rounded; the casts recorded by autograd, so the gradients
+  reach the f32 parameters); the log-determinants and the sums of log_s
+  are f32, and so is the loss.
+- sequence parallelism (``sp``) and tensor parallelism refuse bf16 (a later
+  slice).
+
 Sequence parallelism (parallel/sp.py): ``forward``, ``inverse`` and
 ``infer`` take an ``sp`` group whose ranks each hold a run of the time axis
 (the audio's samples, the mel's frames; ``SequenceParallel.shard_batch``).
@@ -85,6 +108,7 @@ from torch import nn
 from ..config import compute_dtype, refuse_bf16
 from ..device import full_float32, resolve_device
 from ..ops import hopper_kernels as hk
+from ..ops import precision
 from ..parallel.mesh import draw_rows
 from ..parallel.sp import conv_transpose_reach
 
@@ -96,6 +120,28 @@ def _tanhshrink(x):
 def _siren(a):
     """sin(16 a), with 15 a hidden from autograd (the JAX model's SIREN)."""
     return torch.sin(a + (15.0 * a).detach())
+
+
+BF16 = torch.bfloat16
+F32 = torch.float32
+
+
+def _refuse_bf16_sp(dtype) -> None:
+    refuse_bf16(dtype, "sequence-parallel WaveGlow and WaveFlow",
+                "bf16 tp and sp")
+
+
+def _conv(layer: nn.Module, x: torch.Tensor, fn=None, **kw) -> torch.Tensor:
+    """``fn(x, weight, bias, **kw)`` (F.conv1d or F.conv2d, by default the
+    one of the layer's kind) of ``layer`` in x's dtype, as flax's
+    ``Conv(dtype)`` computes it (ops/precision.py): in bf16 the product of
+    the bf16 input and weight, rounded, then the bias rounded to bf16 added."""
+    fn = fn or (F.conv2d if isinstance(layer, nn.Conv2d) else F.conv1d)
+    if x.dtype == F32:
+        return fn(x, layer.weight, layer.bias, **kw)
+    w, b = precision.cast_params(layer, x.dtype)
+    y = fn(x, w, None, **kw)
+    return y + b.view((-1,) + (1,) * (y.dim() - 2))
 
 
 # (a, b) are the two pre-activation halves of the WN conv output.
@@ -190,20 +236,23 @@ class Invertible1x1Conv(nn.Module):
             self.conv.weight.copy_(q[:, :, None])
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(W x, log|det W|), the log-determinant in float32."""
+        """(W x in x's dtype, log|det W|), the log-determinant in float32."""
         w = self.conv.weight[:, :, 0]
-        return torch.matmul(w, x), torch.linalg.slogdet(w.float())[1]
+        return torch.matmul(w.to(x.dtype), x), torch.linalg.slogdet(w.float())[1]
 
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
+        """W^-1 y: W^-1 taken in f32, rounded to y's dtype."""
         w = self.conv.weight
         w_inv = hk.derived(self, "_w_inv", [w],
                            lambda: torch.linalg.inv(w[:, :, 0].float()))
-        return torch.matmul(w_inv, y)
+        return torch.matmul(w_inv.to(y.dtype), y)
 
 
 class _WNBase(nn.Module):
     """What WN and WN2D share: the layers' names and the packing of their
-    weights into the kernels' layouts (ops/hopper_kernels.py)."""
+    weights into the kernels' layouts (ops/hopper_kernels.py). ``BF16_FORM``
+    names the bf16 form of the subclass's kernel (hk.WN_BF16_DTYPES)."""
+    BF16_FORM = ""
 
     def _make(self, conv, n_in, n_out, n_cond, in_kernel):
         """The layers are parameter holders with the checkpoint's shapes: the
@@ -233,7 +282,7 @@ class _WNBase(nn.Module):
         channel pairs."""
         tp = self.tp
         if tp is None:
-            return self.start(x), self.cond_layer(cond)
+            return _conv(self.start, x), _conv(self.cond_layer, cond)
         return (tp.gather(self.start(tp.copy_in(x)), 1),
                 self.cond_layer(tp.copy_in(cond)))
 
@@ -257,7 +306,7 @@ class _WNBase(nn.Module):
                     + cond_all[:, 2 * c * i:2 * c * (i + 1)])
             gated = gate(acts[:, :c], acts[:, c:])
             if tp is None:
-                r = rs(gated)
+                r = _conv(rs, gated)
             else:
                 r = tp.reduce(rs._conv_forward(gated, rs.weight, None))
                 r = r + rs.bias.view((1, -1) + (1,) * (r.dim() - 2))
@@ -266,13 +315,15 @@ class _WNBase(nn.Module):
                 skip = skip + r[:, C:]
             else:
                 skip = skip + r
-        st = self.end(skip)                     # rows (t, log_s)
+        st = _conv(self.end, skip)              # rows (t, log_s)
         half = st.shape[1] // 2
         return st[:, half:], st[:, :half]
 
-    def kernel_weights(self):
+    def kernel_weights(self, dtype: torch.dtype = F32):
         """(start_w, start_b, k_all, rs_w, rs_b, end_w, end_b) as the kernels
-        take them, end rows reordered to (log_s, t)."""
+        take them, end rows reordered to (log_s, t); for bf16 in the dtypes
+        of the kernel's bf16 form (the weights bf16, the biases f32 but
+        WaveFlow's start bias)."""
         def build():
             C = self.n_channels
             mat = lambda conv: conv.weight.flatten(1).t()     # 1x1: [in, out]
@@ -289,17 +340,38 @@ class _WNBase(nn.Module):
                     k_all.contiguous(), rs_w.contiguous(), rs_b.contiguous(),
                     mat(self.end)[:, order].contiguous(),
                     self.end.bias[order].contiguous())
-        return hk.derived(self, "_kernel_weights", list(self.parameters()), build)
+        params = list(self.parameters())
+        f32 = hk.derived(self, "_kernel_weights", params, build)
+        if dtype == F32:
+            return f32
+        dtypes = list(hk.WN_BF16_DTYPES[self.BF16_FORM].values())[-len(f32):]
+        return hk.derived(self, "_kernel_weights_bf16", params, lambda: tuple(
+            t.to(d).contiguous() for t, d in zip(f32, dtypes)))
 
     def cond_bc(self, cond: torch.Tensor) -> torch.Tensor:
         """cond [B, D, T] -> [B, L, 2C, T]: every layer's cond projection in
-        one product, with the in_layers' biases folded in."""
-        def build():
-            return (self.cond_layer.weight[:, :, 0].contiguous(),
-                    self.cond_layer.bias + torch.cat(
-                        [layer.bias for layer in self.in_layers]))
-        w, b = hk.derived(self, "_cond_weights", list(self.parameters()), build)
-        out = torch.matmul(w, cond).add_(b[:, None])
+        one product, with the in_layers' biases folded in. A bf16 cond gives
+        the bf16 cond_bc of JAX's Pallas callers: WaveGlow's (models/
+        waveglow.py:687-692 there) is the bf16 product plus the cond and
+        conv biases summed in f32 and rounded, a bf16 sum; WaveFlow's
+        (:913-916) is flax's bf16 Dense (the product and its bias sum each
+        rounded) plus the conv biases in f32, rounded."""
+        params = list(self.parameters())
+        in_b = lambda: torch.cat([layer.bias for layer in self.in_layers])  # noqa: E731
+        if cond.dtype == BF16:
+            w, b_cond, b_sum, b_in = hk.derived(
+                self, "_cond_weights_bf16", params, lambda: (
+                    self.cond_layer.weight[:, :, 0].to(BF16).contiguous(),
+                    self.cond_layer.bias.to(BF16),
+                    (self.cond_layer.bias + in_b()).to(BF16), in_b()))
+            y = torch.matmul(w, cond)
+            out = (((y + b_cond[:, None]).float() + b_in[:, None]).to(BF16)
+                   if self.BF16_FORM == "flow_bf16" else y + b_sum[:, None])
+        else:
+            w, b = hk.derived(self, "_cond_weights", params, lambda: (
+                self.cond_layer.weight[:, :, 0].contiguous(),
+                self.cond_layer.bias + in_b()))
+            out = torch.matmul(w, cond).add_(b[:, None])
         return out.view(cond.shape[0], self.n_layers, 2 * self.n_channels, -1)
 
 
@@ -313,6 +385,7 @@ def _refuse_sharded(wn: _WNBase) -> None:
 
 class WN(_WNBase):
     """Non-causal dilated-conv WaveNet producing the affine (log_s, t)."""
+    BF16_FORM = "glow_bf16"
 
     def __init__(self, n_in: int, n_out: int, n_cond: int, n_layers: int,
                  n_channels: int, kernel_size: int, gated_unit: str):
@@ -333,17 +406,20 @@ class WN(_WNBase):
 
         def conv(i, layer, h):
             total = (layer.kernel_size[0] - 1) * 2 ** i     # flax's "SAME"
-            return F.conv1d(pad(h, (total // 2, total - total // 2)),
-                            layer.weight, layer.bias, dilation=2 ** i)
+            return _conv(layer, pad(h, (total // 2, total - total // 2)),
+                         dilation=2 ** i)
 
         return self._train_layers(h, cond_all, conv)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The inverse's WN, without autograd: x [B, C_in, T], cond
-        [B, D, T] -> (log_s, t), each [B, C_out, T]."""
+        [B, D, T] -> (log_s, t), each [B, C_out, T] f32. A bf16 cond runs
+        the kernel's bf16 form, x widened to f32 as JAX's caller pads it."""
         _refuse_sharded(self)
-        args = (x.contiguous(), self.cond_bc(cond), *self.kernel_weights())
+        cond_bc = self.cond_bc(cond)
+        args = (x.float().contiguous(), cond_bc,
+                *self.kernel_weights(cond_bc.dtype))
         if self.gated_unit == "GTU":
             st = hk.waveglow_wn_forward(*args)
         else:
@@ -357,6 +433,7 @@ class WN2D(_WNBase):
     row h of (log_s, t) depends on the rows above h only. Each layer keeps
     its last ``kernel_size_h`` input rows in a ring (see
     ``hopper_kernels.waveflow_row_step``)."""
+    BF16_FORM = "flow_bf16"
 
     def __init__(self, n_cond: int, n_layers: int, n_channels: int,
                  kernel_size: int, kernel_size_h: int, gated_unit: str):
@@ -381,25 +458,28 @@ class WN2D(_WNBase):
             pad = (layer.kernel_size[1] // 2) * 2 ** i
             h = (F.pad(h, (pad, pad)) if sp is None
                  else sp.halo_pad(h, pad, pad))
-            return F.conv2d(F.pad(h, (0, 0, kh - 1, 0)), layer.weight,
-                            layer.bias, dilation=(1, 2 ** i))
+            return _conv(layer, F.pad(h, (0, 0, kh - 1, 0)),
+                         dilation=(1, 2 ** i))
 
         log_s, t = self._train_layers(h, cond_all, conv)
         return log_s[:, 0], t[:, 0]
 
-    def init_ring(self, batch: int, width: int) -> torch.Tensor:
-        """[L, kh, B, C, W] zeros: the causal zero padding above row 0."""
-        p = self.start.weight
+    def init_ring(self, batch: int, width: int,
+                  dtype: torch.dtype = F32) -> torch.Tensor:
+        """[L, kh, B, C, W] zeros: the causal zero padding above row 0 (bf16
+        for the row kernel's bf16 form)."""
         return torch.zeros((self.n_layers, self.kernel_size_h, batch,
-                            self.n_channels, width), device=p.device,
-                           dtype=p.dtype)
+                            self.n_channels, width),
+                           device=self.start.weight.device, dtype=dtype)
 
     def row_step(self, x_prev: torch.Tensor, ring: torch.Tensor, step: int,
                  cond_bc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """One height row: x_prev [B, W] is the row generated before (zeros
-        for row 0); ``ring`` advances in place. -> (log_s, t), each [B, W]."""
+        for row 0); ``ring`` advances in place. -> (log_s, t), each [B, W]
+        f32; a bf16 cond_bc (and ring) runs the kernel's bf16 form."""
         _refuse_sharded(self)
-        args = (x_prev.contiguous(), ring, step, cond_bc, *self.kernel_weights())
+        args = (x_prev.contiguous(), ring, step, cond_bc,
+                *self.kernel_weights(cond_bc.dtype))
         if self.gated_unit == "GTU":
             return hk.waveflow_row_step(*args)
         return hk.waveflow_row_step_ring_plain(
@@ -453,14 +533,15 @@ class UpsampleNet(nn.ModuleList):
         super().__init__(nn.ConvTranspose1d(a, b, 2 * s, stride=s)
                          for a, b, s in zip(dims[:-1], dims[1:], strides))
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, dtype: torch.dtype = F32) -> torch.Tensor:
+        """In ``dtype``, as flax's ConvTranspose(dtype) and leaky ReLU."""
         h = mel
         for i, layer in enumerate(self):
             s = layer.stride[0]
             start, n = _same_offset(s), h.shape[-1] * s
-            h = layer(h)[..., start:start + n]
+            h = precision.conv_transpose1d(layer, h, dtype)[..., start:start + n]
             if i != len(self) - 1:
-                h = F.leaky_relu(h, 0.4)
+                h = precision.leaky_relu(h, 0.4)
         return h
 
 
@@ -470,8 +551,6 @@ class WaveGlow(nn.Module):
 
     def __init__(self, cfg: WaveGlowConfig, device: str | torch.device = "cuda"):
         super().__init__()
-        refuse_bf16(cfg.dtype, "WaveGlow and WaveFlow",
-                    "the bf16 forms of the two WN kernels")
         if cfg.gated_unit not in GATED_UNITS:
             raise ValueError(f"unknown gated unit {cfg.gated_unit!r}")
         self.cfg = cfg
@@ -536,11 +615,11 @@ class WaveGlow(nn.Module):
         cfg = self.cfg
         if cfg.upsample_mode == "single":
             G, B, t = cfg.n_group, mel.shape[0], mel.shape[2] * cfg.hop_length
-            up = self.upsample(mel)[..., :t]       # trim the conv's overhang
+            up = precision.conv_transpose1d(self.upsample, mel, cfg.dtype)[..., :t]
             # unfold: feature index m * G + g, as the reference's view order
             return up.reshape(B, cfg.n_mel_channels, t // G, G).permute(
                 0, 1, 3, 2).reshape(B, cfg.n_mel_channels * G, t // G)
-        return self.upsample(mel)
+        return self.upsample(mel, cfg.dtype)
 
     def _cond(self, mel: torch.Tensor,
               speaker_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -583,8 +662,8 @@ class WaveGlow(nn.Module):
             if speaker_ids is None:
                 speaker_ids = torch.zeros(mel.shape[0], dtype=torch.long,
                                           device=mel.device)
-            spk = self.speaker_embed(torch.as_tensor(speaker_ids,
-                                                     device=mel.device))
+            spk = self.speaker_embed(torch.as_tensor(
+                speaker_ids, device=mel.device)).to(cond.dtype)
             cond = torch.cat([cond, spk[:, :, None].expand(
                 -1, -1, cond.shape[-1])], dim=1)
         return cond
@@ -607,7 +686,7 @@ class WaveGlow(nn.Module):
         else:
             log_s, t = self.WN[k].forward_train(xb, cond, sp)
             xa = xa * torch.exp(log_s) + t
-        return torch.cat([xa, xb], dim=1), log_s.sum(), logdet
+        return torch.cat([xa, xb], dim=1), log_s.float().sum(), logdet
 
     def _forward_waveglow(self, x: torch.Tensor, cond: torch.Tensor,
                           sp=None):
@@ -615,7 +694,7 @@ class WaveGlow(nn.Module):
         sum of log_s, sum of the 1x1 log-determinants over positions; this
         rank's parts of the sums under ``sp``)."""
         B, _, T = x.shape
-        log_s_sum = logdet_sum = x.new_zeros(())
+        log_s_sum = logdet_sum = x.new_zeros((), dtype=F32)
         early = []
         for k in range(self.cfg.n_flows):
             if self._early[k]:
@@ -629,18 +708,18 @@ class WaveGlow(nn.Module):
     def _flow_2d(self, k: int, x: torch.Tensor, cond: torch.Tensor,
                  sp=None):
         log_s, t = self.WN[k].forward_train(x, cond, sp)
-        return x * torch.exp(log_s) + t, log_s.sum()
+        return x * torch.exp(log_s) + t, log_s.float().sum()
 
     def _forward_waveflow(self, x: torch.Tensor, cond: torch.Tensor,
                           sp=None):
         """x [B, H, W] -> (z [B, H, W], sum of log_s, 0): each flow permutes
         the rows, then its height-causal affine coupling."""
-        log_s_sum = x.new_zeros(())
+        log_s_sum = x.new_zeros((), dtype=F32)
         for k in range(self.cfg.n_flows):
             x = x[:, permute_height_order(self.cfg.n_group, "bipartize", k)]
             x, ls = self._flow(self._flow_2d, k, x, cond, sp)
             log_s_sum = log_s_sum + ls
-        return x, log_s_sum, x.new_zeros(())
+        return x, log_s_sum, x.new_zeros((), dtype=F32)
 
     def forward(self, audio: torch.Tensor, mel: torch.Tensor,
                 speaker_ids: Optional[torch.Tensor] = None, sp=None
@@ -651,10 +730,15 @@ class WaveGlow(nn.Module):
         Under an sp group (parallel/sp.py) audio and mel are this rank's
         runs (``SequenceParallel.shard_batch``) and so are z and the sums:
         ``waveglow_loss`` of them is this rank's part of the loss over the
-        rank's count, which the step shares over the group."""
+        rank's count, which the step shares over the group. A bf16 model
+        runs the flows on the audio rounded to bf16 (JAX's
+        ``_squeeze(audio).astype(cfg.dtype)``); z is then bf16."""
         G = self.cfg.n_group
         B, T = audio.shape
-        x = audio[:, :(T // G) * G].reshape(B, T // G, G).transpose(1, 2)
+        if sp is not None:
+            _refuse_bf16_sp(self.cfg.dtype)
+        x = audio[:, :(T // G) * G].reshape(B, T // G, G).transpose(1, 2).to(
+            self.cfg.dtype)
         with full_float32():
             if sp is None:
                 cond = self._cond(mel, speaker_ids)[..., :x.shape[2]]
@@ -686,17 +770,19 @@ class WaveGlow(nn.Module):
 
     def _inverse_waveglow(self, z: torch.Tensor, cond: torch.Tensor,
                           sp=None) -> torch.Tensor:
-        """z [B, G, T'] channels-first (early outputs first) -> x [B, G, T']."""
+        """z [B, G, T'] channels-first (early outputs first) -> x [B, G, T']
+        in z's dtype; log_s and t rounded to the model's dtype."""
         second = self.cfg.couple_transform == "second"
+        dt = self.cfg.dtype
         *early_parts, x = z.split([e for e in self._early if e]
                                   + [2 * self._half[-1]], dim=1)
         for k in reversed(range(self.cfg.n_flows)):
             xa, xb = x[:, :self._half[k]], x[:, self._half[k]:]
             if second:
-                log_s, t = self._wn_inverse(k, xa, cond, sp)
+                log_s, t = (v.to(dt) for v in self._wn_inverse(k, xa, cond, sp))
                 xb = (xb - t) * torch.exp(-log_s)
             else:
-                log_s, t = self._wn_inverse(k, xb, cond, sp)
+                log_s, t = (v.to(dt) for v in self._wn_inverse(k, xb, cond, sp))
                 xa = (xa - t) * torch.exp(-log_s)
             x = self.convinv[k].inverse(torch.cat([xa, xb], dim=1))
             if self._early[k]:
@@ -706,9 +792,10 @@ class WaveGlow(nn.Module):
     def _inverse_waveflow(self, z: torch.Tensor, cond: torch.Tensor
                           ) -> torch.Tensor:
         """Autoregressive in height: x[h] = (z[h] - t(x[<h])) / s(x[<h]), one
-        row step per row and flow. z, x [B, H, W]."""
+        row step per row and flow. z, x [B, H, W] f32; a bf16 model's ring is
+        bf16 and its x rounded to bf16 at the end."""
         B, H, W = z.shape
-        ring = self.WN[0].init_ring(B, W)
+        ring = self.WN[0].init_ring(B, W, self.cfg.dtype)
         for k in reversed(range(self.cfg.n_flows)):
             wn = self.WN[k]
             cond_bc = wn.cond_bc(cond)
@@ -720,29 +807,35 @@ class WaveGlow(nn.Module):
                 rows.append(x_prev)
             order = permute_height_order(self.cfg.n_group, "bipartize", k)
             z = torch.stack(rows, dim=1)[:, np.argsort(order)]
-        return z
+        return z.to(self.cfg.dtype)
 
     @torch.no_grad()
     def inverse(self, z: torch.Tensor, mel: torch.Tensor,
                 speaker_ids: Optional[torch.Tensor] = None, sp=None
                 ) -> torch.Tensor:
-        """Latent -> audio [B, T]. Under an sp group z and mel are this
-        rank's runs of the time axis, and so is the audio."""
+        """Latent -> audio [B, T] f32. Under an sp group z and mel are this
+        rank's runs of the time axis, and so is the audio. A bf16 model
+        keeps a bf16 z as it is (WaveGlow's coupling then runs in bf16) and
+        returns its bf16-valued audio as f32."""
         dev = self.device
-        z = torch.as_tensor(z, dtype=torch.float32, device=dev)
+        z = torch.as_tensor(z, device=dev)
+        if not (self.cfg.dtype == BF16 and z.dtype == BF16):
+            z = z.float()
         mel = torch.as_tensor(mel, dtype=torch.float32, device=dev)
         if sp is not None:
+            _refuse_bf16_sp(self.cfg.dtype)
             return self._inverse_run(z, mel, speaker_ids, sp)
         with full_float32():
             cond = self._cond(mel, speaker_ids)
             if self.waveflow:
-                x = self._inverse_waveflow(z, cond[..., :z.shape[2]].contiguous())
+                x = self._inverse_waveflow(z.float(),
+                                           cond[..., :z.shape[2]].contiguous())
                 x = x.transpose(1, 2)                            # [B, W, G]
             else:
                 x = self._inverse_waveglow(
                     z.transpose(1, 2), cond[..., :z.shape[1]].contiguous())
                 x = x.transpose(1, 2)                            # [B, T', G]
-        return x.reshape(x.shape[0], -1)
+        return x.reshape(x.shape[0], -1).float()
 
     def _inverse_run(self, z, mel, speaker_ids, sp) -> torch.Tensor:
         """``inverse`` of this rank's runs of z and mel."""
@@ -787,8 +880,11 @@ class WaveGlow(nn.Module):
         emphasis (JAX ``WaveGlow.infer``). Under an sp group (parallel/
         sp.py) ``mel`` (and a given ``z``) is this rank's run of the time
         axis, the draw is the one-process draw's columns of the run, and
-        the audio is the run's."""
+        the audio is the run's. A bf16 model's z is drawn in f32 and rounded
+        to bf16, then scaled by bf16(sigma) (JAX draws z in the model's dtype)."""
         cfg = self.cfg
+        if sp is not None:
+            _refuse_bf16_sp(cfg.dtype)
         if z is None:
             sigma = cfg.sigma if sigma is None else sigma
             B, T_mel = mel.shape[:2]
@@ -797,10 +893,11 @@ class WaveGlow(nn.Module):
             kw = dict(generator=generator, device=self.device,
                       dtype=torch.float32)
             # under a dp group's scope this rank's rows of the global draw
-            z = sigma * (draw_rows(torch.randn, shape, **kw) if sp is None
-                         else sp.bind(n).draw(torch.randn, shape,
-                                              2 if self.waveflow else 1,
-                                              **kw))
+            noise = (draw_rows(torch.randn, shape, **kw) if sp is None
+                     else sp.bind(n).draw(torch.randn, shape,
+                                          2 if self.waveflow else 1, **kw))
+            z = (sigma * noise if cfg.dtype == F32
+                 else noise.to(cfg.dtype) * hk.bf16_value(sigma))
         audio = self.inverse(z, mel, speaker_ids, sp)
         if cfg.iso226_deemphasis:
             with full_float32():

@@ -23,14 +23,16 @@ Each kernel has three parts here:
   models' types (plans as dataclasses, tuples of dilations). There is no
   fallback from the card to the plain version.
 
-``attention_step``, ``lstm_gates`` and ``hifigan_resblock`` have a bf16 form
-too, for the bf16 serving path: the same op, chosen by the dtype of its
-first input, with a C entry of its own (``<entry>_bf16``) and a launch
-count of its own (``<name>_bf16``). Every other input must then have the
-dtype that form takes (``_check``): nothing is cast on the way in. The
-plain versions take the same bf16 inputs and compute what the bf16 kernels
-compute: f32 math on the widened values, rounded to bf16 where the kernel
-rounds.
+Every kernel has a bf16 form too, for the bf16 models: the same op, with a
+C entry of its own (``<entry>_bf16``) and a launch count of its own
+(``<name>_bf16``). ``attention_step``, ``lstm_gates`` and
+``hifigan_resblock`` pick it by the dtype of their first input; the two WN
+kernels by the dtype of ``cond_bc`` (their first input, x or x_prev, stays
+f32 in the bf16 form, as in JAX's). Every other input must then have the
+dtype that form takes (``_check``, ``_wn_form``): nothing is cast on the way
+in. The plain versions take the same bf16 inputs and compute what the bf16
+kernels compute: f32 math on the widened values, rounded to bf16 where the
+kernel rounds.
 
 The TPU kernel each one replaces, and what bounds it on the H100, is noted
 at the head of its ``.cu`` source.
@@ -53,7 +55,9 @@ NAMESPACE = "cookietts_tpu_torch"
 LAUNCHES: Dict[str, int] = {"attention_step": 0, "lstm_gates": 0,
                             "hifigan_resblock": 0, "waveglow_wn_forward": 0,
                             "waveflow_row_step": 0, "attention_step_bf16": 0,
-                            "lstm_gates_bf16": 0, "hifigan_resblock_bf16": 0}
+                            "lstm_gates_bf16": 0, "hifigan_resblock_bf16": 0,
+                            "waveglow_wn_forward_bf16": 0,
+                            "waveflow_row_step_bf16": 0}
 BF16 = torch.bfloat16
 
 
@@ -720,26 +724,88 @@ def hifigan_resblock(x, w1, b1, w2, b2, dilations: Sequence[int],
 #   cond_bc [B, L, 2C, T]: the cond projection with the conv biases folded in
 # Layer i has dilation 2**i; taps sit at (tap - kw // 2) * 2**i; zero padding
 # at both ends of the sequence.
+#
+# Each has a bf16 form, picked by a bf16 cond_bc, which takes the dtypes
+# JAX's Pallas callers pass (cookietts_tpu/models/waveglow.py:681-719 for
+# WaveGlow, :905-956 for WaveFlow) and rounds where JAX's kernel bodies
+# round (cookietts_tpu/ops/pallas_kernels.py:544-600, :360-456):
+# - WaveGlow: x (padded as f32 by the caller) and every activation stay
+#   f32; the weights and cond_bc are bf16 values, the biases f32; x is
+#   rounded to bf16 as the start product's operand only. A dot of a bf16
+#   and an f32 array widens the bf16 side, so this is f32 arithmetic on
+#   bf16-valued weights.
+# - WaveFlow: x_prev and the skip sum f32, the queues (the ring), cond_bc,
+#   the weights and the start bias bf16, the rs and end biases f32; h is
+#   rounded to bf16 after the start, the gate's output before the res/skip
+#   product, h + bf16(res) is a bf16 sum, and the skip sum is rounded
+#   before the end product. Products accumulate in f32.
+
+F32 = torch.float32
+_GLOW_NAMES = ("x", "cond_bc", "start_w", "start_b", "k_all", "rs_w", "rs_b",
+               "end_w", "end_b")
+_FLOW_NAMES = ("x_prev", "ring", "cond_bc", "start_w", "start_b", "k_all",
+               "rs_w", "rs_b", "end_w", "end_b")
+# the dtype of each input in the bf16 forms
+WN_BF16_DTYPES = {
+    "glow_bf16": dict(zip(_GLOW_NAMES, (F32, BF16, BF16, F32, BF16, BF16, F32,
+                                        BF16, F32))),
+    "flow_bf16": dict(zip(_FLOW_NAMES, (F32, BF16, BF16, BF16, BF16, BF16, BF16,
+                                        F32, BF16, F32))),
+}
+# (bytes of a weight, bytes of an activation) of each form of the layer
+# kernel (csrc/wn_layer.cuh: F32, GlowBf16, FlowBf16)
+WN_FORM_BYTES = {"f32": (4, 4), "glow_bf16": (2, 4), "flow_bf16": (2, 2)}
+
+
+def _wn_form(kernel: str, bf16_form: str, named) -> str:
+    """The form ``named`` (name -> tensor, cond_bc among them) picks:
+    ``bf16_form`` for a bf16 cond_bc, else "f32". Raises where an input's
+    dtype is not the one that form takes (a mix JAX never passes)."""
+    form = bf16_form if named["cond_bc"].dtype == BF16 else "f32"
+    for name, t in named.items():
+        want = WN_BF16_DTYPES[bf16_form][name] if form != "f32" else F32
+        if t.dtype != want:
+            raise ValueError(f"{kernel} ({form}): {name} must be {want}, "
+                             f"got {t.dtype}")
+    return form
+
 
 def gtu(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.tanh(a) * torch.sigmoid(g)
 
 
-def _wn_layer(i, L, conv, cond_bc, rs_w, rs_b, gate, h, skip):
+def _round(t: torch.Tensor, act: Optional[torch.dtype]) -> torch.Tensor:
+    """t rounded to ``act`` and widened back to f32 (no-op for None)."""
+    return t if act is None else t.to(act).float()
+
+
+def _wn_layer(i, L, conv, cond_bc, rs_w, rs_b, gate, h, skip, act=None):
+    """Layer i's gate and res/skip product on its conv; ``act`` (the
+    WaveFlow bf16 form) rounds the gate's output, the residual and the
+    residual sum to bf16, else everything stays f32."""
     C = rs_w.shape[1]
     acts = conv + cond_bc[:, i]
-    out = gate(acts[:, :C], acts[:, C:])
+    out = _round(gate(acts[:, :C], acts[:, C:]), act)
     rs = torch.matmul(rs_w[i].t(), out) + rs_b[i][:, None]
     if i < L - 1:
-        h = h + rs[:, :C]
+        h = _round(h + _round(rs[:, :C], act), act)
     return h, (rs[:, C:] if skip is None else skip + rs[:, C:])
 
 
 def waveglow_wn_forward_plain(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
                               end_w, end_b, gate: Callable = gtu):
-    """One flow's whole WN. x [B, Cin, T] -> st [B, Cout, T]: start 1x1, L
-    layers of {kw-tap dilated conv + cond -> gate -> res/skip 1x1}, end 1x1
-    on the summed skips."""
+    """One flow's whole WN. x [B, Cin, T] -> st [B, Cout, T] f32: start 1x1,
+    L layers of {kw-tap dilated conv + cond -> gate -> res/skip 1x1}, end
+    1x1 on the summed skips. The bf16 form (a bf16 cond_bc; see the section
+    comment): f32 arithmetic on the bf16 values, x rounded to bf16 for the
+    start product."""
+    form = _wn_form("waveglow_wn_forward", "glow_bf16", dict(zip(
+        _GLOW_NAMES, (x, cond_bc, start_w, start_b, k_all, rs_w, rs_b, end_w,
+                      end_b))))
+    if form != "f32":
+        x = _round(x, BF16)
+        cond_bc, start_w, k_all, rs_w, end_w = (
+            t.float() for t in (cond_bc, start_w, k_all, rs_w, end_w))
     L, _, C2 = k_all.shape
     C = C2 // 2
     kw = k_all.shape[1] // C
@@ -770,8 +836,8 @@ class WnLaunch:
     """One launch of a WN layer. Block (x, y, z) of ``grid`` writes batch
     row z, channels [y m, (y + 1) m) of its output (z for the conv; h_out
     and the skip sum for res/skip), samples [x n, (x + 1) n) of [0, T).
-    ``win_stride`` is the padded row stride of a staged input window (floats),
-    ``smem`` the shared memory bytes."""
+    ``win_stride`` is the padded row stride of a staged input window
+    (elements), ``smem`` the shared memory bytes."""
     tile: int
     m: int
     n: int
@@ -798,17 +864,21 @@ class WnPlan:
                 self.rs.tile, self.rs.win_stride, self.rs.smem)
 
 
-def wn_launch(tile: int, B: int, C: int, T: int, kw: int) -> WnLaunch:
+def wn_launch(tile: int, B: int, C: int, T: int, kw: int,
+              form: str = "f32") -> WnLaunch:
     """The launch of tile shape ``tile`` over B rows of T samples, C channel
-    pairs, kw taps (1: the res/skip product). Where m does not divide C the
-    last channel block, and where 32 does not divide C the last K step,
-    stage the channels past C as zeros (csrc/wn_layer.cuh). Raises where it
-    does not fit."""
+    pairs, kw taps (1: the res/skip product), in ``form`` (WN_FORM_BYTES:
+    the weight slabs and windows hold its elements; a bf16 window's first
+    sample is aligned down to 8, so a conv's window is 16 wider). Where m
+    does not divide C the last channel block, and where 32 does not divide C
+    the last K step, stage the channels past C as zeros (csrc/wn_layer.cuh).
+    Raises where it does not fit."""
+    w_bytes, a_bytes = WN_FORM_BYTES[form]
     wm, wn, nj = WN_TILES[tile]
     m, n, threads = 16 * wm, 8 * wn * nj, 32 * wm * wn
-    win_stride = _pad_stride(kw * n)
-    smem = 4 * WN_KC * (WN_STAGES * _pad_stride(2 * m)
-                        + (2 if kw >= 2 else 3) * win_stride)
+    win_stride = _pad_stride(kw * n + (16 if a_bytes == 2 and kw >= 2 else 0))
+    smem = WN_KC * (WN_STAGES * _pad_stride(2 * m) * w_bytes
+                    + (2 if kw >= 2 else 3) * win_stride * a_bytes)
     if smem > SMEM_MAX:
         raise ValueError(f"WN tile {tile}: kw={kw} needs {smem} B of shared "
                          f"memory (max {SMEM_MAX})")
@@ -816,29 +886,32 @@ def wn_launch(tile: int, B: int, C: int, T: int, kw: int) -> WnLaunch:
                     win_stride, smem)
 
 
-def _wn_pick(B: int, C: int, T: int, kw: int) -> WnLaunch:
+def _wn_pick(B: int, C: int, T: int, kw: int, form: str) -> WnLaunch:
     """The largest block (channel pairs x samples; at equal size the fewer
     pairs) that still gives every SM a block, or half of them below
     WN_FILL_FROM samples; where none does, the tile with the most blocks.
     Only the tiles whose channel block pads C least are candidates."""
     pad = min(-(-C // (16 * wm)) * 16 * wm for wm, _, _ in WN_TILES)
-    fits = [wn_launch(i, B, C, T, kw) for i, (wm, _, _) in enumerate(WN_TILES)
+    fits = [wn_launch(i, B, C, T, kw, form)
+            for i, (wm, _, _) in enumerate(WN_TILES)
             if -(-C // (16 * wm)) * 16 * wm == pad]
     need = N_SM if B * T >= WN_FILL_FROM else N_SM // 2
     ok = [f for f in fits if f.blocks >= need] or [max(fits, key=lambda f: f.blocks)]
     return max(ok, key=lambda f: (f.m * f.n, -f.m))
 
 
-def wn_layer_plan(B: int, C: int, T: int, rows: int, kw: int) -> WnPlan:
+def wn_layer_plan(B: int, C: int, T: int, rows: int, kw: int,
+                  form: str = "f32") -> WnPlan:
     """Launch plan of every layer of a WN over B rows of T samples at C
-    channels with a (rows x kw)-tap conv: the tile of each of its two
-    launches, picked by the blocks it gives and the SMs they fill. Every
-    width C takes it (a tile's shared memory does not depend on C). Raises
-    for what the kernels do not take."""
+    channels with a (rows x kw)-tap conv, in ``form`` ("f32", "glow_bf16"
+    or "flow_bf16"): the tile of each of its two launches, picked by the
+    blocks it gives and the SMs they fill (the same tiles in every form).
+    Every width C takes it (a tile's shared memory does not depend on C).
+    Raises for what the kernels do not take."""
     if kw % 2 == 0 or min(rows, B, C, T) < 1:
         raise ValueError(f"WN: B={B}, C={C}, T={T}, rows={rows}, kw={kw} "
                          "unsupported (kw odd, the rest positive)")
-    return WnPlan(_wn_pick(B, C, T, kw), _wn_pick(B, C, T, 1))
+    return WnPlan(_wn_pick(B, C, T, kw, form), _wn_pick(B, C, T, 1, form))
 
 
 def wn_launches(L: int) -> int:
@@ -857,26 +930,28 @@ def _plan_ints(plan: Sequence[int], make: Callable[[], WnPlan]):
     return (ctypes.c_int * 6)(*(tuple(plan) or make().ints()))
 
 
+def _suffix(form: str) -> str:
+    return "" if form == "f32" else "_bf16"
+
+
 def _waveglow_wn_forward_cuda(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
                               end_w, end_b, plan):
     B, Cin, T = x.shape
     L, KC, C2 = k_all.shape
     C, Cout = C2 // 2, end_w.shape[1]
     kw = KC // C
-    for name, t, shape in (
-            ("x", x, (B, Cin, T)), ("cond_bc", cond_bc, (B, L, C2, T)),
-            ("start_w", start_w, (Cin, C)), ("start_b", start_b, (C,)),
-            ("k_all", k_all, (L, kw * C, C2)), ("rs_w", rs_w, (L, C, C2)),
-            ("rs_b", rs_b, (L, C2)), ("end_w", end_w, (C, Cout)),
-            ("end_b", end_b, (Cout,))):
-        _check(f"waveglow_wn_forward {name}", t, shape)
-    ints = _plan_ints(plan, lambda: wn_layer_plan(B, C, T, 1, kw))
-    lib = _build.library("waveglow_wn")
+    args = (x, cond_bc, start_w, start_b, k_all, rs_w, rs_b, end_w, end_b)
+    form = _wn_form("waveglow_wn_forward", "glow_bf16", dict(zip(_GLOW_NAMES, args)))
+    kernel = "waveglow_wn_forward" + _suffix(form)
+    for name, t, shape in zip(_GLOW_NAMES, args, (
+            (B, Cin, T), (B, L, C2, T), (Cin, C), (C,), (L, kw * C, C2),
+            (L, C, C2), (L, C2), (C, Cout), (Cout,))):
+        _check(f"{kernel} {name}", t, shape, t.dtype)
+    ints = _plan_ints(plan, lambda: wn_layer_plan(B, C, T, 1, kw, form))
+    lib = _build.library("waveglow_wn" + _suffix(form))
     scratch = torch.empty((3, B, C, T), device=x.device, dtype=torch.float32)
     st = torch.empty((B, Cout, T), device=x.device, dtype=torch.float32)
-    _launch_wn("waveglow_wn_forward", lib.waveglow_wn_forward,
-               _ptr(x), _ptr(cond_bc), _ptr(start_w), _ptr(start_b),
-               _ptr(k_all), _ptr(rs_w), _ptr(rs_b), _ptr(end_w), _ptr(end_b),
+    _launch_wn(kernel, getattr(lib, kernel), *(_ptr(t) for t in args),
                B, Cin, C, Cout, T, L, kw, ints, _ptr(scratch), _ptr(st))
     return st
 
@@ -891,7 +966,7 @@ _waveglow_wn_forward_op = _custom_op(
 _waveglow_wn_forward_op.register_kernel("cuda")(_waveglow_wn_forward_cuda)
 _waveglow_wn_forward_op.register_fake(
     lambda x, cond_bc, start_w, start_b, k_all, rs_w, rs_b, end_w, end_b, plan:
-    x.new_empty((x.shape[0], end_w.shape[1], x.shape[2])))
+    x.new_empty((x.shape[0], end_w.shape[1], x.shape[2]), dtype=torch.float32))
 _waveglow_wn_forward_op.register_autograd(_no_backward)
 
 
@@ -901,7 +976,8 @@ def waveglow_wn_forward(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
     """WN of one WaveGlow flow, GTU only (see waveglow_wn_forward_plain); on
     the card two launches per layer (the conv, then res/skip, tiled by
     ``plan``, by default wn_layer_plan's) plus the start and end products,
-    at every width."""
+    at every width. A bf16 cond_bc takes the bf16 form (the dtypes of
+    WN_BF16_DTYPES["glow_bf16"]); st is f32 in both."""
     _refuse_other_devices(x, "waveglow_wn_forward")
     return _waveglow_wn_forward_op(x, cond_bc, start_w, start_b, k_all, rs_w,
                                    rs_b, end_w, end_b,
@@ -913,12 +989,24 @@ def waveflow_row_step_plain(x_prev, queues, cond_bc, start_w, start_b, k_all,
     """One height row of the WaveFlow inverse. x_prev [B, W] (the previous
     generated row, zeros for row 0); queues [L, kh-1, B, C, W]: each layer's
     last kh-1 input rows, oldest first. Each layer convolves (kh rows x kw
-    taps) over its queue plus the current row. Returns (log_s [B, W],
-    t [B, W], new queues: oldest row dropped, current row appended)."""
+    taps) over its queue plus the current row. Returns (log_s [B, W] f32,
+    t [B, W] f32, new queues: oldest row dropped, current row appended, in
+    the queues' dtype). The bf16 form (a bf16 cond_bc; see the section
+    comment) rounds h, the gate's output, the residual sum and the skip sum
+    where JAX's kernel does."""
+    form = _wn_form("waveflow_row_step", "flow_bf16", dict(zip(
+        _FLOW_NAMES, (x_prev, queues, cond_bc, start_w, start_b, k_all, rs_w,
+                      rs_b, end_w, end_b))))
+    act = None if form == "f32" else BF16
+    if act is not None:
+        queues, cond_bc, start_w, start_b, k_all, rs_w, end_w = (
+            t.float() for t in (queues, cond_bc, start_w, start_b, k_all, rs_w,
+                                end_w))
     L, khm1, _, C, _ = queues.shape
     kh, C2 = khm1 + 1, 2 * C
     kw = k_all.shape[1] // (kh * C)
-    h = start_w[0][None, :, None] * x_prev[:, None, :] + start_b[None, :, None]
+    h = _round(start_w[0][None, :, None] * x_prev[:, None, :]
+               + start_b[None, :, None], act)
     skip, new_queues = None, []
     for i in range(L):
         d = 2 ** i
@@ -927,9 +1015,10 @@ def waveflow_row_step_plain(x_prev, queues, cond_bc, start_w, start_b, k_all,
         conv = F.conv2d(rows.permute(1, 2, 0, 3), w, padding=(0, (kw // 2) * d),
                         dilation=(1, d))[:, :, 0]
         new_queues.append(rows[1:])
-        h, skip = _wn_layer(i, L, conv, cond_bc, rs_w, rs_b, gate, h, skip)
-    st = torch.matmul(end_w.t(), skip) + end_b[:, None]
-    return st[:, 0], st[:, 1], torch.stack(new_queues)
+        h, skip = _wn_layer(i, L, conv, cond_bc, rs_w, rs_b, gate, h, skip, act)
+    st = torch.matmul(end_w.t(), _round(skip, act)) + end_b[:, None]
+    new_queues = torch.stack(new_queues)
+    return st[:, 0], st[:, 1], (new_queues if act is None else new_queues.to(act))
 
 
 def ring_queues(ring: torch.Tensor, step: int) -> torch.Tensor:
@@ -958,23 +1047,21 @@ def _waveflow_row_step_cuda(x_prev, ring, step, cond_bc, start_w, start_b,
     L, kh, _, C, _ = ring.shape
     C2 = 2 * C
     kw = k_all.shape[1] // (kh * C)
-    for name, t, shape in (
-            ("x_prev", x_prev, (B, W)), ("ring", ring, (L, kh, B, C, W)),
-            ("cond_bc", cond_bc, (B, L, C2, W)),
-            ("start_w", start_w, (1, C)), ("start_b", start_b, (C,)),
-            ("k_all", k_all, (L, kh * kw * C, C2)),
-            ("rs_w", rs_w, (L, C, C2)), ("rs_b", rs_b, (L, C2)),
-            ("end_w", end_w, (C, 2)), ("end_b", end_b, (2,))):
-        _check(f"waveflow_row_step {name}", t, shape)
-    ints = _plan_ints(plan, lambda: wn_layer_plan(B, C, W, kh, kw))
-    lib = _build.library("waveflow_row")
+    args = (x_prev, ring, cond_bc, start_w, start_b, k_all, rs_w, rs_b, end_w,
+            end_b)
+    form = _wn_form("waveflow_row_step", "flow_bf16", dict(zip(_FLOW_NAMES, args)))
+    kernel = "waveflow_row_step" + _suffix(form)
+    for name, t, shape in zip(_FLOW_NAMES, args, (
+            (B, W), (L, kh, B, C, W), (B, L, C2, W), (1, C), (C,),
+            (L, kh * kw * C, C2), (L, C, C2), (L, C2), (C, 2), (2,))):
+        _check(f"{kernel} {name}", t, shape, t.dtype)
+    ints = _plan_ints(plan, lambda: wn_layer_plan(B, C, W, kh, kw, form))
+    lib = _build.library("waveflow_row" + _suffix(form))
     scratch = torch.empty((2, B, C, W), device=ring.device, dtype=torch.float32)
     st = torch.empty((B, 2, W), device=ring.device, dtype=torch.float32)
-    _launch_wn("waveflow_row_step", lib.waveflow_row_step,
-               _ptr(x_prev), _ptr(ring), step, _ptr(cond_bc),
-               _ptr(start_w), _ptr(start_b), _ptr(k_all), _ptr(rs_w),
-               _ptr(rs_b), _ptr(end_w), _ptr(end_b), B, C, W, L, kh, kw,
-               ints, _ptr(scratch), _ptr(st))
+    ptrs = [_ptr(t) for t in args]
+    _launch_wn(kernel, getattr(lib, kernel), *ptrs[:2], step, *ptrs[2:],
+               B, C, W, L, kh, kw, ints, _ptr(scratch), _ptr(st))
     return st
 
 
@@ -996,7 +1083,7 @@ _waveflow_row_step_op = _custom_op(
 _waveflow_row_step_op.register_kernel("cuda")(_waveflow_row_step_cuda)
 _waveflow_row_step_op.register_fake(
     lambda x_prev, ring, step, cond_bc, *weights_and_plan:
-    x_prev.new_empty((x_prev.shape[0], 2, x_prev.shape[1])))
+    x_prev.new_empty((x_prev.shape[0], 2, x_prev.shape[1]), dtype=torch.float32))
 
 
 def waveflow_row_step(x_prev, ring, step: int, cond_bc, start_w, start_b,
@@ -1013,8 +1100,10 @@ def waveflow_row_step(x_prev, ring, step: int, cond_bc, start_w, start_b,
     Returns (log_s [B, W], t [B, W]); ``ring_queues(ring, step + 1)`` are
     then the new queues of waveflow_row_step_plain. On the card: two
     launches per layer, tiled by ``plan`` (by default wn_layer_plan's), plus
-    the start and end products, at every width. The op has no autograd
-    formula (a backward raises), as an op that mutates an input may not."""
+    the start and end products, at every width. A bf16 cond_bc takes the
+    bf16 form (a bf16 ring; the dtypes of WN_BF16_DTYPES["flow_bf16"]);
+    log_s and t are f32 in both. The op has no autograd formula (a backward
+    raises), as an op that mutates an input may not."""
     _refuse_other_devices(x_prev, "waveflow_row_step")
     st = _waveflow_row_step_op(x_prev, ring, int(step), cond_bc, start_w,
                                start_b, k_all, rs_w, rs_b, end_w, end_b,

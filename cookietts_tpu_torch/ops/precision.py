@@ -8,7 +8,8 @@ activations then run on bf16 values. These helpers apply a torch layer the
 same way. In f32 each is the layer's own call, unchanged. The bf16 copies
 of a layer's weights are made once and kept until its parameters change
 (``hopper_kernels.derived``), so the state dict, checkpoints and the
-converters stay f32.
+converters stay f32; a forward that autograd records casts them in the
+graph instead.
 """
 from __future__ import annotations
 
@@ -29,8 +30,12 @@ def _inner(layer: nn.Module) -> nn.Module:
 
 def cast_params(layer: nn.Module, dtype: torch.dtype
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(weight, bias or None) of ``layer`` in ``dtype``, cached on it."""
+    """(weight, bias or None) of ``layer`` in ``dtype``, cached on it; where
+    autograd records (a bf16 training forward) cast in the graph instead,
+    so that the gradients reach the f32 parameters."""
     bias = layer.bias
+    if torch.is_grad_enabled() and layer.weight.requires_grad:
+        return layer.weight.to(dtype), None if bias is None else bias.to(dtype)
     sources = [layer.weight] + ([] if bias is None else [bias])
     return hk.derived(
         layer, f"_cast_{dtype}".replace("torch.", ""), sources,

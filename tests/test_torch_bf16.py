@@ -63,6 +63,8 @@ from cookietts_tpu_torch.ops import hopper_kernels as hk
 from cookietts_tpu_torch.ops.attention import AttentionState
 from cookietts_tpu_torch.ops.lstm import ZoneoutLSTMCell
 from cookietts_tpu_torch.ops.mcd import mcd
+from cookietts_tpu_torch.parallel import WAVEGLOW_TP_RULES
+from cookietts_tpu_torch.parallel.tp import shard_model
 from cookietts_tpu_torch.pipeline.server import ModelRegistry, handle_tts
 from cookietts_tpu_torch.pipeline.streaming import streaming_tts
 from cookietts_tpu_torch.pipeline.text2speech import T2S, T2SConfig
@@ -163,8 +165,17 @@ def _mel():
     return torch.zeros(1, 8, 80)
 
 
+def _waveglow():
+    return WaveGlow(WaveGlowConfig(n_mel_channels=8, n_flows=2, n_layers=2,
+                                   n_channels=8, hop_length=24,
+                                   upsample_strides=(3,), upsample_channels=8,
+                                   dtype=BF16), device="cpu")
+
+
 REFUSALS = {
-    "waveglow": lambda: WaveGlow(WaveGlowConfig(dtype=BF16), device="cpu"),
+    "waveglow_tp": lambda: shard_model(_waveglow(), WAVEGLOW_TP_RULES, tp=None),
+    "waveglow_sp": lambda: _waveglow().inverse(torch.zeros(1, 3, 8),
+                                               torch.zeros(1, 1, 8), sp=object()),
     "untts": lambda: UnTTS(UnTTSConfig(dtype=BF16), device="cpu"),
     "gantts": lambda: GANTTSGenerator(GANTTSConfig(dtype=BF16), device="cpu"),
     "gst": lambda: Tacotron2(Tacotron2Config(**TACO, dtype=BF16, use_gst=True),
@@ -194,8 +205,9 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_out_of_slice_refuses_bf16(case):
-    """What this slice leaves in f32 refuses bf16 and names its slice;
-    WaveGlow's message keeps "float32" (tests/test_torch_waveglow.py)."""
+    """What the port leaves in f32 refuses bf16 and names its slice; the
+    flow vocoders run in bf16 but for tp and sp (tests/test_torch_bf16_flows.py
+    holds the rest of their refusals)."""
     with pytest.raises(NotImplementedError,
                        match="bfloat16 comes with a later slice.*float32"):
         REFUSALS[case]()

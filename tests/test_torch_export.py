@@ -83,6 +83,13 @@ def _op_cases():
     att16 = (bf(att[0]), bf(att[1]), bf(att[2]), att[3], bf(att[4]), *att[5:])
     lstm16 = (bf(lstm[0]), bf(lstm[1]), bf(lstm[2]), lstm[3])
     res16 = (bf(res[0]), bf(res[1]), res[2], bf(res[3]), *res[4:])
+    # the WN kernels' bf16 forms take the dtypes of hk.WN_BF16_DTYPES
+    cast = lambda args, form: tuple(  # noqa: E731
+        a.to(d) if torch.is_tensor(a) else a for a, d in zip(
+            args, [*hk.WN_BF16_DTYPES[form].values()][:len(args)]))
+    glow16 = (*cast(glow[:9], "glow_bf16"), [])
+    row16 = (row[0], bf(row[1]), 4,
+             *cast((row[0], row[1], *row[3:11]), "flow_bf16")[2:], [])
     return {
         "attention_step": (hk._attention_step_op, att,
                            lambda a: hk.attention_step_plain(*a[:7])),
@@ -101,6 +108,11 @@ def _op_cases():
                                 lambda a: hk.waveglow_wn_forward_plain(*a[:9])),
         "waveflow_row_step": (hk._waveflow_row_step_op, row, lambda a: torch.stack(
             hk.waveflow_row_step_ring_plain(*a[:11]), 1)),
+        "waveglow_wn_forward_bf16": (hk._waveglow_wn_forward_op, glow16,
+                                     lambda a: hk.waveglow_wn_forward_plain(*a[:9])),
+        "waveflow_row_step_bf16": (hk._waveflow_row_step_op, row16,
+                                   lambda a: torch.stack(
+                                       hk.waveflow_row_step_ring_plain(*a[:11]), 1)),
     }
 
 

@@ -487,7 +487,8 @@ def test_launch_counters_cover_every_kernel():
     assert set(hk.LAUNCHES) == {"attention_step", "lstm_gates", "hifigan_resblock",
                                 "waveglow_wn_forward", "waveflow_row_step",
                                 "attention_step_bf16", "lstm_gates_bf16",
-                                "hifigan_resblock_bf16"}
+                                "hifigan_resblock_bf16", "waveglow_wn_forward_bf16",
+                                "waveflow_row_step_bf16"}
     assert hk.wn_launches(8) == 18
     hk.LAUNCHES["waveglow_wn_forward"] = 3
     hk.reset_launch_counts()

@@ -249,8 +249,13 @@ def test_infer_draws_z_from_the_generator(mixing):
 
 
 def test_unported_options_raise():
+    """bf16 builds and inverts (tests/test_torch_bf16_flows.py); only its
+    sequence-parallel forms refuse, in float32's name."""
+    port = WaveGlow(WaveGlowConfig(**GLOW, dtype=torch.bfloat16), device="cpu")
+    n = 3 * GLOW["hop_length"] // 8
     with pytest.raises(NotImplementedError, match="float32"):
-        WaveGlow(WaveGlowConfig(**GLOW, dtype=torch.bfloat16), device="cpu")
+        port.inverse(torch.zeros(1, n, 8), torch.zeros(1, 3, BASE["n_mel_channels"]),
+                     sp=object())
     with pytest.raises(ValueError, match="hop_length"):
         WaveGlow(WaveGlowConfig(**dict(GLOW, hop_length=25)), device="cpu")
 

@@ -82,7 +82,7 @@ def main() -> int:
         (name, header), source = item
         src = out / name / source
         src.parent.mkdir(exist_ok=True)
-        for f in (source, "wn_layer.cuh"):
+        for f in [source] + [h.name for h in SRC.parent.glob("*.cuh")]:
             src.with_name(f).write_text(SRC.with_name(f).read_text())
         src.with_name(HEADER.name).write_text(header)    # found beside src first
         lib = out / name / f"lib{src.stem}.so"
