@@ -310,6 +310,19 @@ non-zero:
    --hparams ...,dtype=bfloat16` with a full-width WaveGlow and
    --denoiser, and `train --model waveglow --hparams ...,dtype=bfloat16`
    at WaveGlowConfig() for 2 iterations with a validation.
+20. the main path's two bf16 kernels as redesigned for Hopper
+   (lstm_gates_bf16: TMA ring, split-K in a thread-block cluster;
+   hifigan_resblock_bf16: wgmma, h on chip up to 64 channels). 20a: the
+   LSTM at the three decoder cells for B = 1, 4, 32, 128 and the resblock
+   at the bench-serving generator's 12 resblocks (B=3, T_mel=512; B = 1
+   and 32 at T_mel=32) and at C = 96, 24, 6 with T = 4103, each against its
+   plain version at phase 18a's tolerances, one launch a call (the
+   resblock: the launches hifigan_resblock_launches predicts) and a second
+   call equal to the bit. 20b: CUDA-graph replay times beside the f32 form
+   on the same values, the plain version and the bound: the decode step
+   at each B beside nn.LSTMCell in bf16 (the LSTM's library_ms), the
+   generator call and each of its four stages (phases 18 and 19 run the
+   same kernels through the main path).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -344,9 +357,9 @@ KERNEL_SOURCES = {
     # the bf16 forms of the serving path's three kernels (phase 18)
     "attention_step_bf16": ("cookietts_tpu_torch/csrc/attention_step.cu",
                             "cookietts_tpu/ops/pallas_kernels.py:74"),
-    "lstm_gates_bf16": ("cookietts_tpu_torch/csrc/lstm_gates.cu",
+    "lstm_gates_bf16": ("cookietts_tpu_torch/csrc/lstm_gates_bf16.cu",
                         "cookietts_tpu/ops/pallas_kernels.py:236"),
-    "hifigan_resblock_bf16": ("cookietts_tpu_torch/csrc/hifigan_resblock.cu",
+    "hifigan_resblock_bf16": ("cookietts_tpu_torch/csrc/hifigan_resblock_bf16.cu",
                               "cookietts_tpu/ops/pallas_kernels.py:724"),
     # the bf16 forms of the flow vocoders' two WN kernels (phase 19)
     "waveglow_wn_forward_bf16": ("cookietts_tpu_torch/csrc/waveglow_wn_bf16.cu",
@@ -6352,6 +6365,156 @@ def phase19(hk, check, tcfg, smi):
     return timing, launches
 
 
+# -- phase 20: the main path's two bf16 kernels, redesigned for Hopper ------------
+
+P20_LSTM_B = (1, 4, 32, 128)
+
+
+def library_lstm_cell_bf16(W, b, H):
+    """nn.LSTMCell in bf16 computing lstm_gates(xh, W, b, c) for xh = [x; h]
+    (library_lstm_cell's weights, cast): the yardstick of the bf16 form."""
+    import torch
+    return library_lstm_cell(W.float(), b.float(), H).to(torch.bfloat16)
+
+
+def phase20a(hk, check, smi):
+    """lstm_gates_bf16 (TMA-fed, split-K in a cluster) at the three cells
+    for B = 1, 4, 32, 128, and hifigan_resblock_bf16 (wgmma; h on chip up to
+    C = 64) at the bench-serving generator's 12 resblocks (B=3, T_mel=512,
+    and B = 1, 32 at T_mel=32) and phase 18a's ragged widths, each against
+    its plain version at phase 18a's tolerances, with exact launches and a
+    repeated call equal to the bit. Returns the timing cases."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(20)
+    lstm = {}
+    for B in P20_LSTM_B:
+        cases = []
+        for name, F, H in LSTM_SHAPES:
+            xh, W, b, c = lstm_inputs(B, F, H, g)
+            a16 = (bf16(xh), bf16(W), bf16(b), c)
+            before = hk.LAUNCHES["lstm_gates_bf16"]
+            got = hk.lstm_gates(*a16)
+            again = hk.lstm_gates(*a16)
+            n = hk.LAUNCHES["lstm_gates_bf16"] - before
+            for i, (x_, w_) in enumerate(zip(got, hk.lstm_gates_plain(*a16))):
+                check("lstm_gates_bf16", x_, w_, *TOL["lstm_gates_bf16"],
+                      f"20a B={B} {name} {'ch'[i]}")
+            if n != 2 or not all(torch.equal(x_, y_) for x_, y_ in zip(got, again)):
+                raise SystemExit(f"chip_smoke: lstm_gates_bf16 B={B} {name}: one "
+                                 "launch a call, bit-identical twice")
+            cases.append(((xh, W, b, c), a16, F, H))
+        lstm[B] = cases
+        plan = [hk.lstm_gates_bf16_plan(B, F, H).ints() for _, F, H in LSTM_SHAPES]
+        log(f"  lstm_gates_bf16 B={B}: plans (nt, cluster, ring) {plan}")
+
+    def resblocks(B, T_mel):
+        blocks, T = [], T_mel
+        for C, u in ((256, 8), (128, 8), (64, 4), (32, 2)):
+            T *= u
+            x = torch.randn(B, C, T, device="cuda", generator=g)
+            for k in (3, 7, 11):
+                _, w1, b1, w2, b2 = resblock_inputs(1, C, 1, k, g)
+                w1, w2 = bf16(w1).float(), bf16(w2).float()
+                blocks.append(((x, w1, b1, w2, b2, (1, 3, 5), 0.1),
+                               (bf16(x), bf16(w1), b1, bf16(w2), b2, (1, 3, 5), 0.1)))
+        return blocks
+
+    def check_block(a, what):
+        C, k = a[0].shape[1], a[1].shape[1]
+        before = hk.LAUNCHES["hifigan_resblock_bf16"]
+        got = hk.hifigan_resblock(*a)
+        again = hk.hifigan_resblock(*a)
+        n = hk.LAUNCHES["hifigan_resblock_bf16"] - before
+        want = hk.hifigan_resblock_plain(*a)
+        check("hifigan_resblock_bf16", got.float(), want.float(),
+              2 * bf16_ulp(want), 0.0, f"20a {what} C={C} T={a[0].shape[2]} k={k}")
+        if n != 2 * hk.hifigan_resblock_launches(C, 3, True) or \
+                not torch.equal(got, again) or got.dtype != torch.bfloat16:
+            raise SystemExit(f"chip_smoke: hifigan_resblock_bf16 {what} C={C} "
+                             f"k={k}: launches {n}, bit-identical twice, bf16")
+
+    main_blocks = resblocks(3, 512)
+    for _, a in main_blocks:
+        check_block(a, "B=3 T_mel=512")
+    for B in (1, 32):
+        for _, a in resblocks(B, 32):
+            check_block(a, f"B={B} T_mel=32")
+    for C in (96, 24, 6):
+        a = resblock_inputs(1, C, 4096 + 7, 7, torch.Generator(device="cuda").manual_seed(C))
+        check_block((bf16(a[0]), bf16(a[1]), a[2], bf16(a[3]), a[4], (1, 3, 5), 0.1),
+                    "ragged")
+    torch.cuda.synchronize()
+    return lstm, main_blocks
+
+
+def phase20b(hk, lstm, main_blocks, smi):
+    """Times by CUDA-graph replay, each beside the f32 form on the same
+    values, the plain version and the bound (bf16 bytes at 3.35 TB/s,
+    operations at 989 TFLOP/s): the decode step's three cells at B = 1, 4,
+    32, 128 beside nn.LSTMCell in bf16; the 12 resblocks of a generator
+    call at B=3, T_mel=512 and each of its four stages. Returns the two
+    kernels' entries of the kernels line (the B=4 step, the generator
+    call)."""
+    import torch
+    out = {}
+    run = lambda cases, fn: lambda: [fn(*cs) for cs in cases]  # noqa: E731
+    for B, cases in lstm.items():
+        c32 = [c[0] for c in cases]
+        c16 = [c[1] for c in cases]
+        cells = [(library_lstm_cell_bf16(W, b_, H), bf16(xh[:, :F - H]), bf16(xh[:, F - H:]),
+                  bf16(c)) for (xh, W, b_, c), _, F, H in cases]
+        with torch.no_grad():
+            ms, f32_ms, plain_ms = p18_times(run(c32, hk.lstm_gates), run(c16, hk.lstm_gates),
+                                             run(c16, hk.lstm_gates_plain), 200)
+            lib_ms = time_ms(run(cells, lambda cell, x, h, c: cell(x, (h, c))), 200)
+            in_graph = graph_ms(run(c16, hk.lstm_gates))
+        bound = bound_of([lstm_bound_bf16(B, F, H) for _, F, H in LSTM_SHAPES])
+        log(f"  lstm_gates_bf16 decode step B={B}: kernel {ms:.4f} ms (a step in a "
+            f"graph of 20 {in_graph:.4f}), f32 form {f32_ms:.4f}, plain {plain_ms:.4f}, "
+            f"nn.LSTMCell bf16 {lib_ms:.4f}, bound {bound[0]:.4f} ({bound[1]}) ({smi})")
+        if B == 4:
+            out["lstm_gates_bf16"] = dict(
+                unit=f"one decode step (3 cells), B={B}", ms=ms, f32_ms=f32_ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                eager_ms=eager_ms(run(c16, hk.lstm_gates), 200), bound=bound)
+    del lstm
+    for i in range(4):
+        blocks = main_blocks[3 * i:3 * i + 3]
+        B, C, T = blocks[0][1][0].shape
+        bound = bound_of([resblock_bound_bf16(B, C, T, a[1].shape[1]) for _, a in blocks])
+        ms = time_ms(lambda: [hk.hifigan_resblock(*a) for _, a in blocks], 5)
+        how = ("one launch a pair, h on chip" if hk.hifigan_resblock_bf16_plan(
+            B, C, T, 11, 5).fused else "two launches a pair")
+        log(f"  hifigan_resblock_bf16 stage C={C} T={T} ({how}): {ms:.4f} ms, bound "
+            f"{bound[0]:.4f} ({bound[1]}), {bound[0] / ms:.2f} of it ({smi})")
+    ms, f32_ms, plain_ms = p18_times(
+        lambda: [hk.hifigan_resblock(*a) for a, _ in main_blocks],
+        lambda: [hk.hifigan_resblock(*a) for _, a in main_blocks],
+        lambda: [hk.hifigan_resblock_plain(*a) for _, a in main_blocks], 3)
+    B, C, T = main_blocks[0][1][0].shape
+    bound = bound_of([resblock_bound_bf16(*a[0].shape, a[1].shape[1])
+                      for _, a in main_blocks])
+    log(f"  hifigan_resblock_bf16 generator call B={B} T_mel=512 (12 resblocks): "
+        f"kernel {ms:.4f} ms, f32 form {f32_ms:.4f}, plain {plain_ms:.4f}, bound "
+        f"{bound[0]:.4f} ({bound[1]}) ({smi})")
+    out["hifigan_resblock_bf16"] = dict(
+        unit=f"one generator call (12 resblocks), B={B}, T_mel=512", ms=ms,
+        f32_ms=f32_ms, plain_ms=plain_ms, library_ms=None,
+        eager_ms=eager_ms(lambda: [hk.hifigan_resblock(*a) for _, a in main_blocks], 3),
+        bound=bound)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase20(hk, check, smi):
+    """20a, then 20b; returns the two kernels' timing for the kernels line."""
+    log("  20a: lstm_gates_bf16 and hifigan_resblock_bf16 against their plain "
+        "versions")
+    lstm, main_blocks = phase20a(hk, check, smi)
+    log("  20b: times by graph replay")
+    return phase20b(hk, lstm, main_blocks, smi)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6480,6 +6643,10 @@ def main() -> int:
     b16_timing, b16_launches = phase19(hk, check, tcfg, smi)
     timing.update(b16_timing)
     launches.update(b16_launches)
+
+    phase("20", "the main path's two bf16 kernels on Hopper: lstm_gates_bf16 "
+          "and hifigan_resblock_bf16")
+    timing.update(phase20(hk, check, smi))
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

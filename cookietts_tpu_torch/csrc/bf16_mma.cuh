@@ -1,6 +1,7 @@
-// bf16 tensor-core building blocks (hifigan_resblock.cu's bf16 form):
-// fragment loads from shared memory with ldmatrix and one m16n8k16 product
-// with bf16 operands and f32 accumulators.
+// bf16 tensor-core building blocks (the bf16 kernels: lstm_gates_bf16.cu,
+// hifigan_resblock_bf16.cu, wn_layer.cuh's FlowBf16 form): fragment loads
+// from shared memory with ldmatrix and one m16n8k16 product with bf16
+// operands and f32 accumulators.
 //
 // Fragment layouts of mma.m16n8k16 with bf16 operands (g = lane / 4,
 // t = lane % 4; each register holds two bf16, the lower index in the low
@@ -44,18 +45,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// cp.async of 16 bytes, zeros when !valid (src is then not read).
-__device__ __forceinline__ void copy_async16z(void* dst, const void* src,
-                                              bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void commit_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace bf16mma

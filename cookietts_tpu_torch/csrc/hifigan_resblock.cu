@@ -80,31 +80,10 @@
 // wgmma needs both TF32 operands K-major in shared memory, and the tap
 // shift of the activation does not map onto its descriptors' core matrices.
 //
-// The bf16 form (hifigan_resblock_pair_bf16): x, y and the weights bf16,
-// the biases f32, rounded where the JAX package's Pallas body rounds
-// (cookietts_tpu/ops/pallas_kernels.py:663-716, run with bf16 operands by
-// models/hifigan.py:243-246): lrelu on the bf16 input (its product by the
-// slope rounded to bf16, the slope itself a bf16 value, as JAX's weak-typed
-// constant is), each conv accumulated in f32 on the bias, conv1's lrelu in
-// f32 rounded to bf16, conv2's sum rounded to bf16 before the residual add,
-// the residual sum rounded to bf16, zeros outside [0, T). One product per
-// mma.sync.m16n8k16 with bf16 operands and f32 accumulators (bf16_mma.cuh),
-// where the f32 form takes three: its bound is 1.23 ms a main-path
-// generator call at 989 TFLOP/s. A simple first design, every C split:
-// conv1 -> h (bf16, the value JAX rounds to) in device memory, then conv2 +
-// residual, each over BM x 64 output tiles (BM as the f32 split variant
-// picks it). A block stages, per 32-channel K chunk, the chunk's activation
-// window sample-major ([sample][channel], so a tap's shift is a row offset
-// and every fragment row stays 16-byte aligned for ldmatrix) and the
-// chunk's weights for every tap ([tap][channel in][channel out], read with
-// ldmatrix.trans), then runs all taps; row strides of 8 mod 64 values keep
-// a fragment load's eight rows on distinct banks. No pipelining across
-// chunks: the second block on each SM overlaps one's loads with the
-// other's products.
-#include <cuda_bf16.h>
+// The bf16 form is a kernel of its own, on wgmma with h kept on chip at
+// the narrow widths: hifigan_resblock_bf16.cu.
 #include <cuda_runtime.h>
 
-#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -409,154 +388,6 @@ int launch_split(const float* x, const float* w1, const float* b1,
   return (int)cudaGetLastError();
 }
 
-// ---- bf16 form ----------------------------------------------------------
-constexpr int kBfN = 64;        // samples per block
-constexpr int kBfKc = 32;       // input channels per K chunk
-constexpr int kBfXst = kBfKc + 8;   // row stride of the staged activations
-
-__host__ __device__ inline long long bf16_smem(int K, int dil, int BM) {
-  return 2LL * ((kBfN + (K - 1) * dil) * kBfXst + (long long)K * kBfKc * (BM + 8));
-}
-
-__device__ __forceinline__ __nv_bfloat16 lrelu_bf16(__nv_bfloat16 v,
-                                                    float slope_bf16) {
-  const float f = __bfloat162float(v);
-  return f >= 0.f ? v : __float2bfloat16(f * slope_bf16);
-}
-
-// One conv of the pair in bf16 over a [BM x kBfN] output tile; 8 warps as
-// WM (channels, 16 MI rows each) x 8 / WM (samples, 8 NJ columns each).
-// kFirst: conv1, src = x, out = bf16(lrelu(conv(lrelu_bf16(x)) + b1)) = h.
-// Else conv2, src = h, out = bf16(res + bf16(conv(h) + b2)) = y.
-template <bool kFirst, int BM>
-__global__ void __launch_bounds__(kThreads, 2)
-resblock_conv_bf16(const __nv_bfloat16* __restrict__ src,
-                   const __nv_bfloat16* __restrict__ w,
-                   const float* __restrict__ bias,
-                   const __nv_bfloat16* __restrict__ res, int C, int T, int K,
-                   int dil, float slope_bf16, float slope,
-                   __nv_bfloat16* __restrict__ out) {
-  using namespace bf16mma;
-  constexpr int WM = BM >= 64 ? 4 : 2;       // warps along the channels
-  constexpr int MI = BM / WM / 16, NJ = kBfN / (kWarps / WM) / 8;
-  static_assert(NJ % 2 == 0, "B fragments load two n-blocks at a time");
-  constexpr int kWst = BM + 8;               // row stride of a weight slab
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int sw = kBfN + (K - 1) * dil;       // samples of a staged window
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [sw][kBfXst]
-  __nv_bfloat16* ws = xs + sw * kBfXst;      // [K][kBfKc][kWst]
-
-  const int t0 = blockIdx.x * kBfN, co0 = blockIdx.y * BM;
-  const int b = blockIdx.z;
-  const int sbase = t0 - (K / 2) * dil;      // sample of staged row 0
-  const __nv_bfloat16* srcb = src + (size_t)b * C * T;
-  const bool vec = C % 8 == 0;               // weight rows in 16-byte copies
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = (warp % WM) * (16 * MI), n0 = (warp / WM) * (8 * NJ);
-  const int lm = lane >> 3, lr = lane & 7;   // ldmatrix: matrix, row
-  float acc[MI][NJ][4];
-  tf32x3::zero(acc);
-
-  for (int ci0 = 0; ci0 < C; ci0 += kBfKc) {
-    __syncthreads();                         // the last chunk's reads are done
-    for (int i = threadIdx.x; i < kBfKc * sw; i += kThreads) {
-      const int ci = i / sw, s = i - ci * sw;
-      const int p = sbase + s;
-      const bool ok = p >= 0 && p < T && ci0 + ci < C;
-      __nv_bfloat16 v = ok ? srcb[(size_t)(ci0 + ci) * T + p] : zero;
-      if (kFirst) v = lrelu_bf16(v, slope_bf16);
-      xs[s * kBfXst + ci] = v;
-    }
-    if (vec) {
-      for (int i = threadIdx.x; i < K * kBfKc * (BM / 8); i += kThreads) {
-        const int row = i / (BM / 8), c8 = (i - row * (BM / 8)) * 8;
-        const int tap = row / kBfKc, ci = row - tap * kBfKc;
-        const bool ok = ci0 + ci < C && co0 + c8 < C;
-        copy_async16z(ws + row * kWst + c8,
-                      ok ? w + ((size_t)tap * C + ci0 + ci) * C + co0 + c8 : w,
-                      ok);
-      }
-      commit_wait_all();
-    } else {
-      for (int i = threadIdx.x; i < K * kBfKc * BM; i += kThreads) {
-        const int row = i / BM, c = i - row * BM;
-        const int tap = row / kBfKc, ci = row - tap * kBfKc;
-        const bool ok = ci0 + ci < C && co0 + c < C;
-        ws[row * kWst + c] =
-            ok ? w[((size_t)tap * C + ci0 + ci) * C + co0 + c] : zero;
-      }
-    }
-    __syncthreads();
-    for (int tap = 0; tap < K; ++tap) {
-#pragma unroll
-      for (int kk = 0; kk < kBfKc; kk += 16) {
-        uint32_t a[MI][4], bf[NJ][2];
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-          ldmatrix_x4_trans(a[i], ws + (tap * kBfKc + kk + lr + (lm >= 2 ? 8 : 0)) * kWst +
-                                      m0 + 16 * i + (lm & 1 ? 8 : 0));
-#pragma unroll
-        for (int j = 0; j < NJ; j += 2) {
-          uint32_t r[4];
-          ldmatrix_x4(r, xs + (n0 + 8 * j + lr + (lm >= 2 ? 8 : 0) + tap * dil) * kBfXst +
-                             kk + (lm & 1 ? 8 : 0));
-          bf[j][0] = r[0];
-          bf[j][1] = r[1];
-          bf[j + 1][0] = r[2];
-          bf[j + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) mma_bf16(acc[i][j], a[i], bf[j][0], bf[j][1]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int co = co0 + m0 + 16 * i + g + (e >= 2 ? 8 : 0);
-        const int p = t0 + n0 + 8 * j + 2 * t + (e & 1);
-        if (co < C && p < T) {
-          const size_t o = ((size_t)b * C + co) * T + p;
-          const float v = acc[i][j][e] + bias[co];
-          out[o] = kFirst ? __float2bfloat16(lrelu(v, slope))
-                          : __float2bfloat16(__bfloat162float(res[o]) +
-                                             __bfloat162float(__float2bfloat16(v)));
-        }
-      }
-}
-
-template <int BM>
-int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w1,
-                const float* b1, const __nv_bfloat16* w2, const float* b2,
-                int B, int C, int T, int K, int dil, float slope,
-                long long smem, __nv_bfloat16* h, __nv_bfloat16* y,
-                cudaStream_t st) {
-  if (smem < bf16_smem(K, dil, BM) || smem < bf16_smem(K, 1, BM))
-    return (int)cudaErrorInvalidValue;
-  const float slope_bf16 = __bfloat162float(__float2bfloat16(slope));
-  const dim3 grid((T + kBfN - 1) / kBfN, (C + BM - 1) / BM, B);
-  cudaError_t e = set_smem(resblock_conv_bf16<true, BM>, smem);
-  if (e != cudaSuccess) return (int)e;
-  resblock_conv_bf16<true, BM><<<grid, kThreads, smem, st>>>(
-      x, w1, b1, nullptr, C, T, K, dil, slope_bf16, slope, h);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  e = set_smem(resblock_conv_bf16<false, BM>, smem);
-  if (e != cudaSuccess) return (int)e;
-  resblock_conv_bf16<false, BM><<<grid, kThreads, smem, st>>>(
-      h, w2, b2, x, C, T, K, 1, slope_bf16, slope, y);
-  return (int)cudaGetLastError();
-}
-
 template <int BM>
 int launch_split_rows(const float* x, const float* w1, const float* b1,
                       const float* w2, const float* b2, int B, int C, int T,
@@ -609,25 +440,5 @@ extern "C" int hifigan_resblock_pair(const float* x, const float* w1,
                                             slope, smem, h, y, st)
        : rows == 32 ? launch_split_rows<32>(x, w1, b1, w2, b2, B, C, T, K, dil,
                                             slope, smem, h, y, st)
-       : (int)cudaErrorInvalidValue;
-}
-
-// One dilation pair in bf16, x -> y: two launches through h, a [B, C, T]
-// bf16 scratch buffer, over blocks of `rows` (BM: 128, 64 or 32) output
-// channels and 64 samples; smem from hifigan_resblock_bf16_plan in
-// ops/hopper_kernels.py, checked here against this file's geometry.
-extern "C" int hifigan_resblock_pair_bf16(
-    const __nv_bfloat16* x, const __nv_bfloat16* w1, const float* b1,
-    const __nv_bfloat16* w2, const float* b2, int B, int C, int T, int K,
-    int dil, float slope, int rows, long long smem, __nv_bfloat16* h,
-    __nv_bfloat16* y, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (K % 2 == 0 || C <= 0 || smem > 232448) return (int)cudaErrorInvalidValue;
-  return rows == 128 ? launch_bf16<128>(x, w1, b1, w2, b2, B, C, T, K, dil,
-                                        slope, smem, h, y, st)
-       : rows == 64 ? launch_bf16<64>(x, w1, b1, w2, b2, B, C, T, K, dil,
-                                      slope, smem, h, y, st)
-       : rows == 32 ? launch_bf16<32>(x, w1, b1, w2, b2, B, C, T, K, dil,
-                                      slope, smem, h, y, st)
        : (int)cudaErrorInvalidValue;
 }

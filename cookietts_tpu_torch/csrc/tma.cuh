@@ -1,0 +1,143 @@
+// Hopper's Tensor Memory Accelerator and mbarriers, as the bf16 LSTM and
+// resblock kernels use them (lstm_gates_bf16.cu, hifigan_resblock_bf16.cu).
+//
+// - Tensor maps are encoded on the host with cuTensorMapEncodeTiled, taken
+//   from libcuda through the runtime's entry-point query, so the
+//   libraries need no -lcuda. A kernel takes a map as a __grid_constant__
+//   parameter; one thread issues cp.async.bulk.tensor for a box, which
+//   lands in shared memory and completes its bytes on an mbarrier.
+// - mbarrier helpers: init, arrive, arrive with an expected byte count,
+//   and a parity wait (a fresh barrier's phase 0 is incomplete, so a wait
+//   for parity 1 passes at once: the "empty" side of a ring starts free).
+#pragma once
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tma {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the barriers' initialisation visible to the async proxy and to the
+// other blocks of a cluster; then a block-wide barrier.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+// try_wait suspends the thread for a while between polls; a wait that has
+// not ended after 2^26 polls (seconds) is a fault of the kernel, and traps
+// (a launch error) rather than holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  for (uint32_t n = 0; !mbar_try_wait(a, parity); ++n)
+    if (n == (1u << 26)) __trap();
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"((uint64_t)map) : "memory");
+}
+
+// A box of a 2-D (3-D) map at coordinates (c0, c1[, c2]), innermost first,
+// into shared memory at dst; its bytes complete on bar.
+__device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The first byte of `raw` (dynamic shared memory) at a multiple of 1024 of
+// the shared window: the alignment a 128-byte-swizzled box needs. The
+// launch allocates 1024 bytes more than the layout.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + ((1024u - (a & 1023u)) & 1023u);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dims (sizes innermost first, strides in bytes
+// of dims 1..rank-1), box `box`, zeros outside the tensor. Returns 0 or a
+// CUDA error code (cudaErrorInvalidValue when the encoder refuses).
+inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorInitializationError;
+  cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                        const_cast<void*>(base), dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tma

@@ -39,6 +39,7 @@ at the head of its ``.cu`` source.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -208,10 +209,11 @@ def attention_step_smem(A: int, D: int, rows: int, stage_rows: int,
     return 4 * fixed + stage_rows * (2 * _attn_seg(A, elem) + _attn_seg(D, elem))
 
 
-def clusters_fit(B: int, S: int, smem: int) -> bool:
-    """Whether B clusters of S blocks, each using ``smem`` bytes of shared
-    memory, are all resident at once (by the conservative GPC count)."""
-    per_sm = min(2048 // ATTN_THREADS, SM_SMEM // (smem + BLOCK_RESERVED))
+def clusters_fit(B: int, S: int, smem: int, threads: int = ATTN_THREADS) -> bool:
+    """Whether B clusters of S blocks of ``threads`` threads, each using
+    ``smem`` bytes of shared memory, are all resident at once (by the
+    conservative GPC count)."""
+    per_sm = min(2048 // threads, SM_SMEM // (smem + BLOCK_RESERVED))
     return B <= N_GPC * (GPC_SMS * per_sm // S)
 
 
@@ -387,13 +389,13 @@ class LstmPlan:
     tickets: int
 
 
-def lstm_gates_plan(B: int, F: int, H: int, target_blocks: int = 264,
-                    elem: int = 4) -> LstmPlan:
+def lstm_gates_plan(B: int, F: int, H: int, target_blocks: int = 264
+                    ) -> LstmPlan:
     """Split F into slices so that the grid is about two blocks per SM of
-    the card's 132, with at least two pipeline stages of W rows per slice:
-    32 rows of ``elem``-byte values (4: f32), 64 in the bf16 form (2),
-    whose rows are half the bytes."""
-    min_rows = 2 * LSTM_STAGE_BYTES // (4 * LSTM_COLS * elem)
+    the card's 132, with at least two pipeline stages (32 rows of f32) of
+    W rows per slice. The bf16 form has a plan of its own
+    (lstm_gates_bf16_plan)."""
+    min_rows = 2 * LSTM_STAGE_BYTES // (4 * LSTM_COLS * 4)
     col_tiles = -(-H // LSTM_COLS)
     groups = -(-B // LSTM_GROUP_ROWS)
     slices = max(1, min(target_blocks // (col_tiles * groups), F // min_rows))
@@ -454,6 +456,127 @@ def release_tickets(keys) -> None:
         _KEEP.pop(key, None)
 
 
+LSTM_BF16_ROWS = 64          # rows of W a stage holds (lstm_gates_bf16.cu)
+LSTM_BF16_RING = 8           # stages in flight at most (lstm_gates_bf16.cu)
+LSTM_BF16_CLUSTER_MAX = 8    # blocks of a cluster the plan takes at most
+LSTM_BF16_THREADS = 288      # eight consumer warps and a producer warp
+LSTM_BF16_ROWS_MAX = 128     # batch rows a block takes in one pass
+
+
+def lstm_gates_bf16_smem(nb: int, ring: int) -> int:
+    """lstm_gates_bf16.cu's smem_bytes: alignment slack, a ring of stages
+    (W's 64 rows x 256 columns and xh's 64 columns of nb rows, bf16) or the
+    [nb][256] f32 partial sums that reuse it, and the barriers."""
+    stage = 4 * LSTM_BF16_ROWS * LSTM_COLS * 2 + nb * LSTM_BF16_ROWS * 2
+    return 1024 + max(ring * stage, nb * 4 * LSTM_COLS * 4) + 2 * LSTM_BF16_RING * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class LstmBf16Plan:
+    """Launch plan of lstm_gates_bf16: grid (cluster, col_tiles, groups) in
+    clusters of ``cluster`` blocks; block (r, x, z) owns columns [64 x, 64 x
+    + 64) of each gate block, batch rows [8 nt z, 8 nt (z + 1)) and the
+    ``runs()[r]`` run of W's ``n_stages`` 64-row stages; ``ring`` stages in
+    flight; ``smem`` bytes of shared memory a block."""
+    nt: int
+    cluster: int
+    ring: int
+    n_stages: int
+    grid: Tuple[int, int, int]
+    smem: int
+
+    def ints(self):
+        """The plan as the C side takes it."""
+        return self.nt, self.cluster, self.ring
+
+    def runs(self):
+        """(first stage, stages) of each rank: the kernel's even split."""
+        S, n = self.cluster, self.n_stages
+        return [(r * n // S, (r + 1) * n // S - r * n // S) for r in range(S)]
+
+
+@functools.lru_cache(maxsize=None)
+def lstm_gates_bf16_plan(B: int, F: int, H: int) -> LstmBf16Plan:
+    """Plan of the bf16 LSTM step: the batch in passes of 16, 32, 64 or 128
+    rows (the least power of two from 16 that holds B, at most 128); W in
+    64-row stages split over a cluster of S blocks per 64-column tile, S
+    (at most 8, at most the stages) the one that puts the most blocks to
+    work (at most one per SM) with every cluster resident at once (the
+    smaller S on a tie, S = 1 where none is); the ring as deep as the
+    longest run, up to 8 stages and shared memory. Raises for an odd H (W's rows must start on 4-byte boundaries for TMA)."""
+    if min(B, F, H) < 1:
+        raise ValueError(f"lstm_gates bf16: B={B}, F={F}, H={H} must be positive")
+    if H % 2:
+        raise ValueError(f"lstm_gates bf16: H={H} must be even")
+    nb = 16
+    while nb < min(B, LSTM_BF16_ROWS_MAX):
+        nb *= 2
+    groups, col_tiles = -(-B // nb), -(-H // LSTM_COLS)
+    n_stages = -(-F // LSTM_BF16_ROWS)
+    stage = 4 * LSTM_BF16_ROWS * LSTM_COLS * 2 + nb * LSTM_BF16_ROWS * 2
+    ring_cap = min(LSTM_BF16_RING, (SMEM_MAX - 1024 - 2 * LSTM_BF16_RING * 8) // stage)
+    best = None
+    for S in range(1, min(LSTM_BF16_CLUSTER_MAX, n_stages) + 1):
+        ring = max(1, min(-(-n_stages // S), ring_cap))
+        smem = lstm_gates_bf16_smem(nb, ring)
+        fits = clusters_fit(col_tiles * groups, S, smem, LSTM_BF16_THREADS)
+        score = (fits, min(S * col_tiles * groups, N_SM) if fits else -S, -S)
+        if best is None or score > best[0]:
+            best = (score, S, ring, smem)
+    _, S, ring, smem = best
+    return LstmBf16Plan(nb // 8, S, ring, n_stages, (S, col_tiles, groups), smem)
+
+
+# TMA descriptors (CUtensorMap, 128 bytes) of the bf16 kernels' weights, by
+# (kernel, device, pointer, shape and box): a map depends on nothing else,
+# so one encoded for a weight serves every later call on that storage. A
+# launch copies the map into its parameters (a captured graph keeps the
+# copy), so the least recently used of more than _MAPS_MAX can go.
+_MAPS: "collections.OrderedDict[tuple, ctypes.Array]" = collections.OrderedDict()
+_MAPS_MAX = 256
+
+
+def _weight_map(key: tuple, encode: Callable[[ctypes.Array], int]) -> ctypes.Array:
+    m = _MAPS.get(key)
+    if m is None:
+        m = ctypes.create_string_buffer(128)
+        _raise_on(encode(m), f"{key[0]} tensor map")
+        _MAPS[key] = m
+        if len(_MAPS) > _MAPS_MAX:
+            _MAPS.popitem(last=False)
+    else:
+        _MAPS.move_to_end(key)
+    return m
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where it does not start on 16 bytes (TMA's
+    alignment); the caller keeps the result alive until its launch."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _lstm_gates_bf16_cuda(xh, weight, bias, c_prev):
+    B, F_ = xh.shape
+    H = c_prev.shape[-1]
+    plan = lstm_gates_bf16_plan(B, F_, H)
+    lib = _build.library("lstm_gates_bf16")
+    weight = _aligned16(weight)
+    w_map = _weight_map(
+        ("lstm_gates_bf16", xh.device.index, weight.data_ptr(), F_, H),
+        lambda m: lib.lstm_gates_bf16_weight_map(_ptr(weight), F_, H, m))
+    pad = -F_ % 8                  # xh's rows must be whole 16-byte words
+    if pad or xh.data_ptr() % 16:
+        xh = F.pad(xh, (0, pad))
+    c_new = torch.empty((B, H), device=xh.device, dtype=torch.float32)
+    h_new = torch.empty_like(c_new)
+    err = lib.lstm_gates_bf16(w_map, _ptr(xh), _ptr(bias), _ptr(c_prev), B,
+                              F_ + pad, H, *plan.ints(), _ptr(c_new),
+                              _ptr(h_new), _stream())
+    _raise_on(err, "lstm_gates_bf16")
+    LAUNCHES["lstm_gates_bf16"] += 1
+    return c_new, h_new
+
+
 def lstm_gates_vjp(xh, weight, bias, c_prev, grad_c, grad_h,
                    needs=(True,) * 4):
     """Backward of the LSTM gate step: gradients for (xh, weight, bias,
@@ -471,18 +594,20 @@ def _lstm_gates_cuda(xh, weight, bias, c_prev):
             ("bias", bias, (4 * H,), dt),
             ("c_prev", c_prev, (B, H), torch.float32)):
         _check(f"lstm_gates{form} {name}", t, shape, t_dt)
+    if dt == BF16:
+        return _lstm_gates_bf16_cuda(xh, weight, bias, c_prev)
     lib = _build.library("lstm_gates")
-    plan = lstm_gates_plan(B, F_, H, elem=xh.element_size())
+    plan = lstm_gates_plan(B, F_, H)
     partial = torch.empty(plan.partial, device=xh.device, dtype=torch.float32)
     tickets = _tickets(xh.device, plan.tickets)
     c_new = torch.empty((B, H), device=xh.device, dtype=torch.float32)
     h_new = torch.empty_like(c_new)
-    err = getattr(lib, "lstm_gates" + form)(
+    err = lib.lstm_gates(
         _ptr(xh), _ptr(weight), _ptr(bias), _ptr(c_prev), B, F_, H,
         plan.grid[0], plan.slices, plan.f_per_slice, _ptr(partial),
         _ptr(tickets), _ptr(c_new), _ptr(h_new), _stream())
-    _raise_on(err, "lstm_gates" + form)
-    LAUNCHES["lstm_gates" + form] += 1
+    _raise_on(err, "lstm_gates")
+    LAUNCHES["lstm_gates"] += 1
     return c_new, h_new
 
 
@@ -514,7 +639,8 @@ _lstm_gates_op.register_autograd(_lstm_gates_backward,
 
 def lstm_gates(xh, weight, bias, c_prev) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused LSTM gate step (see lstm_gates_plain); bf16 xh, weight and
-    bias take the bf16 form, c_prev and the outputs are f32."""
+    bias take the bf16 form (lstm_gates_bf16_plan), c_prev and the outputs
+    are f32."""
     _refuse_other_devices(xh, "lstm_gates")
     return _lstm_gates_op(xh, weight, bias, c_prev)
 
@@ -608,54 +734,151 @@ def hifigan_resblock_plan(B: int, C: int, T: int, k: int, d: int
     return tile, grid, smem, variant
 
 
+RESBLOCK_BF16_FUSED_C = 64      # widths at most that run a pair in one launch
+RESBLOCK_BF16_RING = 32         # stages the kernel's ring holds at most
+RESBLOCK_BF16_STAGE = 32768     # bytes a stage of a ring holds at most
+
+
 def hifigan_resblock_launches(C: int, n_pairs: int, bf16: bool = False) -> int:
-    """Kernel launches of one resblock on the card (the bf16 form: two a
-    pair at every C)."""
-    return n_pairs * (1 if C in RESBLOCK_FUSED and not bf16 else 2)
+    """Kernel launches of one resblock on the card: f32, one a pair at C of
+    8, 16, 32 or 64, two at every other C; bf16, one a pair where C (padded
+    to a multiple of 8) is at most 64 (h on chip), two above."""
+    if bf16:
+        return n_pairs * (1 if -(-C // 8) * 8 <= RESBLOCK_BF16_FUSED_C else 2)
+    return n_pairs * (1 if C in RESBLOCK_FUSED else 2)
 
 
-RESBLOCK_BF16_TILE = 64         # samples per block of the bf16 form
-RESBLOCK_BF16_KC = 32           # input channels per K chunk of the bf16 form
+def resblock_bf16_rows(N: int) -> int:
+    """Rows (samples) a tile of the bf16 kernel computes: 64 a row block,
+    two consumer warpgroups of 1 (N = 256), 2 (N = 128, 64) or 4 row
+    blocks."""
+    return 128 * (1 if N == 256 else 2 if N >= 64 else 4)
 
 
+def resblock_bf16_steps(N: int) -> int:
+    """The kernel's max_steps: k steps of 16 channels a stage holds at most
+    (their A fragments stay in registers until its products are done): 4 at
+    N = 256, 128 and 64, 2 below."""
+    return 4 if N == 256 else 8 // (resblock_bf16_rows(N) // 128)
+
+
+def _resblock_bf16_stage(N: int, KC: int, TG: int) -> int:
+    aw = min(N, 64)
+    return -(-(N // aw) * TG * KC * 2 * aw // 1024) * 1024
+
+
+def hifigan_resblock_bf16_smem(N: int, fused: bool, k: int, d: int, KC: int,
+                               TG: int, ring: int) -> int:
+    """hifigan_resblock_bf16.cu's shared memory a block (the larger of the
+    two launches when not fused): alignment slack, the ring of weight
+    stages, two window buffers of KC + 8 values a row, the staging area
+    (the output tile channel-major; fused, first h), the channel tile's two
+    biases, the barriers."""
+    rows = resblock_bf16_rows(N)
+
+    def one(kd):
+        window = -(-(rows + 7 + (k - 1) * kd) // 8) * 8 * (KC + 8)
+        staging = max(N * (rows + 8),
+                      -(-(rows + k - 1) // 16) * 16 * (KC + 8) if fused else 0)
+        return (1024 + ring * _resblock_bf16_stage(N, KC, TG) + 2 * window * 2
+                + staging * 2 + 2 * N * 4 + (2 * RESBLOCK_BF16_RING + 4) * 8)
+    return one(d) if fused else max(one(d), one(1))
+
+
+@dataclasses.dataclass(frozen=True)
+class ResblockBf16Plan:
+    """Launch plan of one dilation pair in bf16 (hifigan_resblock_bf16.cu):
+    C8, the width the kernel runs (C padded to a multiple of 8); N output
+    channels a tile (16 to 256, 256-wide channel tiles past that), KC input
+    channels a chunk, TG taps a ring stage, ``ring`` stages; ``fused``: one
+    launch with h on chip, else two through h; ``tile`` output samples a
+    tile; ``stages`` the weight stages of a tile (a ring that deep keeps
+    them all in place); ``smem`` bytes of shared memory a block."""
+    C8: int
+    N: int
+    KC: int
+    TG: int
+    ring: int
+    fused: bool
+    tile: int
+    stages: int
+    smem: int
+
+    def ints(self):
+        """The plan as the C side takes it (after x, biases and shapes)."""
+        return int(self.fused), self.N, self.KC, self.TG, self.ring
+
+
+@functools.lru_cache(maxsize=None)
 def hifigan_resblock_bf16_plan(B: int, C: int, T: int, k: int, d: int
-                               ) -> Tuple[int, Tuple[int, int, int], int, int]:
-    """Launch plan of one dilation pair in the bf16 form: (tile, grid,
-    smem_bytes, rows). Both launches (conv1 into h, conv2 + residual) take
-    grid (ceil(T / 64), ceil(C / rows), B), rows = resblock_split_rows(C);
-    a block stages a 32-channel chunk's window of 64 + (k - 1) d samples
-    and the chunk's weights of all k taps (hifigan_resblock.cu's bf16_smem).
-    Raises for an even k or a window past shared memory."""
+                               ) -> ResblockBf16Plan:
+    """Plan of one dilation pair in bf16: N the least power of two from 16
+    that holds C8 (at most 256), KC = min(64, C8 rounded up to 16, 16
+    resblock_bf16_steps(N)), taps a stage as many as keep a stage within 32
+    KB and its products within resblock_bf16_steps; fused where C8 <= 64.
+    The ring holds every stage of a tile where shared memory allows (the
+    weights then stay in place across tiles), else as many stages as fit,
+    at most 8. A fused tile writes its rows less the k - 1 of conv2's halo,
+    a multiple of 8. Raises for an even k or what shared memory cannot hold
+    (two stages and both windows)."""
     if k % 2 == 0:
         raise ValueError(f"hifigan_resblock: k={k} must be odd")
-    if C <= 0:
-        raise ValueError(f"hifigan_resblock: C={C} must be positive")
-    rows, tile = resblock_split_rows(C), RESBLOCK_BF16_TILE
-    smem = 2 * ((tile + (k - 1) * d) * (RESBLOCK_BF16_KC + 8)
-                + k * RESBLOCK_BF16_KC * (rows + 8))
-    if smem > SMEM_MAX:
+    if C <= 0 or T <= 0:
+        raise ValueError(f"hifigan_resblock: C={C}, T={T} must be positive")
+    C8 = -(-C // 8) * 8
+    C16 = -(-C8 // 16) * 16
+    N = 16
+    while N < min(C16, 256):
+        N *= 2
+    steps = resblock_bf16_steps(N)
+    KC = min(64, C16, 16 * steps)
+    TG = max(1, min(k, steps // (KC // 16), RESBLOCK_BF16_STAGE // (KC * N * 2)))
+    fused = C8 <= RESBLOCK_BF16_FUSED_C
+    groups = -(-k // TG)
+    stages = groups * (2 if fused else -(-C8 // KC))
+    stage = _resblock_bf16_stage(N, KC, TG)
+    fixed = hifigan_resblock_bf16_smem(N, fused, k, d, KC, TG, 0)
+    ring = stages if stages <= RESBLOCK_BF16_RING and \
+        fixed + stages * stage <= SMEM_MAX else min(8, (SMEM_MAX - fixed) // stage)
+    rows = resblock_bf16_rows(N)
+    tile = (rows - (k - 1)) // 8 * 8 if fused else rows
+    if ring < 2 or tile < 8:
         raise ValueError(f"hifigan_resblock bf16: C={C} k={k} d={d} needs "
-                         f"{smem} B of shared memory (max {SMEM_MAX})")
-    return tile, (-(-T // tile), -(-C // rows), B), smem, rows
+                         f"{fixed + 2 * stage} B of shared memory (max "
+                         f"{SMEM_MAX}) and a tile of {tile} samples")
+    return ResblockBf16Plan(C8, N, KC, TG, ring, fused, tile, stages,
+                            fixed + ring * stage)
 
 
 def _hifigan_resblock_bf16_cuda(x, w1, b1, w2, b2, dilations, slope):
     B, C, T = x.shape
     P, k = w1.shape[:2]
     plans = [hifigan_resblock_bf16_plan(B, C, T, k, d) for d in dilations]
-    lib = _build.library("hifigan_resblock")
-    h = torch.empty_like(x)
+    C8 = plans[0].C8
+    if C8 != C:                    # zero channels: exact, and sliced off
+        pad = C8 - C
+        x = F.pad(x, (0, 0, 0, pad))
+        w1, w2 = (F.pad(w, (0, pad, 0, pad)) for w in (w1, w2))
+        b1, b2 = (F.pad(b, (0, pad)) for b in (b1, b2))
+    lib = _build.library("hifigan_resblock_bf16")
+    w1, w2 = _aligned16(w1), _aligned16(w2)
+    maps = []
+    for w in (w1, w2):
+        key = ("hifigan_resblock_bf16", x.device.index, w.data_ptr(), P, k, C8,
+               plans[0].N, plans[0].KC, plans[0].TG)
+        maps.append(_weight_map(key, lambda m, w=w: lib.hifigan_resblock_bf16_weight_map(
+            _ptr(w), P, k, C8, plans[0].N, plans[0].KC, plans[0].TG, m)))
+    h = None if plans[0].fused else torch.empty_like(x)
     stream = _stream()
-    for p, (d, (_, _, smem, rows)) in enumerate(zip(dilations, plans)):
+    for p, (d, plan) in enumerate(zip(dilations, plans)):
         y = torch.empty_like(x)
         err = lib.hifigan_resblock_pair_bf16(
-            _ptr(x), _ptr(w1[p]), _ptr(b1[p]), _ptr(w2[p]), _ptr(b2[p]),
-            B, C, T, k, d, ctypes.c_float(slope), rows,
-            ctypes.c_longlong(smem), _ptr(h), _ptr(y), stream)
+            maps[0], maps[1], _ptr(x), _ptr(b1[p]), _ptr(b2[p]), B, C8, T, k,
+            d, p, ctypes.c_float(slope), *plan.ints(), _ptr(h), _ptr(y), stream)
         _raise_on(err, "hifigan_resblock_bf16")
-        LAUNCHES["hifigan_resblock_bf16"] += hifigan_resblock_launches(C, 1, True)
+        LAUNCHES["hifigan_resblock_bf16"] += hifigan_resblock_launches(C8, 1, True)
         x = y
-    return x
+    return x[:, :C].contiguous() if C8 != C else x
 
 
 def _hifigan_resblock_cuda(x, w1, b1, w2, b2, dilations, slope):
@@ -704,7 +927,8 @@ def hifigan_resblock(x, w1, b1, w2, b2, dilations: Sequence[int],
     """Fused MRF resblock (see hifigan_resblock_plain); on the card one
     launch per dilation pair at C of 8, 16, 32 or 64, two at every other C
     (hifigan_resblock_plan). bf16 x and weights (f32 biases) take the bf16
-    form: two launches a pair at every C (hifigan_resblock_bf16_plan)."""
+    form: one launch a pair up to C = 64 (h on chip), two above
+    (hifigan_resblock_bf16_plan)."""
     _refuse_other_devices(x, "hifigan_resblock")
     return _hifigan_resblock_op(x, w1, b1, w2, b2, [int(d) for d in dilations],
                                 float(slope))
