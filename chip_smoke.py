@@ -299,9 +299,7 @@ non-zero:
    C = 48 and 50) and waveflow_row_step (4 rows at W = 30000; C = 48 and
    50) against their plain bf16 versions (WaveGlow's at f32 rounding,
    WaveFlow's within two bf16 ulps), each call the launches wn_launches
-   predicts and no other; each timed over the 48 calls of a 5 s infer by
-   CUDA-graph replay beside its f32 form on the same values, with its
-   bound (bf16 bytes, operations at the 2xTF32 or the bf16 rate). 19b:
+   predicts for its form and no other (phase 21b times them). 19b:
    phase 4b's two vocoders in bf16 (same weights), a 5 s infer each with
    exact bf16 launch counts and no f32 form, x realtime beside f32; JAX's
    WaveGlow gate (bench_quality_gate on the chip: 160 frames, one f32 z,
@@ -323,6 +321,19 @@ non-zero:
    at each B beside nn.LSTMCell in bf16 (the LSTM's library_ms), the
    generator call and each of its four stages (phases 18 and 19 run the
    same kernels through the main path).
+21. the flow vocoders' two bf16 WN kernels as redesigned for Hopper
+   (waveglow_wn_forward_bf16 and waveflow_row_step_bf16: one launch a layer
+   on wgmma with the gate's output kept on chip). 21a: WaveGlow's WN at
+   the main path's shapes (B=1, C=256, T' = 10000, Cin 12 and 1), C = 48
+   and 50, T' = 250 and B=4 at a validation segment's T' = 1000, at f32
+   rounding; WaveFlow over 4 rows (the ring round once) at W = 30000,
+   C = 48 and 50, W = 250 and B=4 at W = 3000, within two bf16 ulps on
+   log_s, t and the ring's queues; exact launches (L + 2 a call) and a
+   second call equal to the bit. 21b: CUDA-graph replay times of the 48
+   calls of a 5 s infer beside the f32 form on the same values, the plain
+   version and the bounds (the kernels line's: WaveGlow's operations at
+   989 / 3 TFLOP/s, three bf16 products a flop; WaveFlow's bf16 bytes);
+   tools/bench_wn_bf16_parts.py splits them by part.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -6013,19 +6024,16 @@ def p19_check_bf16(check, name, got, want, what):
     return mean
 
 
-def phase19a(hk, check, smi):
+def phase19a(hk, check):
     """Both bf16 WN forms against their plain bf16 versions on the card at
     the main path's shapes, batch 1: WaveGlow's WN at T' = 10000 (5 s), its
     first flow (12 input channels) and last (1); four WaveFlow rows at W =
-    30000 (the ring round once); ragged widths (C = 48: the kPad variant
-    with 16-byte copies; C = 50 at T' = 250: 2-byte weights and, in
-    WaveFlow's bf16 windows, T' not a multiple of 8). Each timed by
-    CUDA-graph replay over the 48 calls of one 5 s infer, in turns beside
-    the f32 form on the same values, with the plain version and the bound."""
+    30000 (the ring round once); ragged widths (C = 48; C = 50 at T' = 250,
+    padded to 56 channels and 256 samples). Phase 21b times them."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(19)
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
-    L, kw, kh, out = 8, 3, 3, {}
+    L, kw, kh = 8, 3, 3
 
     # waveglow_wn_forward_bf16
     for C, T, cins in ((256, 10000, (12, 1)), (48, 1500, (4,)), (50, 250, (4,))):
@@ -6040,30 +6048,10 @@ def phase19a(hk, check, smi):
             check("waveglow_wn_forward_bf16", got, want,
                   *TOL["waveglow_wn_forward_bf16"], f"B=1 C={C} Cin={Cin} T'={T}")
             if moved != {**{k: 0 for k in moved},
-                         "waveglow_wn_forward_bf16": hk.wn_launches(L)} \
+                         "waveglow_wn_forward_bf16": hk.wn_launches(L, "glow_bf16")} \
                     or got.dtype != torch.float32:
                 raise SystemExit(f"chip_smoke: waveglow_wn_forward_bf16 C={C}: "
                                  f"launches {moved}, dtype {got.dtype}")
-    T, n_calls = 10000, WAVEGLOW["n_flows"]
-    calls = []
-    for k in range(n_calls):             # WAVEGLOW's flow k: 12 - k // 4 inputs
-        Cin = 12 - k // 4
-        w16, w32 = bf16_weights(wn_weights(gen, Cin, 256, 2 * Cin, L, 1, kw),
-                                "glow_bf16")
-        calls.append((r(1, Cin, T), w16, w32))
-    cond16 = bf16(r(1, L, 512, T))
-    cond32 = cond16.float()
-    fns = (lambda: [hk.waveglow_wn_forward(x, cond32, *w) for x, _, w in calls],
-           lambda: [hk.waveglow_wn_forward(x, cond16, *w) for x, w, _ in calls],
-           lambda: [hk.waveglow_wn_forward_plain(x, cond16, *w) for x, w, _ in calls])
-    ms, f32_ms, plain_ms = p18_times(*fns, 2)
-    parts = [(1, T, x.shape[1], 256, 2 * x.shape[1], L, 1, kw) for x, _, _ in calls]
-    out["waveglow_wn_forward_bf16"] = dict(
-        unit=f"the {n_calls} WN calls of one 5 s infer, B=1, T'={T}",
-        ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, library_ms=None,
-        eager_ms=eager_ms(fns[1], 2),
-        bound=bound_of([wn_bound_bf16(*p, rate=TF32X2_FLOPS) for p in parts]))
-    del calls, cond16, cond32
 
     # waveflow_row_step_bf16
     for C, W in ((64, 30000), (48, 1500), (50, 250)):
@@ -6084,44 +6072,12 @@ def phase19a(hk, check, smi):
             x_prev = r(1, W)
         moved = {k: hk.LAUNCHES[k] - before[k] for k in before}
         if moved != {**{k: 0 for k in moved},
-                     "waveflow_row_step_bf16": 4 * hk.wn_launches(L)} \
+                     "waveflow_row_step_bf16": 4 * hk.wn_launches(L, "flow_bf16")} \
                 or log_s.dtype != torch.float32 or ring.dtype != torch.bfloat16:
             raise SystemExit(f"chip_smoke: waveflow_row_step_bf16 C={C}: "
                              f"launches {moved}")
         del ring, queues, cond
-    W = 30000
-    n_calls = WAVEFLOW["n_flows"] * WAVEFLOW["n_group"]
-    flows = [bf16_weights(wn_weights(gen, 1, 64, 2, L, kh, kw), "flow_bf16")
-             for _ in range(WAVEFLOW["n_flows"])]
-    cond16 = bf16(r(1, L, 128, W))
-    cond32 = cond16.float()
-    ring16 = bf16(r(L, kh, 1, 64, W))
-    ring32 = ring16.float()
-    queues16 = hk.ring_queues(ring16, 0).contiguous()
-    x_prev = r(1, W)
-    rows = [(w, h) for w in flows for h in range(WAVEFLOW["n_group"])]
-    fns = (lambda: [hk.waveflow_row_step(x_prev, ring32, h, cond32, *w[1])
-                    for w, h in rows],
-           lambda: [hk.waveflow_row_step(x_prev, ring16, h, cond16, *w[0])
-                    for w, h in rows],
-           lambda: [hk.waveflow_row_step_plain(x_prev, queues16, cond16, *w[0])
-                    for w, _ in rows])
-    ms, f32_ms, plain_ms = p18_times(*fns, 2)
-    out["waveflow_row_step_bf16"] = dict(
-        unit=f"the {n_calls} row steps of one 5 s infer, B=1, W={W}",
-        ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, library_ms=None,
-        eager_ms=eager_ms(fns[1], 2),
-        bound=bound_of([wn_bound_bf16(1, W, 1, 64, 2, L, kh, kw, BF16_FLOPS)]
-                       * n_calls))
-    del flows, rows, cond16, cond32, ring16, ring32, queues16
-    for name, o in out.items():
-        f32 = name[:-len("_bf16")]
-        log(f"  {name:24s} {o['unit']}: kernel {o['ms']:.3f} ms (eager "
-            f"{o['eager_ms']:.3f} ms), f32 form {o['f32_ms']:.3f} ms on the same "
-            f"values ({f32}), plain {o['plain_ms']:.3f} ms, bound "
-            f"{o['bound'][0]:.3f} ms ({o['bound'][1]}) ({smi})")
     torch.cuda.synchronize()
-    return out
 
 
 def flax_init(model, seed):
@@ -6203,7 +6159,8 @@ def phase19b(hk, check, smi):
         audio = m16.infer(mel400, gen())
         torch.cuda.synchronize()
         got = dict(hk.LAUNCHES)
-        want = {**{k: 0 for k in got}, key: calls * hk.wn_launches(kw["n_layers"])}
+        form = "flow_bf16" if m16.waveflow else "glow_bf16"
+        want = {**{k: 0 for k in got}, key: calls * hk.wn_launches(kw["n_layers"], form)}
         log(f"  {name} bf16 infer (400 frames, B=1) launches: {key} {got[key]} "
             f"(want {want[key]}), f32 forms "
             f"{[got[k] for k in WN_F32_FORMS]}")
@@ -6306,7 +6263,8 @@ def phase19c(hk, tcfg, smi):
         if (rate, n) != (FLOW_SR, want):
             raise SystemExit(f"chip_smoke: 19c tts wrote {n} samples at {rate} "
                              f"Hz, expected {want} at {FLOW_SR}")
-        per_infer = WAVEGLOW["n_flows"] * hk.wn_launches(WAVEGLOW["n_layers"])
+        per_infer = WAVEGLOW["n_flows"] * hk.wn_launches(WAVEGLOW["n_layers"],
+                                                         "glow_bf16")
         expect = {**{k: 0 for k in got}, "attention_step_bf16": P9_STEPS,
                   "lstm_gates_bf16": 3 * P9_STEPS,
                   "waveglow_wn_forward_bf16": per_infer}
@@ -6326,7 +6284,7 @@ def p19_train(hk, tmp, smi):
     flow_map = vocoder_corpus(tmp / "wav48k", FLOW_SR, 10,
                               1.5 * FLOW_SEGMENT / FLOW_SR, seed=19)
     cfg = WaveGlowConfig(**WAVEGLOW_TRAIN)
-    per_batch = cfg.n_flows * hk.wn_launches(cfg.n_layers)
+    per_batch = cfg.n_flows * hk.wn_launches(cfg.n_layers, "glow_bf16")
     hk.reset_launch_counts()
     trainer = cli(["train", "--model", "waveglow", "--filelist", flow_map,
                    "--run_dir", str(tmp / "run"), "--seed", "0",
@@ -6354,15 +6312,15 @@ def p19_train(hk, tmp, smi):
 
 
 def phase19(hk, check, tcfg, smi):
-    """19a, 19b, 19c; returns (timing, launches) of the two bf16 WN forms
-    for the kernels line (launches: 19b's bf16 infers)."""
+    """19a, 19b, 19c; returns the launches of the two bf16 WN forms for the
+    kernels line (19b's bf16 infers)."""
     log("  19a: the two bf16 WN forms against their plain versions")
-    timing = phase19a(hk, check, smi)
+    phase19a(hk, check)
     log("  19b: the full-width flow vocoders in bf16")
     launches = phase19b(hk, check, smi)
     log("  19c: bf16 tts with a flow vocoder and the denoiser, bf16 training")
     phase19c(hk, tcfg, smi)
-    return timing, launches
+    return launches
 
 
 # -- phase 20: the main path's two bf16 kernels, redesigned for Hopper ------------
@@ -6515,6 +6473,154 @@ def phase20(hk, check, smi):
     return phase20b(hk, lstm, main_blocks, smi)
 
 
+# -- phase 21: the flow vocoders' two bf16 WN kernels, redesigned for Hopper ------
+
+BF16X3_FLOPS = BF16_FLOPS / 3  # f32 operands as three bf16 pieces: 3 products a flop
+# (B, C, T', Cin): the main path's first and last flow, the ragged widths, T'
+# not a multiple of 8, a validation batch (phase 8b: 24000 samples, 24 groups)
+P21_GLOW = ((1, 256, 10000, 12), (1, 256, 10000, 1), (1, 48, 1500, 4),
+            (1, 50, 250, 4), (1, 256, 250, 12), (4, 256, 1000, 12))
+# (B, C, W): the main path, the ragged widths, W = 250, a validation batch
+P21_FLOW = ((1, 64, 30000), (1, 48, 1500), (1, 50, 250), (4, 64, 3000))
+
+
+def phase21a(hk, check):
+    """waveglow_wn_forward_bf16 and waveflow_row_step_bf16 (one launch a layer
+    on wgmma) against their plain versions at phase 19a's tolerances at
+    every shape of P21_GLOW and P21_FLOW (WaveFlow over 4 rows, the ring
+    round once), each call exactly wn_launches(L, form) launches, and a
+    second call on the same inputs (WaveFlow: on a copy of the ring) equal
+    to the bit."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    L, kw, kh = 8, 3, 3
+    for B, C, T, Cin in P21_GLOW:
+        w16, _ = bf16_weights(wn_weights(gen, Cin, C, 2 * Cin, L, 1, kw), "glow_bf16")
+        x, cond16 = r(B, Cin, T), bf16(r(B, L, 2 * C, T))
+        before = dict(hk.LAUNCHES)
+        got = hk.waveglow_wn_forward(x, cond16, *w16)
+        again = hk.waveglow_wn_forward(x, cond16, *w16)
+        moved = {k: hk.LAUNCHES[k] - before[k] for k in before}
+        want = hk.waveglow_wn_forward_plain(x, cond16, *w16)
+        check("waveglow_wn_forward_bf16", got, want, *TOL["waveglow_wn_forward_bf16"],
+              f"21a B={B} C={C} Cin={Cin} T'={T}")
+        if moved != {**{k: 0 for k in moved},
+                     "waveglow_wn_forward_bf16": 2 * hk.wn_launches(L, "glow_bf16")} \
+                or not torch.equal(got, again):
+            raise SystemExit(f"chip_smoke: 21a waveglow_wn_forward_bf16 B={B} C={C} "
+                             f"T'={T}: launches {moved}, bit-identical twice "
+                             f"{torch.equal(got, again)}")
+    for B, C, W in P21_FLOW:
+        w16, _ = bf16_weights(wn_weights(gen, 1, C, 2, L, kh, kw), "flow_bf16")
+        cond = bf16(r(B, L, 2 * C, W))
+        ring = torch.zeros(L, kh, B, C, W, device="cuda", dtype=torch.bfloat16)
+        queues = torch.zeros(L, kh - 1, B, C, W, device="cuda", dtype=torch.bfloat16)
+        x_prev = torch.zeros(B, W, device="cuda")
+        before = dict(hk.LAUNCHES)
+        for step in range(4):
+            twin = ring.clone()
+            log_s, t = hk.waveflow_row_step(x_prev, ring, step, cond, *w16)
+            log_s2, t2 = hk.waveflow_row_step(x_prev, twin, step, cond, *w16)
+            ls_p, t_p, queues = hk.waveflow_row_step_plain(x_prev, queues, cond, *w16)
+            tag = f"21a B={B} C={C} W={W} row {step}"
+            p19_check_bf16(check, "waveflow_row_step_bf16", log_s, ls_p, tag + " log_s")
+            p19_check_bf16(check, "waveflow_row_step_bf16", t, t_p, tag + " t")
+            p19_check_bf16(check, "waveflow_row_step_bf16",
+                           hk.ring_queues(ring, step + 1), queues, tag + " queues")
+            if not (torch.equal(log_s, log_s2) and torch.equal(t, t2)
+                    and torch.equal(ring, twin)):
+                raise SystemExit(f"chip_smoke: {tag}: a second call differs")
+            x_prev = r(B, W)
+        moved = {k: hk.LAUNCHES[k] - before[k] for k in before}
+        if moved != {**{k: 0 for k in moved},
+                     "waveflow_row_step_bf16": 8 * hk.wn_launches(L, "flow_bf16")}:
+            raise SystemExit(f"chip_smoke: 21a waveflow_row_step_bf16 B={B} C={C} "
+                             f"W={W}: launches {moved}")
+        del ring, queues, cond
+    torch.cuda.synchronize()
+
+
+def phase21b(hk, smi):
+    """The two bf16 WN kernels timed by CUDA-graph replay over the 48 calls of
+    one 5 s infer (WaveGlow: 48 flows at T' = 10000, Cin 12 - k // 4;
+    WaveFlow: 6 flows x 8 rows at W = 30000), in turns beside the f32 form
+    on the same values, with the plain version and the bound: WaveGlow's by
+    operations at 989 / 3 TFLOP/s (the design's three bf16 products a flop;
+    at the first bf16 form's 2xTF32 rate too), WaveFlow's by bf16 bytes.
+    Returns the kernels line's entries."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    L, kw, kh, out = 8, 3, 3, {}
+    T, n_calls = 10000, WAVEGLOW["n_flows"]
+    calls = []
+    for k in range(n_calls):             # WAVEGLOW's flow k: 12 - k // 4 inputs
+        Cin = 12 - k // 4
+        w16, w32 = bf16_weights(wn_weights(gen, Cin, 256, 2 * Cin, L, 1, kw),
+                                "glow_bf16")
+        calls.append((r(1, Cin, T), w16, w32))
+    cond16 = bf16(r(1, L, 512, T))
+    cond32 = cond16.float()
+    fns = (lambda: [hk.waveglow_wn_forward(x, cond32, *w) for x, _, w in calls],
+           lambda: [hk.waveglow_wn_forward(x, cond16, *w) for x, w, _ in calls],
+           lambda: [hk.waveglow_wn_forward_plain(x, cond16, *w) for x, w, _ in calls])
+    ms, f32_ms, plain_ms = p18_times(*fns, 2)
+    parts = [(1, T, x.shape[1], 256, 2 * x.shape[1], L, 1, kw) for x, _, _ in calls]
+    first_form = bound_of([wn_bound_bf16(*p, rate=TF32X2_FLOPS) for p in parts])
+    out["waveglow_wn_forward_bf16"] = dict(
+        unit=f"the {n_calls} WN calls of one 5 s infer, B=1, T'={T}",
+        ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, library_ms=None,
+        eager_ms=eager_ms(fns[1], 2),
+        bound=bound_of([wn_bound_bf16(*p, rate=BF16X3_FLOPS) for p in parts]),
+        note=f"bound at the 2xTF32 rate {first_form[0]:.3f} ms")
+    del calls, cond16, cond32
+
+    W = 30000
+    n_calls = WAVEFLOW["n_flows"] * WAVEFLOW["n_group"]
+    flows = [bf16_weights(wn_weights(gen, 1, 64, 2, L, kh, kw), "flow_bf16")
+             for _ in range(WAVEFLOW["n_flows"])]
+    cond16 = bf16(r(1, L, 128, W))
+    cond32 = cond16.float()
+    ring16 = bf16(r(L, kh, 1, 64, W))
+    ring32 = ring16.float()
+    queues16 = hk.ring_queues(ring16, 0).contiguous()
+    x_prev = r(1, W)
+    rows = [(w, h) for w in flows for h in range(WAVEFLOW["n_group"])]
+    fns = (lambda: [hk.waveflow_row_step(x_prev, ring32, h, cond32, *w[1])
+                    for w, h in rows],
+           lambda: [hk.waveflow_row_step(x_prev, ring16, h, cond16, *w[0])
+                    for w, h in rows],
+           lambda: [hk.waveflow_row_step_plain(x_prev, queues16, cond16, *w[0])
+                    for w, _ in rows])
+    ms, f32_ms, plain_ms = p18_times(*fns, 2)
+    out["waveflow_row_step_bf16"] = dict(
+        unit=f"the {n_calls} row steps of one 5 s infer, B=1, W={W}",
+        ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, library_ms=None,
+        eager_ms=eager_ms(fns[1], 2),
+        bound=bound_of([wn_bound_bf16(1, W, 1, 64, 2, L, kh, kw, BF16_FLOPS)]
+                       * n_calls), note="")
+    del flows, rows, cond16, cond32, ring16, ring32, queues16
+    for name, o in out.items():
+        note = o.pop("note")
+        log(f"  {name:24s} {o['unit']}: kernel {o['ms']:.4f} ms (eager "
+            f"{o['eager_ms']:.3f} ms), f32 form {o['f32_ms']:.4f} ms on the same "
+            f"values, plain {o['plain_ms']:.3f} ms, bound {o['bound'][0]:.4f} ms "
+            f"({o['bound'][1]}), {o['bound'][0] / o['ms']:.2f} of it"
+            + (f"; {note}" if note else "") + f" ({smi})")
+    torch.cuda.synchronize()
+    return out
+
+
+def phase21(hk, check, smi):
+    """21a, then 21b; returns the two kernels' timing for the kernels line."""
+    log("  21a: waveglow_wn_forward_bf16 and waveflow_row_step_bf16 against "
+        "their plain versions")
+    phase21a(hk, check)
+    log("  21b: times by graph replay")
+    return phase21b(hk, smi)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6640,13 +6746,15 @@ def main() -> int:
     launches.update(b16_launches)
 
     phase("19", "the bf16 flow vocoders")
-    b16_timing, b16_launches = phase19(hk, check, tcfg, smi)
-    timing.update(b16_timing)
-    launches.update(b16_launches)
+    launches.update(phase19(hk, check, tcfg, smi))
 
     phase("20", "the main path's two bf16 kernels on Hopper: lstm_gates_bf16 "
           "and hifigan_resblock_bf16")
     timing.update(phase20(hk, check, smi))
+
+    phase("21", "the flow vocoders' two bf16 WN kernels on Hopper: "
+          "waveglow_wn_forward_bf16 and waveflow_row_step_bf16")
+    timing.update(phase21(hk, check, smi))
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

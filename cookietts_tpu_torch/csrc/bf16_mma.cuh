@@ -1,7 +1,7 @@
 // bf16 tensor-core building blocks (the bf16 kernels: lstm_gates_bf16.cu,
-// hifigan_resblock_bf16.cu, wn_layer.cuh's FlowBf16 form): fragment loads
-// from shared memory with ldmatrix and one m16n8k16 product with bf16
-// operands and f32 accumulators.
+// hifigan_resblock_bf16.cu, waveflow_row_bf16.cu): fragment loads from
+// shared memory with ldmatrix and one m16n8k16 product with bf16 operands
+// and f32 accumulators.
 //
 // Fragment layouts of mma.m16n8k16 with bf16 operands (g = lane / 4,
 // t = lane % 4; each register holds two bf16, the lower index in the low

@@ -16,7 +16,6 @@
 //   1e-4 of the output, so mma_chunk sums each K step into a fresh
 //   accumulator and adds it to the running sum with an ordinary f32 add.
 #pragma once
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,20 +68,6 @@ __device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) 
   lo = __float_as_uint(a - __uint_as_float(hi));
 }
 
-// The split of a bf16 weight (wn_layer.cuh's GlowBf16 form): a bf16 value
-// is exact in TF32 (its f32 bits end in 16 zeros), so hi is its f32 bits
-// and lo is zero, and mma_chunk leaves out the lo * hi products.
-__device__ __forceinline__ void split_tf32(__nv_bfloat16 a, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (uint32_t)__bfloat16_as_ushort(a) << 16;
-  lo = 0;
-}
-
-__device__ __forceinline__ float zero_like(float) { return 0.f; }
-__device__ __forceinline__ __nv_bfloat16 zero_like(__nv_bfloat16) {
-  return __ushort_as_bfloat16((unsigned short)0);
-}
-
 // d += a * b, one m16n8k8 TF32 product with f32 accumulation.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -105,10 +90,8 @@ __device__ __forceinline__ void zero(float (&acc)[MI][NJ][4]) {
 // A warp's share of one K step (kc input channels), in 3xTF32:
 //   acc[i][j] (rows m0 + 16 i .., columns n0 + 8 j ..) +=
 //     sum_{k < kc} ws[k][m] * src[k][n]
-// ws: weights [kc][wst] (output channel fastest), f32 or bf16 (then exact
-// in TF32: two products a term, the lo * hi left out); src: activations
-// [kc][sst] (sample fastest), already offset by the tap. Rows m >= m_valid
-// read as 0.
+// ws: weights [kc][wst] (output channel fastest); src: activations [kc][sst]
+// (sample fastest), already offset by the tap. Rows m >= m_valid read as 0.
 // Fragment layouts of m16n8k8 (g = lane / 4, t = lane % 4): A (g, t),
 // (g+8, t), (g, t+4), (g+8, t+4); B (t, g), (t+4, g); D (g, 2t), (g, 2t+1),
 // (g+8, 2t), (g+8, 2t+1).
@@ -116,12 +99,11 @@ __device__ __forceinline__ void zero(float (&acc)[MI][NJ][4]) {
 // f32 add (the truncation note at the head of this file). Within a step a
 // warp runs all its lo*hi products, then the hi*lo, then the hi*hi, so
 // consecutive products never wait on one accumulator.
-template <int MI, int NJ, typename WT>
-__device__ __forceinline__ void mma_chunk(const WT* ws, int wst, int m0,
+template <int MI, int NJ>
+__device__ __forceinline__ void mma_chunk(const float* ws, int wst, int m0,
                                           int m_valid, const float* src,
                                           int sst, int n0, int kc,
                                           float (&acc)[MI][NJ][4]) {
-  constexpr bool kExactW = sizeof(WT) == 2;     // a bf16 weight: lo is zero
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float part[MI][NJ][4];
   zero(part);
@@ -130,13 +112,13 @@ __device__ __forceinline__ void mma_chunk(const WT* ws, int wst, int m0,
 #pragma unroll
     for (int i = 0; i < MI; ++i) {
       const int m = m0 + 16 * i + g;
-      const WT* w0 = ws + (k0 + t) * wst + m;
-      const WT* w4 = w0 + 4 * wst;
+      const float* w0 = ws + (k0 + t) * wst + m;
+      const float* w4 = w0 + 4 * wst;
       const bool lo_ok = m < m_valid, hi_ok = m + 8 < m_valid;
-      split_tf32(lo_ok ? w0[0] : zero_like(w0[0]), ah[i][0], al[i][0]);
-      split_tf32(hi_ok ? w0[8] : zero_like(w0[0]), ah[i][1], al[i][1]);
-      split_tf32(lo_ok ? w4[0] : zero_like(w0[0]), ah[i][2], al[i][2]);
-      split_tf32(hi_ok ? w4[8] : zero_like(w0[0]), ah[i][3], al[i][3]);
+      split_tf32(lo_ok ? w0[0] : 0.f, ah[i][0], al[i][0]);
+      split_tf32(hi_ok ? w0[8] : 0.f, ah[i][1], al[i][1]);
+      split_tf32(lo_ok ? w4[0] : 0.f, ah[i][2], al[i][2]);
+      split_tf32(hi_ok ? w4[8] : 0.f, ah[i][3], al[i][3]);
     }
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -144,12 +126,10 @@ __device__ __forceinline__ void mma_chunk(const WT* ws, int wst, int m0,
       split_tf32(s0[0], bh[j][0], bl[j][0]);
       split_tf32(s0[4 * sst], bh[j][1], bl[j][1]);
     }
-    if constexpr (!kExactW) {
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) mma_tf32(part[i][j], al[i], bh[j]);
-    }
+      for (int j = 0; j < NJ; ++j) mma_tf32(part[i][j], al[i], bh[j]);
 #pragma unroll
     for (int i = 0; i < MI; ++i)
 #pragma unroll

@@ -1,5 +1,6 @@
-// Hopper's Tensor Memory Accelerator and mbarriers, as the bf16 LSTM and
-// resblock kernels use them (lstm_gates_bf16.cu, hifigan_resblock_bf16.cu).
+// Hopper's Tensor Memory Accelerator and mbarriers, as the bf16 kernels use
+// them (lstm_gates_bf16.cu, hifigan_resblock_bf16.cu, waveglow_wn_bf16.cu,
+// waveflow_row_bf16.cu).
 //
 // - Tensor maps are encoded on the host with cuTensorMapEncodeTiled, taken
 //   from libcuda through the runtime's entry-point query, so the
@@ -70,8 +71,9 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"((uint64_t)map) : "memory");
 }
 
-// A box of a 2-D (3-D) map at coordinates (c0, c1[, c2]), innermost first,
-// into shared memory at dst; its bytes complete on bar.
+// A box of a 2-D (3-, 4-, 5-D) map at coordinates (c0, c1, ...), innermost
+// first, into shared memory at dst; its bytes complete on bar. Elements
+// outside the tensor land as zeros, and the box's whole size counts.
 __device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map,
                                         uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -87,6 +89,27 @@ __device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void load_4d(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int c0, int c1, int c2,
+                                        int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void load_5d(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int c0, int c1, int c2,
+                                        int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
       : "memory");
 }
 
@@ -123,21 +146,29 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (sizes innermost first, strides in bytes
-// of dims 1..rank-1), box `box`, zeros outside the tensor. Returns 0 or a
-// CUDA error code (cudaErrorInvalidValue when the encoder refuses).
-inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+// A tensor map of `rank` dims (sizes innermost first, strides in bytes of
+// dims 1..rank-1) of `type` elements, box `box`, zeros outside the tensor.
+// Returns 0 or a CUDA error code (cudaErrorInvalidValue when the encoder
+// refuses).
+inline int encode(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                  int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                  const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return (int)cudaErrorInitializationError;
   cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult r = fn(map, type, (cuuint32_t)rank,
                         const_cast<void*>(base), dims, strides, box, ones,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides,
+                box, swizzle);
 }
 
 }  // namespace tma

@@ -1,5 +1,5 @@
 // The kernels a WaveNet coupling net (WN) is made of on the card, shared by
-// waveglow_wn.cuh and waveflow_row.cuh:
+// waveglow_wn.cu and waveflow_row.cu:
 //
 //   wn_start_kernel   h = start_w^T x + start_b                 (1x1)
 //   wn_gemm<conv>     z = tanh(a) * sigmoid(g), (a; g) = the layer's
@@ -9,7 +9,7 @@
 //                     skip_sum += skip (written at layer 0)
 //   wn_end_kernel     st = end_w^T skip_sum + end_b             (1x1)
 //
-// Activations are channel-major [B][C][T] with the batch a real axis.
+// Activations are channel-major [B][C][T] f32 with the batch a real axis.
 // Weights are input-major ([in][out]). Zero padding at the ends of the
 // sequence is an index mask on the loads: nothing outside [0, T) exists in
 // memory, so the start bias cannot leak into the padding.
@@ -75,42 +75,14 @@
 // under 1% of a WN's operations and stay CUDA-core kernels of their own:
 // measured, they take 0.5-3% of a call (PERF.md), under what folding them
 // into the first and last layers' launches could save.
-//
-// Forms. Every kernel here is a template over the form of the WN, which
-// gives the element types and the points where JAX's Pallas bodies round
-// (cookietts_tpu/ops/pallas_kernels.py; ops/hopper_kernels.py holds the
-// plain versions of each):
-//   F32       everything f32 (the products in 3xTF32).
-//   GlowBf16  WaveGlow's bf16 form (waveglow_wn_forward with bf16 weights):
-//             JAX's caller pads x as f32, so h, z, the residual sum and
-//             the skip sum stay f32 (pallas_kernels.py:566-600); the
-//             weights and cond_bc are bf16, the biases f32, and x is
-//             rounded to bf16 only as the start product's operand (:563).
-//             A lax.dot of a bf16 and an f32 array widens the bf16 side:
-//             f32 arithmetic on bf16 values. A bf16 value is exact in TF32
-//             (8 significant bits of TF32's 11), so the weight's low part
-//             in the 3xTF32 split is zero and two TF32 products (the
-//             activation's high and low parts) give the f32-grade product
-//             JAX computes; the weight slabs move half the bytes, and so
-//             does cond_bc, the largest input stream.
-//   FlowBf16  WaveFlow's bf16 form (waveflow_row_step with bf16 queues):
-//             the ring, z and the start bias bf16, x_prev and the skip sum
-//             f32, the rs and end biases f32. Products take bf16 operands
-//             with f32 accumulators (mma.sync.m16n8k16, bf16_mma.cuh); h
-//             is rounded after the start (:393), z after the gate (:448),
-//             h + bf16(res) is a bf16 sum (:452) and the skip sum is
-//             rounded as the end product's operand (:456).
 #pragma once
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace wn {
 
 using namespace tf32x3;
-using bf16 = __nv_bfloat16;
 
 constexpr int kKc = 32;        // input channels of a K step
 constexpr int kStages = 3;     // weight slabs in flight
@@ -118,106 +90,38 @@ constexpr int kSmall = 256;    // threads of the start and end kernels
 constexpr int kCo = 8;         // channels per thread of the start and end kernels
 constexpr int kSmemMax = 232448;
 
-// The forms (see the head of this file). W: weights and cond_bc; A: the
-// activations h and z (the ring for WaveFlow); SB: the start bias.
-struct F32 {
-  using W = float;
-  using A = float;
-  using SB = float;
-  static constexpr bool kRoundX = false, kRoundSkip = false;
-};
-struct GlowBf16 {
-  using W = bf16;
-  using A = float;
-  using SB = float;
-  static constexpr bool kRoundX = true, kRoundSkip = false;
-};
-struct FlowBf16 {
-  using W = bf16;
-  using A = bf16;
-  using SB = bf16;
-  static constexpr bool kRoundX = false, kRoundSkip = true;
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// One element into shared memory, zero when !ok (src is then not read):
-// f32 by cp.async, bf16 (2 bytes, which cp.async cannot copy) by a load
-// and a store, made visible by the barrier before the step that reads it.
-__device__ __forceinline__ void copy_elem(float* dst, const float* src,
-                                          const float* any, bool ok) {
-  copy_async4(dst, ok ? src : any, ok);
-}
-__device__ __forceinline__ void copy_elem(bf16* dst, const bf16* src,
-                                          const bf16*, bool ok) {
-  *dst = ok ? *src : __ushort_as_bfloat16((unsigned short)0);
-}
-
-// 16 bytes into shared memory by cp.async, of any element type: copy16
-// (both addresses 16-byte aligned), copy16z (zeros when !valid, src then
-// not read).
-template <typename T>
-__device__ __forceinline__ void copy16(T* dst, const T* src) {
-  copy_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src));
-}
-template <typename T>
-__device__ __forceinline__ void copy16z(T* dst, const T* src, bool valid) {
-  copy_async16z(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src),
-                valid);
-}
-
-// h[b][c][t] = sum_ci w[ci][c] * x[b][ci][t] + bias[c] (x rounded to bf16
-// first in GlowBf16; h rounded to bf16 in FlowBf16). The bf16 forms add
-// the bias after the products, as JAX's dot then add does (FlowBf16's one
-// input channel: bf16(w x + b), the product and the sum each rounded in f32).
+// h[b][c][t] = sum_ci w[ci][c] * x[b][ci][t] + bias[c].
 // grid (ceil(T / kSmall), ceil(C / kCo), B).
-template <class Form>
 __global__ void __launch_bounds__(kSmall)
-wn_start_kernel(const float* __restrict__ x, const typename Form::W* __restrict__ w,
-                const typename Form::SB* __restrict__ bias, int Cin, int C, int T,
-                typename Form::A* __restrict__ h) {
+wn_start_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, int Cin, int C, int T,
+                float* __restrict__ h) {
   const int t = blockIdx.x * kSmall + threadIdx.x;
   if (t >= T) return;
   const int b = blockIdx.z, c0 = blockIdx.y * kCo;
   const int n = min(kCo, C - c0);
-  constexpr bool kBiasLast = sizeof(typename Form::W) == 2;
   float acc[kCo];
 #pragma unroll
-  for (int i = 0; i < kCo; ++i) acc[i] = i < n && !kBiasLast ? to_f32(bias[c0 + i]) : 0.f;
+  for (int i = 0; i < kCo; ++i) acc[i] = i < n ? bias[c0 + i] : 0.f;
   for (int ci = 0; ci < Cin; ++ci) {
-    float xv = x[((size_t)b * Cin + ci) * T + t];
-    if (Form::kRoundX) xv = round_bf16(xv);
+    const float xv = x[((size_t)b * Cin + ci) * T + t];
 #pragma unroll
     for (int i = 0; i < kCo; ++i)
-      if (i < n) acc[i] = fmaf(to_f32(w[(size_t)ci * C + c0 + i]), xv, acc[i]);
+      if (i < n) acc[i] = fmaf(w[(size_t)ci * C + c0 + i], xv, acc[i]);
   }
 #pragma unroll
-  for (int i = 0; i < kCo; ++i) {
-    if (i >= n) continue;
-    if (kBiasLast) acc[i] = acc[i] + to_f32(bias[c0 + i]);
-    h[((size_t)b * C + c0 + i) * T + t] = from_f32<typename Form::A>(acc[i]);
-  }
+  for (int i = 0; i < kCo; ++i)
+    if (i < n) h[((size_t)b * C + c0 + i) * T + t] = acc[i];
 }
 
-// st[b][o][t] = sum_c w[c][o] * skip[b][c][t] + bias[o] (skip rounded to
-// bf16 first in FlowBf16).
+// st[b][o][t] = sum_c w[c][o] * skip[b][c][t] + bias[o].
 // grid (ceil(T / 32), ceil(Cout / kCo), B), kSmall threads: warp q sums
 // channels q, q + 8, ... for the block's 32 samples (one a lane), and the 8
 // partial sums of each output meet in shared memory. (One thread per sample
 // over all C channels made a serial chain of C loads: 0.05-0.06 ms a call
 // whatever T, 11% of a 250-sample WaveGlow WN.)
-template <class Form>
 __global__ void __launch_bounds__(kSmall)
-wn_end_kernel(const float* __restrict__ skip, const typename Form::W* __restrict__ w,
+wn_end_kernel(const float* __restrict__ skip, const float* __restrict__ w,
               const float* __restrict__ bias, int C, int Cout, int T,
               float* __restrict__ st) {
   constexpr int kWarps = kSmall / 32;
@@ -232,11 +136,10 @@ wn_end_kernel(const float* __restrict__ skip, const typename Form::W* __restrict
   for (int i = 0; i < kCo; ++i) acc[i] = 0.f;
   if (t < T)
     for (int c = q; c < C; c += kWarps) {
-      float v = skip[((size_t)b * C + c) * T + t];
-      if (Form::kRoundSkip) v = round_bf16(v);
+      const float v = skip[((size_t)b * C + c) * T + t];
 #pragma unroll
       for (int i = 0; i < kCo; ++i)
-        if (i < n) acc[i] = fmaf(to_f32(__ldg(w + (size_t)c * Cout + o0 + i)), v, acc[i]);
+        if (i < n) acc[i] = fmaf(__ldg(w + (size_t)c * Cout + o0 + i), v, acc[i]);
     }
 #pragma unroll
   for (int i = 0; i < kCo; ++i) part[q][i][lane] = acc[i];
@@ -249,76 +152,23 @@ wn_end_kernel(const float* __restrict__ skip, const typename Form::W* __restrict
   }
 }
 
-// A warp's share of one K step with bf16 operands (FlowBf16), f32
-// accumulation by mma.sync.m16n8k16 (bf16_mma.cuh's fragment layouts):
-//   acc[i][j] (rows m0 + 16 i .., columns n0 + 8 j ..) +=
-//     sum_{k < kc} ws[k][m] * src[k][n]
-// ws [kc][wst] and src [kc][sst] as mma_chunk's. An A or B register holds
-// two consecutive k of one row or column, which lie a row of shared memory
-// apart here, so each is packed from two 2-byte loads. As in mma_chunk the
-// step is summed into a fresh accumulator and added with an f32 add.
-template <int MI, int NJ>
-__device__ __forceinline__ void mma_chunk_bf16(const bf16* ws, int wst, int m0,
-                                               const bf16* src, int sst, int n0,
-                                               int kc, float (&acc)[MI][NJ][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  auto pack = [](const bf16* p, int stride) {
-    return (uint32_t)__bfloat16_as_ushort(p[0]) |
-           ((uint32_t)__bfloat16_as_ushort(p[stride]) << 16);
-  };
-  float part[MI][NJ][4];
-  zero(part);
-  for (int k0 = 0; k0 < kc; k0 += 16) {
-    uint32_t a[MI][4], b[NJ][2];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const bf16* w0 = ws + (k0 + 2 * t) * wst + m0 + 16 * i + g;
-      const bf16* w8 = w0 + 8 * wst;
-      a[i][0] = pack(w0, wst);
-      a[i][1] = pack(w0 + 8, wst);
-      a[i][2] = pack(w8, wst);
-      a[i][3] = pack(w8 + 8, wst);
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const bf16* s0 = src + (k0 + 2 * t) * sst + n0 + 8 * j + g;
-      b[j][0] = pack(s0, sst);
-      b[j][1] = pack(s0 + 8 * sst, sst);
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) bf16mma::mma_bf16(part[i][j], a[i], b[j][0], b[j][1]);
-  }
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
-}
-
 // One launch of a layer. conv: src is the layer's ring of kh input rows,
-// each [B][C][T], slot_stride elements apart; w = k [kh*kw*C][2C]; cond is
-// this layer's [2C][T] slice of batch row 0, cond_bstride elements between
+// each [B][C][T], slot_stride floats apart; w = k [kh*kw*C][2C]; cond is
+// this layer's [2C][T] slice of batch row 0, cond_bstride floats between
 // batch rows; out = z. rs: src = z (kh = 1, kw = 1); w = rs_w [C][2C];
 // bias = rs_b [2C]; cur = the layer's input h; out = h_out (unused when
 // !has_res); skip is written when first, else added to. win_stride: the
-// padded row stride of a staged window, >= kw * N (+ 16 for bf16
-// activations and kw >= 2: a window's first sample is aligned down to 8).
-template <class Form>
+// padded row stride of a staged window, >= kw * N.
 struct LayerArgs {
-  using W = typename Form::W;
-  using A = typename Form::A;
-  const A* src;
+  const float* src;
   size_t slot_stride;
   int kh, rot;
-  const W* w;
-  const W* cond;
+  const float* w;
+  const float* cond;
   size_t cond_bstride;
   const float* bias;
-  const A* cur;
-  A* out;
+  const float* cur;
+  float* out;
   float* skip;
   int C, T, kw, dil, first, has_res, win_stride;
 };
@@ -326,37 +176,25 @@ struct LayerArgs {
 __host__ __device__ constexpr int tile_rows(int WM) { return 32 * WM; }
 __host__ __device__ constexpr int tile_samples(int WN, int NJ) { return 8 * WN * NJ; }
 
-// The least window stride a launch needs (ops/hopper_kernels.py: wn_launch).
-template <class Form>
-inline int min_win_stride(int kw, int NB) {
-  return kw * NB + (sizeof(typename Form::A) == 2 && kw >= 2 ? 16 : 0);
-}
-
-template <class Form>
 inline long long gemm_smem(int WM, int kw, int win_stride) {
-  return (long long)kKc *
-         (kStages * pad_stride(tile_rows(WM)) * (long long)sizeof(typename Form::W) +
-          (kw >= 2 ? 2 : 3) * (long long)win_stride * sizeof(typename Form::A));
+  return 4LL * kKc * (kStages * pad_stride(tile_rows(WM)) +
+                      (kw >= 2 ? 2 : 3) * win_stride);
 }
 
 // grid (ceil(T / N), ceil(C / m), B) with m = 16 WM, N = 8 WN NJ; WM x WN warps,
 // gemm_smem(WM, kw, win_stride) bytes of shared memory. kPad: C is not a
 // multiple of m and 32, and the channels past it are staged as zeros.
-template <int WM, int WN, int NJ, bool kRs, bool kPad, class Form>
+template <int WM, int WN, int NJ, bool kRs, bool kPad>
 __global__ void __launch_bounds__(WM * WN * 32, 16 / (WM * WN))
-wn_gemm(const LayerArgs<Form> a) {
-  using W = typename Form::W;
-  using A = typename Form::A;
+wn_gemm(const LayerArgs a) {
   constexpr int NT = WM * WN * 32;
   constexpr int MB = tile_rows(WM), NB = tile_samples(WN, NJ);
   constexpr int WST = pad_stride(MB);
-  constexpr int WV = 16 / sizeof(W), AV = 16 / sizeof(A);   // elements of 16 bytes
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(16) float smem[];
   const int sst = a.win_stride;
   const int nwin = a.kw >= 2 ? 2 : 3;
-  W* wbuf = reinterpret_cast<W*>(smem_raw);                 // [kStages][kKc][WST]
-  A* xbuf = reinterpret_cast<A*>(smem_raw + sizeof(W) * kStages * kKc * WST);
-                                                             // [nwin][kKc][sst]
+  float* wbuf = smem;                             // [kStages][kKc][WST]
+  float* xbuf = smem + kStages * kKc * WST;       // [nwin][kKc][sst]
 
   const int C = a.C, T = a.T, C2 = 2 * C, kw = a.kw, dil = a.dil;
   const int t0 = blockIdx.x * NB, c0 = blockIdx.y * (16 * WM), b = blockIdx.z;
@@ -365,12 +203,12 @@ wn_gemm(const LayerArgs<Form> a) {
   const int n_steps = a.kh * chunks * kw;         // (kernel row, chunk, tap)
   const int half = kw / 2;
   // The staged window of a chunk: kw segments of NB samples (seg), or one
-  // span whose column j is sample g0 + j, g0 a multiple of AV.
+  // span whose column j is sample g0 + j, g0 a multiple of 4.
   const bool seg = dil >= NB;
   const int lead = t0 - half * dil;
-  const int g0 = lead & ~(AV - 1);
-  const int span = seg ? kw * NB : (lead - g0 + NB + (kw - 1) * dil + AV - 1) & ~(AV - 1);
-  const bool vec = T % AV == 0;
+  const int g0 = lead & ~3;
+  const int span = seg ? kw * NB : (lead - g0 + NB + (kw - 1) * dil + 3) & ~3;
+  const bool vec = (T & 3) == 0;
 
   auto load_step = [&](int s) {
     const int win = s / kw, tap = s - win * kw;
@@ -378,49 +216,49 @@ wn_gemm(const LayerArgs<Form> a) {
     // weights: rows (r, tap, ci0 ..) of w; warp w's 32 columns are the
     // first half's c0 + 16 w .. + 16, then the second half's
     // (zeros past C: rows ci0 + k >= C, columns of channel >= C)
-    const W* wsrc = a.w + ((size_t)(r * kw + tap) * C + ci0) * C2;
-    W* wdst = wbuf + (s % kStages) * kKc * WST;
-    for (int i = threadIdx.x; i < kKc * MB / WV; i += NT) {
-      const int k = i / (MB / WV), j = (i - k * (MB / WV)) * WV;
+    const float* wsrc = a.w + ((size_t)(r * kw + tap) * C + ci0) * C2;
+    float* wdst = wbuf + (s % kStages) * kKc * WST;
+    for (int i = threadIdx.x; i < kKc * MB / 4; i += NT) {
+      const int k = i / (MB / 4), j = (i - k * (MB / 4)) * 4;
       const int ch = c0 + 16 * (j >> 5) + (j & 15);
       const int col = ch + ((j >> 4) & 1) * C;
-      const W* src = wsrc + (size_t)k * C2 + col;
+      const float* src = wsrc + (size_t)k * C2 + col;
       if constexpr (!kPad) {
-        copy16(wdst + k * WST + j, src);
-      } else if (C % WV == 0) {
+        copy_async16(wdst + k * WST + j, src);
+      } else if ((C & 3) == 0) {
         const bool ok = ci0 + k < C && ch < C;
-        copy16z(wdst + k * WST + j, ok ? src : a.w, ok);
+        copy_async16z(wdst + k * WST + j, ok ? src : a.w, ok);
       } else {
 #pragma unroll
-        for (int e = 0; e < WV; ++e) {
+        for (int e = 0; e < 4; ++e) {
           const bool ok = ci0 + k < C && ch + e < C;
-          copy_elem(wdst + k * WST + j + e, src + e, a.w, ok);
+          copy_async4(wdst + k * WST + j + e, ok ? src + e : a.w, ok);
         }
       }
     }
     if (tap == 0) {
-      const A* row = a.src + (size_t)((a.rot + 1 + r) % a.kh) * a.slot_stride +
-                     bct + (size_t)ci0 * T;
-      A* xdst = xbuf + (win % nwin) * kKc * sst;
+      const float* row = a.src + (size_t)((a.rot + 1 + r) % a.kh) * a.slot_stride +
+                         bct + (size_t)ci0 * T;
+      float* xdst = xbuf + (win % nwin) * kKc * sst;
       auto sample = [&](int j) {
         if (!seg) return g0 + j;
         const int q = j / NB;
         return t0 + (q - half) * dil + (j - q * NB);
       };
       if (vec) {
-        const int nv = span / AV;
-        for (int i = threadIdx.x; i < kKc * nv; i += NT) {
-          const int k = i / nv, j = (i - k * nv) * AV;
+        const int n4 = span / 4;
+        for (int i = threadIdx.x; i < kKc * n4; i += NT) {
+          const int k = i / n4, j = (i - k * n4) * 4;
           const int p = sample(j);
           const bool ok = p >= 0 && p < T && (!kPad || ci0 + k < C);
-          copy16z(xdst + k * sst + j, ok ? row + (size_t)k * T + p : row, ok);
+          copy_async16z(xdst + k * sst + j, ok ? row + (size_t)k * T + p : row, ok);
         }
       } else {
         for (int i = threadIdx.x; i < kKc * span; i += NT) {
           const int k = i / span, j = i - k * span;
           const int p = sample(j);
           const bool ok = p >= 0 && p < T && (!kPad || ci0 + k < C);
-          copy_elem(xdst + k * sst + j, row + (size_t)k * T + p, row, ok);
+          copy_async4(xdst + k * sst + j, ok ? row + (size_t)k * T + p : row, ok);
         }
       }
     }
@@ -442,18 +280,14 @@ wn_gemm(const LayerArgs<Form> a) {
     if (s + 2 < n_steps) load_step(s + 2);   // into buffers no step reads now
     commit_async();
     const int win = s / kw, tap = s - win * kw;
-    const A* xs = xbuf + (win % nwin) * kKc * sst +
-                  (seg ? tap * NB : lead - g0 + tap * dil);
-    if constexpr (sizeof(A) == 2)
-      mma_chunk_bf16<2, NJ>(wbuf + (s % kStages) * kKc * WST, WST, m0, xs, sst, n0,
-                            kKc, acc);
-    else
-      mma_chunk<2, NJ>(wbuf + (s % kStages) * kKc * WST, WST, m0, MB, xs, sst, n0,
-                       kKc, acc);
+    const float* xs = xbuf + (win % nwin) * kKc * sst +
+                      (seg ? tap * NB : lead - g0 + tap * dil);
+    mma_chunk<2, NJ>(wbuf + (s % kStages) * kKc * WST, WST, m0, MB, xs, sst, n0,
+                     kKc, acc);
   }
 
   // tile 0 holds the first half's channel c, tile 1 the second half's
-  const W* cb = kRs ? nullptr : a.cond + (size_t)b * a.cond_bstride;
+  const float* cb = kRs ? nullptr : a.cond + (size_t)b * a.cond_bstride;
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -463,29 +297,26 @@ wn_gemm(const LayerArgs<Form> a) {
       if (p >= T || (kPad && c >= C)) continue;
       const size_t o = bct + (size_t)c * T + p;
       if (!kRs) {
-        const float va = acc[0][j][e] + to_f32(cb[(size_t)c * T + p]);
-        const float vg = acc[1][j][e] + to_f32(cb[(size_t)(C + c) * T + p]);
-        a.out[o] = from_f32<A>(tanhf(va) / (1.f + expf(-vg)));
+        const float va = acc[0][j][e] + cb[(size_t)c * T + p];
+        const float vg = acc[1][j][e] + cb[(size_t)(C + c) * T + p];
+        a.out[o] = tanhf(va) / (1.f + expf(-vg));
       } else {
-        if (a.has_res)
-          a.out[o] = from_f32<A>(
-              to_f32(a.cur[o]) + to_f32(from_f32<A>(acc[0][j][e] + a.bias[c])));
+        if (a.has_res) a.out[o] = a.cur[o] + (acc[0][j][e] + a.bias[c]);
         const float v = acc[1][j][e] + a.bias[C + c];
         a.skip[o] = a.first ? v : a.skip[o] + v;
       }
     }
 }
 
-template <int WM, int WN, int NJ, bool kRs, class Form>
-cudaError_t launch_gemm(const LayerArgs<Form>& a, int B, long long smem,
+template <int WM, int WN, int NJ, bool kRs>
+cudaError_t launch_gemm(const LayerArgs& a, int B, long long smem,
                         cudaStream_t stream) {
   constexpr int NB = tile_samples(WN, NJ);
-  if (a.C < 1 || a.win_stride < min_win_stride<Form>(a.kw, NB) ||
-      smem < gemm_smem<Form>(WM, a.kw, a.win_stride) || smem > kSmemMax)
+  if (a.C < 1 || a.win_stride < a.kw * NB ||
+      smem < gemm_smem(WM, a.kw, a.win_stride) || smem > kSmemMax)
     return cudaErrorInvalidValue;
   const bool pad = a.C % (16 * WM) || a.C % kKc;
-  auto kernel = pad ? wn_gemm<WM, WN, NJ, kRs, true, Form>
-                    : wn_gemm<WM, WN, NJ, kRs, false, Form>;
+  auto kernel = pad ? wn_gemm<WM, WN, NJ, kRs, true> : wn_gemm<WM, WN, NJ, kRs, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -496,8 +327,8 @@ cudaError_t launch_gemm(const LayerArgs<Form>& a, int B, long long smem,
 
 // One launch of a layer with tile shape `tile` of WN_TILES
 // (ops/hopper_kernels.py): (WM, WN, NJ) in this order.
-template <bool kRs, class Form>
-cudaError_t launch_layer(int tile, const LayerArgs<Form>& a, int B, long long smem,
+template <bool kRs>
+cudaError_t launch_layer(int tile, const LayerArgs& a, int B, long long smem,
                          cudaStream_t stream) {
   switch (tile) {
     case 0: return launch_gemm<4, 2, 4, kRs>(a, B, smem, stream);
@@ -518,45 +349,41 @@ struct Plan {
   int conv_tile, conv_win_stride, conv_smem, rs_tile, rs_win_stride, rs_smem;
 };
 
-template <class Form>
-cudaError_t launch_start(const float* x, const typename Form::W* w,
-                         const typename Form::SB* bias, int B, int Cin, int C,
-                         int T, typename Form::A* h, cudaStream_t stream) {
+inline cudaError_t launch_start(const float* x, const float* w, const float* bias,
+                                int B, int Cin, int C, int T, float* h,
+                                cudaStream_t stream) {
   const dim3 grid((T + kSmall - 1) / kSmall, (C + kCo - 1) / kCo, B);
-  wn_start_kernel<Form><<<grid, kSmall, 0, stream>>>(x, w, bias, Cin, C, T, h);
+  wn_start_kernel<<<grid, kSmall, 0, stream>>>(x, w, bias, Cin, C, T, h);
   return cudaGetLastError();
 }
 
-template <class Form>
-cudaError_t launch_end(const float* skip, const typename Form::W* w,
-                       const float* bias, int B, int C, int Cout, int T, float* st,
-                       cudaStream_t stream) {
+inline cudaError_t launch_end(const float* skip, const float* w, const float* bias,
+                              int B, int C, int Cout, int T, float* st,
+                              cudaStream_t stream) {
   const dim3 grid((T + 31) / 32, (Cout + kCo - 1) / kCo, B);
-  wn_end_kernel<Form><<<grid, kSmall, 0, stream>>>(skip, w, bias, C, Cout, T, st);
+  wn_end_kernel<<<grid, kSmall, 0, stream>>>(skip, w, bias, C, Cout, T, st);
   return cudaGetLastError();
 }
 
 // Layer i of a WN: the conv launch over `rows` (a ring of kh slots) into z,
 // then the res/skip launch from z. w_conv, cond, w_rs, bias: this layer's.
 // Counts the launches made in *launches.
-template <class Form>
-cudaError_t launch_wn_layer(const Plan& plan, int i, int L,
-                            const typename Form::A* rows, size_t slot_stride,
-                            int kh, int rot, const typename Form::W* cond,
-                            size_t cond_bstride, const typename Form::W* w_conv,
-                            const typename Form::W* w_rs, const float* bias, int B,
-                            int C, int T, int kw, typename Form::A* z,
-                            typename Form::A* h_out, float* skip, int* launches,
-                            cudaStream_t stream) {
-  LayerArgs<Form> conv{rows, slot_stride, kh, rot, w_conv, cond, cond_bstride,
-                       nullptr, nullptr, z, nullptr, C, T, kw, 1 << i, 0, 0,
-                       plan.conv_win_stride};
+inline cudaError_t launch_wn_layer(const Plan& plan, int i, int L, const float* rows,
+                                   size_t slot_stride, int kh, int rot,
+                                   const float* cond, size_t cond_bstride,
+                                   const float* w_conv, const float* w_rs,
+                                   const float* bias, int B, int C, int T, int kw,
+                                   float* z, float* h_out, float* skip,
+                                   int* launches, cudaStream_t stream) {
+  LayerArgs conv{rows, slot_stride, kh, rot, w_conv, cond, cond_bstride, nullptr,
+                 nullptr, z, nullptr, C, T, kw, 1 << i, 0, 0,
+                 plan.conv_win_stride};
   cudaError_t err = launch_layer<false>(plan.conv_tile, conv, B, plan.conv_smem, stream);
   if (err != cudaSuccess) return err;
   ++*launches;
-  LayerArgs<Form> rs{z, 0, 1, 0, w_rs, nullptr, 0, bias,
-                     rows + (size_t)rot * slot_stride, h_out, skip, C, T, 1, 1,
-                     i == 0, i < L - 1, plan.rs_win_stride};
+  LayerArgs rs{z, 0, 1, 0, w_rs, nullptr, 0, bias,
+               rows + (size_t)rot * slot_stride, h_out, skip, C, T, 1, 1,
+               i == 0, i < L - 1, plan.rs_win_stride};
   err = launch_layer<true>(plan.rs_tile, rs, B, plan.rs_smem, stream);
   if (err == cudaSuccess) ++*launches;
   return err;

@@ -43,7 +43,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -976,10 +976,6 @@ WN_BF16_DTYPES = {
     "flow_bf16": dict(zip(_FLOW_NAMES, (F32, BF16, BF16, BF16, BF16, BF16, BF16,
                                         F32, BF16, F32))),
 }
-# (bytes of a weight, bytes of an activation) of each form of the layer
-# kernel (csrc/wn_layer.cuh: F32, GlowBf16, FlowBf16)
-WN_FORM_BYTES = {"f32": (4, 4), "glow_bf16": (2, 4), "flow_bf16": (2, 2)}
-
 
 def _wn_form(kernel: str, bf16_form: str, named) -> str:
     """The form ``named`` (name -> tensor, cond_bc among them) picks:
@@ -1088,21 +1084,17 @@ class WnPlan:
                 self.rs.tile, self.rs.win_stride, self.rs.smem)
 
 
-def wn_launch(tile: int, B: int, C: int, T: int, kw: int,
-              form: str = "f32") -> WnLaunch:
+def wn_launch(tile: int, B: int, C: int, T: int, kw: int) -> WnLaunch:
     """The launch of tile shape ``tile`` over B rows of T samples, C channel
-    pairs, kw taps (1: the res/skip product), in ``form`` (WN_FORM_BYTES:
-    the weight slabs and windows hold its elements; a bf16 window's first
-    sample is aligned down to 8, so a conv's window is 16 wider). Where m
-    does not divide C the last channel block, and where 32 does not divide C
-    the last K step, stage the channels past C as zeros (csrc/wn_layer.cuh).
-    Raises where it does not fit."""
-    w_bytes, a_bytes = WN_FORM_BYTES[form]
+    pairs, kw taps (1: the res/skip product). Where m does not divide C the
+    last channel block, and where 32 does not divide C the last K step,
+    stage the channels past C as zeros (csrc/wn_layer.cuh). Raises where it
+    does not fit."""
     wm, wn, nj = WN_TILES[tile]
     m, n, threads = 16 * wm, 8 * wn * nj, 32 * wm * wn
-    win_stride = _pad_stride(kw * n + (16 if a_bytes == 2 and kw >= 2 else 0))
-    smem = WN_KC * (WN_STAGES * _pad_stride(2 * m) * w_bytes
-                    + (2 if kw >= 2 else 3) * win_stride * a_bytes)
+    win_stride = _pad_stride(kw * n)
+    smem = 4 * WN_KC * (WN_STAGES * _pad_stride(2 * m)
+                        + (2 if kw >= 2 else 3) * win_stride)
     if smem > SMEM_MAX:
         raise ValueError(f"WN tile {tile}: kw={kw} needs {smem} B of shared "
                          f"memory (max {SMEM_MAX})")
@@ -1110,13 +1102,13 @@ def wn_launch(tile: int, B: int, C: int, T: int, kw: int,
                     win_stride, smem)
 
 
-def _wn_pick(B: int, C: int, T: int, kw: int, form: str) -> WnLaunch:
+def _wn_pick(B: int, C: int, T: int, kw: int) -> WnLaunch:
     """The largest block (channel pairs x samples; at equal size the fewer
     pairs) that still gives every SM a block, or half of them below
     WN_FILL_FROM samples; where none does, the tile with the most blocks.
     Only the tiles whose channel block pads C least are candidates."""
     pad = min(-(-C // (16 * wm)) * 16 * wm for wm, _, _ in WN_TILES)
-    fits = [wn_launch(i, B, C, T, kw, form)
+    fits = [wn_launch(i, B, C, T, kw)
             for i, (wm, _, _) in enumerate(WN_TILES)
             if -(-C // (16 * wm)) * 16 * wm == pad]
     need = N_SM if B * T >= WN_FILL_FROM else N_SM // 2
@@ -1124,24 +1116,125 @@ def _wn_pick(B: int, C: int, T: int, kw: int, form: str) -> WnLaunch:
     return max(ok, key=lambda f: (f.m * f.n, -f.m))
 
 
-def wn_layer_plan(B: int, C: int, T: int, rows: int, kw: int,
-                  form: str = "f32") -> WnPlan:
-    """Launch plan of every layer of a WN over B rows of T samples at C
-    channels with a (rows x kw)-tap conv, in ``form`` ("f32", "glow_bf16"
-    or "flow_bf16"): the tile of each of its two launches, picked by the
-    blocks it gives and the SMs they fill (the same tiles in every form).
-    Every width C takes it (a tile's shared memory does not depend on C).
-    Raises for what the kernels do not take."""
+def wn_layer_plan(B: int, C: int, T: int, rows: int, kw: int) -> WnPlan:
+    """Launch plan of every layer of an f32 WN over B rows of T samples at C
+    channels with a (rows x kw)-tap conv: the tile of each of its two
+    launches, picked by the blocks it gives and the SMs they fill. Every
+    width C takes it (a tile's shared memory does not depend on C). Raises
+    for what the kernels do not take."""
     if kw % 2 == 0 or min(rows, B, C, T) < 1:
         raise ValueError(f"WN: B={B}, C={C}, T={T}, rows={rows}, kw={kw} "
                          "unsupported (kw odd, the rest positive)")
-    return WnPlan(_wn_pick(B, C, T, kw, form), _wn_pick(B, C, T, 1, form))
+    return WnPlan(_wn_pick(B, C, T, kw), _wn_pick(B, C, T, 1))
 
 
-def wn_launches(L: int) -> int:
+# The bf16 forms' layer kernels (csrc/waveglow_wn_bf16.cu,
+# csrc/waveflow_row_bf16.cu over csrc/wn_bf16.cuh): a block of a producer
+# and two consumer warpgroups on wgmma. A consumer warpgroup's channel block
+# is CB channels (16, 32, 64 or 128), a product of N = 2 CB columns (the a
+# and g halves of the conv, res and skip of the res/skip product).
+WN_BF16_RING = 8                 # stages in flight at most
+WN_BF16_CB = (128, 64, 32, 16)
+WN_BF16_TILE = {"glow": 64, "flow": 128}     # samples a block
+WN_BF16_FLOW_C_MAX = 128         # WaveFlow: one channel block holds all C
+
+
+def wn_bf16_stage(kernel: str, CB: int) -> int:
+    """Bytes of a ring stage: the window, three TMA boxes from the shifted
+    first sample rounded down to 16 bytes (glow: 16 input channels x 32 f32
+    samples each; flow: KC = min(CB, 64) channels x 64 bf16 samples each),
+    and the weights (glow: both warpgroups', 16 rows of 4 CB columns; flow:
+    KC rows of 2 CB columns)."""
+    if kernel == "glow":
+        return 3 * 16 * 128 + 128 * CB
+    KC = min(CB, 64)
+    return 3 * KC * 128 + 4 * KC * CB
+
+
+def wn_bf16_smem(kernel: str, CB: int, passes: int, ring: int) -> int:
+    """The kernel's smem_bytes: alignment slack, the ring, glow's z (f32,
+    2 x passes x CB / 2 values a thread) or flow's cond_bc tile (2 x 2 x CB
+    channels x 64 samples bf16), the barriers."""
+    if kernel == "glow":
+        return 1024 + ring * wn_bf16_stage(kernel, CB) + 512 * passes * CB \
+            + 2 * WN_BF16_RING * 8
+    return 1024 + 512 * CB + ring * wn_bf16_stage(kernel, CB) \
+        + (2 * WN_BF16_RING + 1) * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class WnBf16Plan:
+    """Launch plan of one bf16 WN call's layer kernel: the kernel runs C8 =
+    C padded to a multiple of 8 (the caller pads the weights with zero
+    channels) with rows of Tp = T' padded to a multiple of 8; warpgroup w of
+    pass p owns channel block 2 p + w of CB channels; ``ring`` stages;
+    ``grid`` (sample tiles, B); ``stages`` a block walks through; ``smem``
+    bytes of shared memory a block."""
+    kernel: str
+    C8: int
+    Tp: int
+    CB: int
+    passes: int
+    ring: int
+    grid: Tuple[int, int]
+    stages: int
+    smem: int
+
+    def ints(self) -> Tuple[int, ...]:
+        """The plan as the C side takes it."""
+        if self.kernel == "glow":
+            return self.CB, self.passes, self.ring
+        return self.CB, self.ring
+
+
+@functools.lru_cache(maxsize=None)
+def wn_bf16_plan(kernel: str, B: int, C: int, T: int, rows: int = 1,
+                 kw: int = 3) -> WnBf16Plan:
+    """Plan of a bf16 WN call: ``kernel`` "glow" (waveglow_wn_forward_bf16,
+    rows 1) or "flow" (waveflow_row_step_bf16, rows = kh). glow: the CB
+    whose 2 x passes blocks cover C8 with the fewest channels (the larger
+    CB on a tie), every block starting below C8 where one does; flow: the
+    least CB that holds C8 (at most 128), one pass. The ring as deep as
+    shared memory allows, up to 8 stages and no deeper than the stages a
+    block walks through. Raises for an even kw, what is not positive, a
+    WaveFlow wider than 128 channels, or what shared memory cannot hold."""
+    if kw % 2 == 0 or min(B, C, T, rows, kw) < 1:
+        raise ValueError(f"WN bf16: B={B}, C={C}, T={T}, rows={rows}, kw={kw} "
+                         "unsupported (kw odd, the rest positive)")
+    C8, Tp = -(-C // 8) * 8, -(-T // 8) * 8
+    if kernel == "glow":
+        def score(cb):
+            p = -(-C8 // (2 * cb))
+            return ((2 * p - 1) * cb < C8, -p * cb, cb)
+        CB = max(WN_BF16_CB, key=score)
+        passes = -(-C8 // (2 * CB))
+        nk = -(-C8 // 16)
+        stages = passes * nk * (kw + 1)
+    elif kernel == "flow":
+        if C8 > WN_BF16_FLOW_C_MAX:
+            raise ValueError(f"waveflow_row_step bf16: C={C} above "
+                             f"{WN_BF16_FLOW_C_MAX} channels")
+        CB = min(cb for cb in WN_BF16_CB if cb >= C8)
+        passes = 1
+        stages = (CB // min(CB, 64)) * (rows * kw + 1)
+    else:
+        raise ValueError(f"WN bf16: unknown kernel {kernel!r}")
+    fixed = wn_bf16_smem(kernel, CB, passes, 0)
+    ring = min(WN_BF16_RING, stages, (SMEM_MAX - fixed) // wn_bf16_stage(kernel, CB))
+    if ring < 2:
+        raise ValueError(f"WN bf16 {kernel}: C={C} needs "
+                         f"{fixed + 2 * wn_bf16_stage(kernel, CB)} B of shared "
+                         f"memory (max {SMEM_MAX})")
+    grid = (-(-T // WN_BF16_TILE[kernel]), B)
+    return WnBf16Plan(kernel, C8, Tp, CB, passes, ring, grid, stages,
+                      wn_bf16_smem(kernel, CB, passes, ring))
+
+
+def wn_launches(L: int, form: str = "f32") -> int:
     """Kernel launches of one WN evaluation on the card: the start product,
-    two per layer (WnPlan's conv and res/skip), the end product."""
-    return 2 * L + 2
+    the layers (f32: two each, WnPlan's conv and res/skip; the bf16 forms
+    "glow_bf16" and "flow_bf16": one each), the end product."""
+    return (2 * L if form == "f32" else L) + 2
 
 
 def _launch_wn(kernel: str, fn, *args) -> None:
@@ -1158,6 +1251,49 @@ def _suffix(form: str) -> str:
     return "" if form == "f32" else "_bf16"
 
 
+def _wn_bf16_operands(weights, cond_bc, C: int, C8: int, T: int, Tp: int,
+                      taps: int):
+    """The bf16 kernels' operands: the weights (start_w, ..., end_b; k_all
+    with ``taps`` row blocks) with C padded to C8 by zero channels, exact
+    since a zero channel stays zero through every layer, and cond_bc as
+    [B, L, 2 C8, Tp] (zeros past C and T'); as they are where C and T' are
+    multiples of 8. Each starts on 16 bytes (TMA's alignment)."""
+    start_w, start_b, k_all, rs_w, rs_b, end_w, end_b = weights
+    d = C8 - C
+    if d:
+        L = k_all.shape[0]
+        start_w, start_b = F.pad(start_w, (0, d)), F.pad(start_b, (0, d))
+        k_all = F.pad(k_all.reshape(L, taps, C, 2, C),
+                      (0, d, 0, 0, 0, d)).reshape(L, taps * C8, 2 * C8)
+        rs_w = F.pad(rs_w.reshape(L, C, 2, C), (0, d, 0, 0, 0, d)).reshape(L, C8, 2 * C8)
+        rs_b = F.pad(rs_b.reshape(L, 2, C), (0, d)).reshape(L, 2 * C8)
+        end_w = F.pad(end_w, (0, 0, 0, d))
+    if d or Tp != T:
+        B, L = cond_bc.shape[:2]
+        cond_bc = F.pad(cond_bc.reshape(B, L, 2, C, T),
+                        (0, Tp - T, 0, d)).reshape(B, L, 2 * C8, Tp)
+    return ([_aligned16(t) for t in (start_w, start_b, k_all, rs_w, rs_b, end_w,
+                                     end_b)], _aligned16(cond_bc))
+
+
+def _waveglow_wn_bf16_cuda(x, cond_bc, weights, plan):
+    B, Cin, T = x.shape
+    L, KC, C2 = weights[2].shape
+    C, Cout = C2 // 2, weights[5].shape[1]
+    kw = KC // C
+    p = wn_bf16_plan("glow", B, C, T, 1, kw)
+    weights, cond_bc = _wn_bf16_operands(weights, cond_bc, C, p.C8, T, p.Tp, kw)
+    ints = tuple(plan) or p.ints()
+    lib = _build.library("waveglow_wn_bf16")
+    scratch = torch.empty((3, B, p.C8, p.Tp), device=x.device, dtype=torch.float32)
+    st = torch.empty((B, Cout, T), device=x.device, dtype=torch.float32)
+    _launch_wn("waveglow_wn_forward_bf16", lib.waveglow_wn_forward_bf16, _ptr(x),
+               _ptr(cond_bc), *(_ptr(t) for t in weights), B, Cin, p.C8, Cout, T,
+               p.Tp, L, kw, (ctypes.c_int * len(ints))(*ints), _ptr(scratch),
+               _ptr(st))
+    return st
+
+
 def _waveglow_wn_forward_cuda(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
                               end_w, end_b, plan):
     B, Cin, T = x.shape
@@ -1171,11 +1307,13 @@ def _waveglow_wn_forward_cuda(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
             (B, Cin, T), (B, L, C2, T), (Cin, C), (C,), (L, kw * C, C2),
             (L, C, C2), (L, C2), (C, Cout), (Cout,))):
         _check(f"{kernel} {name}", t, shape, t.dtype)
-    ints = _plan_ints(plan, lambda: wn_layer_plan(B, C, T, 1, kw, form))
-    lib = _build.library("waveglow_wn" + _suffix(form))
+    if form != "f32":
+        return _waveglow_wn_bf16_cuda(x, cond_bc, args[2:], plan)
+    ints = _plan_ints(plan, lambda: wn_layer_plan(B, C, T, 1, kw))
+    lib = _build.library("waveglow_wn")
     scratch = torch.empty((3, B, C, T), device=x.device, dtype=torch.float32)
     st = torch.empty((B, Cout, T), device=x.device, dtype=torch.float32)
-    _launch_wn(kernel, getattr(lib, kernel), *(_ptr(t) for t in args),
+    _launch_wn(kernel, lib.waveglow_wn_forward, *(_ptr(t) for t in args),
                B, Cin, C, Cout, T, L, kw, ints, _ptr(scratch), _ptr(st))
     return st
 
@@ -1195,13 +1333,16 @@ _waveglow_wn_forward_op.register_autograd(_no_backward)
 
 
 def waveglow_wn_forward(x, cond_bc, start_w, start_b, k_all, rs_w, rs_b,
-                        end_w, end_b, plan: Optional[WnPlan] = None
+                        end_w, end_b,
+                        plan: Optional[Union[WnPlan, WnBf16Plan]] = None
                         ) -> torch.Tensor:
     """WN of one WaveGlow flow, GTU only (see waveglow_wn_forward_plain); on
     the card two launches per layer (the conv, then res/skip, tiled by
     ``plan``, by default wn_layer_plan's) plus the start and end products,
     at every width. A bf16 cond_bc takes the bf16 form (the dtypes of
-    WN_BF16_DTYPES["glow_bf16"]); st is f32 in both."""
+    WN_BF16_DTYPES["glow_bf16"]): one launch a layer on wgmma
+    (csrc/waveglow_wn_bf16.cu; ``plan`` a WnBf16Plan, by default
+    wn_bf16_plan's); st is f32 in both."""
     _refuse_other_devices(x, "waveglow_wn_forward")
     return _waveglow_wn_forward_op(x, cond_bc, start_w, start_b, k_all, rs_w,
                                    rs_b, end_w, end_b,
@@ -1265,6 +1406,30 @@ def waveflow_row_step_ring_plain(x_prev, ring, step: int, cond_bc, *weights,
     return log_s, t
 
 
+def _waveflow_row_bf16_cuda(x_prev, ring, step, cond_bc, weights, plan):
+    B, W = x_prev.shape
+    L, kh, _, C, _ = ring.shape
+    kw = weights[2].shape[1] // (kh * C)
+    p = wn_bf16_plan("flow", B, C, W, kh, kw)
+    weights, cond_bc = _wn_bf16_operands(weights, cond_bc, C, p.C8, W, p.Tp, kh * kw)
+    # the kernel updates the ring in place; a ring it cannot address as it is
+    # (C or W not a multiple of 8, or not on 16 bytes) runs as a padded copy
+    # that is copied back
+    direct = (p.C8, p.Tp) == (C, W) and ring.data_ptr() % 16 == 0
+    ring_k = ring if direct else F.pad(ring, (0, p.Tp - W, 0, p.C8 - C))
+    ints = tuple(plan) or p.ints()
+    lib = _build.library("waveflow_row_bf16")
+    scratch = torch.empty((B, p.C8, p.Tp), device=ring.device, dtype=torch.float32)
+    st = torch.empty((B, 2, W), device=ring.device, dtype=torch.float32)
+    _launch_wn("waveflow_row_step_bf16", lib.waveflow_row_step_bf16, _ptr(x_prev),
+               _ptr(ring_k), step, _ptr(cond_bc), *(_ptr(t) for t in weights), B,
+               p.C8, W, p.Tp, L, kh, kw, (ctypes.c_int * len(ints))(*ints),
+               _ptr(scratch), _ptr(st))
+    if not direct:
+        ring.copy_(ring_k[..., :C, :W])
+    return st
+
+
 def _waveflow_row_step_cuda(x_prev, ring, step, cond_bc, start_w, start_b,
                             k_all, rs_w, rs_b, end_w, end_b, plan):
     B, W = x_prev.shape
@@ -1279,12 +1444,14 @@ def _waveflow_row_step_cuda(x_prev, ring, step, cond_bc, start_w, start_b,
             (B, W), (L, kh, B, C, W), (B, L, C2, W), (1, C), (C,),
             (L, kh * kw * C, C2), (L, C, C2), (L, C2), (C, 2), (2,))):
         _check(f"{kernel} {name}", t, shape, t.dtype)
-    ints = _plan_ints(plan, lambda: wn_layer_plan(B, C, W, kh, kw, form))
-    lib = _build.library("waveflow_row" + _suffix(form))
+    if form != "f32":
+        return _waveflow_row_bf16_cuda(x_prev, ring, step, cond_bc, args[3:], plan)
+    ints = _plan_ints(plan, lambda: wn_layer_plan(B, C, W, kh, kw))
+    lib = _build.library("waveflow_row")
     scratch = torch.empty((2, B, C, W), device=ring.device, dtype=torch.float32)
     st = torch.empty((B, 2, W), device=ring.device, dtype=torch.float32)
     ptrs = [_ptr(t) for t in args]
-    _launch_wn(kernel, getattr(lib, kernel), *ptrs[:2], step, *ptrs[2:],
+    _launch_wn(kernel, lib.waveflow_row_step, *ptrs[:2], step, *ptrs[2:],
                B, C, W, L, kh, kw, ints, _ptr(scratch), _ptr(st))
     return st
 
@@ -1312,7 +1479,7 @@ _waveflow_row_step_op.register_fake(
 
 def waveflow_row_step(x_prev, ring, step: int, cond_bc, start_w, start_b,
                       k_all, rs_w, rs_b, end_w, end_b,
-                      plan: Optional[WnPlan] = None
+                      plan: Optional[Union[WnPlan, WnBf16Plan]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One WaveFlow inverse row step, GTU only, with the queues kept as a
     ring of kh row slots per layer, ``ring`` [L, kh, B, C, W], updated in
@@ -1320,13 +1487,16 @@ def waveflow_row_step(x_prev, ring, step: int, cond_bc, start_w, start_b,
     the oldest row there, and the conv reads the slots with its kernel rows
     rotated by ``step % kh``. Nothing is shifted or copied, and since a
     layer's conv only reads its own ring and its res/skip launch writes only
-    the next layer's oldest slot, no block reads what another writes. Start with a zero ring at step 0.
+    the next layer's oldest slot, no block reads what another writes. Start
+    with a zero ring at step 0.
     Returns (log_s [B, W], t [B, W]); ``ring_queues(ring, step + 1)`` are
     then the new queues of waveflow_row_step_plain. On the card: two
     launches per layer, tiled by ``plan`` (by default wn_layer_plan's), plus
     the start and end products, at every width. A bf16 cond_bc takes the
-    bf16 form (a bf16 ring; the dtypes of WN_BF16_DTYPES["flow_bf16"]);
-    log_s and t are f32 in both. The op has no autograd formula (a backward
+    bf16 form (a bf16 ring; the dtypes of WN_BF16_DTYPES["flow_bf16"]): one
+    launch a layer on wgmma (csrc/waveflow_row_bf16.cu; ``plan`` a
+    WnBf16Plan, by default wn_bf16_plan's; at most 128 channels); log_s and
+    t are f32 in both. The op has no autograd formula (a backward
     raises), as an op that mutates an input may not."""
     _refuse_other_devices(x_prev, "waveflow_row_step")
     st = _waveflow_row_step_op(x_prev, ring, int(step), cond_bc, start_w,

@@ -229,37 +229,6 @@ def test_plain_bf16_row_step_matches_jax_pallas():
                                atol=_ulp(q_ref), rtol=0)
 
 
-@pytest.mark.parametrize("form", ["glow_bf16", "flow_bf16"])
-def test_bf16_plans_stage_every_window(form):
-    """The bf16 forms' plans (csrc/wn_layer.cuh's GlowBf16 and FlowBf16):
-    the f32 form's tiles at every width and length, shared memory for the
-    form's element sizes within a block's, and for every tile, tap count
-    and dilation the window a block stages (its first sample aligned down
-    to 16 bytes: 4 f32 or 8 bf16 samples; kw segments of N samples from a
-    dilation of N on) no wider than the plan's stride."""
-    w_bytes, a_bytes = hk.WN_FORM_BYTES[form]
-    V = 16 // a_bytes
-    for C, T in ((256, 10000), (64, 30000), (50, 250), (48, 1500)):
-        for rows in (1, 3):
-            f32, b16 = (hk.wn_layer_plan(1, C, T, rows, 3, f) for f in ("f32", form))
-            assert (b16.conv.tile, b16.rs.tile) == (f32.conv.tile, f32.rs.tile)
-            assert b16.conv.smem <= f32.conv.smem <= hk.SMEM_MAX
-    for tile in range(len(hk.WN_TILES)):
-        for kw in (1, 3, 5):
-            launch = hk.wn_launch(tile, 1, 64, 1000, kw, form)
-            n = launch.n
-            assert launch.smem == hk.WN_KC * (
-                hk.WN_STAGES * (2 * launch.m + 8) * w_bytes
-                + (2 if kw >= 2 else 3) * launch.win_stride * a_bytes)
-            for d in (2 ** i for i in range(12)):
-                for t0 in range(0, 3 * n, n):
-                    lead = t0 - (kw // 2) * d
-                    g0 = lead & ~(V - 1)
-                    span = (kw * n if d >= n
-                            else (lead - g0 + n + (kw - 1) * d + V - 1) & ~(V - 1))
-                    assert span <= launch.win_stride, (tile, kw, d, t0)
-
-
 @pytest.mark.parametrize("kernel", ["waveglow_wn_forward", "waveflow_row_step"])
 def test_wn_kernels_refuse_dtype_mixes(kernel):
     """A bf16 cond_bc picks the bf16 form, which takes only the dtypes JAX's
